@@ -2,27 +2,46 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                 # everything, as the check runs it
-    python3 chip_smoke.py --only kernels  # build + kernel-vs-plain phases
+    python3 chip_smoke.py --only kernels  # build + kernel phases only
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build the five CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
    each, started together) and print the build time;
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: the lookup GEMM must be bit-equal in int32,
-   flash-decode within the stated f32 tolerance; times of the kernel,
-   the plain version, the bound and (flash-decode) SDPA over the
-   gathered K/V as a yardstick;
-4. the main path: full-width codeqwen1.5-7b with seeded random TLMAC
-   weights drawn on the card, ``PagedServeLoop(batch_slots=4,
-   s_max=1024, page_size=16)`` over six requests, with every launch
-   counter reset before and read after the run;
-5. the port on the card against the port on the CPU (plain versions) on
-   the two smoke configs, teacher-forced, logits within tolerance.
+3. kernels 1-2 (fused lookup GEMM, flash-decode) against their plain
+   PyTorch versions at the serve path's shapes: the lookup GEMM must be
+   bit-equal in int32, flash-decode within the stated f32 tolerance;
+   times of the kernel, the plain version, the bound and (flash-decode)
+   SDPA over the gathered K/V as a yardstick;
+4. kernels 3-6 (bit-plane pack, lookup GEMM on packed codes, the
+   cluster-scheduled GEMM for one tile and for every tile) against their
+   plain versions and the dense integer GEMM on small compiled plans, at
+   the reference's own test shapes;
+5. full-width ResNet-18 (``configs/resnet18.CONFIG``) drawn on the card
+   and its 16 basic-block convs compiled on the host
+   (``compile_resnet``): compile seconds and the Fig. 8 cost report per
+   conv, ``verify_plan`` on each;
+6. kernels 1 and 3-6 at those 16 convs' shapes (batch 32, 56x56 input):
+   int32-equal to their plain versions, kernels 5/6 to kernel 3's row
+   GEMMs; kernel, plain, bound and ``torch._int_mm`` (same weights)
+   times per stage, and the whole conv against ``conv2d`` of the codes;
+7. the serve main path: full-width codeqwen1.5-7b with seeded random
+   TLMAC weights drawn on the card, ``PagedServeLoop(batch_slots=4,
+   s_max=1024, page_size=16)`` over six requests, with the launch
+   counters of kernels 1-2 reset before and read after the run;
+8. the port on the card against the port on the CPU (plain versions) on
+   the two smoke configs, teacher-forced, logits within tolerance;
+9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
+   every conv as a lookup conv (kernels 4 + 3) and as one
+   cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
+   convs), each equal to the integer conv, with the launch counters of
+   kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
+   the quickstart's shape equal to the dense integer GEMM.
 
-The line before the last is the kernel JSON; the last line is the
-device JSON.  Needs one CUDA card; exits non-zero without one.
+The line before the last is the kernel JSON (all six kernels); the last
+line is the device JSON.  Needs one CUDA card; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -50,10 +69,20 @@ PROMPT_LENS = (37, 128, 211, 300, 64, 500)
 MAX_NEW = 32
 CHUNK = 64           # prefill chunk of the main path
 SEED = 0
+DEV = "cuda"         # every phase runs on the card
+SOURCES = ("tlmac_fused", "flash_decode", "bitplanes", "tlmac_gemm",
+           "tlmac_clustered")
+
+
+T_START = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str):
+    log(f"phase: {name} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def gpu_line() -> str:
@@ -295,6 +324,485 @@ def phase_flash():
 
 
 # ---------------------------------------------------------------------------
+# kernels 3-6: lookup GEMM on packed codes, bit-plane packing, and the
+# cluster-scheduled lookup GEMM (one tile, every tile)
+# ---------------------------------------------------------------------------
+
+# the reference's own kernel test shapes (tests/test_kernels.py and
+# tests/test_fused_autotune.py): (K, N, M, B_w, B_a, G[, d_p])
+SWEEP = [(16, 64, 4, 2, 2, 2), (24, 64, 8, 3, 3, 3), (32, 128, 16, 3, 4, 4),
+         (48, 64, 5, 4, 4, 6), (64, 192, 33, 2, 3, 4), (40, 128, 37, 3, 3, 4)]
+CLUSTERED = [(64, 64, 21, 3, 3, 4), (24, 32, 7, 2, 2, 3), (48, 128, 9, 4, 4, 4)]
+CLUSTERED_MULTI = [(64, 128, 21, 3, 3, 4, 64), (24, 96, 7, 2, 2, 3, 32),
+                   (48, 128, 9, 4, 4, 4, 128)]
+RESNET_BATCH = 32
+RESNET_HW = 56      # the map sizes ImageNet ResNet-18's basic blocks see
+
+
+def _equal(name, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, want "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"{name}: {bad} outputs differ")
+
+
+def _bound(nbytes, ops):
+    """The least time (ms) for ``nbytes`` of traffic and ``ops`` lookup-adds
+    or bit operations, as fields of one launch: the bound and the two
+    times it is the larger of."""
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / NONTENSOR_OPS_S * 1e3
+    return dict(bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o)
+
+
+def phase_lookup_small():
+    """Kernels 3-6 against their plain versions (and the dense integer
+    GEMM) on small compiled plans, at the reference's test shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tlmac.compile import compile_layer
+    from repro_torch.kernels import bitplanes as bp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import tlmac_clustered as tc
+    from repro_torch.kernels import tlmac_gemm as tg
+
+    rng = np.random.default_rng(5)
+
+    def setup(K, N, M, B_w, B_a, G, d_p):
+        w = rng.integers(-(2 ** (B_w - 1)), 2 ** (B_w - 1), size=(K, N))
+        plan = compile_layer(w, B_w=B_w, B_a=B_a, G=G, d_p=d_p,
+                             anneal_iters=100, seed=0)
+        a = torch.from_numpy(rng.integers(0, 2**B_a, (M, K)).astype(np.int8))
+        dense = ops.dense_int_matmul(a, torch.from_numpy(w))
+        return plan, a.to(DEV), dense.to(DEV)
+
+    for K, N, M, B_w, B_a, G in SWEEP:
+        plan, a, dense = setup(K, N, M, B_w, B_a, G, 64)
+        codes = bp.pack_bitplanes(a, B_a=B_a, G=G)
+        _equal(f"pack_bitplanes K={K} G={G}", codes,
+               bp.pack_bitplanes_plain(a, B_a=B_a, G=G))
+        table = torch.from_numpy(plan.table).to(DEV)
+        rb = kref.rowbase_from_plan(
+            table, torch.from_numpy(plan.exec_idx).to(DEV),
+            torch.from_numpy(plan.step_cluster).to(DEV), N // 64, K // G)
+        t2d = table.reshape(-1, 2**G)
+        got = tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=G, N=N)
+        _equal(f"tlmac_gemm K={K} N={N} M={M} G={G}", got,
+               tg.tlmac_gemm_plain(codes, rb, t2d, B_a=B_a, G=G, N=N))
+        _equal(f"tlmac_gemm K={K} G={G} vs dense", got, dense)
+    log(f"  kernels 3-4 on the reference's sweep ({len(SWEEP)} compiled "
+        "plans, G 2/3/4/6): equal int32 to plain and to the dense GEMM")
+    for K, N, M, B_w, B_a, G in CLUSTERED:
+        plan, a, dense = setup(K, N, M, B_w, B_a, G, N)
+        for bk in (8, 2):
+            s = tc.device_schedule(plan, 1, bk, DEV, tiled=False)
+            codes = bp.pack_bitplanes(a, B_a=B_a, G=G).index_select(2, s["cols"])
+            got = tc.tlmac_gemm_clustered(codes, s["idx_sorted"],
+                                          s["table_pad"], B_a=B_a, G=G)
+            _equal(f"clustered K={K} N={N} bk={bk}", got,
+                   tc.tlmac_gemm_clustered_plain(
+                       codes, s["idx_sorted"], s["table_pad"], B_a=B_a, G=G))
+            _equal(f"clustered K={K} N={N} vs dense", got, dense)
+    for K, N, M, B_w, B_a, G, d_p in CLUSTERED_MULTI:
+        plan, a, dense = setup(K, N, M, B_w, B_a, G, d_p)
+        s = tc.device_schedule(plan, N // d_p, 8, DEV, tiled=True)
+        codes = bp.pack_bitplanes(a, B_a=B_a, G=G).index_select(2, s["cols"])
+        got = tc.tlmac_gemm_clustered_multi(codes, s["idx_sorted"],
+                                            s["table_pad"], B_a=B_a, G=G)
+        _equal(f"clustered multi K={K} N={N}", got,
+               tc.tlmac_gemm_clustered_multi_plain(
+                   codes, s["idx_sorted"], s["table_pad"], B_a=B_a, G=G))
+        _equal(f"clustered multi K={K} N={N} vs dense", got, dense)
+    log(f"  kernels 5-6 on the reference's clustered shapes "
+        f"({len(CLUSTERED)} + {len(CLUSTERED_MULTI)} plans): equal int32 "
+        "to plain and to the dense GEMM")
+
+
+def resnet_convs(cfg, plans):
+    """(name, plan, input shape [B, H, W, C_in], stride, stage) of every
+    basic-block conv at input resolution ``RESNET_HW``."""
+    from repro_torch.models.resnet import block_strides
+
+    out, it = [], iter(plans)
+    hw, cin = RESNET_HW, cfg.width
+    strides = block_strides(cfg)
+    bi = 0
+    for si, (ch, n, _) in enumerate(cfg.stages):
+        for _ in range(n):
+            s = strides[bi]
+            for ci, (c_in, st) in enumerate(((cin, s), (ch, 1))):
+                name, plan = next(it)
+                out.append((name, plan, (RESNET_BATCH, hw, hw, c_in), st,
+                            si + 1))
+                if ci == 0:
+                    hw = -(-hw // s)
+            cin = ch
+            bi += 1
+    return out
+
+
+def compile_full_resnet(cfg):
+    """ResNet ``cfg`` (full-width ResNet-18 in the run) drawn on the card
+    and its basic-block convs compiled on the host; prints the Fig. 8
+    report."""
+    import torch
+
+    from repro_torch.core.tlmac.compile import verify_plan
+    from repro_torch.models import resnet as R
+
+    params = R.init_resnet(cfg, torch.Generator(device=DEV).manual_seed(
+        SEED), device=DEV)
+    # time each conv's compile_layer inside the compile_resnet call
+    secs, compile_layer = [], R.tlc.compile_layer
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        plan = compile_layer(*a, **kw)
+        secs.append(time.perf_counter() - t)
+        return plan
+
+    R.tlc.compile_layer = timed
+    t0 = time.perf_counter()
+    try:
+        plans = R.compile_resnet(params, cfg)
+    finally:
+        R.tlc.compile_layer = compile_layer
+    total = time.perf_counter() - t0
+    log(f"  compile_resnet: {len(plans)} convs in {total:.1f} s on the host (default "
+        "anneal_iters=2000); verify_plan holds on each")
+    log("  Fig. 8 report (FPGA cost model, not a card measurement):")
+    log(f"    {'conv':14s} {'shape':>16s} {'N_uwg':>6s} {'N_clus':>6s} "
+        f"{'N_arr':>6s} {'D_s':>5s} {'D_p':>4s} {'LUTs':>8s} "
+        f"{'routes before->after':>22s} {'compile s':>9s}")
+    for (name, plan), sec in zip(plans, secs):
+        if not verify_plan(plan):
+            raise AssertionError(f"verify_plan fails on {name}")
+        log(f"    {name:14s} {str(tuple(plan.orig_shape)):>16s} "
+            f"{plan.N_uwg:6d} {plan.N_clus:6d} {plan.N_arr:6d} {plan.D_s:5d} "
+            f"{plan.D_p:4d} {plan.resources.luts:8d} "
+            f"{plan.routes_before:10d} -> {plan.routes_after:8d} {sec:9.2f}")
+    return params, plans
+
+
+def _conv_inputs(shape, seed, B_a):
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randint(0, 2**B_a, shape, dtype=torch.int8, generator=gen,
+                         device=DEV)
+
+
+def _dense_weights(w_codes, n_rows):
+    """The conv's integer weights as ``[C*3, O*len(rows)]`` int8 for
+    ``torch._int_mm`` against the windows: row ``c*3 + j``, column ``o*R +
+    ri`` holds ``w[o, c, rows[ri], j]`` (the column order of a conv plan's
+    outputs, ``oc*3 + r``, when all three rows are taken)."""
+    import torch
+
+    O, C = w_codes.shape[:2]
+    w = torch.as_tensor(w_codes, dtype=torch.int8, device=DEV)
+    rows = w[:, :, list(n_rows), :]                   # [O, C, R, 3]
+    return rows.permute(1, 3, 0, 2).reshape(C * 3, O * len(n_rows)).contiguous()
+
+
+def phase_resnet_kernels(cfg, params, plans):
+    """Kernels 1 and 3-6 at the 16 full-width conv shapes: each against
+    its plain version (int32-equal), kernels 5/6 against kernel 3's row
+    GEMMs; kernel, plain, bound and library times summed per stage."""
+    import torch
+
+    from repro_torch.kernels import bitplanes as bp
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import tlmac_clustered as tc
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.kernels import tlmac_gemm as tg
+    from repro_torch.models import resnet as R
+
+    B_a = cfg.a_bits
+    keys = ("pack_bitplanes", "tlmac_gemm", "tlmac_gemm_clustered",
+            "tlmac_gemm_clustered_multi", "tlmac_gemm_fused", "conv")
+    acc = {k: {} for k in keys}
+
+    def add(kind, stage, **vals):
+        for f, v in vals.items():
+            if v is None:
+                continue
+            d = acc[kind].setdefault(stage, {})
+            d[f] = d.get(f, 0.0) + v
+
+    for ci, (name, plan, shape, stride, stage) in enumerate(
+            resnet_convs(cfg, plans)):
+        a = _conv_inputs(shape, 100 + ci, B_a)
+        win = R.conv_windows(a)
+        M, K = win.shape
+        C = shape[3]
+        n_ot = plan.D_s // C
+        dpc = plan.D_p // 3           # output channels per tile
+        N = n_ot * dpc
+        w_codes = R.quantize_conv_weights(params["blocks"][ci // 2][
+            "conv1" if ci % 2 == 0 else "conv2"], cfg)
+        # kernel 4
+        codes = bp.pack_bitplanes(win, B_a=B_a, G=3)
+        _equal(f"{name} pack", codes,
+               bp.pack_bitplanes_plain(win, B_a=B_a, G=3))
+        add("pack_bitplanes", stage,
+            ms=cuda_ms(lambda: bp.pack_bitplanes(win, B_a=B_a, G=3), 10),
+            plain_ms=cuda_ms(lambda: bp.pack_bitplanes_plain(
+                win, B_a=B_a, G=3), 2, 1), n=1,
+            **_bound(M * K + codes.numel(), M * K * B_a))
+        # kernel 3 (three row GEMMs) and kernel 1 on the same row plans
+        rows = []
+        for r in range(3):
+            table, ex, cl = R.conv_row_plan(plan, r, DEV)
+            rb = kref.rowbase_from_plan(table, ex, cl, n_ot, C)
+            t2d = table.reshape(-1, 8)
+            got = tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=3, N=N)
+            _equal(f"{name} row {r} tlmac_gemm", got, tg.tlmac_gemm_plain(
+                codes, rb, t2d, B_a=B_a, G=3, N=N))
+            rows.append(got)
+            wr = _dense_weights(w_codes, (r,))
+            lib = torch._int_mm(win, wr)
+            _equal(f"{name} row {r} _int_mm", lib, got)
+            ops = M * B_a * C * N
+            lib_ms = cuda_ms(lambda: torch._int_mm(win, wr), 10)
+            add("tlmac_gemm", stage,
+                ms=cuda_ms(lambda: tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=3,
+                                                 N=N), 10),
+                plain_ms=cuda_ms(lambda: tg.tlmac_gemm_plain(
+                    codes, rb, t2d, B_a=B_a, G=3, N=N), 2, 1),
+                library_ms=lib_ms, n=1,
+                **_bound(codes.numel() + rb.numel() * 4 + t2d.numel() * 4
+                         + M * N * 4, ops))
+            idx_t = (torch.uint8 if plan.N_arr <= 256 else torch.int16)
+            ex3 = ex.reshape(n_ot, C, dpc).to(idx_t)
+            cl2 = cl.reshape(n_ot, C).to(torch.int8)
+            fz = tf.tlmac_gemm_fused(win, ex3, cl2, table, B_a=B_a, G=3)
+            _equal(f"{name} row {r} tlmac_gemm_fused", fz, got)
+            add("tlmac_gemm_fused", stage,
+                ms=cuda_ms(lambda: tf.tlmac_gemm_fused(win, ex3, cl2, table,
+                                                       B_a=B_a, G=3), 10),
+                plain_ms=cuda_ms(lambda: tf.tlmac_gemm_fused_plain(
+                    win, ex3, cl2, table, B_a=B_a, G=3), 2, 1),
+                library_ms=lib_ms, n=1,
+                **_bound(M * K + ex3.numel() * ex3.element_size()
+                         + cl2.numel() + table.numel() * 4 + M * N * 4, ops))
+        # kernels 6 and (single-tile convs) 5 on the same windows
+        w3 = _dense_weights(w_codes, (0, 1, 2))
+        for kind, tiled in (("tlmac_gemm_clustered_multi", True),
+                            ("tlmac_gemm_clustered", False)):
+            if not tiled and n_ot != 1:
+                continue
+            s = tc.device_schedule(plan, n_ot, 8, DEV, tiled=tiled)
+            cs = codes.index_select(2, s["cols"])
+            idx = s["idx_sorted"]
+            fn, plain = ((tc.tlmac_gemm_clustered_multi,
+                          tc.tlmac_gemm_clustered_multi_plain) if tiled else
+                         (tc.tlmac_gemm_clustered,
+                          tc.tlmac_gemm_clustered_plain))
+            got = fn(cs, idx, s["table_pad"], B_a=B_a, G=3)
+            _equal(f"{name} {kind}", got, plain(cs, idx, s["table_pad"],
+                                                B_a=B_a, G=3))
+            per_row = got.reshape(M, n_ot, dpc, 3)
+            for r in range(3):
+                _equal(f"{name} {kind} row {r} vs tlmac_gemm",
+                       per_row[..., r].reshape(M, N), rows[r])
+            lib = torch._int_mm(win, w3)
+            _equal(f"{name} _int_mm of the plan's weights", lib, got)
+            add(kind, stage,
+                ms=cuda_ms(lambda: fn(cs, idx, s["table_pad"], B_a=B_a, G=3),
+                           10),
+                plain_ms=cuda_ms(lambda: plain(cs, idx, s["table_pad"],
+                                               B_a=B_a, G=3), 2, 1),
+                library_ms=cuda_ms(lambda: torch._int_mm(win, w3), 10), n=1,
+                **_bound(cs.numel() + idx.numel() * 4
+                         + s["table_pad"].numel() * 4 + M * N * 3 * 4,
+                         M * B_a * plan.D_s * plan.D_p))
+        # the whole conv: integer codes through conv2d in f32 (TF32 off)
+        (ht, hb), (wl, wr_) = (R.same_pads(shape[1], 3, stride),
+                               R.same_pads(shape[2], 3, stride))
+        xf = torch.nn.functional.pad(a.permute(0, 3, 1, 2).float(),
+                                     (wl, wr_, ht, hb))
+        wf = torch.as_tensor(w_codes, dtype=torch.float32, device=DEV)
+        add("conv", stage, library_ms=cuda_ms(
+            lambda: torch.nn.functional.conv2d(xf, wf, stride=stride), 10), n=1)
+        del rows, codes, win
+    torch.cuda.empty_cache()
+
+    def total(kind):
+        t = {}
+        for d in acc[kind].values():
+            for f, v in d.items():
+                t[f] = t.get(f, 0.0) + v
+        return t
+
+    for kind in keys[:-1]:
+        for stage, d in sorted(acc[kind].items()):
+            lib = d.get("library_ms")
+            log(f"  {kind:27s} stage {stage} ({int(d['n'])} launches): kernel "
+                f"{d['ms']:.4f} ms, plain {d['plain_ms']:.3f} ms, bound "
+                f"{d['bound_ms']:.4f} ms, library "
+                + (f"{lib:.4f} ms" if lib is not None else "none"))
+    for stage, d in sorted(acc["conv"].items()):
+        look = sum(acc[k][stage]["ms"] for k in ("pack_bitplanes", "tlmac_gemm"))
+        log(f"  stage {stage} lookup convs (pack + 3 row GEMMs) {look:.4f} ms "
+            f"vs integer conv2d (f32, TF32 off) {d['library_ms']:.4f} ms")
+    meta = {
+        "pack_bitplanes": ("csrc/bitplanes.cu", "src/repro/kernels/bitplanes.py:41",
+                           "16 packs of the 1x3 windows, M = 32*56^2..32*7^2"),
+        "tlmac_gemm": ("csrc/tlmac_gemm.cu", "src/repro/kernels/tlmac_gemm.py:136",
+                       "48 kernel-row lookup GEMMs of the 16 convs"),
+        "tlmac_gemm_clustered": (
+            "csrc/tlmac_clustered.cu", "src/repro/kernels/tlmac_clustered.py:128",
+            "the 4 single-tile stage-1 convs, all three kernel rows"),
+        "tlmac_gemm_clustered_multi": (
+            "csrc/tlmac_clustered.cu", "src/repro/kernels/tlmac_clustered.py:290",
+            "all 16 convs, all three kernel rows, one launch each"),
+    }
+    entries = {}
+    for kind, (src, rep, shape) in meta.items():
+        t = total(kind)
+        entries[kind] = dict(
+            name=kind, route="cuda", source="src/repro_torch/" + src,
+            replaces=rep, shape=f"ResNet-18 batch {RESNET_BATCH} at "
+            f"{RESNET_HW}x{RESNET_HW}: {shape}", max_abs_err=0, ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="operations" if kind != "pack_bitplanes" else "bytes",
+            library_ms=t.get("library_ms"))
+    fz = total("tlmac_gemm_fused")
+    log(f"  tlmac_gemm_fused on the 48 compiled row plans: kernel "
+        f"{fz['ms']:.4f} ms, plain {fz['plain_ms']:.3f} ms, bound "
+        f"{fz['bound_ms']:.4f} ms, torch._int_mm {fz['library_ms']:.4f} ms")
+    return entries
+
+
+def phase_paper_path(cfg, params, plans):
+    """The paper's compile-and-execute flow at full width: forward on 32
+    images, then every conv as a lookup conv (kernels 4 + 3) and as one
+    cluster-scheduled launch (kernels 4 + 6; kernel 5 too on the
+    single-tile convs), with every launch counter read around the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.quant import quantizers as Q
+    from repro_torch.core.tlmac.api import TLMACLinear
+    from repro_torch.kernels import bitplanes as bp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tlmac_clustered as tc
+    from repro_torch.kernels import tlmac_gemm as tg
+    from repro_torch.models import resnet as R
+
+    B_a = cfg.a_bits
+    convs = resnet_convs(cfg, plans)
+    inputs = [_conv_inputs(shape, 100 + ci, B_a)
+              for ci, (_, _, shape, _, _) in enumerate(convs)]
+    x = torch.randn((RESNET_BATCH, RESNET_HW, RESNET_HW, 3),
+                    generator=torch.Generator(device=DEV).manual_seed(7),
+                    device=DEV)
+    torch.cuda.synchronize()
+    bp.launches = tg.launches = tc.launches = tc.launches_multi = 0
+    t0 = time.perf_counter()
+    logits = R.forward(params, x, cfg)
+    outs = []
+    for (name, plan, shape, stride, _), a in zip(convs, inputs):
+        n_ot = plan.D_s // shape[3]
+        out = R.tlmac_conv_forward(plan, a, cfg.quant, stride)
+        win = R.conv_windows(a)
+        multi = tc.run_clustered_multi(plan, win, B_a, N=n_ot * plan.D_p)
+        single = tc.run_clustered(plan, win, B_a) if n_ot == 1 else None
+        outs.append((out, multi, single))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"pack_bitplanes": bp.launches, "tlmac_gemm": tg.launches,
+              "tlmac_gemm_clustered": tc.launches,
+              "tlmac_gemm_clustered_multi": tc.launches_multi}
+    n_single = sum(1 for _, p, s, _, _ in convs if p.D_s // s[3] == 1)
+    want = {"pack_bitplanes": 2 * len(convs) + n_single,
+            "tlmac_gemm": 3 * len(convs), "tlmac_gemm_clustered": n_single,
+            "tlmac_gemm_clustered_multi": len(convs)}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want}")
+    if logits.shape != (RESNET_BATCH, cfg.num_classes) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
+    n = len(convs)
+    log(f"  forward: logits {tuple(logits.shape)} finite; the path (forward "
+        f"+ {n} lookup convs + {n} clustered + {n_single} single-tile) ran in "
+        f"{wall:.2f} s (host clock, first calls)")
+    log(f"  launches: pack_bitplanes {counts['pack_bitplanes']} (= {n} lookup "
+        f"convs + {n} clustered + {n_single} single-tile), tlmac_gemm "
+        f"{counts['tlmac_gemm']} (= 3 rows x {n}), tlmac_gemm_clustered "
+        f"{counts['tlmac_gemm_clustered']}, tlmac_gemm_clustered_multi "
+        f"{counts['tlmac_gemm_clustered_multi']}")
+    for ci, ((name, plan, shape, stride, _), a, (out, multi, single)) in \
+            enumerate(zip(convs, inputs, outs)):
+        blk = params["blocks"][ci // 2]["conv1" if ci % 2 == 0 else "conv2"]
+        w = torch.as_tensor(R.quantize_conv_weights(blk, cfg), device=DEV)
+        ref = int_conv(a, w, stride)
+        _equal(f"{name} lookup conv vs integer conv", out, ref)
+        n_ot = plan.D_s // shape[3]
+        B, H, W, _ = shape
+        dpc = plan.D_p // 3
+        rows = multi.reshape(B, H, W, n_ot, dpc, 3)
+        _equal(f"{name} clustered conv vs integer conv", R.combine_row_sums(
+            [rows[..., r].reshape(B, H, W, n_ot * dpc) for r in range(3)],
+            stride), ref)
+        if single is not None:
+            _equal(f"{name} single-tile clustered", single, multi)
+        log(f"  {name:14s} {str(shape):20s} stride {stride}: lookup conv "
+            f"{tuple(out.shape)} == integer conv; clustered == integer conv")
+    # the quickstart's layer through TLMACLinear, outside the counted run
+    rng = np.random.default_rng(0)
+    K, N, M = 128, 256, 32
+    wq = rng.normal(size=(K, N)) * 0.05
+    lin = TLMACLinear.from_weights(wq, w_bits=3, a_bits=3, G=4, d_p=64,
+                                   anneal_iters=5000, device=DEV)
+    xs = torch.as_tensor(np.abs(rng.normal(size=(M, K))), dtype=torch.float32,
+                         device=DEV)
+    lin.calibrate(xs)
+    aq = torch.clamp(torch.round(xs / lin.a_step), 0, 7).to(torch.int8)
+    w_codes = Q.quantize_weights_int(
+        torch.as_tensor(wq, dtype=torch.float32, device=DEV),
+        Q.QuantConfig(w_bits=3, a_bits=3, per_channel=False),
+        step=lin.w_step)[0]
+    plan_arrays = [torch.as_tensor(x, device=DEV) for x in (
+        lin.plan.table, lin.plan.exec_idx, lin.plan.step_cluster)]
+    yi = ops.tlmac_matmul(aq, *plan_arrays, B_a=3, G=4, N=N, impl="pallas")
+    _equal("TLMACLinear lookup GEMM vs dense", yi,
+           ops.dense_int_matmul(aq, w_codes))
+    y = lin(xs)
+    if y.shape != (M, N) or not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError("TLMACLinear output not finite")
+    log(f"  TLMACLinear K={K} N={N} M={M}: lookup GEMM == dense_int_matmul; "
+        f"plan N_uwg {lin.plan.N_uwg}, N_arr {lin.plan.N_arr}")
+    return counts
+
+
+def int_conv(a, w, stride):
+    """The integer 3x3 conv of codes ``a [B, H, W, C]`` with weights ``w
+    [O, C, 3, 3]`` (SAME padding as XLA): im2col + the port's exact
+    dense integer GEMM."""
+    from repro_torch.kernels.ops import dense_int_matmul
+    from repro_torch.models.resnet import same_pads
+
+    import torch.nn.functional as F
+
+    B, H, W, C = a.shape
+    (ht, hb), (wl, wr) = same_pads(H, 3, stride), same_pads(W, 3, stride)
+    x = F.pad(a.permute(0, 3, 1, 2).double(), (wl, wr, ht, hb))
+    cols = F.unfold(x, 3, stride=stride)                 # [B, C*9, L]
+    Ho, Wo = (H + ht + hb - 3) // stride + 1, (W + wl + wr - 3) // stride + 1
+    y = dense_int_matmul(cols.transpose(1, 2).reshape(-1, C * 9),
+                         w.reshape(w.shape[0], -1).T)
+    return y.reshape(B, Ho, Wo, w.shape[0])
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
@@ -527,27 +1035,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(gpu_line())
     t0 = time.perf_counter()
-    logs = _build.build(["tlmac_fused", "flash_decode"])
-    log(f"build: tlmac_fused.cu + flash_decode.cu with nvcc -arch sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s (parallel)")
+    logs = _build.build(SOURCES)
+    log(f"build: {' + '.join(n + '.cu' for n in SOURCES)} with nvcc -arch "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    log("phase: lookup GEMM vs plain (int32, must be equal)")
+    phase("lookup GEMM vs plain (int32, must be equal)")
     gemm = phase_gemm(chunk=CHUNK, batch=4)
-    log("phase: flash-decode vs plain")
+    phase("flash-decode vs plain")
     flash = phase_flash()
-    # launches are counted on the main path only: null when it did not run
-    counts = {"tlmac_gemm_fused": None, "flash_decode": None}
+    phase("kernels 3-6 vs plain on small compiled plans")
+    phase_lookup_small()
+    phase("full-width ResNet-18, 16 convs compiled on the host")
+    from repro_torch.configs.resnet18 import CONFIG as rcfg
+
+    rparams, plans = compile_full_resnet(rcfg)
+    phase("kernels 1 and 3-6 at the ResNet-18 conv shapes")
+    lookup = phase_resnet_kernels(rcfg, rparams, plans)
+    # launches are counted on the main paths only: null when they did not run
+    counts = dict.fromkeys(["tlmac_gemm_fused", "flash_decode", *lookup])
     if args.only == "all":
-        log("phase: main path")
-        counts = phase_main()
-        log("phase: card vs CPU on smoke configs")
+        phase("main path (serve)")
+        counts.update(phase_main())
+        phase("card vs CPU on smoke configs")
         phase_reference()
-    gemm["launches"] = counts["tlmac_gemm_fused"]
-    flash["launches"] = counts["flash_decode"]
-    log(json.dumps({"kernels": [gemm, flash]}))
+        phase("paper path (ResNet-18 compile-and-execute)")
+        counts.update(phase_paper_path(rcfg, rparams, plans))
+    kernels = [gemm, flash, *lookup.values()]
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+    log(json.dumps({"kernels": kernels}))
     if args.only != "all":
         return 0
     log(json.dumps({"ok": True, "device": {

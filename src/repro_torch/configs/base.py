@@ -1,8 +1,6 @@
 """Architecture configuration: the subset of ``repro.configs.base`` that
-the paged TLMAC serve path reads.
-
-``QuantConfig`` is a copy of ``repro.core.quant.quantizers.QuantConfig``
-(that module imports JAX, so the port keeps its own)."""
+the paged TLMAC serve path reads.  ``QuantConfig`` lives in
+``repro_torch.core.quant.quantizers``, as in the reference."""
 
 from __future__ import annotations
 
@@ -10,27 +8,7 @@ import dataclasses
 import importlib
 from typing import Optional
 
-
-@dataclasses.dataclass(frozen=True)
-class QuantConfig:
-    """Static quantisation configuration for one layer family."""
-
-    w_bits: int = 3
-    a_bits: int = 3
-    per_channel: bool = True
-    method: str = "n2uq"
-
-    @property
-    def w_qmax(self) -> int:
-        return 2 ** (self.w_bits - 1) - 1
-
-    @property
-    def w_qmin(self) -> int:
-        return -(2 ** (self.w_bits - 1))
-
-    @property
-    def a_qmax(self) -> int:
-        return 2**self.a_bits - 1
+from repro_torch.core.quant.quantizers import QuantConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Convert the JAX package's serve params and paged pools into the
-port's tensors.
+"""Convert the JAX package's params (serve LMs, ResNet) and paged pools
+into the port's tensors.  Compiled TLMAC plans are numpy on both sides
+and need no conversion.
 
 Inputs are the JAX pytrees already turned into nested dicts and lists of
 numpy arrays (``jax.tree.map(np.asarray, tree)``): this module imports
@@ -23,11 +24,11 @@ from repro_torch.models.nn import ParamTree
 
 def to_torch(a, device="cuda") -> torch.Tensor:
     """One numpy leaf -> tensor of the same dtype and bits."""
-    a = np.asarray(a)
+    a = np.array(a, order="C", copy=True)   # keeps 0-d leaves 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def _tree(x, device):
@@ -52,4 +53,10 @@ def pool_from_jax(tree, device="cuda"):
     """JAX paged caches (``lm.init_caches(..., paged=spec)[0]`` as numpy:
     a list per segment of ``{'b0': {'k', 'v'[, 'ks', 'vs']}}``) -> the
     same structure of tensors."""
+    return _tree(tree, device)
+
+
+def resnet_params_from_jax(tree, device="cuda"):
+    """JAX ResNet params (``resnet.init_resnet(key, cfg)`` as numpy) -> the
+    port's nested dict of float32 tensors, same structure and bits."""
     return _tree(tree, device)
