@@ -10,10 +10,17 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the five CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
    each, started together) and print the build time;
 3. kernels 1-2 (fused lookup GEMM, flash-decode) against their plain
-   PyTorch versions at the serve path's shapes: the lookup GEMM must be
-   bit-equal in int32, flash-decode within the stated f32 tolerance;
-   times of the kernel, the plain version, the bound and (flash-decode)
-   SDPA over the gathered K/V as a yardstick;
+   PyTorch versions at the serve path's shapes (kernel 1 at M 1, 4, 16,
+   17 and 64, on tables narrowed once as the serve params hold them),
+   and kernel 1 at the edges of its dp4a and mma.sync paths (G 3/4,
+   ragged kg, odd dp, uint8/int16 indices, int16 rows): the lookup GEMM
+   must be bit-equal in int32, flash-decode within the stated f32
+   tolerance over fp/int8/int4 pools, windows, idle slots, 1 to 16
+   splits and two rep chunks; times of the kernel, the plain version,
+   the bound and a library yardstick: one ``torch._int_mm`` of the
+   one-hot coefficients against the gathered table rows (held equal),
+   beside a dense int8 ``_int_mm`` of the same shape as context, and
+   SDPA over the gathered K/V;
 4. kernels 3-6 (bit-plane pack, lookup GEMM on packed codes, the
    cluster-scheduled GEMM for one tile and for every tile) against their
    plain versions and the dense integer GEMM on small compiled plans, at
@@ -57,11 +64,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory and the
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory, the
 # non-tensor-core f32 rate, against which int32 lookup-adds and f32
-# attention flops are counted (one operation each).
+# attention flops are counted (one operation each), and the int8
+# tensor-core rate, against which kernel 1's one-hot product is counted.
 HBM_BYTES_S = 3.35e12
 NONTENSOR_OPS_S = 67e12
+INT8_TC_OPS_S = 1979e12
 FLASH_TOL = 1e-4     # f32: only the order of the softmax sums differs
 LOGIT_TOL = 3e-2     # bf16 logits of the whole model, card vs CPU
 
@@ -110,6 +119,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's cost between calls is not timed.  A decode
+    kernel runs for tens of microseconds, less than its Python wrapper
+    takes to launch it, and back-to-back eager calls (``cuda_ms``) then
+    time the host."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def rotation(nbytes: int) -> int:
     """Input copies to cycle through so repeated launches find them out of
     the 50 MB L2, as the main path does (each layer has its own)."""
@@ -127,6 +168,33 @@ GEMM_SHAPES = {  # name: (K, N, dp) of codeqwen1.5-7b's serve linears
 }
 DECODE_LAYER_MIX = {"q/k/v/o 4096->4096": 4, "wi/wg 4096->13440": 2,
                     "wo 13440->4096": 1}
+GEMM_MS = (1, 4, 16, 17, 64)   # both inner products and their boundary
+INT_MM_MIN_M = 32              # torch._int_mm refuses M <= 16: pad to 32
+
+
+def _gemm_bound(M, K, N, kg, G, nbytes):
+    """The least time (ms) of one lookup GEMM: its bytes over HBM, or the
+    one-hot product's 2*M*2^G*kg*N operations over the int8 tensor-core
+    peak, whichever is larger."""
+    ops = 2 * M * 2**G * kg * N
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_TC_OPS_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G):
+    """The library yardstick of a lookup GEMM: one ``torch._int_mm`` of the
+    one-hot coefficients ``A' [M, 2^G*kg]`` (zero rows pad M to 32) against
+    the narrow table rows gathered beforehand, ``W' [2^G*kg, N]``: the same
+    function for any table.  Returns the padded A', W' and the call."""
+    import torch
+
+    M = aq.shape[0]
+    coef = tf.onehot_coefficients(aq, B_a, G).reshape(M, -1).to(torch.int8)
+    a_pad = torch.zeros((max(M, INT_MM_MIN_M), coef.shape[1]),
+                        dtype=torch.int8, device=aq.device)
+    a_pad[:M] = coef
+    w = tf.gathered_rows(idx, cl, tab).contiguous()
+    return lambda: torch._int_mm(a_pad, w)[:M]
 
 
 def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
@@ -139,59 +207,125 @@ def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
     for name, (K, N, dp) in GEMM_SHAPES.items():
         nt, kg = N // dp, K // G
         reps = rotation(nt * kg * dp * 2)
+        # the serve path's params: int32 tables narrowed once at init
         plans = [(torch.randint(0, n_arr, (nt, kg, dp), dtype=torch.int16,
                                 generator=gen, device="cuda"),
                   torch.randint(0, n_clus, (nt, kg), dtype=torch.int8,
                                 generator=gen, device="cuda"),
-                  torch.randint(-8, 8, (n_clus, n_arr, 2**G),
-                                dtype=torch.int32, generator=gen,
-                                device="cuda"))
+                  tf.narrow_table(torch.randint(
+                      -8, 8, (n_clus, n_arr, 2**G), dtype=torch.int32,
+                      generator=gen, device="cuda")))
                  for _ in range(reps)]
-        for M in sorted({1, batch, chunk}):
+        idx, cl, tab = plans[0]
+        assert tab.dtype == torch.int8, tab.dtype
+        for M in GEMM_MS:
             aq = torch.randint(0, 2**B_a, (M, K), dtype=torch.int8,
                                generator=gen, device="cuda")
-            idx, cl, tab = plans[0]
             got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
             want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = (got != want).sum().item()
-                raise AssertionError(f"lookup GEMM {name} M={M}: {bad} int32 "
-                                     "outputs differ from the plain version")
+            _equal(f"lookup GEMM {name} M={M}", got, want)
+            if M not in (batch, chunk):
+                log(f"  lookup GEMM {name:20s} M={M:3d}: equal int32")
+                continue
             it = iter(range(1 << 30))
 
             def run_kernel():
                 i, c, t = plans[next(it) % reps]
                 tf.tlmac_gemm_fused(aq, i, c, t, B_a=B_a, G=G)
 
-            ms = cuda_ms(run_kernel, iters=20)
+            ms = graph_ms(run_kernel)
+            eager_ms = cuda_ms(run_kernel, iters=20)
             plain_ms = cuda_ms(lambda: tf.tlmac_gemm_fused_plain(
                 aq, idx, cl, tab, B_a=B_a, G=G), iters=3, warmup=1)
-            nbytes = M * K + idx.numel() * 2 + cl.numel() + tab.numel() * 4 \
+            nbytes = M * K + idx.numel() * 2 + cl.numel() + tab.numel() \
                 + M * N * 4
-            ops = M * B_a * kg * N
-            bound = max(nbytes / HBM_BYTES_S, ops / NONTENSOR_OPS_S) * 1e3
-            by = "bytes" if nbytes / HBM_BYTES_S >= ops / NONTENSOR_OPS_S \
-                else "operations"
+            bound, by = _gemm_bound(M, K, N, kg, G, nbytes)
+            lib = _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G)
+            _equal(f"lookup GEMM {name} M={M} one-hot _int_mm", lib(), got)
+            lib_ms = graph_ms(lib)
+            del lib
+            a8 = torch.randint(-128, 128, (max(M, INT_MM_MIN_M), K),
+                               dtype=torch.int8, generator=gen, device="cuda")
+            w8 = torch.randint(-128, 128, (K, N), dtype=torch.int8,
+                               generator=gen, device="cuda")
+            dense_ms = graph_ms(lambda: torch._int_mm(a8, w8))
+            del a8, w8
             rows[(name, M)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                   bound_by=by)
+                                   bound_by=by, library_ms=lib_ms,
+                                   eager_ms=eager_ms)
             log(f"  lookup GEMM {name:20s} M={M:3d}: equal int32; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-                f"({by}), {bound / ms:.1%} of bound")
+                f"{ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({by}), {bound / ms:.1%} of bound; one-hot _int_mm "
+                f"(M padded to {max(M, INT_MM_MIN_M)}) {lib_ms:.4f} ms, "
+                f"equal int32; context: dense int8 _int_mm "
+                f"[{max(M, INT_MM_MIN_M)},{K}]x[{K},{N}] {dense_ms:.4f} ms")
         del plans
+    fields = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
+    for M in sorted({batch, chunk}):
+        tot = {f: sum(rows[(n, M)][f] * c for n, c in DECODE_LAYER_MIX.items())
+               for f in fields}
+        log(f"  one layer's 7 lookup GEMMs at M={M}: kernel {tot['ms']:.4f} "
+            f"ms (eager calls {tot['eager_ms']:.4f} ms), plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
+            f"one-hot _int_mm {tot['library_ms']:.4f} ms")
     # the JSON entry: one decode step's seven lookup GEMMs of one layer
-    key = lambda n: rows[(n, batch)]
-    tot = {f: sum(key(n)[f] * c for n, c in DECODE_LAYER_MIX.items())
-           for f in ("ms", "plain_ms", "bound_ms")}
-    by = key("wi/wg 4096->13440")["bound_by"]
-    log(f"  decode layer (7 lookup GEMMs, M={batch}): kernel {tot['ms']:.4f} "
-        f"ms, plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    tot = {f: sum(rows[(n, batch)][f] * c for n, c in DECODE_LAYER_MIX.items())
+           for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    by = rows[("wi/wg 4096->13440", batch)]["bound_by"]
     return dict(name="tlmac_gemm_fused", route="cuda",
                 source="src/repro_torch/csrc/tlmac_fused.cu",
                 replaces="src/repro/kernels/tlmac_fused.py:199",
                 shape=f"one decode layer: 4x4096->4096, 2x4096->13440, "
                       f"1x13440->4096 at M={batch}",
-                max_abs_err=0, bound_by=by, library_ms=None, **tot)
+                max_abs_err=0, bound_by=by, **tot)
+
+
+def phase_gemm_edges(B_a=3):
+    """Kernel 1 at the edges of both inner products, int32-equal to its
+    plain version: M across the dp4a/mma boundary, ragged kg, dp 120 and
+    odd, uint8 and int16 indices, G 3 and 4, and an int16-row table."""
+    import torch
+
+    from repro_torch.kernels import tlmac_fused as tf
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [  # (G, n_tiles, kg, dp, n_arr, idx dtype, table range)
+        (4, 3, 37, 120, 600, torch.int16, (-8, 8)),
+        (4, 2, 21, 128, 200, torch.uint8, (-128, 128)),
+        (3, 3, 45, 64, 300, torch.int16, (-12, 10)),
+        (3, 2, 19, 5, 100, torch.uint8, (-8, 8)),
+        (4, 2, 37, 120, 600, torch.int16, (-300, 300)),   # int16 rows
+        (3, 3, 22, 64, 200, torch.uint8, (-200, 200)),    # int16 rows
+    ]
+    n = 0
+    for G, nt, kg, dp, n_arr, idt, (lo, hi) in cases:
+        idx = torch.randint(0, n_arr, (nt, kg, dp), generator=gen,
+                            device="cuda").to(idt)
+        cl = torch.randint(0, 3, (nt, kg), dtype=torch.int8, generator=gen,
+                           device="cuda")
+        t32 = torch.randint(lo, hi, (3, n_arr, 2**G), dtype=torch.int32,
+                            generator=gen, device="cuda")
+        tab = tf.narrow_table(t32)
+        want_dt = torch.int8 if -128 <= lo and hi <= 128 else torch.int16
+        assert tab.dtype == want_dt, (tab.dtype, lo, hi)
+        for M in GEMM_MS:
+            aq = torch.randint(0, 2**B_a, (M, kg * G), dtype=torch.int8,
+                               generator=gen, device="cuda")
+            got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+            _equal(f"lookup GEMM edge G={G} kg={kg} dp={dp} {idt} {tab.dtype} "
+                   f"M={M}", got, tf.tlmac_gemm_fused_plain(
+                       aq, idx, cl, t32, B_a=B_a, G=G))
+            n += 1
+    try:
+        tf.tlmac_gemm_fused(aq, idx, cl, t32, B_a=B_a, G=G)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the kernel took an int32 table")
+    log(f"  lookup GEMM edges: {n} cases (M {list(GEMM_MS)}, G 3/4, ragged "
+        "kg, dp 120/128/64/5, uint8/int16 indices, int8/int16 rows) equal "
+        "int32 to the plain version; an int32 table is refused")
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +401,12 @@ def phase_flash():
         ("rep4 hd16 KV2 window 8, idle slot",
          dict(B=3, KV=2, rep=4, hd=16, P=8, MB=6, lens=(1, 20, 48),
               window=8, n_splits=4, idle=(0,))),
+        ("rep1 hd128 KV32, 16 splits",
+         dict(B=4, KV=32, rep=1, hd=128, P=16, MB=64, lens=MAIN_LENS,
+              window=None, n_splits=16)),
+        ("rep12 hd128 KV8 (2 rep chunks), idle slot",
+         dict(B=3, KV=8, rep=12, hd=128, P=16, MB=32, lens=(1, 300, 77),
+              window=None, n_splits=3, idle=(0,))),
     ]
     for kv in ("fp", "int8", "int4"):
         for label, c in cases:
@@ -289,7 +429,9 @@ def phase_flash():
     copies = [a] + [dict(a, k_pages=a["k_pages"].clone(),
                          v_pages=a["v_pages"].clone()) for _ in range(reps - 1)]
     it = iter(range(1 << 30))
-    ms = cuda_ms(lambda: _flash_kernel(copies[next(it) % reps]), iters=50)
+    run_kernel = lambda: _flash_kernel(copies[next(it) % reps])
+    ms = graph_ms(run_kernel, iters=50)
+    eager_ms = cuda_ms(run_kernel, iters=50)
     plain_ms = cuda_ms(lambda: _flash_plain(a), iters=5, warmup=1)
     # library yardstick: SDPA (bf16) over K/V gathered beforehand
     from repro_torch.kernels.paged import gather_kv
@@ -301,7 +443,9 @@ def phase_flash():
     mask = (torch.arange(S, device="cuda")[None, :]
             < a["lengths"][:, None].long())[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=50)
+    library_ms = graph_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=50)
+    library_eager_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                               iters=50)
     # bytes the function needs: the live tokens' K and V (bf16), the
     # block-table entries of their pages, q, lengths and the f32 output
     pages = sum(-(-L // P) for L in MAIN_LENS)
@@ -311,9 +455,10 @@ def phase_flash():
     t_b, t_o = nbytes / HBM_BYTES_S, ops / NONTENSOR_OPS_S
     bound = max(t_b, t_o) * 1e3
     by = "bytes" if t_b >= t_o else "operations"
-    log(f"  flash-decode fp main-path shape: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), SDPA over gathered "
-        f"K/V {library_ms:.4f} ms; tolerance {FLASH_TOL} (f32)")
+    log(f"  flash-decode fp main-path shape: kernel {ms:.4f} ms (eager calls "
+        f"{eager_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+        f"({by}), SDPA over gathered K/V {library_ms:.4f} ms (eager calls "
+        f"{library_eager_ms:.4f} ms); tolerance {FLASH_TOL} (f32)")
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:206",
@@ -556,8 +701,10 @@ def phase_resnet_kernels(cfg, params, plans):
             plain_ms=cuda_ms(lambda: bp.pack_bitplanes_plain(
                 win, B_a=B_a, G=3), 2, 1), n=1,
             **_bound(M * K + codes.numel(), M * K * B_a))
-        # kernel 3 (three row GEMMs) and kernel 1 on the same row plans
+        # kernel 3 (three row GEMMs) and kernel 1 on the same row plans;
+        # kernel 1 reads the plan's table (one for all rows) narrowed once
         rows = []
+        tn = tf.narrow_table(R.conv_row_plan(plan, 0, DEV)[0])
         for r in range(3):
             table, ex, cl = R.conv_row_plan(plan, r, DEV)
             rb = kref.rowbase_from_plan(table, ex, cl, n_ot, C)
@@ -582,16 +729,18 @@ def phase_resnet_kernels(cfg, params, plans):
             idx_t = (torch.uint8 if plan.N_arr <= 256 else torch.int16)
             ex3 = ex.reshape(n_ot, C, dpc).to(idx_t)
             cl2 = cl.reshape(n_ot, C).to(torch.int8)
-            fz = tf.tlmac_gemm_fused(win, ex3, cl2, table, B_a=B_a, G=3)
+            fz = tf.tlmac_gemm_fused(win, ex3, cl2, tn, B_a=B_a, G=3)
             _equal(f"{name} row {r} tlmac_gemm_fused", fz, got)
+            bound, _ = _gemm_bound(M, K, N, C, 3, M * K
+                                   + ex3.numel() * ex3.element_size()
+                                   + cl2.numel() + tn.numel()
+                                   * tn.element_size() + M * N * 4)
             add("tlmac_gemm_fused", stage,
-                ms=cuda_ms(lambda: tf.tlmac_gemm_fused(win, ex3, cl2, table,
+                ms=cuda_ms(lambda: tf.tlmac_gemm_fused(win, ex3, cl2, tn,
                                                        B_a=B_a, G=3), 10),
                 plain_ms=cuda_ms(lambda: tf.tlmac_gemm_fused_plain(
-                    win, ex3, cl2, table, B_a=B_a, G=3), 2, 1),
-                library_ms=lib_ms, n=1,
-                **_bound(M * K + ex3.numel() * ex3.element_size()
-                         + cl2.numel() + table.numel() * 4 + M * N * 4, ops))
+                    win, ex3, cl2, tn, B_a=B_a, G=3), 2, 1),
+                library_ms=lib_ms, n=1, bound_ms=bound)
         # kernels 6 and (single-tile convs) 5 on the same windows
         w3 = _dense_weights(w_codes, (0, 1, 2))
         for kind, tiled in (("tlmac_gemm_clustered_multi", True),
@@ -849,10 +998,10 @@ def _profiled(fn, a, kw):
         log("  profiled decode step: device time not measured (the profiler "
             "recorded none)")
         return logits
-    gemm = sum(v for k, v in by_name.items() if "tlmac_fused_kernel" in k)
+    gemm = sum(v for k, v in by_name.items() if "tlmac_fused_" in k)
     flash = sum(v for k, v in by_name.items() if "flash_decode_kernel" in k)
     others = sorted(((v, k) for k, v in by_name.items()
-                     if "tlmac_fused_kernel" not in k
+                     if "tlmac_fused_" not in k
                      and "flash_decode_kernel" not in k), reverse=True)
     log(f"  profiled decode step {PROFILED_STEP}: wall {wall:.2f} ms (under "
         f"the profiler), device busy {busy:.2f} ms ({busy / wall:.1%}), idle "
@@ -1044,6 +1193,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     phase("lookup GEMM vs plain (int32, must be equal)")
     gemm = phase_gemm(chunk=CHUNK, batch=4)
+    phase_gemm_edges()
     phase("flash-decode vs plain")
     flash = phase_flash()
     phase("kernels 3-6 vs plain on small compiled plans")

@@ -11,7 +11,10 @@ reinterpreted as ``torch.bfloat16`` (bit-exact).
 ``params_from_jax`` stores ``embed``/``head`` in bf16 although JAX keeps
 them in f32: every use casts them to bf16 first (``embed_apply``,
 ``logits_apply``), so storing the rounded values keeps every number the
-forward computes, at half the memory.
+forward computes, at half the memory.  After the JAX tree is mirrored
+leaf for leaf, every TLMAC serve linear gains one derived leaf,
+``table_narrow`` (``kernels.tlmac_fused.narrow_table`` of its table),
+which the lookup kernel reads.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.tlmac_fused import narrow_table
 from repro_torch.models.nn import ParamTree
 
 
@@ -39,13 +43,26 @@ def _tree(x, device):
     return to_torch(x, device)
 
 
+def _add_narrow_tables(x):
+    if isinstance(x, dict):
+        if "table" in x and "exec_idx" in x:
+            x["table_narrow"] = narrow_table(x["table"])
+        for v in x.values():
+            _add_narrow_tables(v)
+    elif isinstance(x, list):
+        for v in x:
+            _add_narrow_tables(v)
+
+
 def params_from_jax(tree, device="cuda") -> ParamTree:
     """JAX serve params (``lm.init_lm(..., purpose='serve')[0]`` as numpy)
-    -> the port's ``ParamTree``."""
+    -> the port's ``ParamTree``, plus each serve linear's
+    ``table_narrow``."""
     p = _tree(tree, device)
     for name in ("embed", "head"):
         if name in p:
             p[name] = {"emb": p[name]["emb"].to(torch.bfloat16)}
+    _add_narrow_tables(p)
     return ParamTree(p)
 
 

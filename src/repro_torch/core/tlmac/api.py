@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.quant import quantizers as Q
 from repro_torch.core.tlmac.compile import TLMACLayerPlan, compile_layer
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.tlmac_fused import narrow_table
 
 
 @dataclasses.dataclass
@@ -91,7 +92,8 @@ class TLMACLinear:
 
     def as_serve_params(self) -> dict:
         """Params dict consumable by ``models/nn.serve_linear_apply``
-        (stored dtypes: uint8 indices when N_arr <= 256, else int16)."""
+        (stored dtypes: uint8 indices when N_arr <= 256, else int16; the
+        table also as the narrow rows the lookup kernel reads)."""
         D_s, D_p = self.plan.exec_idx.shape
         n_tiles = self.N // D_p
         kg = D_s // n_tiles
@@ -101,8 +103,10 @@ class TLMACLinear:
         if w_step.numel() == 1:
             w_step = w_step.expand(self.N).contiguous()
         idx_dtype = torch.uint8 if self.plan.N_arr <= 256 else torch.int16
+        table = torch.as_tensor(self.plan.table, device=dev)
         return {
-            "table": torch.as_tensor(self.plan.table, device=dev),
+            "table": table,
+            "table_narrow": narrow_table(table),
             "exec_idx": torch.as_tensor(
                 self.plan.exec_idx.reshape(n_tiles, kg, D_p),
                 device=dev).to(idx_dtype),

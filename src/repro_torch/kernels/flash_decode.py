@@ -2,10 +2,14 @@
 
 ``flash_decode`` launches the CUDA kernel of ``csrc/flash_decode.cu``
 for CUDA tensors and runs ``flash_decode_partials_plain`` (the same
-split-K online softmax in plain torch) for CPU tensors only.  Both
-produce per-split partials ``(acc [B, KV, S, rep, hd], m, l [B, KV, S,
-rep])`` that ``combine_splits`` reduces in plain torch, as the JAX
-package does outside its kernel.  ``launches`` counts kernel launches.
+split-K online softmax in plain torch) for CPU tensors only.  The plain
+version produces per-split partials ``(acc [B, KV, S, rep, hd], m, l
+[B, KV, S, rep])`` that ``combine_splits`` reduces in plain torch, as
+the JAX package does outside its kernel; the kernel combines its splits
+itself and returns the final output from one launch.  Its ``n_splits``
+splits cut each slot's own visible keys into equal shares (the plain
+version splits the block-table range).  ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -22,26 +26,32 @@ from repro_torch.kernels.paged import NEG_INF, KVQuantSpec, dequantise_kv
 launches = 0
 
 _KIND = {"fp": 0, "int8": 1, "int4": 2}
-_fn = None
+_lib = None
+# per device: int32 split tickets, zero between launches (each launch's
+# last block resets its own); grown, never shrunk
+_tickets = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_decode").flash_decode_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.load("flash_decode")
+        lib.flash_decode_launch.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_decode_launch.restype = ctypes.c_int
+        lib.flash_decode_rep_tile.argtypes = [ctypes.c_int]
+        lib.flash_decode_rep_tile.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
-def _geometry(q, k_pages, block_table, n_splits):
-    B, KV, rep, hd = q.shape
-    MB = block_table.shape[1]
-    n_splits = max(1, min(n_splits, MB))
-    bps = -(-MB // n_splits)
-    return B, KV, rep, hd, MB, n_splits, bps
+def _tickets_for(device, n: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
 
 
 def flash_decode_partials_plain(q, k_pages, v_pages, block_table, lengths, *,
@@ -52,7 +62,10 @@ def flash_decode_partials_plain(q, k_pages, v_pages, block_table, lengths, *,
     ``(acc, m, l)``.  Visits block ``blk = s*bps + i`` of every split at
     once; invalid blocks read page 0 and are fully masked, which leaves
     the online-softmax state unchanged exactly as a skipped visit."""
-    B, KV, rep, hd, MB, S, bps = _geometry(q, k_pages, block_table, n_splits)
+    B, KV, rep, hd = q.shape
+    MB = block_table.shape[1]
+    S = max(1, min(n_splits, MB))
+    bps = -(-MB // S)
     P = k_pages.shape[1]
     qspec = KVQuantSpec(kv_dtype)
     dev = q.device
@@ -152,6 +165,9 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the kernel takes a bf16 query, got {q.dtype}")
+    if q.shape[-1] % 8 or not 8 <= q.shape[-1] <= 256:
+        raise ValueError(f"the kernel takes head dims 8..256 in steps of 8, "
+                         f"got {q.shape[-1]}")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_table and lengths must be int32")
     ops = [q, k_pages, v_pages, block_table, lengths]
@@ -162,21 +178,33 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
             raise ValueError("flash_decode operands must be contiguous")
         if t.device != q.device:
             raise ValueError(f"operands on several devices: {t.device}")
-    B, KV, rep, hd, MB, S, bps = _geometry(q, k_pages, block_table, n_splits)
-    P, hdc = k_pages.shape[1], k_pages.shape[3]
-    acc = torch.empty((B, KV, S, rep, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, KV, S, rep), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if k_scales is not None else None,
-        v_scales.data_ptr() if v_scales is not None else None,
-        block_table.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, KV, rep, hd, hdc, P, MB, S, bps,
-        -1 if window is None else int(window), _KIND[kv_dtype],
-        1.0 / math.sqrt(hd), stream)
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("q and the pools must start 16-byte aligned")
+    B, KV, rep, hd = q.shape
+    P, MB = k_pages.shape[1], block_table.shape[1]
+    S = max(1, int(n_splits))
+    lib = _library()
+    rept = lib.flash_decode_rep_tile(rep)        # query heads per block
+    n_rc = -(-rep // rept)
+    dev = q.device
+    out = torch.empty((B, KV, rep, hd), dtype=torch.float32, device=dev)
+    ws_acc = ws_ml = tickets = None
+    if S > 1:
+        n_bg = B * KV * n_rc
+        ws_acc = torch.empty(n_bg * S * rept * hd, dtype=torch.float32,
+                             device=dev)
+        ws_ml = torch.empty(n_bg * S * rept * 2, dtype=torch.float32,
+                            device=dev)
+        tickets = _tickets_for(dev, n_bg)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.flash_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales),
+        ptr(v_scales), block_table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), ptr(ws_acc), ptr(ws_ml), ptr(tickets),
+        B, KV, rep, hd, P, MB, S, -1 if window is None else int(window),
+        _KIND[kv_dtype], 1.0 / math.sqrt(hd), stream)
     _build.check(err, "flash_decode")
     launches += 1
-    return combine_splits(acc, m, l)
+    return out

@@ -14,6 +14,7 @@ from torch import nn
 
 from repro_torch.core.tlmac.compile import plan_shapes
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.tlmac_fused import narrow_table
 
 COMPUTE_DTYPE = torch.bfloat16
 MODEL_AXIS = 16  # the JAX package's 'model' mesh axis; fixes dp choices
@@ -99,7 +100,8 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
                       use_bias: bool = False, device="cuda") -> dict:
     """TLMAC serve-linear params at the plan's capacity shapes, drawn
     from ``gen`` (which must live on ``device``): int32 tables, uint8
-    (N_arr <= 256) or int16 indices, int8 step clusters."""
+    (N_arr <= 256) or int16 indices, int8 step clusters, and the table's
+    narrow rows (``table_narrow``) that the lookup kernel reads."""
     if cfg.serve_impl != "tlmac":
         raise ValueError(f"serve_impl {cfg.serve_impl!r} is not ported")
     G, dp = cfg.tlmac_G, _pick_dp(N, cfg.tlmac_dp)
@@ -117,6 +119,7 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
         "w_step": torch.ones(N, dtype=torch.float32, device=device),
         "a_step": torch.ones((), dtype=torch.float32, device=device),
     }
+    p["table_narrow"] = narrow_table(p["table"])
     if use_bias:
         p["b"] = torch.zeros(N, dtype=torch.bfloat16, device=device)
     return p
@@ -133,10 +136,13 @@ def _tlmac_quant_pack(a_step, x, cfg):
 
 def _tlmac_gemm(params, aq, lead, cfg):
     """One fused lookup GEMM from quantised activations, dequantised to
-    bf16."""
+    bf16.  Reads ``table_narrow`` where the params carry it (made once
+    with them); a bare int32 ``table`` serves the CPU's plain version and
+    is refused by the kernel."""
     n_tiles, kg, dp = params["exec_idx"].shape
     N = n_tiles * dp
-    yi = kops.tlmac_matmul(aq, params["table"], params["exec_idx"],
+    table = params.get("table_narrow", params["table"])
+    yi = kops.tlmac_matmul(aq, table, params["exec_idx"],
                            params["step_cluster"], B_a=cfg.quant.a_bits,
                            G=cfg.tlmac_G, N=N, impl="fused")
     y = (yi.to(torch.float32) * (params["a_step"] * params["w_step"])).to(

@@ -1,7 +1,8 @@
-"""The CUDA kernels of the compile-and-execute path (kernels 3-6) against
-their plain versions on the card, on plans compiled by the port.  This
-file imports nothing of JAX, so it also runs where only the port is
-installed:
+"""The CUDA kernels against their plain versions on the card: kernels 3-6
+(the compile-and-execute path) and kernel 1 on plans compiled by the
+port, kernel 1 through ``TLMACLinear``'s serve params, and kernel 2's
+single launch over every pool kind.  This file imports nothing of JAX,
+so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_cuda.py
 
@@ -17,6 +18,7 @@ from repro_torch.kernels import bitplanes as bp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import tlmac_clustered as tc
+from repro_torch.kernels import tlmac_fused as tf
 from repro_torch.kernels import tlmac_gemm as tg
 
 
@@ -60,7 +62,10 @@ def test_pack_and_lookup_gemm_equal_plain_on_card(cuda, K, N, M, B_w, B_a, G):
     torch.cuda.synchronize()
     assert (bp.launches, tg.launches) == (n0 + 1, g0 + 1)
     assert torch.equal(got, want)
-    dense = ops.dense_int_matmul(a, torch.from_numpy(w).to(cuda))
+    # the codes are B_a-bit unsigned; int8 holds those of B_a = 8 above 127
+    # as negative bytes, so the dense oracle reads them back unsigned
+    dense = ops.dense_int_matmul(a.to(torch.int32) & 0xFF,
+                                 torch.from_numpy(w).to(cuda))
     assert torch.equal(got, dense)
 
 
@@ -107,3 +112,85 @@ def test_clustered_kernel_rejects_a_slice_too_large_for_shared_memory(cuda):
     table = torch.zeros((n_clus, n_arr1, 16), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared"):
         tc.tlmac_gemm_clustered(codes, idx, table, B_a=3, G=4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [4, 17, 150])
+@pytest.mark.parametrize("K,N,B_w,B_a,G,d_p", [(48, 128, 3, 3, 3, 64),
+                                              (64, 240, 3, 3, 4, 120)])
+def test_fused_lookup_gemm_on_compiled_plans_equals_plain_and_dense(
+        cuda, M, K, N, B_w, B_a, G, d_p):
+    w, plan, a = _compiled(K, N, M, B_w, B_a, G, d_p, K + M)
+    n_tiles, kg = N // d_p, K // G
+    idx_t = torch.uint8 if plan.N_arr <= 256 else torch.int16
+    ex = torch.from_numpy(plan.exec_idx.reshape(n_tiles, kg, d_p)).to(
+        cuda).to(idx_t)
+    cl = torch.from_numpy(plan.step_cluster.reshape(n_tiles, kg)).to(
+        cuda).to(torch.int8)
+    table = torch.from_numpy(plan.table).to(cuda)
+    a = a.to(cuda)
+    n0 = tf.launches
+    got = tf.tlmac_gemm_fused(a, ex, cl, tf.narrow_table(table), B_a=B_a, G=G)
+    want = tf.tlmac_gemm_fused_plain(a, ex, cl, table, B_a=B_a, G=G)
+    torch.cuda.synchronize()
+    assert tf.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, ops.dense_int_matmul(a, torch.from_numpy(w).to(
+        cuda)))
+
+
+@pytest.mark.requires_cuda
+def test_serve_linear_of_tlmac_linear_runs_kernel_1_on_card(cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.tlmac.api import TLMACLinear
+    from repro_torch.models import nn
+
+    rng = np.random.default_rng(0)
+    K, N = 64, 128
+    lin = TLMACLinear.from_weights(rng.normal(size=(K, N)) * 0.05, w_bits=3,
+                                   a_bits=3, G=4, d_p=64, anneal_iters=100,
+                                   device=cuda)
+    p = lin.as_serve_params()
+    assert p["table_narrow"].dtype == torch.int8
+    x = torch.as_tensor(np.abs(rng.normal(size=(5, K))), dtype=torch.float32)
+    cfg = smoke_config("codeqwen1.5-7b")
+    n0 = tf.launches
+    got = nn.serve_linear_apply(p, x.to(cuda).bfloat16(), cfg)
+    torch.cuda.synchronize()
+    assert tf.launches == n0 + 1
+    want = nn.serve_linear_apply({k: v.cpu() for k, v in p.items()},
+                                 x.bfloat16(), cfg)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_splits", [1, 5])
+@pytest.mark.parametrize("kv", ["fp", "int8", "int4"])
+def test_flash_decode_single_launch_equals_plain(cuda, kv, n_splits):
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged
+
+    gen = torch.Generator(device=cuda).manual_seed(n_splits)
+    B, KV, rep, hd, P, MB = 4, 4, 2, 128, 16, 8
+    n_pages = B * MB + 1
+    k, v = (torch.randn((n_pages, P, KV, hd), generator=gen, device=cuda)
+            for _ in range(2))
+    qs = paged.KVQuantSpec(kv)
+    if kv == "fp":
+        pools = dict(k_pages=k.bfloat16(), v_pages=v.bfloat16())
+    else:
+        (kc, ks), (vc, vs) = paged.quantise_kv(k, qs), paged.quantise_kv(v, qs)
+        pools = dict(k_pages=kc, v_pages=vc, k_scales=ks, v_scales=vs)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[:B * MB]
+          + 1).reshape(B, MB).to(torch.int32)
+    bt[1] = 0                                        # an idle slot
+    lengths = torch.tensor([100, 1, 128, 37], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, KV, rep, hd), generator=gen, device=cuda).bfloat16()
+    kw = dict(pools, n_splits=n_splits, kv_dtype=kv)
+    n0 = fd.launches
+    got = fd.flash_decode(q, block_table=bt, lengths=lengths, **kw)
+    want = fd.combine_splits(*fd.flash_decode_partials_plain(
+        q, block_table=bt, lengths=lengths, **kw))
+    torch.cuda.synchronize()
+    assert fd.launches == n0 + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

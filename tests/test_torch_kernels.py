@@ -81,6 +81,78 @@ def test_lookup_gemm_bitexact_vs_jax_ref_and_fused(dp, kg, n_arr, idx_dtype, M):
     assert torch.equal(ref, got)
 
 
+@pytest.mark.parametrize("lo,hi,want", [
+    (-8, 8, torch.int8), (-128, 128, torch.int8), (-128, 129, torch.int16),
+    (-129, 5, torch.int16), (-32768, 32768, torch.int16)])
+def test_narrow_table_keeps_every_value_and_picks_int16_exactly_when_needed(
+        lo, hi, want):
+    rng = np.random.default_rng(hi - lo)
+    t = rng.integers(lo, hi, (3, 50, 16)).astype(np.int32)
+    t[0, 0, 0], t[-1, -1, -1] = lo, hi - 1           # both ends present
+    got = tfused.narrow_table(torch.from_numpy(t))
+    assert got.dtype == want and got.is_contiguous()
+    assert np.array_equal(got.to(torch.int32).numpy(), t)
+    assert tfused.narrow_table(got) is got       # already narrow: kept
+
+
+def test_narrow_table_refuses_what_leaves_int16():
+    t = torch.zeros((2, 4, 16), dtype=torch.int32)
+    t[1, 2, 3] = 40000
+    with pytest.raises(ValueError, match="int16"):
+        tfused.narrow_table(t)
+    with pytest.raises(ValueError, match="integer"):
+        tfused.narrow_table(t.float())
+
+
+# (G, B_a, dp, kg, n_arr, idx dtype, M, table range): the one-hot form on
+# seeded plans, G 3 and 4, B_a up to 8 (coefficients up to 255), int8 and
+# int16 rows
+ONEHOT_CASES = [
+    (4, 3, 128, 16, 512, np.int16, 4, (-8, 8)),
+    (4, 8, 120, 20, 256, np.uint8, 17, (-8, 8)),
+    (3, 3, 64, 37, 300, np.int16, 64, (-12, 10)),
+    (3, 4, 5, 9, 100, np.uint8, 1, (-300, 300)),
+    (2, 2, 4, 16, 64, np.uint8, 3, (-4, 4)),
+    (1, 3, 8, 24, 16, np.uint8, 5, (-2, 2)),
+]
+
+
+@pytest.mark.parametrize("G_,B_a,dp,kg,n_arr,idx_dtype,M,rng_", ONEHOT_CASES)
+def test_onehot_form_equals_both_lookup_refs(G_, B_a, dp, kg, n_arr, idx_dtype,
+                                              M, rng_):
+    """The kernel's algebra (one-hot coefficients times gathered narrow
+    rows, the library yardstick's function) is int32-equal to the port's
+    and to the JAX package's lookup oracle."""
+    rng = np.random.default_rng(G_ * 1000 + dp + kg + M)
+    n_tiles = 2
+    N = n_tiles * dp
+    a = rng.integers(0, 2**B_a, (M, kg * G_)).astype(np.uint8).view(np.int8)
+    table = rng.integers(*rng_, (3, n_arr, 2**G_)).astype(np.int32)
+    idx = rng.integers(0, n_arr, (n_tiles, kg, dp)).astype(idx_dtype)
+    cl = rng.integers(0, 3, (n_tiles, kg)).astype(np.int8)
+    want = np.asarray(jref.tlmac_matmul_ref(
+        jnp.asarray(a), jnp.asarray(table),
+        jnp.asarray(idx.reshape(-1, dp).astype(np.int32)),
+        jnp.asarray(cl.reshape(-1).astype(np.int32)), B_a, G_, N))
+    ta, tt, ti, tc = map(torch.from_numpy, (a, table, idx, cl))
+    narrow = tfused.narrow_table(tt)
+    ref = tref.tlmac_matmul_ref(ta, tt, ti, tc, B_a, G_, N)
+    assert np.array_equal(ref.numpy(), want)
+    coef = tfused.onehot_coefficients(ta, B_a, G_)
+    assert coef.shape == (M, kg, 2**G_)
+    assert int(coef.min()) >= 0 and int(coef.max()) <= 2**B_a - 1
+    assert torch.equal(coef.sum(-1), torch.full((M, kg), 2**B_a - 1,
+                                                dtype=torch.int32))
+    for tab in (tt, narrow):
+        got = tfused.tlmac_gemm_onehot_plain(ta, ti, tc, tab, B_a=B_a, G=G_)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+        assert torch.equal(tfused.tlmac_gemm_fused(ta, ti, tc, tab, B_a=B_a,
+                                                   G=G_), ref)
+    w = tfused.gathered_rows(ti, tc, narrow)
+    assert w.dtype == narrow.dtype and w.shape == (kg * 2**G_, N)
+
+
 def test_pack_bitplanes_bitexact_vs_jax():
     rng = np.random.default_rng(0)
     a = rng.integers(0, 8, (5, 24)).astype(np.int8)
@@ -297,11 +369,35 @@ def test_lookup_gemm_kernel_equals_plain_on_card(cuda, dp, kg, n_arr,
     arrs = [torch.from_numpy(x).to(cuda)
             for x in _plan(rng, dp, kg, 2, n_arr, idx_dtype, M)]
     a, table, idx, cl = arrs
+    narrow = tfused.narrow_table(table)      # the kernel reads narrow rows
     n0 = tfused.launches
-    got = tfused.tlmac_gemm_fused(a, idx, cl, table, B_a=B_A, G=G)
+    got = tfused.tlmac_gemm_fused(a, idx, cl, narrow, B_a=B_A, G=G)
     want = tfused.tlmac_gemm_fused_plain(a, idx, cl, table, B_a=B_A, G=G)
     torch.cuda.synchronize()
     assert tfused.launches == n0 + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="narrow"):
+        tfused.tlmac_gemm_fused(a, idx, cl, table, B_a=B_A, G=G)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
+@pytest.mark.parametrize("G_,B_a,dp,kg,n_arr,idx_dtype,_M,rng_", ONEHOT_CASES)
+def test_lookup_gemm_kernel_both_inner_products_on_card(
+        cuda, M, G_, B_a, dp, kg, n_arr, idx_dtype, _M, rng_):
+    """dp4a (M <= 16, and every int16 table) and mma.sync (M > 16) paths
+    across G 1-4, ragged kg, odd dp, uint8/int16 indices, int8/int16 rows
+    and B_a up to 8."""
+    rng = np.random.default_rng(G_ * 1000 + dp + kg + M)
+    a = rng.integers(0, 2**B_a, (M, kg * G_)).astype(np.uint8).view(np.int8)
+    table = rng.integers(*rng_, (3, n_arr, 2**G_)).astype(np.int32)
+    idx = rng.integers(0, n_arr, (3, kg, dp)).astype(idx_dtype)
+    cl = rng.integers(0, 3, (3, kg)).astype(np.int8)
+    ta, tt, ti, tc = (torch.from_numpy(x).to(cuda) for x in (a, table, idx, cl))
+    got = tfused.tlmac_gemm_fused(ta, ti, tc, tfused.narrow_table(tt),
+                                  B_a=B_a, G=G_)
+    want = tfused.tlmac_gemm_fused_plain(ta, ti, tc, tt, B_a=B_a, G=G_)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
@@ -326,4 +422,41 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, rep, hd,
     want = combine_splits(*flash_decode_partials_plain(*args, **kw))
     torch.cuda.synchronize()
     assert fd.launches == n0 + 1
+    torch.testing.assert_close(got, want, atol=FLASH_ATOL, rtol=0)
+
+
+# the kernel's own edges: one and many splits (more splits than keys),
+# rep above the 8-head tile (two rep chunks), hd 128 (16 lanes a row) and
+# 8 (one lane a row), a window shorter than a page
+CARD_FLASH_CASES = [  # (rep, hd, window, n_splits)
+    (1, 128, None, 1),
+    (1, 128, None, 16),
+    (12, 64, None, 3),
+    (4, 8, 3, 7),
+    (1, 128, 5, 64),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rep,hd,window,n_splits", CARD_FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["fp", "int8", "int4"])
+def test_flash_decode_kernel_edges_on_card(cuda, dtype, rep, hd, window,
+                                           n_splits):
+    from repro_torch.kernels import flash_decode as fd
+
+    rng = np.random.default_rng(rep * 100 + hd + n_splits)
+    jqv, pools, bt, lens = _flash_inputs(rng, dtype, 3, 2, rep, hd, 8, 6,
+                                         (1, 20, 45), idle=(0,))
+    t = {n: to_torch(np.asarray(x), cuda) for n, x in pools.items()}
+    q = to_torch(np.asarray(jqv), cuda)
+    args = (q, t["k"], t["v"], torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+    kw = dict(window=window, n_splits=n_splits, k_scales=t.get("ks"),
+              v_scales=t.get("vs"), kv_dtype=dtype)
+    n0 = fd.launches
+    for _ in range(2):                  # the split tickets reset themselves
+        got = tflash(*args, **kw)
+    want = combine_splits(*flash_decode_partials_plain(*args, **kw))
+    torch.cuda.synchronize()
+    assert fd.launches == n0 + 2
     torch.testing.assert_close(got, want, atol=FLASH_ATOL, rtol=0)

@@ -148,6 +148,42 @@ def test_serve_linear_gemms_bitexact_vs_jax(arch, layer):
         assert np.array_equal(np.asarray(jy, np.float32), ty.float().numpy())
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_params_carry_narrow_tables_that_change_nothing(arch):
+    """The converter and ``init_lm`` add each serve linear's int8 rows
+    once; a forward through them is bit-identical to one through the
+    int32 tables (the plain version reads either)."""
+    _, tcfg, _, tp = _model(arch)
+    init = tlm.init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    for tree in (tp.tree(), init.tree()):
+        seg = tree["segments"][0]["b0"]
+        for blk, name in LINEARS:
+            t, n = seg[blk][name]["table"], seg[blk][name]["table_narrow"]
+            assert t.dtype == torch.int32 and n.dtype == torch.int8
+            assert torch.equal(n.to(torch.int32), t), (blk, name)
+    bare = convert.ParamTree(_drop_narrow(tp.tree()))
+    spec = spec_for(48, 2, page_size=8)
+    bt = torch.zeros((2, spec.max_blocks), dtype=torch.int32)
+    bt[0, :2] = torch.tensor([3, 5])
+    toks = torch.tensor([[7], [1]], dtype=torch.int32)
+    pos = torch.tensor([9, 0], dtype=torch.int32)
+    out = []
+    for params in (tp, bare):
+        caches = tlm.init_caches(tcfg, spec, device="cpu")
+        logits, _ = tlm.decode_step_paged(params, caches, toks, pos, bt, tcfg)
+        out.append(logits)
+    assert torch.equal(out[0], out[1])
+
+
+def _drop_narrow(tree):
+    if isinstance(tree, dict):
+        return {k: _drop_narrow(v) for k, v in tree.items()
+                if k != "table_narrow"}
+    if isinstance(tree, list):
+        return [_drop_narrow(v) for v in tree]
+    return tree
+
+
 def test_norm_rotary_embed_logits_match_jax():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 3, 32)).astype(np.float32)
