@@ -31,8 +31,12 @@ Phases, in order; any failure raises and exits non-zero:
    conv, ``verify_plan`` on each;
 6. kernels 1 and 3-6 at those 16 convs' shapes (batch 32, 56x56 input):
    int32-equal to their plain versions, kernels 5/6 to kernel 3's row
-   GEMMs; kernel, plain, bound and ``torch._int_mm`` (same weights)
-   times per stage, and the whole conv against ``conv2d`` of the codes;
+   GEMMs and to ``torch._int_mm`` of the plan's weights; kernel, plain,
+   bound (bytes over HBM or the one-hot product over the int8
+   tensor-core peak, both printed) and ``torch._int_mm`` times per
+   stage (kernels 5/6 and their ``_int_mm`` by CUDA-graph replay, the
+   eager time beside), and the whole conv against ``conv2d`` of the
+   codes;
 7. the serve main path: full-width codeqwen1.5-7b with seeded random
    TLMAC weights drawn on the card, ``PagedServeLoop(batch_slots=4,
    s_max=1024, page_size=16)`` over six requests, with the launch
@@ -119,6 +123,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SIDE_STREAM = []   # one warm-up stream for every graph_ms call
+
+
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device ms per call: ``iters`` calls captured in one CUDA graph and
     replayed, so the host's cost between calls is not timed.  A decode
@@ -128,7 +135,12 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     import torch
 
     fn()
-    side = torch.cuda.Stream()
+    # the warm-up runs on one side stream for the whole script: cuBLAS
+    # keeps a workspace for every stream it has run on, so a new stream
+    # per call would leave memory allocated into the serve run's peak
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -172,13 +184,17 @@ GEMM_MS = (1, 4, 16, 17, 64)   # both inner products and their boundary
 INT_MM_MIN_M = 32              # torch._int_mm refuses M <= 16: pad to 32
 
 
-def _gemm_bound(M, K, N, kg, G, nbytes):
+def _gemm_bound(M, kg, N, G, nbytes):
     """The least time (ms) of one lookup GEMM: its bytes over HBM, or the
     one-hot product's 2*M*2^G*kg*N operations over the int8 tensor-core
-    peak, whichever is larger."""
-    ops = 2 * M * 2**G * kg * N
-    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_TC_OPS_S
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    peak, whichever is larger; with the two times it is the larger of."""
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_o = 2 * M * 2**G * kg * N / INT8_TC_OPS_S * 1e3
+    return dict(bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o)
+
+
+def _bound_by(d):
+    return "bytes" if d["bytes_ms"] >= d["ops_ms"] else "operations"
 
 
 def _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G):
@@ -239,7 +255,8 @@ def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
                 aq, idx, cl, tab, B_a=B_a, G=G), iters=3, warmup=1)
             nbytes = M * K + idx.numel() * 2 + cl.numel() + tab.numel() \
                 + M * N * 4
-            bound, by = _gemm_bound(M, K, N, kg, G, nbytes)
+            b = _gemm_bound(M, kg, N, G, nbytes)
+            bound, by = b["bound_ms"], _bound_by(b)
             lib = _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G)
             _equal(f"lookup GEMM {name} M={M} one-hot _int_mm", lib(), got)
             lib_ms = graph_ms(lib)
@@ -497,11 +514,23 @@ def _equal(name, got, want):
 
 
 def _bound(nbytes, ops):
-    """The least time (ms) for ``nbytes`` of traffic and ``ops`` lookup-adds
-    or bit operations, as fields of one launch: the bound and the two
-    times it is the larger of."""
+    """The least time (ms) for ``nbytes`` of traffic and ``ops`` bit
+    operations (the pack's) at the non-tensor rate, as fields of one
+    launch: the bound and the two times it is the larger of."""
     t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / NONTENSOR_OPS_S * 1e3
     return dict(bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o)
+
+
+def _live_steps(idx_sorted, n_arr1):
+    """Steps of a cluster schedule up to each (tile, cluster) run's last
+    step that selects a real row (not the zero row ``n_arr1 - 1``), summed
+    over the runs: the steps whose codes a launch needs."""
+    import torch
+
+    ms, dp = idx_sorted.shape[-2:]
+    real = (idx_sorted.reshape(-1, ms, dp) != n_arr1 - 1).any(-1)
+    steps = torch.arange(1, ms + 1, device=real.device)
+    return int(torch.where(real, steps, 0).amax(-1).sum())
 
 
 def phase_lookup_small():
@@ -716,7 +745,6 @@ def phase_resnet_kernels(cfg, params, plans):
             wr = _dense_weights(w_codes, (r,))
             lib = torch._int_mm(win, wr)
             _equal(f"{name} row {r} _int_mm", lib, got)
-            ops = M * B_a * C * N
             lib_ms = cuda_ms(lambda: torch._int_mm(win, wr), 10)
             add("tlmac_gemm", stage,
                 ms=cuda_ms(lambda: tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=3,
@@ -724,17 +752,17 @@ def phase_resnet_kernels(cfg, params, plans):
                 plain_ms=cuda_ms(lambda: tg.tlmac_gemm_plain(
                     codes, rb, t2d, B_a=B_a, G=3, N=N), 2, 1),
                 library_ms=lib_ms, n=1,
-                **_bound(codes.numel() + rb.numel() * 4 + t2d.numel() * 4
-                         + M * N * 4, ops))
+                **_gemm_bound(M, C, N, 3, codes.numel() + rb.numel() * 4
+                              + t2d.numel() * 4 + M * N * 4))
             idx_t = (torch.uint8 if plan.N_arr <= 256 else torch.int16)
             ex3 = ex.reshape(n_ot, C, dpc).to(idx_t)
             cl2 = cl.reshape(n_ot, C).to(torch.int8)
             fz = tf.tlmac_gemm_fused(win, ex3, cl2, tn, B_a=B_a, G=3)
             _equal(f"{name} row {r} tlmac_gemm_fused", fz, got)
-            bound, _ = _gemm_bound(M, K, N, C, 3, M * K
-                                   + ex3.numel() * ex3.element_size()
-                                   + cl2.numel() + tn.numel()
-                                   * tn.element_size() + M * N * 4)
+            bound = _gemm_bound(M, C, N, 3, M * K
+                                + ex3.numel() * ex3.element_size()
+                                + cl2.numel() + tn.numel()
+                                * tn.element_size() + M * N * 4)["bound_ms"]
             add("tlmac_gemm_fused", stage,
                 ms=cuda_ms(lambda: tf.tlmac_gemm_fused(win, ex3, cl2, tn,
                                                        B_a=B_a, G=3), 10),
@@ -763,15 +791,23 @@ def phase_resnet_kernels(cfg, params, plans):
                        per_row[..., r].reshape(M, N), rows[r])
             lib = torch._int_mm(win, w3)
             _equal(f"{name} _int_mm of the plan's weights", lib, got)
-            add(kind, stage,
-                ms=cuda_ms(lambda: fn(cs, idx, s["table_pad"], B_a=B_a, G=3),
-                           10),
-                plain_ms=cuda_ms(lambda: plain(cs, idx, s["table_pad"],
-                                               B_a=B_a, G=3), 2, 1),
-                library_ms=cuda_ms(lambda: torch._int_mm(win, w3), 10), n=1,
-                **_bound(cs.numel() + idx.numel() * 4
-                         + s["table_pad"].numel() * 4 + M * N * 3 * 4,
-                         M * B_a * plan.D_s * plan.D_p))
+            tab = s["table_pad"]
+            run = lambda: fn(cs, idx, tab, B_a=B_a, G=3)
+            # the codes of the live steps only (the padding after a run's
+            # last real step is never read); the one-hot product the same
+            live = _live_steps(idx, tab.shape[1])
+            add(kind, stage, ms=graph_ms(run, iters=5, replays=3),
+                eager_ms=cuda_ms(run, 10),
+                plain_ms=cuda_ms(lambda: plain(cs, idx, tab, B_a=B_a, G=3),
+                                 2, 1),
+                library_ms=graph_ms(lambda: torch._int_mm(win, w3), iters=5,
+                                    replays=3),
+                library_eager_ms=cuda_ms(lambda: torch._int_mm(win, w3), 10),
+                n=1,
+                **_gemm_bound(M, live, plan.D_p, 3, B_a * M * live
+                              + idx.numel() * 4
+                              + tab.numel() * tab.element_size()
+                              + M * N * 3 * 4))
         # the whole conv: integer codes through conv2d in f32 (TF32 off)
         (ht, hb), (wl, wr_) = (R.same_pads(shape[1], 3, stride),
                                R.same_pads(shape[2], 3, stride))
@@ -790,13 +826,24 @@ def phase_resnet_kernels(cfg, params, plans):
                 t[f] = t.get(f, 0.0) + v
         return t
 
+    def line(kind, what, d):
+        lib = d.get("library_ms")
+        eager = (f" (eager calls {d['eager_ms']:.4f} ms)" if "eager_ms" in d
+                 else "")
+        lib_eager = (f" (eager {d['library_eager_ms']:.4f} ms)"
+                     if "library_eager_ms" in d else "")
+        bound = (f", bound {d['bound_ms']:.4f} ms (bytes {d['bytes_ms']:.4f}"
+                 f", ops {d['ops_ms']:.4f})" if "bytes_ms" in d else
+                 f", bound {d['bound_ms']:.4f} ms")
+        log(f"  {kind:27s} {what} ({int(d['n'])} launches): kernel "
+            f"{d['ms']:.4f} ms{eager}, plain {d['plain_ms']:.3f} ms{bound}, "
+            "library " + (f"{lib:.4f} ms{lib_eager}" if lib is not None
+                          else "none"))
+
     for kind in keys[:-1]:
         for stage, d in sorted(acc[kind].items()):
-            lib = d.get("library_ms")
-            log(f"  {kind:27s} stage {stage} ({int(d['n'])} launches): kernel "
-                f"{d['ms']:.4f} ms, plain {d['plain_ms']:.3f} ms, bound "
-                f"{d['bound_ms']:.4f} ms, library "
-                + (f"{lib:.4f} ms" if lib is not None else "none"))
+            line(kind, f"stage {stage}", d)
+        line(kind, "all stages", total(kind))
     for stage, d in sorted(acc["conv"].items()):
         look = sum(acc[k][stage]["ms"] for k in ("pack_bitplanes", "tlmac_gemm"))
         log(f"  stage {stage} lookup convs (pack + 3 row GEMMs) {look:.4f} ms "
@@ -808,10 +855,12 @@ def phase_resnet_kernels(cfg, params, plans):
                        "48 kernel-row lookup GEMMs of the 16 convs"),
         "tlmac_gemm_clustered": (
             "csrc/tlmac_clustered.cu", "src/repro/kernels/tlmac_clustered.py:128",
-            "the 4 single-tile stage-1 convs, all three kernel rows"),
+            "the 4 single-tile stage-1 convs, all three kernel rows "
+            "(device time by CUDA-graph replay)"),
         "tlmac_gemm_clustered_multi": (
             "csrc/tlmac_clustered.cu", "src/repro/kernels/tlmac_clustered.py:290",
-            "all 16 convs, all three kernel rows, one launch each"),
+            "all 16 convs, all three kernel rows, one launch each (device "
+            "time by CUDA-graph replay)"),
     }
     entries = {}
     for kind, (src, rep, shape) in meta.items():
@@ -821,7 +870,7 @@ def phase_resnet_kernels(cfg, params, plans):
             replaces=rep, shape=f"ResNet-18 batch {RESNET_BATCH} at "
             f"{RESNET_HW}x{RESNET_HW}: {shape}", max_abs_err=0, ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by="operations" if kind != "pack_bitplanes" else "bytes",
+            bound_by=_bound_by(t),
             library_ms=t.get("library_ms"))
     fz = total("tlmac_gemm_fused")
     log(f"  tlmac_gemm_fused on the 48 compiled row plans: kernel "

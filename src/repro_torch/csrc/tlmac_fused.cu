@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int MAX_DP = 128;   // output columns per tile (_pick_dp's limit)
@@ -80,10 +82,6 @@ __device__ __forceinline__ int dp2a_hi_su(uint32_t a_s16x2, uint32_t b_u8x4, int
   return d;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // streamed data (the indices): 16 bytes through L2 only, keeping L1 for
 // the table rows
 __device__ __forceinline__ void cp_async_stream16(void* dst, const void* src) {
@@ -97,13 +95,6 @@ __device__ __forceinline__ void cp_async_row(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "n"(BYTES)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The coefficient bytes of one (m, kg): byte c of the C = 2^G bytes is
@@ -347,15 +338,6 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
 constexpr int MMA_THREADS = 256;   // 8 warps
 constexpr int MMA_KB = 128;        // k' bytes (coef bytes of a row) per step
 constexpr int MMA_LD = MMA_KB + 16;  // smem row stride: conflict-free fragments
-
-__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // WN = 1: 8 warps over 8 m16 tiles, each all n8 tiles of dp <= 64.
 // WN = 2: 4 m16 tiles x 2 column halves of dp <= 128.

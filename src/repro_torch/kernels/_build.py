@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so``
-at the repository root (the hash is of the source, so an edited kernel
-never loads a stale library), then loaded with ``ctypes``.  Nothing is
+at the repository root (the hash is of the source and the shared
+``csrc/*.cuh`` headers, so an edited kernel never loads a stale library),
+then loaded with ``ctypes``.  Nothing is
 built at import time: the first wrapper call on a CUDA tensor builds.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
@@ -38,8 +39,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

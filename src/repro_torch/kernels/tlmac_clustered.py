@@ -9,8 +9,10 @@
   LUT array select s picks the        only cluster c's table slice
   truth-table slice                   [N_arr+1, 2^G] sits in shared
                                       memory while its steps run
-  switches (mux per output)           a shared-memory read of row
-                                      idx_sorted[s, p]
+  switches (mux per output)           the int8 mma's B operand read from
+                                      row idx_sorted[s, p] of the slice
+  PE (bit-serial adder tree)          coef [m, s, e] = sum_b 2^b
+                                      [code_b == e], the mma's A operand
 
 Host-side ``cluster_schedule`` / ``cluster_schedule_tiled`` (numpy,
 identical to the reference's) turn a compiled plan into the padded,
@@ -18,7 +20,12 @@ cluster-sorted operand layout.  ``tlmac_gemm_clustered`` (one output
 tile) and ``tlmac_gemm_clustered_multi`` (every tile of a layer, one
 launch) launch the one CUDA kernel of ``csrc/tlmac_clustered.cu`` for
 CUDA tensors and run their plain versions for CPU tensors only; each
-counts its own launches (``launches``, ``launches_multi``).
+counts its own launches (``launches``, ``launches_multi``).  The kernel
+reads the table as narrow rows (``tlmac_fused.narrow_table``: int8, or
+int16 where an entry leaves int8); ``device_schedule`` narrows it once,
+and on the card an int32 ``table_pad`` is refused.  The plain versions
+take any integer table.  ``tlmac_gemm_clustered_onehot_plain`` is the
+kernel's algebra in plain torch.
 ``run_clustered`` / ``run_clustered_multi`` schedule a plan (once per
 device, cached on the plan), pack the activation codes with the
 bit-plane kernel, gather them into cluster order (plain torch, as the
@@ -35,6 +42,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitplanes import pack_bitplanes
 from repro_torch.kernels.ref import lookup_gemm_ref
+from repro_torch.kernels.tlmac_fused import _ROW_BYTES, narrow_table
 
 launches = 0         # tlmac_gemm_clustered (one output tile)
 launches_multi = 0   # tlmac_gemm_clustered_multi (every tile)
@@ -48,10 +56,13 @@ def _launcher(name: str):
         lib = _build.load("tlmac_clustered")
         fn = getattr(lib, name)
         if name == "tlmac_clustered_max_slice_bytes":
-            fn.argtypes = []
+            fn.argtypes = [ctypes.c_int] * 2
+        elif name == "tlmac_clustered_scratch_ints":
+            fn.argtypes = [ctypes.c_int] * 3
         else:
             n_int = 7 if name == "tlmac_clustered_launch" else 8
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int \
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -155,6 +166,42 @@ def tlmac_gemm_clustered_plain(codes_sorted, idx_sorted, table_pad, *,
                                             table_pad, B_a=B_a, G=G)
 
 
+def tlmac_gemm_clustered_onehot_plain(codes_sorted, idx_sorted, table_pad, *,
+                                      B_a: int, G: int) -> torch.Tensor:
+    """The kernel's decomposition in plain torch, int32-equal to the plain
+    versions: for every (tile, cluster) run up to its last step that
+    selects a real row (the padding after it is skipped), the one-hot
+    coefficients ``coef [M, steps, 2^G]`` times the rows of the run's
+    slice ``table_pad[c]`` that the steps select, summed exactly (float64
+    holds every partial sum).  ``idx_sorted`` is ``[n_tiles, n_clus, ms,
+    D_p]`` (or ``[n_clus, ms, D_p]`` for one tile); returns int32 ``[M,
+    n_tiles*D_p]``."""
+    if idx_sorted.dim() == 3:
+        idx_sorted = idx_sorted[None]
+    n_tiles, n_clus, ms, D_p = idx_sorted.shape
+    M, C = codes_sorted.shape[1], 2**G
+    zero_row = table_pad.shape[1] - 1
+    weights = (1 << torch.arange(B_a, device=codes_sorted.device)).view(
+        B_a, 1, 1, 1)
+    out = torch.zeros((M, n_tiles, D_p), dtype=torch.float64,
+                      device=codes_sorted.device)
+    for nt in range(n_tiles):
+        for c in range(n_clus):
+            idx = idx_sorted[nt, c].long()                    # [ms, D_p]
+            real = (idx != zero_row).any(1).nonzero()
+            if not len(real):
+                continue
+            live = int(real[-1]) + 1
+            col0 = (nt * n_clus + c) * ms
+            codes = codes_sorted[:, :, col0:col0 + live].long()
+            coef = (torch.nn.functional.one_hot(codes, C) * weights).sum(0)
+            rows = table_pad[c][idx[:live]]                  # [live, D_p, C]
+            out[:, nt] += (coef.reshape(M, live * C).double()
+                           @ rows.permute(0, 2, 1).reshape(live * C, D_p)
+                           .double())
+    return out.reshape(M, n_tiles * D_p).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -167,9 +214,10 @@ def _check_args(codes_sorted, idx_sorted, table_pad, B_a, G):
                          f"{codes_sorted.dtype} {tuple(codes_sorted.shape)}")
     if idx_sorted.dtype != torch.int32:
         raise ValueError(f"idx_sorted must be int32, got {idx_sorted.dtype}")
-    if (table_pad.dim() != 3 or table_pad.dtype != torch.int32
+    if (table_pad.dim() != 3 or table_pad.dtype.is_floating_point
+            or table_pad.dtype == torch.bool
             or table_pad.shape[0] != n_clus or table_pad.shape[2] != 2**G):
-        raise ValueError(f"table_pad must be int32 [{n_clus}, N_arr+1, "
+        raise ValueError(f"table_pad must be integer [{n_clus}, N_arr+1, "
                          f"{2**G}], got {table_pad.dtype} "
                          f"{tuple(table_pad.shape)}")
     if (codes_sorted.shape[0] != B_a
@@ -187,41 +235,54 @@ def _check_args(codes_sorted, idx_sorted, table_pad, B_a, G):
 def _launch(codes_sorted, idx_sorted, table_pad, B_a, G, multi: bool):
     if not codes_sorted.is_cuda:
         raise ValueError(f"unsupported device {codes_sorted.device}")
+    if table_pad.dtype not in _ROW_BYTES:
+        raise ValueError(f"the kernel reads narrow table rows (int8/int16 "
+                         f"from narrow_table, made once by device_schedule), "
+                         f"got {table_pad.dtype}")
     for name, t in (("codes_sorted", codes_sorted), ("idx_sorted", idx_sorted),
                     ("table_pad", table_pad)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if G < 2:
         raise ValueError(f"the cluster-scheduled kernel takes G >= 2, got {G}")
+    if table_pad.shape[0] > 128:
+        raise ValueError(f"the cluster-scheduled kernel takes at most 128 "
+                         f"clusters (int8 step_cluster), got "
+                         f"{table_pad.shape[0]}")
     if table_pad.data_ptr() % 16:
         raise ValueError("table_pad must be 16-byte aligned (its slices are "
                          "copied in 16-byte pieces)")
     n_tiles, n_clus, ms, D_p = idx_sorted.shape
     n_arr1 = table_pad.shape[1]
-    slice_bytes = n_arr1 * 2**G * 4
-    limit = _launcher("tlmac_clustered_max_slice_bytes")()
+    slice_bytes = n_arr1 * 2**G * table_pad.element_size()
+    limit = _launcher("tlmac_clustered_max_slice_bytes")(B_a, G)
     if limit < 0:
         raise RuntimeError("tlmac_clustered: shared-memory query failed")
     if slice_bytes > limit:
         raise ValueError(
-            f"table slice of {slice_bytes} bytes (N_arr+1={n_arr1}, G={G}) "
-            f"exceeds the {limit} bytes of which two fit a block's shared "
-            "memory; the cluster-scheduled kernel does not tile N_arr: run "
-            "such a plan through tlmac_gemm (ops.tlmac_matmul impl='pallas')")
+            f"table slice of {slice_bytes} bytes (N_arr+1={n_arr1}, G={G}, "
+            f"{table_pad.dtype}) exceeds the {limit} bytes of which two fit a "
+            f"block's shared memory beside its staging at B_a={B_a}; the "
+            "cluster-scheduled kernel does not tile N_arr: run such a plan "
+            "through tlmac_gemm (ops.tlmac_matmul impl='pallas')")
     M = codes_sorted.shape[1]
-    out = torch.empty((M, n_tiles * D_p), dtype=torch.int32,
-                      device=codes_sorted.device)
+    dev = codes_sorted.device
+    out = torch.empty((M, n_tiles * D_p), dtype=torch.int32, device=dev)
     if M == 0:
         return out
-    stream = torch.cuda.current_stream(codes_sorted.device).cuda_stream
+    # the pre-pass writes each run's live steps per column group here
+    scratch = torch.empty(_launcher("tlmac_clustered_scratch_ints")(
+        n_tiles, n_clus, D_p), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (codes_sorted.data_ptr(), idx_sorted.data_ptr(),
-            table_pad.data_ptr(), out.data_ptr())
+            table_pad.data_ptr(), _ROW_BYTES[table_pad.dtype],
+            scratch.data_ptr(), out.data_ptr())
     if multi:
         err = _launcher("tlmac_clustered_multi_launch")(
-            *ptrs, M, n_tiles, n_clus, ms, D_p, n_arr1, 2**G, B_a, stream)
+            *ptrs, M, n_tiles, n_clus, ms, D_p, n_arr1, G, B_a, stream)
     else:
         err = _launcher("tlmac_clustered_launch")(
-            *ptrs, M, n_clus, ms, D_p, n_arr1, 2**G, B_a, stream)
+            *ptrs, M, n_clus, ms, D_p, n_arr1, G, B_a, stream)
     _build.check(err, "tlmac_gemm_clustered" + ("_multi" if multi else ""))
     return out
 
@@ -230,7 +291,8 @@ def tlmac_gemm_clustered(codes_sorted, idx_sorted, table_pad, *, B_a: int,
                          G: int) -> torch.Tensor:
     """One-output-tile clustered lookup GEMM: ``codes_sorted [B_a, M,
     n_clus*ms]`` int8, ``idx_sorted [n_clus, ms, D_p]`` int32 (N_arr =
-    padding), ``table_pad [n_clus, N_arr+1, 2^G]`` int32 -> int32
+    padding), ``table_pad [n_clus, N_arr+1, 2^G]`` (on the card int8/int16
+    from ``narrow_table``) -> int32
     ``[M, D_p]``.  Indices must be rows of their slice and codes below
     2^G: the kernel does not bound-check them."""
     global launches
@@ -250,7 +312,8 @@ def tlmac_gemm_clustered_multi(codes_sorted, idx_sorted, table_pad, *,
                                B_a: int, G: int) -> torch.Tensor:
     """Whole-layer clustered lookup GEMM in one launch: ``codes_sorted
     [B_a, M, n_tiles*n_clus*ms]`` int8, ``idx_sorted [n_tiles, n_clus, ms,
-    D_p]`` int32, ``table_pad [n_clus, N_arr+1, 2^G]`` int32 -> int32
+    D_p]`` int32, ``table_pad [n_clus, N_arr+1, 2^G]`` (on the card
+    int8/int16) -> int32
     ``[M, n_tiles*D_p]``."""
     global launches_multi
     if idx_sorted.dim() != 4:
@@ -273,8 +336,9 @@ def tlmac_gemm_clustered_multi(codes_sorted, idx_sorted, table_pad, *,
 def device_schedule(plan, n_tiles: int, bk: int, device, tiled: bool):
     """The plan's schedule as tensors on ``device`` (built once, cached on
     the plan): ``cols`` (code column of every scheduled step; padding
-    reads column 0 and selects the zero row), ``idx_sorted``,
-    ``table_pad``."""
+    reads column 0 and selects the zero row), ``idx_sorted``, and
+    ``table_pad`` as the narrow rows the kernel reads (``narrow_table``,
+    on the host: no call on the card synchronises to narrow it)."""
     key = ("cluster_schedule", tiled, n_tiles, bk, str(torch.device(device)))
     hit = plan.device_cache.get(key)
     if hit is None:
@@ -290,7 +354,8 @@ def device_schedule(plan, n_tiles: int, bk: int, device, tiled: bool):
             "cols": torch.as_tensor(cols.reshape(-1).astype(np.int64),
                                     device=device),
             "idx_sorted": torch.as_tensor(sched["idx_sorted"], device=device),
-            "table_pad": torch.as_tensor(sched["table_pad"], device=device),
+            "table_pad": narrow_table(torch.as_tensor(
+                sched["table_pad"])).to(device),
         }
         plan.device_cache[key] = hit
     return hit

@@ -9,6 +9,8 @@ so it also runs where only the port is installed:
 Every test needs a CUDA device and skips without one (the hand kernels
 have no CPU mode)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -105,13 +107,137 @@ def test_clustered_kernels_equal_plain_on_card(cuda, K, N, M, B_w, B_a, G,
 
 @pytest.mark.requires_cuda
 def test_clustered_kernel_rejects_a_slice_too_large_for_shared_memory(cuda):
-    # a G=4 plan at N_arr = 4096 has a 262 KB table slice
+    # a G=6 plan at N_arr = 4096 has a 262 KB table slice even as int8
     n_clus, n_arr1, ms, dp = 4, 4097, 8, 64
     codes = torch.zeros((3, 5, n_clus * ms), dtype=torch.int8, device=cuda)
     idx = torch.zeros((n_clus, ms, dp), dtype=torch.int32, device=cuda)
-    table = torch.zeros((n_clus, n_arr1, 16), dtype=torch.int32, device=cuda)
+    table = torch.zeros((n_clus, n_arr1, 64), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="shared"):
-        tc.tlmac_gemm_clustered(codes, idx, table, B_a=3, G=4)
+        tc.tlmac_gemm_clustered(codes, idx, table, B_a=3, G=6)
+
+
+_PLANS = {}
+
+
+def _clustered_plan(K, N, B_w, G, d_p, scale=1):
+    """A compiled plan and its weights, cached across the M cases; with
+    ``scale`` the table (so every weight) is multiplied, which turns the
+    narrow rows int16 when an entry leaves int8."""
+    key = (K, N, B_w, G, d_p, scale)
+    if key not in _PLANS:
+        w, plan, _ = _compiled(K, N, 1, B_w, 3, G, d_p, K + N + G)
+        plan = dataclasses.replace(plan, table=plan.table * scale,
+                                   device_cache={})
+        _PLANS[key] = (w * scale, plan)
+    return _PLANS[key]
+
+
+# (K, N, B_w, B_a, G, d_p): G 2-6, B_a 1-8, D_p 32/120/192, 1 to 8 tiles;
+# D_p 30 (idx rows copied 4 bytes at a time) and 5 (odd: scalar stores)
+CLUSTERED_CARD = [(16, 64, 2, 1, 2, 32), (24, 96, 3, 2, 3, 32),
+                  (32, 240, 3, 3, 4, 120), (40, 192, 3, 5, 5, 192),
+                  (24, 256, 2, 8, 6, 32), (96, 384, 3, 3, 3, 192),
+                  (64, 128, 3, 6, 4, 64), (48, 120, 3, 7, 3, 120),
+                  (32, 64, 3, 4, 2, 64), (48, 60, 3, 3, 3, 30),
+                  (24, 15, 2, 4, 2, 5)]
+
+
+def _run_clustered_both(cuda, w, plan, M, B_a, N, d_p, bk, seed):
+    """Kernels 6 (and 5 for one tile) on ``plan`` against their plain
+    versions and the dense integer GEMM of the plan's weights."""
+    a = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**B_a, size=(M, w.shape[0])).astype(np.int8)).to(cuda)
+    # B_a = 8 codes above 127 are negative int8 bytes: read them unsigned
+    dense = ops.dense_int_matmul(a.to(torch.int32) & 0xFF,
+                                 torch.from_numpy(w).to(cuda))
+    n_tiles = N // d_p
+    for tiled in (True, False) if n_tiles == 1 else (True,):
+        s = tc.device_schedule(plan, n_tiles, bk, cuda, tiled=tiled)
+        assert s["table_pad"].dtype in (torch.int8, torch.int16)
+        cs = bp.pack_bitplanes(a, B_a=B_a, G=plan.G).index_select(2, s["cols"])
+        idx = s["idx_sorted"]
+        fn, plain, count = (
+            (tc.tlmac_gemm_clustered_multi, tc.tlmac_gemm_clustered_multi_plain,
+             "launches_multi") if tiled else
+            (tc.tlmac_gemm_clustered, tc.tlmac_gemm_clustered_plain,
+             "launches"))
+        n0 = getattr(tc, count)
+        got = fn(cs, idx, s["table_pad"], B_a=B_a, G=plan.G)
+        want = plain(cs, idx, s["table_pad"], B_a=B_a, G=plan.G)
+        torch.cuda.synchronize()
+        assert getattr(tc, count) == n0 + 1
+        assert torch.equal(got, want), (tiled, (got != want).sum().item())
+        assert torch.equal(got, dense)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 129])
+@pytest.mark.parametrize("K,N,B_w,B_a,G,d_p", CLUSTERED_CARD)
+def test_clustered_kernel_edges_on_card(cuda, M, K, N, B_w, B_a, G, d_p):
+    w, plan = _clustered_plan(K, N, B_w, G, d_p)
+    _run_clustered_both(cuda, w, plan, M, B_a, N, d_p, 8, M + K)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G,K,d_p,bk", [(3, 24, 192, 8), (4, 32, 64, 64),
+                                        (2, 16, 32, 8), (6, 24, 32, 32)])
+def test_clustered_kernel_int16_rows_and_padded_schedules_on_card(
+        cuda, G, K, d_p, bk):
+    """Entries outside int8 (int16 rows, split exactly into two mma), and
+    schedules padded far past their runs (bk 32 / 64)."""
+    N = 2 * d_p
+    for scale in (1, 50):
+        w, plan = _clustered_plan(K, N, 3, G, d_p, scale)
+        if scale > 1:
+            assert np.abs(plan.table).max() > 127
+        _run_clustered_both(cuda, w, plan, 130, 4, N, d_p, bk, G + scale)
+
+
+@pytest.mark.requires_cuda
+def test_clustered_kernel_refuses_an_int32_table_on_card(cuda):
+    w, plan = _clustered_plan(24, 64, 3, 3, 64)
+    s = tc.device_schedule(plan, 1, 8, cuda, tiled=False)
+    cs = torch.zeros((3, 4, s["idx_sorted"].shape[0] * s["idx_sorted"].shape[1]),
+                     dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="narrow_table"):
+        tc.tlmac_gemm_clustered(cs, s["idx_sorted"], s["table_pad"].int(),
+                                B_a=3, G=3)
+    # the plain version on the CPU takes the int32 table as it is
+    tc.tlmac_gemm_clustered(cs.cpu(), s["idx_sorted"].cpu(),
+                            s["table_pad"].int().cpu(), B_a=3, G=3)
+
+
+# The kernel's int32-slice version double-buffered its slices beside
+# 41,220 bytes of static staging (its B_a = 8 instance): on a card with
+# 232,448 bytes of opt-in shared memory per block, a slice of at most
+# 95,614 bytes, so 23,903 table entries.  At G = 4 that is N_arr + 1 =
+# 1,493.
+_INT32_ENTRIES = (232448 - 41220) // 2 // 4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_arr1,dtype,lo,hi", [
+    (_INT32_ENTRIES // 16, torch.int16, -300, 300),    # its largest slice
+    (_INT32_ENTRIES // 16, torch.int8, -128, 128),
+    (4 * _INT32_ENTRIES // 16, torch.int8, -128, 128),  # four times as many
+])
+def test_clustered_kernel_takes_every_int32_era_slice_and_4x_as_int8(
+        cuda, n_arr1, dtype, lo, hi):
+    gen = torch.Generator(device=cuda).manual_seed(n_arr1)
+    n_tiles, n_clus, ms, dp, M, B_a, G = 2, 3, 24, 96, 150, 3, 4
+    table = torch.randint(lo, hi, (n_clus, n_arr1, 16), generator=gen,
+                          device=cuda).to(dtype)
+    table[:, -1] = 0                                      # the zero row
+    idx = torch.randint(0, n_arr1 - 1, (n_tiles, n_clus, ms, dp),
+                        generator=gen, device=cuda).to(torch.int32)
+    idx[:, :, ms - 5:] = n_arr1 - 1                       # padding steps
+    codes = torch.randint(0, 16, (B_a, M, n_tiles * n_clus * ms),
+                          generator=gen, device=cuda).to(torch.int8)
+    got = tc.tlmac_gemm_clustered_multi(codes, idx, table, B_a=B_a, G=G)
+    want = tc.tlmac_gemm_clustered_multi_plain(codes, idx, table, B_a=B_a,
+                                               G=G)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.requires_cuda
