@@ -34,9 +34,10 @@ Phases, in order; any failure raises and exits non-zero:
    GEMMs and to ``torch._int_mm`` of the plan's weights; kernel, plain,
    bound (bytes over HBM or the one-hot product over the int8
    tensor-core peak, both printed) and ``torch._int_mm`` times per
-   stage (kernels 5/6 and their ``_int_mm`` by CUDA-graph replay, the
-   eager time beside), and the whole conv against ``conv2d`` of the
-   codes;
+   stage (kernels 3-6 and their ``_int_mm`` by CUDA-graph replay, the
+   eager time beside; kernels 1 and 3 on the narrow tables that
+   ``conv_row_plan`` holds), and the whole conv against ``conv2d`` of
+   the codes;
 7. the serve main path: full-width codeqwen1.5-7b with seeded random
    TLMAC weights drawn on the card, ``PagedServeLoop(batch_slots=4,
    s_max=1024, page_size=16)`` over six requests, with the launch
@@ -544,6 +545,7 @@ def phase_lookup_small():
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import tlmac_clustered as tc
+    from repro_torch.kernels import tlmac_fused as tf
     from repro_torch.kernels import tlmac_gemm as tg
 
     rng = np.random.default_rng(5)
@@ -561,7 +563,8 @@ def phase_lookup_small():
         codes = bp.pack_bitplanes(a, B_a=B_a, G=G)
         _equal(f"pack_bitplanes K={K} G={G}", codes,
                bp.pack_bitplanes_plain(a, B_a=B_a, G=G))
-        table = torch.from_numpy(plan.table).to(DEV)
+        # the kernel reads the plan's table as narrow rows, made once
+        table = tf.narrow_table(torch.from_numpy(plan.table)).to(DEV)
         rb = kref.rowbase_from_plan(
             table, torch.from_numpy(plan.exec_idx).to(DEV),
             torch.from_numpy(plan.step_cluster).to(DEV), N // 64, K // G)
@@ -725,15 +728,17 @@ def phase_resnet_kernels(cfg, params, plans):
         codes = bp.pack_bitplanes(win, B_a=B_a, G=3)
         _equal(f"{name} pack", codes,
                bp.pack_bitplanes_plain(win, B_a=B_a, G=3))
-        add("pack_bitplanes", stage,
-            ms=cuda_ms(lambda: bp.pack_bitplanes(win, B_a=B_a, G=3), 10),
+        pack = lambda: bp.pack_bitplanes(win, B_a=B_a, G=3)
+        add("pack_bitplanes", stage, ms=graph_ms(pack, iters=5, replays=3),
+            eager_ms=cuda_ms(pack, 10),
             plain_ms=cuda_ms(lambda: bp.pack_bitplanes_plain(
                 win, B_a=B_a, G=3), 2, 1), n=1,
             **_bound(M * K + codes.numel(), M * K * B_a))
         # kernel 3 (three row GEMMs) and kernel 1 on the same row plans;
-        # kernel 1 reads the plan's table (one for all rows) narrowed once
+        # both read the plan's table (one for all rows) as the narrow rows
+        # conv_row_plan made once
         rows = []
-        tn = tf.narrow_table(R.conv_row_plan(plan, 0, DEV)[0])
+        tn = R.conv_row_plan(plan, 0, DEV)[0]
         for r in range(3):
             table, ex, cl = R.conv_row_plan(plan, r, DEV)
             rb = kref.rowbase_from_plan(table, ex, cl, n_ot, C)
@@ -746,14 +751,17 @@ def phase_resnet_kernels(cfg, params, plans):
             lib = torch._int_mm(win, wr)
             _equal(f"{name} row {r} _int_mm", lib, got)
             lib_ms = cuda_ms(lambda: torch._int_mm(win, wr), 10)
-            add("tlmac_gemm", stage,
-                ms=cuda_ms(lambda: tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=3,
-                                                 N=N), 10),
+            gemm = lambda: tg.tlmac_gemm(codes, rb, t2d, B_a=B_a, G=3, N=N)
+            add("tlmac_gemm", stage, ms=graph_ms(gemm, iters=5, replays=3),
+                eager_ms=cuda_ms(gemm, 10),
                 plain_ms=cuda_ms(lambda: tg.tlmac_gemm_plain(
                     codes, rb, t2d, B_a=B_a, G=3, N=N), 2, 1),
-                library_ms=lib_ms, n=1,
+                library_ms=graph_ms(lambda: torch._int_mm(win, wr), iters=5,
+                                    replays=3),
+                library_eager_ms=lib_ms, n=1,
                 **_gemm_bound(M, C, N, 3, codes.numel() + rb.numel() * 4
-                              + t2d.numel() * 4 + M * N * 4))
+                              + t2d.numel() * t2d.element_size()
+                              + M * N * 4))
             idx_t = (torch.uint8 if plan.N_arr <= 256 else torch.int16)
             ex3 = ex.reshape(n_ot, C, dpc).to(idx_t)
             cl2 = cl.reshape(n_ot, C).to(torch.int8)
@@ -850,9 +858,11 @@ def phase_resnet_kernels(cfg, params, plans):
             f"vs integer conv2d (f32, TF32 off) {d['library_ms']:.4f} ms")
     meta = {
         "pack_bitplanes": ("csrc/bitplanes.cu", "src/repro/kernels/bitplanes.py:41",
-                           "16 packs of the 1x3 windows, M = 32*56^2..32*7^2"),
+                           "16 packs of the 1x3 windows, M = 32*56^2..32*7^2 "
+                           "(device time by CUDA-graph replay)"),
         "tlmac_gemm": ("csrc/tlmac_gemm.cu", "src/repro/kernels/tlmac_gemm.py:136",
-                       "48 kernel-row lookup GEMMs of the 16 convs"),
+                       "48 kernel-row lookup GEMMs of the 16 convs, narrow "
+                       "tables (device time by CUDA-graph replay)"),
         "tlmac_gemm_clustered": (
             "csrc/tlmac_clustered.cu", "src/repro/kernels/tlmac_clustered.py:128",
             "the 4 single-tile stage-1 convs, all three kernel rows "
@@ -968,9 +978,8 @@ def phase_paper_path(cfg, params, plans):
         torch.as_tensor(wq, dtype=torch.float32, device=DEV),
         Q.QuantConfig(w_bits=3, a_bits=3, per_channel=False),
         step=lin.w_step)[0]
-    plan_arrays = [torch.as_tensor(x, device=DEV) for x in (
-        lin.plan.table, lin.plan.exec_idx, lin.plan.step_cluster)]
-    yi = ops.tlmac_matmul(aq, *plan_arrays, B_a=3, G=4, N=N, impl="pallas")
+    yi = ops.tlmac_matmul(aq, *lin._plan_arrays(DEV), B_a=3, G=4, N=N,
+                          impl="pallas")
     _equal("TLMACLinear lookup GEMM vs dense", yi,
            ops.dense_int_matmul(aq, w_codes))
     y = lin(xs)

@@ -66,11 +66,14 @@ class TLMACLinear:
         return self
 
     def _plan_arrays(self, device):
+        """(table, exec_idx, step_cluster) on ``device``, made once: the
+        table as the narrow rows the lookup kernel reads."""
         key = ("linear", str(torch.device(device)))
         hit = self.plan.device_cache.get(key)
         if hit is None:
-            hit = tuple(torch.as_tensor(a, device=device) for a in (
-                self.plan.table, self.plan.exec_idx, self.plan.step_cluster))
+            hit = (narrow_table(torch.as_tensor(self.plan.table)).to(device),
+                   *(torch.as_tensor(a, device=device) for a in (
+                       self.plan.exec_idx, self.plan.step_cluster)))
             self.plan.device_cache[key] = hit
         return hit
 

@@ -1,7 +1,8 @@
-// PTX pieces shared by the lookup GEMM kernels (tlmac_fused.cu and
-// tlmac_clustered.cu): shared-memory addresses, cp.async groups and the
-// int8 m16n8k32 tensor-core products (row-major A of u8 one-hot
-// coefficients, column-major B of table bytes, s32 accumulators).
+// PTX pieces shared by the lookup GEMM kernels (tlmac_fused.cu,
+// tlmac_gemm.cu and tlmac_clustered.cu): shared-memory addresses,
+// cp.async groups and the int8 m16n8k32 tensor-core products (row-major
+// A of u8 one-hot coefficients, column-major B of table bytes, s32
+// accumulators).
 #pragma once
 #include <stdint.h>
 

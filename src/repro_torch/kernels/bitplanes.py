@@ -5,7 +5,8 @@
 CUDA tensors and runs ``pack_bitplanes_plain`` (``ref.pack_bitplanes_ref``)
 for CPU tensors only.  Both return int8 ``[B_a, M, K/G]`` (values
 < 2^G <= 64; the Pallas kernel returns the same values as int32).
-``launches`` counts kernel launches.
+``launches`` counts kernel launches.  ``pack_bitplanes_words_plain`` is
+the kernel's word-wise arithmetic in plain torch.
 """
 
 from __future__ import annotations
@@ -38,6 +39,33 @@ def pack_bitplanes_plain(a_codes: torch.Tensor, *, B_a: int,
                          G: int) -> torch.Tensor:
     """Plain torch version of the kernel: int8 ``[B_a, M, K/G]``."""
     return pack_bitplanes_ref(a_codes, B_a, G)
+
+
+def pack_bitplanes_words_plain(a_codes: torch.Tensor, *, B_a: int,
+                               G: int) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, equal to
+    ``pack_bitplanes_plain``: the input read as one flat stream of M*K/G
+    groups of G bytes; byte g of four consecutive groups gathered into one
+    little-endian word X_g, and each plane's four codes formed at once as
+    ``sum_g ((X_g >> b) & 0x01010101) << g``."""
+    M, K = a_codes.shape
+    total = M * K // G
+    pad = -total % 4
+    groups = torch.nn.functional.pad(
+        a_codes.reshape(total, G).to(torch.uint8).to(torch.int32),
+        (0, 0, 0, pad))                                    # [total+pad, G]
+    by = groups.reshape(-1, 4, G)                          # 4 groups a word
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64,
+                          device=a_codes.device)
+    X = (by.to(torch.int64) << shifts.view(1, 4, 1)).sum(1)   # [words, G]
+    planes = []
+    for b in range(B_a):
+        w = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
+        for g in range(G):
+            w |= ((X[:, g] >> b) & 0x01010101) << g
+        codes = (w.view(-1, 1) >> shifts.view(1, 4)) & 0xFF   # [words, 4]
+        planes.append(codes.reshape(-1)[:total])
+    return torch.stack(planes).to(torch.int8).reshape(B_a, M, K // G)
 
 
 def pack_bitplanes(a_codes: torch.Tensor, *, B_a: int, G: int) -> torch.Tensor:

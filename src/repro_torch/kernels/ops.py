@@ -58,8 +58,12 @@ def tlmac_matmul(a_codes, table, exec_idx, step_cluster, *, B_a: int,
     ``exec_idx`` ``[D_s, D_p]`` or ``[n_tiles, kg, D_p]`` and
     ``step_cluster`` ``[D_s]`` or ``[n_tiles, kg]``; the fused kernel
     reads them in their stored dtypes (uint8/int16, int8) and shape
-    ``[n_tiles, kg, D_p]``, and on the card a table narrowed once by
-    ``tlmac_fused.narrow_table`` (int8/int16 rows)."""
+    ``[n_tiles, kg, D_p]``.  On the card both kernels read a table
+    narrowed once by ``tlmac_fused.narrow_table`` (int8/int16 rows) and
+    refuse an int32 one; ``'pallas'`` (bit-plane pack + the lookup GEMM
+    on packed codes) takes N_arr from ``table.shape[1]``, so the narrow
+    table serves it unchanged; ``codes=`` passes planes packed once for
+    several row GEMMs."""
     if impl == "ref":
         return _ref.tlmac_matmul_ref(a_codes, table, exec_idx, step_cluster,
                                      B_a, G, N)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.quant import quantizers as Q
 from repro_torch.core.tlmac import compile as tlc
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.tlmac_fused import narrow_table
 
 STAGES = [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)]  # (ch, blocks, stride)
 
@@ -198,14 +199,16 @@ def conv_windows(a_codes_img: torch.Tensor) -> torch.Tensor:
 def conv_row_plan(plan, r: int, device):
     """Kernel row ``r`` of a conv plan as a matmul plan on ``device``:
     ``(table, exec_idx [n_otile*C, D_p/3], step_cluster)``; column p =
-    oc*3 + r of the conv plan is output channel oc of row r.  Built once
-    per device and cached on the plan."""
+    oc*3 + r of the conv plan is output channel oc of row r.  The table is
+    the narrow rows the lookup kernel reads (``narrow_table``, made on the
+    host).  Built once per device and cached on the plan."""
     key = ("conv_row", r, str(torch.device(device)))
     hit = plan.device_cache.get(key)
     if hit is None:
         tkey = ("conv_table", str(torch.device(device)))
         if tkey not in plan.device_cache:
-            plan.device_cache[tkey] = torch.as_tensor(plan.table, device=device)
+            plan.device_cache[tkey] = narrow_table(
+                torch.as_tensor(plan.table)).to(device)
         ex = np.ascontiguousarray(plan.exec_idx[:, r::3])
         hit = (plan.device_cache[tkey], torch.as_tensor(ex, device=device),
                torch.as_tensor(plan.step_cluster, device=device))

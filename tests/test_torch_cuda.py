@@ -54,7 +54,8 @@ def test_pack_and_lookup_gemm_equal_plain_on_card(cuda, K, N, M, B_w, B_a, G):
     n0, g0 = bp.launches, tg.launches
     codes = bp.pack_bitplanes(a, B_a=B_a, G=G)
     assert torch.equal(codes, bp.pack_bitplanes_plain(a, B_a=B_a, G=G))
-    table = torch.from_numpy(plan.table).to(cuda)
+    # the kernel reads the plan's table as narrow rows, made once
+    table = tf.narrow_table(torch.from_numpy(plan.table)).to(cuda)
     rb = kref.rowbase_from_plan(table, torch.from_numpy(plan.exec_idx).to(cuda),
                                 torch.from_numpy(plan.step_cluster).to(cuda),
                                 N // 64, K // G)
@@ -69,6 +70,139 @@ def test_pack_and_lookup_gemm_equal_plain_on_card(cuda, K, N, M, B_w, B_a, G):
     dense = ops.dense_int_matmul(a.to(torch.int32) & 0xFF,
                                  torch.from_numpy(w).to(cuda))
     assert torch.equal(got, dense)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3 over its whole domain, on tables built from weight groups
+# ---------------------------------------------------------------------------
+
+
+def _lookup_case(dev, M, KG, n_tiles, dp, B_a, G, wide, seed, R=37):
+    """Packed codes, rowbase, the narrow table and the dense integer GEMM
+    of one lookup GEMM: table row r holds sum_g bit_g(e) * w[r, g] for R
+    random weight groups (|w| < 4, or < 2000 so that the rows are int16),
+    so the lookup GEMM equals ``a @ W`` with W's group (kg, column) the
+    weights of row rowbase[nt, kg, p]."""
+    rng = np.random.default_rng(seed)
+    lim = 2000 if wide else 4
+    wrows = rng.integers(-lim, lim, size=(R, G))
+    bits = (np.arange(2**G)[:, None] >> np.arange(G)) & 1       # [2^G, G]
+    table = tf.narrow_table(torch.from_numpy(wrows @ bits.T)).to(dev)
+    assert table.dtype == (torch.int16 if wide else torch.int8)
+    rb = rng.integers(0, R, size=(n_tiles, KG, dp)).astype(np.int32)
+    a = rng.integers(0, 2**B_a, size=(M, KG * G))
+    W = wrows[rb].transpose(1, 3, 0, 2).reshape(KG * G, n_tiles * dp)
+    dense = torch.from_numpy((a @ W).astype(np.int32)).to(dev)
+    codes = bp.pack_bitplanes_plain(
+        torch.from_numpy(a.astype(np.uint8).view(np.int8)), B_a=B_a,
+        G=G).to(dev)
+    return codes, torch.from_numpy(rb).to(dev), table, dense
+
+
+def _check_lookup(codes, rb, table, dense, B_a, G):
+    N = rb.shape[0] * rb.shape[2]
+    n0 = tg.launches
+    got = tg.tlmac_gemm(codes, rb, table, B_a=B_a, G=G, N=N)
+    want = tg.tlmac_gemm_plain(codes, rb, table, B_a=B_a, G=G, N=N)
+    torch.cuda.synchronize()
+    assert tg.launches == n0 + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B_a", [1, 3, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6])
+def test_lookup_gemm_kernel_domain_on_card(cuda, G, B_a):
+    """G 1-6 and B_a 1/3/8 at M 1, 63, 64, 65, 129 and D_p 5, 30, 64,
+    120, 192 (two output tiles each); KG ragged against the kernel's chunk
+    of 128 / 2^G groups (one and a half chunks and one more group), and
+    below one chunk.  These small M split kg over the grid (atomics)."""
+    kc = 128 >> G
+    for ci, (M, dp) in enumerate([(1, 5), (63, 30), (64, 64), (65, 120),
+                                  (129, 192)]):
+        for KG in (kc + kc // 2 + 1, max(1, kc // 2 - 1)):
+            case = _lookup_case(cuda, M, KG, 2, dp, B_a, G, False,
+                                100 * G + 10 * B_a + ci + KG)
+            _check_lookup(*case, B_a, G)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("M,KG,n_tiles,dp,G", [
+    (4100, 64, 2, 64, 3),     # 64-row tiles, kg split in two
+    (20000, 128, 2, 64, 3),   # 128-row tiles, B resident (int8 rows)
+    (4100, 300, 2, 120, 3),   # two column blocks, ragged KG, B streamed
+    (6000, 512, 3, 64, 4),    # B streamed
+    (5000, 77, 1, 192, 2),    # three column blocks, ragged KG, B resident
+])
+def test_lookup_gemm_kernel_large_m_on_card(cuda, M, KG, n_tiles, dp, G,
+                                            wide):
+    """M >= 4096: 64- and 128-row tiles, the B tile resident or streamed,
+    int8 and int16 rows."""
+    case = _lookup_case(cuda, M, KG, n_tiles, dp, 3, G, wide, M + KG + dp)
+    _check_lookup(*case, 3, G)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6])
+def test_lookup_gemm_kernel_int16_rows_on_card(cuda, G):
+    """Entries outside int8: rows read as int16 and split exactly into a
+    low u8 and a high s8 byte, two products summed."""
+    for M, dp, B_a in ((7, 30, 3), (130, 64, 8), (65, 192, 1)):
+        case = _lookup_case(cuda, M, 40, 2, dp, B_a, G, True, G * M + dp)
+        assert case[2].abs().max() > 127
+        _check_lookup(*case, B_a, G)
+
+
+@pytest.mark.requires_cuda
+def test_lookup_gemm_kernel_full_stage1_row_on_card(cuda):
+    """One full ResNet-18 stage-1 row GEMM: M = 32 * 56 * 56, KG 64, dp 64."""
+    case = _lookup_case(cuda, 100352, 64, 1, 64, 3, 3, False, 1)
+    _check_lookup(*case, 3, 3)
+
+
+@pytest.mark.requires_cuda
+def test_lookup_gemm_kernel_refuses_an_int32_table_on_card(cuda):
+    codes, rb, table, dense = _lookup_case(cuda, 9, 16, 1, 64, 3, 3, False, 2)
+    with pytest.raises(ValueError, match="narrow_table"):
+        tg.tlmac_gemm(codes, rb, table.int(), B_a=3, G=3, N=64)
+    # the plain version on the CPU takes the int32 table as it is
+    got = tg.tlmac_gemm(codes.cpu(), rb.cpu(), table.int().cpu(), B_a=3, G=3,
+                        N=64)
+    assert torch.equal(got, dense.cpu())
+
+
+# ---------------------------------------------------------------------------
+# kernel 4 over its whole domain
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B_a", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6])
+def test_pack_kernel_domain_on_card(cuda, G, B_a):
+    """G 1-6 and B_a 1-8: K a multiple of 16*G and not, M*K/G a multiple
+    of 16 and not (the tail of fewer than 16 groups), and an input that is
+    not 16-byte aligned, which the kernel handles with byte loads."""
+    rng = np.random.default_rng(10 * G + B_a)
+    for M, kg in ((1000, 64), (37, 53), (5, 3), (1, 16)):
+        a = torch.from_numpy(rng.integers(0, 2**B_a, size=(M, kg * G)).astype(
+            np.uint8).view(np.int8))
+        want = bp.pack_bitplanes_plain(a, B_a=B_a, G=G)
+        assert torch.equal(bp.pack_bitplanes_words_plain(a, B_a=B_a, G=G),
+                           want)
+        # aligned, then one byte past a 16-byte boundary
+        buf = torch.empty(a.numel() + 16, dtype=torch.int8, device=cuda)
+        for off in (0, 1):
+            x = buf[off:off + a.numel()].view(M, kg * G)
+            x.copy_(a.to(cuda))
+            assert x.data_ptr() % 16 == off
+            n0 = bp.launches
+            got = bp.pack_bitplanes(x, B_a=B_a, G=G)
+            torch.cuda.synchronize()
+            assert bp.launches == n0 + 1
+            assert torch.equal(got.cpu(), want), (M, kg, off)
 
 
 @pytest.mark.requires_cuda
