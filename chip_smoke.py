@@ -13,7 +13,8 @@ Phases, in order; any failure raises and exits non-zero:
    PyTorch versions at the serve path's shapes (kernel 1 at M 1, 4, 16,
    17 and 64, on tables narrowed once as the serve params hold them),
    and kernel 1 at the edges of its dp4a and mma.sync paths (G 3/4,
-   ragged kg, odd dp, uint8/int16 indices, int16 rows): the lookup GEMM
+   ragged kg, odd dp, uint8/int16 indices, int16 rows) and over the whole
+   domain the reference takes (G 1-6, dp up to 256): the lookup GEMM
    must be bit-equal in int32, flash-decode within the stated f32
    tolerance over fp/int8/int4 pools, windows, idle slots, 1 to 16
    splits and two rep chunks; times of the kernel, the plain version,
@@ -24,7 +25,9 @@ Phases, in order; any failure raises and exits non-zero:
 4. kernels 3-6 (bit-plane pack, lookup GEMM on packed codes, the
    cluster-scheduled GEMM for one tile and for every tile) against their
    plain versions and the dense integer GEMM on small compiled plans, at
-   the reference's own test shapes;
+   the reference's own test shapes, and kernels 5-6 at G 1, with more
+   than 128 clusters and with a G 6 slice of N_arr 4096 (larger than
+   shared memory);
 5. full-width ResNet-18 (``configs/resnet18.CONFIG``) drawn on the card
    and its 16 basic-block convs compiled on the host
    (``compile_resnet``): compile seconds and the Fig. 8 cost report per
@@ -40,8 +43,18 @@ Phases, in order; any failure raises and exits non-zero:
    the codes;
 7. the serve main path: full-width codeqwen1.5-7b with seeded random
    TLMAC weights drawn on the card, ``PagedServeLoop(batch_slots=4,
-   s_max=1024, page_size=16)`` over six requests, with the launch
-   counters of kernels 1-2 reset before and read after the run;
+   s_max=1024, page_size=16)`` under the reference's defaults (prefix
+   cache, on-demand pages, priority preemption) over six requests, its
+   chunk and decode forwards captured as CUDA graphs (graph replay
+   checked bit-equal to eager first; one graph per forward after the
+   run), with the launch counters of kernels 1-2 and the graphs' replay
+   counts reset before and read after the run (launches = eager
+   launches + launches recorded at capture x replays);
+   then the serve features at the same width: 8 requests sharing a
+   512-token system prompt, served with the cache off, under the
+   defaults (prefix hits, skipped chunks, tokens equal to the cache-off
+   run where the top-2 margin is clear), and in a pool small enough to
+   preempt (every request finishes, no page leaks);
 8. the port on the card against the port on the CPU (plain versions) on
    the two smoke configs, teacher-forced, logits within tolerance;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
@@ -59,6 +72,7 @@ one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -346,6 +360,73 @@ def phase_gemm_edges(B_a=3):
         "int32 to the plain version; an int32 table is refused")
 
 
+# (name, G, K, N, dp): kernel 1 beyond the serve path's G 4 and dp <= 128
+GEMM_DOMAIN_TIMED = [("G=5 4080->4096 dp 128", 5, 4080, 4096, 128),
+                     ("G=6 4080->4096 dp 128", 6, 4080, 4096, 128),
+                     ("G=4 4096->4096 dp 256", 4, 4096, 4096, 256)]
+
+
+def phase_gemm_domain(B_a=3, n_arr=4096, n_clus=4):
+    """Kernel 1 over the whole domain the reference takes: G 1-6 with dp
+    5, 130, 192 and 256 (above 128 a tile runs as column tiles), uint8 and
+    int16 indices, int8 and int16 rows, int32-equal to the plain version
+    at M 1, 4, 17 and 64; then timed (graph replay), with its bound, at
+    three layer-sized shapes of G 5, G 6 and dp 256."""
+    import torch
+
+    from repro_torch.kernels import tlmac_fused as tf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 0
+    for G in range(1, 7):
+        for dp, narr, (lo, hi) in ((5, 100, (-128, 128)),
+                                   (130, 600, (-8, 8)),
+                                   (192, 300, (-300, 300)),
+                                   (256, 200, (-20, 20))):
+            kg = 29 + G
+            idt = torch.uint8 if narr <= 256 else torch.int16
+            idx = torch.randint(0, narr, (2, kg, dp), generator=gen,
+                                device="cuda").to(idt)
+            cl = torch.randint(0, 3, (2, kg), dtype=torch.int8,
+                               generator=gen, device="cuda")
+            tab = tf.narrow_table(torch.randint(
+                lo, hi, (3, narr, 2**G), dtype=torch.int32, generator=gen,
+                device="cuda"))
+            for M in (1, 4, 17, 64):
+                aq = torch.randint(0, 2**B_a, (M, kg * G), dtype=torch.int8,
+                                   generator=gen, device="cuda")
+                _equal(f"lookup GEMM G={G} dp={dp} {tab.dtype} M={M}",
+                       tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G),
+                       tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a,
+                                                 G=G))
+                n += 1
+    log(f"  lookup GEMM domain: {n} cases (G 1-6, dp 5/130/192/256, uint8/"
+        "int16 indices, int8/int16 rows, M 1/4/17/64) equal int32 to the "
+        "plain version")
+    for name, G, K, N, dp in GEMM_DOMAIN_TIMED:
+        nt, kg = N // dp, K // G
+        idx = torch.randint(0, n_arr, (nt, kg, dp), dtype=torch.int16,
+                            generator=gen, device="cuda")
+        cl = torch.randint(0, n_clus, (nt, kg), dtype=torch.int8,
+                           generator=gen, device="cuda")
+        tab = tf.narrow_table(torch.randint(
+            -8, 8, (n_clus, n_arr, 2**G), dtype=torch.int32, generator=gen,
+            device="cuda"))
+        for M in (4, 64):
+            aq = torch.randint(0, 2**B_a, (M, K), dtype=torch.int8,
+                               generator=gen, device="cuda")
+            run = lambda: tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+            _equal(f"lookup GEMM {name} M={M}", run(),
+                   tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G))
+            ms = graph_ms(run)
+            nbytes = M * K + idx.numel() * 2 + cl.numel() + tab.numel() \
+                + M * N * 4
+            b = _gemm_bound(M, kg, N, G, nbytes)
+            log(f"  lookup GEMM {name:22s} M={M:3d}: equal int32; kernel "
+                f"{ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({_bound_by(b)}),"
+                f" {b['bound_ms'] / ms:.1%} of bound")
+
+
 # ---------------------------------------------------------------------------
 # kernel 2: paged flash-decode
 # ---------------------------------------------------------------------------
@@ -599,6 +680,65 @@ def phase_lookup_small():
     log(f"  kernels 5-6 on the reference's clustered shapes "
         f"({len(CLUSTERED)} + {len(CLUSTERED_MULTI)} plans): equal int32 "
         "to plain and to the dense GEMM")
+
+
+def phase_clustered_domain(B_a=3):
+    """Kernels 5-6 on the plans the reference takes beyond the ResNet
+    ones: G = 1 (a compiled plan, also equal to the dense GEMM), more
+    than 128 clusters, and G = 6 at N_arr 4096 (a 262 KB int8 / 524 KB
+    int16 slice, more than a block's shared memory holds), each against
+    its plain version; the large-slice case timed by graph replay."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tlmac.compile import compile_layer
+    from repro_torch.kernels import bitplanes as bp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tlmac_clustered as tc
+
+    rng = np.random.default_rng(6)
+    K, N, M = 48, 192, 70
+    w = rng.integers(-2, 2, size=(K, N))
+    plan = compile_layer(w, B_w=2, B_a=B_a, G=1, d_p=64, anneal_iters=100,
+                         seed=0)
+    a = torch.from_numpy(rng.integers(0, 2**B_a, (M, K)).astype(np.int8))
+    dense = ops.dense_int_matmul(a, torch.from_numpy(w)).to(DEV)
+    a = a.to(DEV)
+    s = tc.device_schedule(plan, N // 64, 8, DEV, tiled=True)
+    codes = bp.pack_bitplanes(a, B_a=B_a, G=1).index_select(2, s["cols"])
+    got = tc.tlmac_gemm_clustered_multi(codes, s["idx_sorted"],
+                                        s["table_pad"], B_a=B_a, G=1)
+    _equal("clustered multi G=1 plan", got, tc.tlmac_gemm_clustered_multi_plain(
+        codes, s["idx_sorted"], s["table_pad"], B_a=B_a, G=1))
+    _equal("clustered multi G=1 plan vs dense", got, dense)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    for n_clus, n_arr1, G, dtype, ms, dp in (
+            (130, 33, 3, torch.int8, 16, 64), (200, 17, 4, torch.int16, 8, 120),
+            (4, 4097, 6, torch.int8, 24, 192), (4, 4097, 6, torch.int16, 24, 192)):
+        lo, hi = (-128, 128) if dtype == torch.int8 else (-3000, 3000)
+        table = torch.randint(lo, hi, (n_clus, n_arr1, 2**G), generator=gen,
+                              device=DEV).to(dtype)
+        table[:, -1] = 0
+        idx = torch.randint(0, n_arr1 - 1, (2, n_clus, ms, dp), generator=gen,
+                            device=DEV).to(torch.int32)
+        idx[:, :, ms - 3:] = n_arr1 - 1
+        cs = torch.randint(0, 2**G, (B_a, 256, 2 * n_clus * ms),
+                           generator=gen, device=DEV).to(torch.int8)
+        run = lambda: tc.tlmac_gemm_clustered_multi(cs, idx, table, B_a=B_a,
+                                                    G=G)
+        what = (f"G={G} {n_clus} clusters N_arr+1={n_arr1} {dtype} "
+                f"(slice {n_arr1 * 2**G * table.element_size()} bytes)")
+        _equal(f"clustered multi {what}", run(),
+               tc.tlmac_gemm_clustered_multi_plain(cs, idx, table, B_a=B_a,
+                                                   G=G))
+        _equal(f"clustered {what}", tc.tlmac_gemm_clustered(
+            cs[:, :, :n_clus * ms].contiguous(), idx[0], table, B_a=B_a, G=G),
+            tc.tlmac_gemm_clustered_plain(cs[:, :, :n_clus * ms], idx[0],
+                                          table, B_a=B_a, G=G))
+        log(f"  kernels 5-6, {what}, M 256, 2 tiles x dp {dp}: equal int32; "
+            f"kernel 6 {graph_ms(run):.4f} ms")
+    log("  kernels 5-6 at G 1 (compiled plan, == dense GEMM), 130 and 200 "
+        "clusters, and G 6 at N_arr 4096: equal int32 to plain")
 
 
 def resnet_convs(cfg, plans):
@@ -1028,19 +1168,25 @@ PROFILED_STEP = 10   # decode step traced with torch.profiler
 
 
 def _profiled(fn, a, kw):
-    """Run one forward under torch.profiler and print where its device
-    time goes: the two hand kernels, every other kernel, and the busy
-    share of the step's wall time."""
+    """Run one forward (a graph replay) under torch.profiler and print
+    where its device time goes: the two hand kernels, every other kernel,
+    and the busy share of the step's wall time.  Where the profiler
+    records no kernel, the device time between CUDA events around the
+    replay stands in for the busy time (said so in the line)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
+        ev[0].record()
         logits = fn(*a, **kw)
+        ev[1].record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    span = ev[0].elapsed_time(ev[1])
     by_name = {}
     for e in prof.key_averages():
         # kernel events only: CPU ops carry their kernels' time as well
@@ -1053,8 +1199,10 @@ def _profiled(fn, a, kw):
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
     if not busy:
-        log("  profiled decode step: device time not measured (the profiler "
-            "recorded none)")
+        log(f"  profiled decode step {PROFILED_STEP}: the profiler recorded "
+            f"no kernel; CUDA events around the replay: {span:.2f} ms of "
+            f"{wall:.2f} ms wall ({span / wall:.1%}), idle "
+            f"{1 - span / wall:.1%}")
         return logits
     gemm = sum(v for k, v in by_name.items() if "tlmac_fused_" in k)
     flash = sum(v for k, v in by_name.items() if "flash_decode_kernel" in k)
@@ -1065,33 +1213,88 @@ def _profiled(fn, a, kw):
         f"the profiler), device busy {busy:.2f} ms ({busy / wall:.1%}), idle "
         f"{1 - busy / wall:.1%}; lookup GEMM {gemm:.2f} ms, flash-decode "
         f"{flash:.2f} ms, {len(others)} other kernels "
-        f"{busy - gemm - flash:.2f} ms")
+        f"{busy - gemm - flash:.2f} ms; CUDA events around the replay "
+        f"{span:.2f} ms")
     for v, k in others[:5]:
         log(f"    {v:8.3f} ms  {k[:90]}")
     return logits
 
 
-def phase_main():
-    """The main path: full-width codeqwen1.5-7b served on the card."""
+def init_main_model():
+    """Full-width codeqwen1.5-7b with seeded random TLMAC plans, drawn on
+    the card; returns (cfg, params)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import tlmac_fused as tf
     from repro_torch.models import lm
-    from repro_torch.serve.paged import PagedServeLoop
 
-    sync = torch.cuda.synchronize
     cfg = get_config("codeqwen1.5-7b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_lm(cfg, gen, device="cuda")
-    sync()
+    torch.cuda.synchronize()
     log(f"  init {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) on the card: "
         f"{time.perf_counter() - t0:.1f} s")
-    loop = PagedServeLoop(params, cfg, batch_slots=4, s_max=1024,
-                          page_size=16, chunk=CHUNK, device="cuda")
+    return cfg, params
+
+
+def main_loop(params, cfg, **kw):
+    """The serve loop of the main path: 4 slots, s_max 1024, page 16,
+    chunk 64, the reference's defaults (prefix cache, on-demand pages,
+    priority preemption) unless ``kw`` overrides them."""
+    from repro_torch.serve.paged import PagedServeLoop
+
+    return PagedServeLoop(params, cfg, batch_slots=4, s_max=1024,
+                          page_size=16, chunk=CHUNK, device=DEV,
+                          check_invariants=True, **kw)
+
+
+def graph_parity(loop, cfg):
+    """Two prefill chunks (start 0 and 2 * chunk) and one decode step,
+    each replayed from the loop's CUDA graph (the first call captures it)
+    and run eagerly on the same inputs: the logits must be bit-equal.
+    The block tables name distinct pages (writing the same K/V twice is
+    idempotent, and no page is written twice within a forward)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 1)
+    MB = loop.spec.max_blocks
+    row = np.arange(1, MB + 1, dtype=np.int32)
+    bt = (np.arange(loop.B * MB, dtype=np.int32).reshape(loop.B, MB) + 1) \
+        % (loop.spec.n_pages - 1) + 1
+    cases = [("chunk", (rng.integers(0, cfg.vocab, (1, CHUNK)), start, row,
+                        CHUNK - 1), loop._prefill_chunk, loop._chunk_fn)
+             for start in (0, 2 * CHUNK)]
+    cases.append(("decode", (rng.integers(0, cfg.vocab, (loop.B, 1)),
+                             np.array([200, 37, 511, 0][:loop.B]), bt),
+                  loop._decode, loop._decode_fn))
+    for kind, args, graph_fn, eager_fn in cases:
+        got = graph_fn(*args).clone()
+        want = eager_fn(*[torch.as_tensor(np.asarray(x, np.int32),
+                                          device="cuda") for x in args])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{kind} graph replay differs from eager by "
+                f"{(got.float() - want.float()).abs().max().item()}")
+    log(f"  graph replay == eager, bit for bit: chunk at start 0 and "
+        f"{2 * CHUNK}, decode step; captured {loop.compiled_shapes()}, "
+        "launches recorded per graph: " + ", ".join(
+            f"{k} {f.graph_launches}" for k, f in loop.forwards.items()))
+
+
+def phase_main(cfg, params):
+    """The main path: full-width codeqwen1.5-7b served on the card under
+    the reference's defaults, its two forwards replayed from CUDA graphs."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    sync = torch.cuda.synchronize
+    loop = main_loop(params, cfg)
     by_kind = {}
     for name, t in params.named_buffers():
         kind = name.rsplit(".", 1)[-1]
@@ -1105,9 +1308,12 @@ def phase_main():
         f"{k} {v / 2**30:.3f} GiB" for k, v in sorted(by_kind.items()))
         + f", KV pool {pool / 2**30:.3f} GiB; total "
         f"{(sum(by_kind.values()) + pool) / 2**30:.3f} GiB")
+    graph_parity(loop, cfg)
 
     times = {"prefill": [], "decode": []}
+    spans = {"prefill": [], "decode": []}   # device ms between CUDA events
     calls = {"prefill": 0, "decode": 0}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def timed(kind, fn):
         def wrapper(*a, **kw):
@@ -1116,9 +1322,12 @@ def phase_main():
             else:
                 sync()
                 t = time.perf_counter()
+                ev[0].record()
                 logits = fn(*a, **kw)
+                ev[1].record()
                 sync()
                 times[kind].append(time.perf_counter() - t)
+                spans[kind].append(ev[0].elapsed_time(ev[1]))
             calls[kind] += 1
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"non-finite logits in a {kind} forward")
@@ -1131,45 +1340,215 @@ def phase_main():
     for r in reqs:
         loop.submit(r)
     torch.cuda.reset_peak_memory_stats()
+    # every launch counter set to 0 just before the run: the wrappers'
+    # (eager launches) and the graphs' replay counts
     tf.launches = 0
     fd.launches = 0
+    for f in loop.forwards.values():
+        f.eager = f.replays = 0
     t_run = time.perf_counter()
     done = loop.run()
     sync()
     wall = time.perf_counter() - t_run
-    counts = {"tlmac_gemm_fused": tf.launches, "flash_decode": fd.launches}
+    eager = {"tlmac_gemm_fused": tf.launches, "flash_decode": fd.launches}
+    counts = dict(eager)
+    for f in loop.forwards.values():
+        for k, n in f.graph_launches.items():
+            counts[k] += n * f.replays
     assert len(done) == len(reqs), (len(done), len(reqs))
     for r in done:
         assert len(r.output) == MAX_NEW, (r.rid, len(r.output))
         assert 0 <= int(r.output.min()) and int(r.output.max()) < cfg.vocab
     assert loop.refills >= 2, f"only {loop.refills} mid-decode admissions"
+    loop.check_compiled()
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}, \
+        loop.compiled_shapes()
+    assert {k: f.replays for k, f in loop.forwards.items()} == {
+        "chunk": calls["prefill"], "decode": calls["decode"]}
     want_gemm = 7 * cfg.n_layers * (calls["prefill"] + calls["decode"])
     want_flash = cfg.n_layers * calls["decode"]
     assert counts["tlmac_gemm_fused"] == want_gemm, (counts, want_gemm)
     assert counts["flash_decode"] == want_flash, (counts, want_flash)
     loop.pages.check()
+    loop.prefix.check()
     dec = sorted(times["decode"])
     prompt_tokens = sum(PROMPT_LENS)
     log(f"  served {len(done)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
         f"{calls['prefill']} prefill chunks (chunk {CHUNK}), "
         f"{calls['decode']} decode steps, {loop.refills} mid-decode "
-        "admissions; all logits finite")
+        "admissions; all logits finite; compiled "
+        f"{loop.compiled_shapes()} (check_compiled holds)")
+    span = sorted(spans["decode"])
     log(f"  decode step: median {dec[len(dec) // 2] * 1e3:.2f} ms, min "
         f"{dec[0] * 1e3:.2f} ms, max {dec[-1] * 1e3:.2f} ms "
-        f"(batch_slots 4, host clock around a synchronised step)")
+        f"(batch_slots 4, host clock around a synchronised step); device "
+        f"span (CUDA events around the copies and the replay) median "
+        f"{span[len(span) // 2]:.2f} ms, "
+        f"{span[len(span) // 2] / (dec[len(dec) // 2] * 1e3):.1%} of the "
+        "median step")
     log(f"  prefill: {prompt_tokens} prompt tokens in "
         f"{sum(times['prefill']):.2f} s = "
         f"{prompt_tokens / sum(times['prefill']):.1f} tok/s "
         f"({calls['prefill'] * CHUNK} padded chunk tokens)")
     log(f"  max_memory_allocated during the run: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    st = loop.sched_stats()
+    log(f"  defaults: prefix cache {loop.prefix.stats()['nodes']} pages "
+        f"kept, {loop.prefill_tokens_saved} prefill tokens saved; "
+        f"on-demand pages grown {st['grown_pages']}, preemptions "
+        f"{st['preemptions']}, peak live slots {st['peak_live_slots']}, pool "
+        f"peak {st['pool_pages_peak']} of {loop.spec.n_pages - 1} pages")
     log(f"  launches: lookup GEMM {counts['tlmac_gemm_fused']} (= 7 x "
         f"{cfg.n_layers} layers x {calls['prefill'] + calls['decode']} "
         f"forwards), flash-decode {counts['flash_decode']} (= {cfg.n_layers}"
-        f" x {calls['decode']} decode steps)")
-    del loop, params
+        f" x {calls['decode']} decode steps): graph launches recorded at "
+        f"capture x replays ({', '.join(f'{k} {f.replays}' for k, f in loop.forwards.items())}"
+        f") + eager launches {eager}")
+    del loop
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# serve features at full width: shared prefix, pool pressure
+# ---------------------------------------------------------------------------
+
+SYSTEM_LEN = 512                                  # shared system prompt
+SUFFIXES = (16, 64, 128, 96, 32, 112, 48, 80)     # distinct suffixes
+PRESSURE_PAGES = 60   # 59 usable: on-demand growth of the set then preempts
+
+
+def _shared_requests(vocab, seed):
+    import numpy as np
+
+    from repro_torch.serve.loop import Request
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_LEN).astype(np.int32)
+    return [Request(rid=i, prompt=np.concatenate(
+                [system, rng.integers(0, vocab, n).astype(np.int32)]),
+                max_new_tokens=MAX_NEW) for i, n in enumerate(SUFFIXES)]
+
+
+def _serve_margins(loop):
+    """Hook ``loop`` so that, per request, the top-2 margin test of every
+    emitted token is recorded: True where the margin clears LOGIT_TOL x
+    the step's max |logit| (the first token from the admission's last
+    prefill chunk, the rest from decode rows).  For runs without
+    preemption."""
+    import torch
+
+    first, dec, cur = {}, {}, {}
+
+    def clear(lg):
+        top2 = lg.float().topk(2, dim=-1).values
+        return ((top2[..., 0] - top2[..., 1])
+                > LOGIT_TOL * lg.float().abs().amax(-1)).cpu().tolist()
+
+    pop, chunk, decode = loop.sched.pop, loop._prefill_chunk, loop._decode
+
+    def pop_w(ent):
+        cur["rid"] = ent.req.rid
+        return pop(ent)
+
+    def chunk_w(*a):
+        lg = chunk(*a)
+        first[cur["rid"]] = clear(lg[None])[0]     # the last chunk's wins
+        return lg
+
+    def decode_w(*a):
+        lg = decode(*a)
+        ok = clear(lg)
+        for i, s in enumerate(loop.slots):
+            if s is not None:
+                dec.setdefault(s["req"].rid, []).append(ok[i])
+        return lg
+
+    loop.sched.pop, loop._prefill_chunk, loop._decode = pop_w, chunk_w, \
+        decode_w
+    return lambda rid: [first[rid]] + dec.get(rid, [])
+
+
+def phase_serve_features(cfg, params):
+    """The shared-prefix set (8 requests: one 512-token system prompt, a
+    distinct 16-128-token suffix each, 32 new tokens) served three ways:
+    cache off; under the defaults (prefix hits, skipped chunks; tokens
+    equal to the cache-off run wherever its top-2 margin clears the
+    card-vs-CPU tolerance); and in a pool small enough that on-demand
+    growth preempts (every request finishes, no page leaks; the share of
+    tokens equal to the unpressured run is printed: a recompute prefill
+    reads K/V through the chunk's attention where decode used
+    flash-decode, so it is not bit-exact)."""
+    import torch
+
+    runs = {}
+    for name, kw in (("cache off", dict(prefix_cache=False)),
+                     ("defaults", {}),
+                     ("pressure", dict(n_pages=PRESSURE_PAGES))):
+        loop = main_loop(params, cfg, **kw)
+        margins = _serve_margins(loop) if name == "cache off" else None
+        for r in _shared_requests(cfg.vocab, SEED + 2):
+            loop.submit(r)
+        t = time.perf_counter()
+        done = {r.rid: r.output.tolist() for r in loop.run()}
+        wall = time.perf_counter() - t
+        assert sorted(done) == list(range(len(SUFFIXES))), sorted(done)
+        assert all(len(o) == MAX_NEW for o in done.values())
+        loop.check_compiled()
+        loop.pages.check()
+        kept = loop.prefix.n_nodes if loop.prefix is not None else 0
+        assert loop.pages.in_use == kept, (loop.pages.in_use, kept)
+        if loop.prefix is not None:
+            loop.prefix.check()
+            loop.prefix.evict(10**6)
+        assert loop.pages.in_use == 0, "pages leaked"
+        st = loop.sched_stats()
+        runs[name] = dict(done=done, saved=loop.prefill_tokens_saved,
+                          run=loop.prefill_tokens_run,
+                          hits=loop.prefix.hit_blocks if loop.prefix else 0,
+                          cow=loop.cow_copies, st=st, wall=wall,
+                          margins={rid: margins(rid) for rid in done}
+                          if margins else None)
+        log(f"  {name}: {len(done)} requests in {wall:.2f} s; prefill "
+            f"tokens run {loop.prefill_tokens_run}, saved "
+            f"{loop.prefill_tokens_saved}; prefix hit blocks "
+            f"{runs[name]['hits']}, CoW copies {loop.cow_copies}; "
+            f"preemptions {st['preemptions']}, resumes {st['resumes']} "
+            f"({st['resume_prefill_tokens']} tokens replayed), grown pages "
+            f"{st['grown_pages']}, peak live slots {st['peak_live_slots']}, "
+            f"pool peak {st['pool_pages_peak']} of {loop.spec.n_pages - 1}")
+        del loop
+        gc.collect()          # the loop and its graphs form a cycle
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    off, on, pr = runs["cache off"], runs["defaults"], runs["pressure"]
+    assert on["hits"] > 0 and on["saved"] > 0, on
+    assert pr["st"]["preemptions"] >= 1, pr["st"]
+    compared = 0
+    for rid, toks in off["done"].items():
+        for t_off, t_on, ok in zip(toks, on["done"][rid],
+                                   off["margins"][rid]):
+            if not ok:
+                break                        # a near tie: later tokens follow it
+            if t_off != t_on:
+                raise AssertionError(f"request {rid}: cache-on token differs "
+                                     "where the cache-off margin is clear")
+            compared += 1
+    n_tok = len(SUFFIXES) * MAX_NEW
+    same = sum(a == b for rid in on["done"]
+               for a, b in zip(on["done"][rid], off["done"][rid]))
+    pressed = sum(a == b for rid in on["done"]
+                  for a, b in zip(on["done"][rid], pr["done"][rid]))
+    log(f"  shared prefix: {on['saved']} of {on['saved'] + on['run']} "
+        f"prefill tokens saved by the cache; {compared} tokens with a clear "
+        f"top-2 margin equal to the cache-off run ({same} of {n_tok} equal "
+        f"in all)")
+    log(f"  pool pressure ({PRESSURE_PAGES - 1} usable pages): "
+        f"{pr['st']['preemptions']} preemptions, {pr['st']['resumes']} "
+        f"resumes; {pressed} of {n_tok} tokens ({pressed / n_tok:.1%}) equal "
+        "to the unpressured run")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1252,10 +1631,12 @@ def main() -> int:
     phase("lookup GEMM vs plain (int32, must be equal)")
     gemm = phase_gemm(chunk=CHUNK, batch=4)
     phase_gemm_edges()
+    phase_gemm_domain()
     phase("flash-decode vs plain")
     flash = phase_flash()
     phase("kernels 3-6 vs plain on small compiled plans")
     phase_lookup_small()
+    phase_clustered_domain()
     phase("full-width ResNet-18, 16 convs compiled on the host")
     from repro_torch.configs.resnet18 import CONFIG as rcfg
 
@@ -1266,7 +1647,13 @@ def main() -> int:
     counts = dict.fromkeys(["tlmac_gemm_fused", "flash_decode", *lookup])
     if args.only == "all":
         phase("main path (serve)")
-        counts.update(phase_main())
+        cfg, params = init_main_model()
+        counts.update(phase_main(cfg, params))
+        phase("serve features: shared prefix, pool pressure")
+        phase_serve_features(cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
         phase("card vs CPU on smoke configs")
         phase_reference()
         phase("paper path (ResNet-18 compile-and-execute)")

@@ -33,6 +33,17 @@ class ArchConfig:
     serve_impl: str = "tlmac"    # only 'tlmac' is served by this package
     serve_kv_dtype: str = "fp"   # paged KV pool dtype: fp | int8 | int4
     serve_shared_act_quant: bool = True  # swiglu wi/wg share wi's a_step
+    # --- paged serve loop: admission, paging, preemption (the
+    # reference's names and defaults) ---
+    serve_prefix_cache: bool = True   # radix-tree prefix cache over the pool
+    serve_prefix_cache_pages: int = 0  # pages the tree may keep (0 = pool-bound)
+    serve_on_demand_pages: bool = True  # admission covers the padded prefill;
+                                  # decode pages grow at page boundaries
+    serve_preempt_policy: str = "priority"  # victim on exhaustion, or 'never'
+    serve_sched_aging: int = 64   # ticks waited per priority level gained
+    serve_priority_default: int = 0   # priority of a request without one
+    serve_queue_limit: int = 0    # submit backpressure bound (0 = none)
+    serve_check_invariants: bool = False  # structural checks every step
 
     @property
     def kv_head_dim(self) -> int:

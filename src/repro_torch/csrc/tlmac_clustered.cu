@@ -25,7 +25,14 @@
 //     buffer (an int8 slice at ResNet-18's conv plans is 1.5-4 KB).  Two
 //     blocks share an SM, so one block's barriers and stores overlap the
 //     other's products;
-//   - PE: per chunk of 64 coef bytes (two k32 slices: 8 steps at G = 3)
+//   - a slice too large for two buffers (G = 6 at N_arr 4096 is 262 KB
+//     even as int8) runs the same kernel with PARTIAL set: each buffer
+//     holds the slice's first `fit` bytes (as many as two buffers leave
+//     room for), and a B word at a row past them is read from device
+//     memory instead (through L1/L2; one branch per B word, warp-divergent
+//     only where a warp's rows straddle the boundary);
+//   - PE: per chunk of 64 coef bytes (two k32 slices: 8 steps at G = 3,
+//     32 at G = 1)
 //     the block builds its coef tile once in shared memory from the B_a
 //     code planes (they fold into one u8 per table entry), and the product
 //     is int8 mma.sync m16n8k32 (u8 coef x s8 rows, s32 accumulate);
@@ -35,7 +42,8 @@
 //   - the mma k order is permuted so that a thread's two B words are eight
 //     consecutive bytes of one table row (one 8-byte shared load for
 //     G >= 3), and its A words eight consecutive coef bytes: k = 4t + j is
-//     coef/table byte 8t + j, k = 16 + 4t + j is byte 8t + 4 + j;
+//     coef/table byte 8t + j, k = 16 + 4t + j is byte 8t + 4 + j (at G = 2
+//     and G = 1 the eight bytes span two and four rows);
 //   - int16 rows split exactly into a low u8 and a high s8 byte: two mma
 //     per fragment (u8 x u8 and u8 x s8), summed as hi * 256 + lo (exact
 //     mod 2^32, so exact wherever the int32 result is);
@@ -60,11 +68,11 @@
 // 2 * M * 2^G * (live steps) * dp, at the int8 tensor-core rate.  The bytes
 // bound it at conv shapes.
 // Capacity.  Two slices of (N_arr+1)*2^G narrow entries share a block's
-// shared memory with 6 KB of coef tile and the double-buffered idx rows
-// and code bytes of a chunk (G- and B_a-dependent: 1.6-26 KB and 0-16 KB);
-// tlmac_clustered_max_slice_bytes(B_a, G) gives the largest slice (about
-// 92-108 KB), and the wrapper rejects larger plans with a ValueError
-// before launching.
+// shared memory with 6 KB of coef tile, the double-buffered idx rows and
+// code bytes of a chunk (G- and B_a-dependent: 1.6-51 KB and 0-32 KB) and
+// one int per cluster (the live steps); tlmac_clustered_max_slice_bytes(B_a,
+// G) gives the largest slice held whole (by G and B_a).  A larger slice is
+// held in part (PARTIAL above); any number of clusters and G in 1..6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,7 +81,6 @@
 namespace {
 
 constexpr int MAX_BA = 8;
-constexpr int MAX_CLUS = 128;           // clusters a plan may have (int8 step_cluster)
 constexpr int WARPS_M = 1;              // warps along the rows
 constexpr int WARPS_N = 8;              // warps along the columns
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
@@ -98,7 +105,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
 }
 
 // The 2^G coef bytes of one (m, step), sum_b 2^b [code_b == e], from its
-// B_a codes code(b), stored as 2^G / 4 words at dst.
+// B_a codes code(b), stored at dst (2^G / 4 words; two bytes at G = 1).
 template <int G, typename Code>
 __device__ __forceinline__ void build_coef(Code code, int B_a, uint8_t* dst) {
   constexpr int C = 1 << G, CW = C / 4;
@@ -107,8 +114,12 @@ __device__ __forceinline__ void build_coef(Code code, int B_a, uint8_t* dst) {
     // whose code is e
     uint64_t w = 0;
     for (int b = 0; b < B_a; ++b) w += (uint64_t)(1u << b) << (8 * (code(b) & (C - 1)));
+    if constexpr (G == 1) {
+      *reinterpret_cast<uint16_t*>(dst) = (uint16_t)w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < CW; ++j) reinterpret_cast<uint32_t*>(dst)[j] = (uint32_t)(w >> (32 * j));
+      for (int j = 0; j < CW; ++j) reinterpret_cast<uint32_t*>(dst)[j] = (uint32_t)(w >> (32 * j));
+    }
   } else {
     uint32_t w[CW];
 #pragma unroll
@@ -124,56 +135,100 @@ __device__ __forceinline__ void build_coef(Code code, int B_a, uint8_t* dst) {
   }
 }
 
+// zero coef bytes of one (m, step)
+template <int G>
+__device__ __forceinline__ void zero_coef(uint8_t* dst) {
+  if constexpr (G == 1) {
+    *reinterpret_cast<uint16_t*>(dst) = 0;
+  } else {
+#pragma unroll
+    for (int w = 0; w < (1 << G) / 4; ++w) reinterpret_cast<uint32_t*>(dst)[w] = 0;
+  }
+}
+
+// One load of V from the running slice at byte `off`: from the shared
+// buffer `s`, or (PARTIAL, a row past the `fit` bytes the buffer holds)
+// from the slice `g` in device memory.  Loads are naturally aligned and at
+// most 16 bytes, and fit is a multiple of 16, so none straddles the edge.
+template <bool PARTIAL, typename V>
+__device__ __forceinline__ V ld_tab(const uint8_t* s, const uint8_t* g, int fit, int off) {
+  if constexpr (PARTIAL) {
+    if (off >= fit) return __ldg(reinterpret_cast<const V*>(g + off));
+  }
+  return *reinterpret_cast<const V*>(s + off);
+}
+
 // The B words of one thread for k32 slice position q (its eight bytes
 // q .. q+7 in natural (step, entry) order) in column pp: eight consecutive
-// entries of one row for G >= 3, the four entries of two rows for G = 2.
-// int8 rows give (b0, b1); int16 rows give their low bytes (b0, b1, u8)
-// and high bytes (h0, h1, s8).
+// entries of one row for G >= 3, the four entries of two rows for G = 2,
+// the two entries of four rows for G = 1.  int8 rows give (b0, b1); int16
+// rows give their low bytes (b0, b1, u8) and high bytes (h0, h1, s8).
 struct BWords {
   uint32_t b0, b1, h0, h1;
 };
 
-template <int G, typename T>
-__device__ __forceinline__ BWords b_words(const uint8_t* tab, const int* s_idx, int q, int pp) {
+template <int G, typename T, bool PARTIAL>
+__device__ __forceinline__ BWords b_words(const uint8_t* tab, const uint8_t* gtab, int fit,
+                                          const int* s_idx, int q, int pp) {
   BWords r;
   if constexpr (G >= 3) {
     const int off = (s_idx[(q >> G) * IDX_LD + pp] << G) + (q & ((1 << G) - 1));
     if constexpr (sizeof(T) == 1) {
-      const uint2 v = *reinterpret_cast<const uint2*>(tab + off);
+      const uint2 v = ld_tab<PARTIAL, uint2>(tab, gtab, fit, off);
       r.b0 = v.x; r.b1 = v.y;
     } else {
-      const uint4 v = *reinterpret_cast<const uint4*>(tab + 2 * off);
+      const uint4 v = ld_tab<PARTIAL, uint4>(tab, gtab, fit, 2 * off);
       r.b0 = __byte_perm(v.x, v.y, 0x6420); r.h0 = __byte_perm(v.x, v.y, 0x7531);
       r.b1 = __byte_perm(v.z, v.w, 0x6420); r.h1 = __byte_perm(v.z, v.w, 0x7531);
     }
-  } else {
+  } else if constexpr (G == 2) {
     const int s = q >> 2;
     const int o0 = s_idx[s * IDX_LD + pp] << 2;
     const int o1 = s_idx[(s + 1) * IDX_LD + pp] << 2;
     if constexpr (sizeof(T) == 1) {
-      r.b0 = *reinterpret_cast<const uint32_t*>(tab + o0);
-      r.b1 = *reinterpret_cast<const uint32_t*>(tab + o1);
+      r.b0 = ld_tab<PARTIAL, uint32_t>(tab, gtab, fit, o0);
+      r.b1 = ld_tab<PARTIAL, uint32_t>(tab, gtab, fit, o1);
     } else {
-      const uint2 v = *reinterpret_cast<const uint2*>(tab + 2 * o0);
-      const uint2 u = *reinterpret_cast<const uint2*>(tab + 2 * o1);
+      const uint2 v = ld_tab<PARTIAL, uint2>(tab, gtab, fit, 2 * o0);
+      const uint2 u = ld_tab<PARTIAL, uint2>(tab, gtab, fit, 2 * o1);
       r.b0 = __byte_perm(v.x, v.y, 0x6420); r.h0 = __byte_perm(v.x, v.y, 0x7531);
       r.b1 = __byte_perm(u.x, u.y, 0x6420); r.h1 = __byte_perm(u.x, u.y, 0x7531);
+    }
+  } else {
+    const int s = q >> 1;   // four rows of two entries
+    int o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = s_idx[(s + j) * IDX_LD + pp] << 1;
+    if constexpr (sizeof(T) == 1) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = ld_tab<PARTIAL, unsigned short>(tab, gtab, fit, o[j]);
+      r.b0 = w[0] | (w[1] << 16);
+      r.b1 = w[2] | (w[3] << 16);
+    } else {
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = ld_tab<PARTIAL, uint32_t>(tab, gtab, fit, 2 * o[j]);
+      r.b0 = __byte_perm(v[0], v[1], 0x6420); r.h0 = __byte_perm(v[0], v[1], 0x7531);
+      r.b1 = __byte_perm(v[2], v[3], 0x6420); r.h1 = __byte_perm(v[2], v[3], 0x7531);
     }
   }
   return r;
 }
 
-// Shared-memory plan of one launch (bytes): two slices, two idx chunks
+// Shared-memory plan of one launch (bytes): two slice buffers of `held`
+// bytes each (the whole slice, or its first `fit` bytes), two idx chunks
 // [steps][IDX_LD] int32, two code chunks [B_a][BM][steps] (only where the
-// code bytes are copied by cp.async).
+// code bytes are copied by cp.async), and the live steps of every run.
 struct Smem {
-  int slice, idx, codes;
-  __host__ __device__ Smem(int n_arr1, int G, int tb, int B_a, bool copy_codes) {
-    slice = (n_arr1 * (1 << G) * tb + 15) & ~15;
+  int slice, idx, codes, live;
+  __host__ __device__ Smem(int held, int G, int B_a, bool copy_codes, int n_clus) {
+    slice = (held + 15) & ~15;
     idx = (KB >> G) * IDX_LD * 4;
     codes = copy_codes ? (B_a * BM * (KB >> G) + 15) & ~15 : 0;
+    live = (n_clus * 4 + 15) & ~15;
   }
-  __host__ __device__ int total() const { return 2 * (slice + idx + codes); }
+  __host__ __device__ int total() const { return 2 * (slice + idx + codes) + live; }
 };
 
 // Pre-pass: live[(nt * n_clus + c) * n_groups + g] = 1 + the last step of
@@ -229,8 +284,9 @@ __device__ unsigned long long g_phases[8];
 // WN n8 tiles per warp: a block covers 64 * WN columns of a tile.
 // copy_codes: the code bytes of a chunk are 4-byte aligned (ms and the
 // chunk's steps are multiples of 4) and are copied by cp.async; otherwise
-// the coef build reads them from device memory.
-template <int G, int WN, typename T>
+// the coef build reads them from device memory.  fit: the bytes of a
+// slice each buffer holds (the whole slice unless PARTIAL).
+template <int G, int WN, typename T, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
     const int8_t* __restrict__ codes,      // [B_a, M, n_tiles*n_clus*ms]
     const int32_t* __restrict__ idx,       // [n_tiles, n_clus, ms, dp]
@@ -238,13 +294,12 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
     const int32_t* __restrict__ live,      // [n_tiles, n_clus, n_groups] (pre-pass)
     int32_t* __restrict__ out,             // [M, n_tiles*dp]
     int M, int n_clus, int ms, int dp, int n_chunks, int n_arr1, int B_a, int vec_idx,
-    int copy_codes) {
+    int copy_codes, int fit) {
   constexpr int C = 1 << G;
   constexpr int KS = KB >> G;                       // steps per chunk
   constexpr int NP = WARPS_N * 8 * WN;
   extern __shared__ __align__(16) uint8_t s_dyn[];
   __shared__ __align__(16) uint8_t s_a[BM * A_LD];   // coef [m][step*2^G + e]
-  __shared__ int s_live[MAX_CLUS];                   // the block's live steps per run
 
   const int m0 = blockIdx.x * BM;
   const int nt = blockIdx.y / n_chunks;
@@ -257,11 +312,13 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
   const int n_tiles = gridDim.y / n_chunks;
   const size_t L = (size_t)n_tiles * n_clus * ms;   // code columns per row
   const size_t plane = (size_t)M * L;
-  const Smem sm(n_arr1, G, (int)sizeof(T), B_a, copy_codes);
+  const Smem sm(fit, G, B_a, copy_codes, n_clus);
   const int slice_bytes = n_arr1 * C * (int)sizeof(T);
   uint8_t* s_tab = s_dyn;                                            // [2][sm.slice]
   int* s_idx0 = reinterpret_cast<int*>(s_dyn + 2 * sm.slice);        // [2][KS][IDX_LD]
   uint8_t* s_code0 = s_dyn + 2 * (sm.slice + sm.idx);                // [2][B_a][BM][KS]
+  int* s_live = reinterpret_cast<int*>(s_dyn + 2 * (sm.slice + sm.idx + sm.codes));
+                                                                     // [n_clus] live steps
 
   // live steps of each run in this block's columns: the most over its groups
   {
@@ -284,10 +341,15 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
       const uint8_t* src = reinterpret_cast<const uint8_t*>(table) + (size_t)cl * slice_bytes;
       uint8_t* dst = s_tab + slice * sm.slice;
       if (slice_bytes % 16 == 0) {
-        for (int i = tid; i < slice_bytes / 16; i += THREADS)
-          cp_async16(dst + 16 * i, src + 16 * i, 16);
+        for (int i = tid; i < fit / 16; i += THREADS) cp_async16(dst + 16 * i, src + 16 * i, 16);
+      } else if (slice_bytes % 4 == 0) {
+        for (int i = tid; i < fit / 4; i += THREADS) cp_async4(dst + 4 * i, src + 4 * i, 4);
       } else {
-        for (int i = tid; i < slice_bytes / 4; i += THREADS) cp_async4(dst + 4 * i, src + 4 * i, 4);
+        // G = 1 int8 slices of an odd row count: 2-byte pieces, by plain
+        // loads (visible after the barrier that precedes the slice's use)
+        for (int i = tid; i < fit / 2; i += THREADS)
+          reinterpret_cast<uint16_t*>(dst)[i] =
+              __ldg(reinterpret_cast<const unsigned short*>(src) + i);
       }
     }
     // idx rows: steps past the live ones and columns past np are
@@ -365,6 +427,7 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
     if (ncl < n_clus) prefetch(ncl, ni0, buf ^ 1, ni0 == 0 ? sbuf ^ 1 : -1);
     PHASE_MARK(1)   // issuing the next chunk's copies
     const uint8_t* tab = s_tab + sbuf * sm.slice;
+    const uint8_t* gtab = reinterpret_cast<const uint8_t*>(table) + (size_t)cl * slice_bytes;
     const int* s_idx = s_idx0 + buf * (sm.idx / 4);
     // the coef tile, one (row, step) per thread and round, steps fastest;
     // steps past the live ones are zero, rows past M are not stored
@@ -374,8 +437,7 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
       const int mm = i / KS, kc = i - mm * KS;
       uint8_t* dst = s_a + mm * A_LD + kc * C;
       if (kc >= kc_n || m0 + mm >= M) {
-#pragma unroll
-        for (int w = 0; w < C / 4; ++w) reinterpret_cast<uint32_t*>(dst)[w] = 0;
+        zero_coef<G>(dst);
       } else if (KS % 4 == 0 && copy_codes) {
         build_coef<G>([&](int b) { return (uint32_t)s_code[(b * BM + mm) * KS + kc]; }, B_a, dst);
       } else {
@@ -401,7 +463,7 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
       for (int jn = 0; jn < WN; ++jn) {
         const int n8 = wn * WN + jn;
         if (n8 >= nt8) continue;   // warp-uniform
-        const BWords b = b_words<G, T>(tab, s_idx, q, n8 * 8 + grp);
+        const BWords b = b_words<G, T, PARTIAL>(tab, gtab, fit, s_idx, q, n8 * 8 + grp);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           if constexpr (sizeof(T) == 1) {
@@ -449,7 +511,7 @@ __global__ void __launch_bounds__(THREADS, 2) tlmac_clustered_kernel(
 
 // Dynamic shared memory the instance may take beside its static staging
 // (raised to that limit once); -1 if a device query fails.
-template <int G, int WN, typename T>
+template <int G, int WN, typename T, bool PARTIAL>
 int max_dynamic_smem() {
   static int max_dyn = -1;
   if (max_dyn < 0) {
@@ -458,10 +520,10 @@ int max_dynamic_smem() {
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
             cudaSuccess ||
-        cudaFuncGetAttributes(&fa, tlmac_clustered_kernel<G, WN, T>) != cudaSuccess)
+        cudaFuncGetAttributes(&fa, tlmac_clustered_kernel<G, WN, T, PARTIAL>) != cudaSuccess)
       return -1;
     const int limit = optin - (int)fa.sharedSizeBytes;
-    if (cudaFuncSetAttribute(tlmac_clustered_kernel<G, WN, T>,
+    if (cudaFuncSetAttribute(tlmac_clustered_kernel<G, WN, T, PARTIAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, limit) !=
         cudaSuccess)
       return -1;
@@ -474,8 +536,10 @@ int max_dynamic_smem() {
 // same static staging); -1 if a device query fails
 template <int G>
 int max_dynamic_smem_g() {
-  const int lim[] = {max_dynamic_smem<G, 1, int8_t>(), max_dynamic_smem<G, 3, int8_t>(),
-                     max_dynamic_smem<G, 1, int16_t>(), max_dynamic_smem<G, 3, int16_t>()};
+  const int lim[] = {max_dynamic_smem<G, 1, int8_t, false>(),
+                     max_dynamic_smem<G, 3, int8_t, false>(),
+                     max_dynamic_smem<G, 1, int16_t, false>(),
+                     max_dynamic_smem<G, 3, int16_t, false>()};
   int m = lim[0];
   for (int v : lim) m = v < m ? v : m;
   return m;
@@ -483,6 +547,7 @@ int max_dynamic_smem_g() {
 
 int max_dynamic_smem_of(int G) {
   switch (G) {
+    case 1: return max_dynamic_smem_g<1>();
     case 2: return max_dynamic_smem_g<2>();
     case 3: return max_dynamic_smem_g<3>();
     case 4: return max_dynamic_smem_g<4>();
@@ -498,15 +563,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int G, int WN, typename T>
-int launch_wn(const Args& a) {
-  // code bytes by cp.async need every chunk's bytes 4-byte aligned
-  const bool copy_codes = a.ms % 4 == 0 && (KB >> G) % 4 == 0 &&
-                          reinterpret_cast<uintptr_t>(a.codes) % 4 == 0;
-  const Smem sm(a.n_arr1, G, (int)sizeof(T), a.B_a, copy_codes);
-  const int max_dyn = max_dynamic_smem<G, WN, T>();
-  if (max_dyn < 0) return (int)cudaGetLastError();
-  if (sm.total() > max_dyn) return (int)cudaErrorInvalidValue;
+template <int G, int WN, typename T, bool PARTIAL>
+int launch_wn(const Args& a, bool copy_codes, int fit) {
+  const Smem sm(fit, G, a.B_a, copy_codes, a.n_clus);
   const int n_chunks = (a.dp + 64 * WN - 1) / (64 * WN);
   const int n_groups = (a.dp + PGROUP - 1) / PGROUP;
   if ((size_t)a.n_tiles * n_chunks > 65535 || n_groups > 65535) return (int)cudaErrorInvalidValue;
@@ -517,22 +576,42 @@ int launch_wn(const Args& a) {
   const dim3 grid((a.M + BM - 1) / BM, a.n_tiles * n_chunks);
   // whole 16-byte copies of idx rows need dp and the base 16-byte aligned
   const int vec_idx = a.dp % 4 == 0 && reinterpret_cast<uintptr_t>(a.idx) % 16 == 0;
-  tlmac_clustered_kernel<G, WN, T><<<grid, THREADS, sm.total(), a.stream>>>(
+  tlmac_clustered_kernel<G, WN, T, PARTIAL><<<grid, THREADS, sm.total(), a.stream>>>(
       static_cast<const int8_t*>(a.codes), static_cast<const int32_t*>(a.idx),
       static_cast<const T*>(a.table), static_cast<const int32_t*>(a.live),
       static_cast<int32_t*>(a.out), a.M, a.n_clus, a.ms, a.dp, n_chunks, a.n_arr1, a.B_a,
-      vec_idx, copy_codes);
+      vec_idx, copy_codes, fit);
   return (int)cudaGetLastError();
+}
+
+// The whole slice double-buffered where it fits; else PARTIAL, each buffer
+// holding as much of the slice's head as the rest of shared memory leaves.
+template <int G, int WN, typename T>
+int launch_fit(const Args& a) {
+  // code bytes by cp.async need every chunk's bytes 4-byte aligned
+  const bool copy_codes = a.ms % 4 == 0 && (KB >> G) % 4 == 0 &&
+                          reinterpret_cast<uintptr_t>(a.codes) % 4 == 0;
+  const int slice_bytes = a.n_arr1 * (1 << G) * (int)sizeof(T);
+  const int max_dyn = max_dynamic_smem<G, WN, T, false>();
+  if (max_dyn < 0) return (int)cudaGetLastError();
+  if (Smem(slice_bytes, G, a.B_a, copy_codes, a.n_clus).total() <= max_dyn)
+    return launch_wn<G, WN, T, false>(a, copy_codes, slice_bytes);
+  const int max_part = max_dynamic_smem<G, WN, T, true>();
+  if (max_part < 0) return (int)cudaGetLastError();
+  const int fit = ((max_part - Smem(0, G, a.B_a, copy_codes, a.n_clus).total()) / 2) & ~15;
+  if (fit < 16) return (int)cudaErrorInvalidValue;   // the clusters' live table alone fills it
+  return launch_wn<G, WN, T, true>(a, copy_codes, fit);
 }
 
 template <int G, typename T>
 int launch_gt(const Args& a) {
-  return a.dp <= 64 ? launch_wn<G, 1, T>(a) : launch_wn<G, 3, T>(a);
+  return a.dp <= 64 ? launch_fit<G, 1, T>(a) : launch_fit<G, 3, T>(a);
 }
 
 template <typename T>
 int launch_t(const Args& a, int G) {
   switch (G) {
+    case 1: return launch_gt<1, T>(a);
     case 2: return launch_gt<2, T>(a);
     case 3: return launch_gt<3, T>(a);
     case 4: return launch_gt<4, T>(a);
@@ -542,8 +621,8 @@ int launch_t(const Args& a, int G) {
 }
 
 int launch(const Args& a, int G, int table_bytes) {
-  if (a.M < 1 || a.n_tiles < 1 || a.n_clus < 1 || a.n_clus > MAX_CLUS || a.ms < 1 || a.dp < 1 ||
-      a.n_arr1 < 1 || a.B_a < 1 || a.B_a > MAX_BA || G < 2 || G > 6 ||
+  if (a.M < 1 || a.n_tiles < 1 || a.n_clus < 1 || a.ms < 1 || a.dp < 1 ||
+      a.n_arr1 < 1 || a.B_a < 1 || a.B_a > MAX_BA || G < 1 || G > 6 ||
       (table_bytes != 1 && table_bytes != 2) || reinterpret_cast<uintptr_t>(a.table) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   return table_bytes == 1 ? launch_t<int8_t>(a, G) : launch_t<int16_t>(a, G);
@@ -551,14 +630,15 @@ int launch(const Args& a, int G, int table_bytes) {
 
 }  // namespace
 
-// Largest table slice, in bytes, that the kernel can double-buffer beside
-// a chunk's staging at this B_a and G (counting the code bytes' buffers
-// whether or not a launch copies them); -1 if a device query fails.
+// Largest table slice, in bytes, that the kernel holds whole (double-
+// buffered) beside a chunk's staging at this B_a and G and one cluster
+// (counting the code bytes' buffers whether or not a launch copies them);
+// a larger slice runs PARTIAL.  -1 if a device query fails.
 extern "C" int tlmac_clustered_max_slice_bytes(int B_a, int G) {
-  if (B_a < 1 || B_a > MAX_BA || G < 2 || G > 6) return 0;
+  if (B_a < 1 || B_a > MAX_BA || G < 1 || G > 6) return 0;
   const int max_dyn = max_dynamic_smem_of(G);
   if (max_dyn < 0) return -1;
-  const Smem sm(0, G, 1, B_a, true);
+  const Smem sm(0, G, B_a, true, 1);
   return ((max_dyn - sm.total()) / 2) & ~15;
 }
 

@@ -46,11 +46,15 @@
 // double-buffered) in the small-M kernel so that its HBM stream overlaps
 // the gathers of the previous step.
 //
-// Grids: (n_tiles, m-blocks, kg slices).  The kg axis is split until the grid
-// holds about four blocks per SM (one wave) and no slice exceeds MAX_SLICE
-// groups; the slices' partial sums are added into a zeroed output with int32
-// atomics (exact and order-free).  Ragged kg and any dp <= 128 are handled
-// by bounds; G in 1..4.
+// Grids: (n_tiles x column tiles, m-blocks, kg slices).  A block covers at
+// most COLS = 128 of a tile's dp columns (the small-M kernel one column per
+// thread, the mma kernel 64 * WN), so a tile of dp > 128 columns runs as
+// ceil(dp / 128) column tiles, each staging only its own columns' indices.
+// The kg axis is split until the grid holds about four blocks per SM (one
+// wave) and no slice exceeds MAX_SLICE groups; the slices' partial sums are
+// added into a zeroed output with int32 atomics (exact and order-free).
+// Ragged kg and any dp are handled by bounds; G in 1..6 (2^G one-hot entries
+// per group: 64 at G = 6, rows of 64 bytes as int8 and 128 as int16).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +62,7 @@
 
 namespace {
 
-constexpr int MAX_DP = 128;   // output columns per tile (_pick_dp's limit)
+constexpr int COLS = 128;   // output columns per block (a column tile of dp)
 
 // ---------------------------------------------------------------------------
 // small pieces
@@ -97,6 +101,20 @@ __device__ __forceinline__ void cp_async_row(void* dst, const void* src) {
                : "memory");
 }
 
+// one gathered row of C int8 entries into shared memory (C >= 4: cp.async in
+// pieces of at most 16 bytes; C = 2: a plain 2-byte copy)
+template <int C>
+__device__ __forceinline__ void copy_row(uint8_t* dst, const int8_t* src) {
+  if constexpr (C > 16) {
+#pragma unroll
+    for (int i = 0; i < C / 16; ++i) cp_async_row<16>(dst + 16 * i, src + 16 * i);
+  } else if constexpr (C >= 4) {
+    cp_async_row<C>(dst, src);
+  } else {
+    *reinterpret_cast<uint16_t*>(dst) = __ldg(reinterpret_cast<const unsigned short*>(src));
+  }
+}
+
 // The coefficient bytes of one (m, kg): byte c of the C = 2^G bytes is
 // sum_b 2^b [code_b == c], packed little-endian into CW 32-bit words (a
 // G = 1 pair fills the low half of one word).  Bits of a code above B_a are
@@ -126,14 +144,12 @@ struct Row {
   static constexpr int NW = RB >= 4 ? RB / 4 : 1;
   uint32_t w[NW];
   __device__ __forceinline__ void load(const void* p) {
-    if constexpr (RB == 32) {
-      const uint4 x = __ldg(static_cast<const uint4*>(p));
-      const uint4 y = __ldg(static_cast<const uint4*>(p) + 1);
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-      w[4] = y.x; w[5] = y.y; w[6] = y.z; w[7] = y.w;
-    } else if constexpr (RB == 16) {
-      const uint4 x = __ldg(static_cast<const uint4*>(p));
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    if constexpr (RB >= 16) {
+#pragma unroll
+      for (int i = 0; i < RB / 16; ++i) {
+        const uint4 x = __ldg(static_cast<const uint4*>(p) + i);
+        w[4 * i] = x.x; w[4 * i + 1] = x.y; w[4 * i + 2] = x.z; w[4 * i + 3] = x.w;
+      }
     } else if constexpr (RB == 8) {
       const uint2 x = __ldg(static_cast<const uint2*>(p));
       w[0] = x.x; w[1] = x.y;
@@ -210,10 +226,12 @@ __device__ __forceinline__ void store_out(int32_t* dst, int32_t v, bool atomic) 
 // small M: a thread owns a column, dp4a/dp2a against the coef vectors
 // ---------------------------------------------------------------------------
 
-constexpr int DOT_THREADS = 128;   // >= MAX_DP: one output column per thread
+constexpr int DOT_THREADS = COLS;  // one output column per thread
 constexpr int DOT_KC = 16;         // groups per staged step
 
-template <int G, typename T, int BM>
+// TILED: dp > COLS, the grid's x axis runs over (tile, column tile); the
+// serve path's dp <= 128 takes the instance without it (no index division).
+template <int G, typename T, int BM, bool TILED>
 __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
     const int8_t* __restrict__ a,             // [M, K]
     const uint8_t* __restrict__ exec_idx,     // [n_tiles, kg, dp] of ib bytes each
@@ -221,13 +239,13 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
     const int8_t* __restrict__ step_cluster,  // [n_tiles, kg]
     const T* __restrict__ table,              // [n_clus * n_arr, 2^G]
     int32_t* __restrict__ out,                // [M, n_tiles * dp]
-    int M, int K, int kg, int kg_per, int dp, int n_arr, int B_a) {
+    int M, int K, int kg, int kg_per, int dp, int n_pc, int n_arr, int B_a) {
   constexpr int C = 1 << G;
   constexpr int CW = C >= 4 ? C / 4 : 1;      // coef words per (m, kg)
   constexpr int RB = C * (int)sizeof(T);      // row bytes
   using R = Row<RB>;
-  constexpr int U = R::NW >= 8 ? 4 : 8;       // rows in flight per thread
-  constexpr int IDX_BUF = DOT_KC * MAX_DP * 2;
+  constexpr int U = R::NW >= 16 ? 2 : R::NW >= 8 ? 4 : 8;   // rows in flight per thread
+  constexpr int IDX_BUF = DOT_KC * COLS * 2;
 
   __shared__ __align__(16) uint8_t s_idx[2][IDX_BUF];
   __shared__ __align__(16) uint32_t s_coef[DOT_KC][BM][CW];
@@ -235,32 +253,36 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
   __shared__ int16_t s_order[MAX_SLICE];
   __shared__ int s_cnt[128];
 
-  const int nt = blockIdx.x;
+  const int nt = TILED ? blockIdx.x / n_pc : blockIdx.x;
+  const int c0 = TILED ? (blockIdx.x - nt * n_pc) * COLS : 0;  // first column
+  const int dpb = TILED ? min(COLS, dp - c0) : dp;            // the block's columns
   const int m0 = blockIdx.y * BM;
   const int p = threadIdx.x;
-  const size_t N = (size_t)gridDim.x * dp;
+  const size_t N = (size_t)(TILED ? gridDim.x / n_pc : gridDim.x) * dp;
   const int k_beg = blockIdx.z * kg_per;
   const int k_end = min(kg, k_beg + kg_per);
-  const uint8_t* idx_tile = exec_idx + (size_t)nt * kg * dp * ib;
+  const uint8_t* idx_tile = exec_idx + ((size_t)nt * kg * dp + c0) * ib;
   const int8_t* cl_tile = step_cluster + (size_t)nt * kg;
 
   steps_by_cluster(cl_tile, k_beg, k_end, s_order, s_cnt);
   // the j-th step of the slice in cluster order
   auto step = [&](int j) { return k_beg + (int)s_order[j - k_beg]; };
-  const int rowb = dp * ib;   // bytes of one step's exec_idx row
-  // stage the exec_idx rows of slice positions [j0, j0 + kc_n) into `buf`
+  const int rowb = dp * ib;    // bytes of one step's exec_idx row
+  const int rowbb = dpb * ib;  // the block's bytes of it (staged rows)
+  // stage the block's exec_idx columns of slice positions [j0, j0 + kc_n)
+  // into `buf`
   auto stage = [&](int j0, int buf) {
     const int kc_n = min(DOT_KC, k_end - j0);
     if (vec_idx) {
-      const int cps = rowb / 16;
+      const int cps = rowbb / 16;
       for (int c = threadIdx.x; c < kc_n * cps; c += DOT_THREADS) {
         const int kc = c / cps, off = (c - kc * cps) * 16;
-        cp_async_stream16(&s_idx[buf][kc * rowb + off],
+        cp_async_stream16(&s_idx[buf][kc * rowbb + off],
                           idx_tile + (size_t)step(j0 + kc) * rowb + off);
       }
     } else {
-      for (int i = threadIdx.x; i < kc_n * rowb; i += DOT_THREADS) {
-        const int kc = i / rowb, off = i - kc * rowb;
+      for (int i = threadIdx.x; i < kc_n * rowbb; i += DOT_THREADS) {
+        const int kc = i / rowbb, off = i - kc * rowbb;
         s_idx[buf][i] = idx_tile[(size_t)step(j0 + kc) * rowb + off];
       }
     }
@@ -303,8 +325,8 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int kc = kc0 + u;
-        if (kc < kc_n && p < dp) {
-          const int r = s_clbase[kc] + load_idx(s_idx[buf], ib, kc * dp + p);
+        if (kc < kc_n && p < dpb) {
+          const int r = s_clbase[kc] + load_idx(s_idx[buf], ib, kc * dpb + p);
           rows[u].load(table + (size_t)r * C);
         } else {
           rows[u].zero();   // adds nothing, whatever the coef slot holds
@@ -324,11 +346,12 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
     }
     __syncthreads();   // s_coef, s_clbase and s_idx[buf] are consumed
   }
-  if (p >= dp) return;
+  if (p >= dpb) return;
   const bool atomic = gridDim.z > 1;
 #pragma unroll
   for (int m = 0; m < BM; ++m)
-    if (m0 + m < M) store_out(out + (size_t)(m0 + m) * N + (size_t)nt * dp + p, acc[m], atomic);
+    if (m0 + m < M)
+      store_out(out + (size_t)(m0 + m) * N + (size_t)nt * dp + c0 + p, acc[m], atomic);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,12 +363,12 @@ constexpr int MMA_KB = 128;        // k' bytes (coef bytes of a row) per step
 constexpr int MMA_LD = MMA_KB + 16;  // smem row stride: conflict-free fragments
 
 // WN = 1: 8 warps over 8 m16 tiles, each all n8 tiles of dp <= 64.
-// WN = 2: 4 m16 tiles x 2 column halves of dp <= 128.
-template <int G, int WN>
+// WN = 2: 4 m16 tiles x 2 column halves of a 128-column tile of dp.
+template <int G, int WN, bool TILED>
 __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
     const int8_t* __restrict__ a, const uint8_t* __restrict__ exec_idx, int ib,
     const int8_t* __restrict__ step_cluster, const int8_t* __restrict__ table,
-    int32_t* __restrict__ out, int M, int K, int kg, int kg_per, int dp, int n_arr,
+    int32_t* __restrict__ out, int M, int K, int kg, int kg_per, int dp, int n_pc, int n_arr,
     int B_a) {
   constexpr int C = 1 << G;
   constexpr int CW = C >= 4 ? C / 4 : 1;
@@ -358,15 +381,17 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
   __shared__ int16_t s_order[MAX_SLICE];
   __shared__ int s_cnt[128];
 
-  const int nt = blockIdx.x;
+  const int nt = TILED ? blockIdx.x / n_pc : blockIdx.x;
+  const int c0 = TILED ? (blockIdx.x - nt * n_pc) * NP : 0;   // first column
+  const int dpb = TILED ? min(NP, dp - c0) : dp;              // the block's columns
   const int m0 = blockIdx.y * BM;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
   const int wm = WN == 1 ? warp : (warp & 3);
   const int wn = WN == 1 ? 0 : (warp >> 2);
-  const int nt8 = (dp + 7) / 8;
-  const size_t N = (size_t)gridDim.x * dp;
+  const int nt8 = (dpb + 7) / 8;
+  const size_t N = (size_t)(TILED ? gridDim.x / n_pc : gridDim.x) * dp;
   const int k_beg = blockIdx.z * kg_per;
   const int k_end = min(kg, k_beg + kg_per);
   const uint8_t* idx_tile = exec_idx + (size_t)nt * kg * dp * ib;
@@ -383,18 +408,13 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
   for (int k0 = k_beg; k0 < k_end; k0 += KC) {
     const int kc_n = min(KC, k_end - k0);
     // B: gather the rows of this step's (kc, p) pairs
-    for (int i = tid; i < kc_n * dp; i += MMA_THREADS) {
-      const int kc = i / dp, pp = i - kc * dp;
+    for (int i = tid; i < kc_n * dpb; i += MMA_THREADS) {
+      const int kc = i / dpb, pp = i - kc * dpb;
       const int k = step(k0 + kc);
-      const size_t e = (size_t)k * dp + pp;
+      const size_t e = (size_t)k * dp + c0 + pp;
       const int ix = ib == 1 ? (int)idx_tile[e] : (int)reinterpret_cast<const int16_t*>(idx_tile)[e];
       const int r = (int)cl_tile[k] * n_arr + ix;
-      uint8_t* dst = s_b + pp * MMA_LD + kc * C;
-      const int8_t* src = table + (size_t)r * C;
-      if constexpr (C >= 4)
-        cp_async_row<C>(dst, src);
-      else
-        *reinterpret_cast<uint16_t*>(dst) = __ldg(reinterpret_cast<const unsigned short*>(src));
+      copy_row<C>(s_b + pp * MMA_LD + kc * C, table + (size_t)r * C);
     }
     cp_async_commit();
     // A: the coef tile; steps past kc_n are zero so stale B rows add nothing
@@ -448,8 +468,8 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + (e >> 1) * 8;
       const int col = n8 * 8 + tig * 2 + (e & 1);
-      if (row < M && col < dp)
-        store_out(out + (size_t)row * N + (size_t)nt * dp + col, acc[j][e], atomic);
+      if (row < M && col < dpb)
+        store_out(out + (size_t)row * N + (size_t)nt * dp + c0 + col, acc[j][e], atomic);
     }
   }
 }
@@ -492,15 +512,23 @@ cudaError_t launch_dot(const int8_t* a, const uint8_t* idx, int ib, const int8_t
                        const void* table, int32_t* out, int M, int K, int n_tiles, int kg,
                        int dp, int n_arr, int B_a, cudaStream_t s) {
   const int m_blocks = (M + BM - 1) / BM;
+  const int n_pc = (dp + COLS - 1) / COLS;
   int kg_per = 0;
-  const int z = kg_slices(kg, DOT_KC, n_tiles * m_blocks, 4 * sm_count(), &kg_per);
+  const int z = kg_slices(kg, DOT_KC, n_tiles * n_pc * m_blocks, 4 * sm_count(), &kg_per);
   const cudaError_t e = zero_if(z > 1, out, (size_t)M * n_tiles * dp, s);
   if (e != cudaSuccess) return e;
-  // 16-byte cp.async of the index rows needs every step's row aligned
-  const int vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 && (dp * ib) % 16 == 0;
-  tlmac_fused_dot_kernel<G, T, BM><<<dim3(n_tiles, m_blocks, z), DOT_THREADS, 0, s>>>(
-      a, idx, ib, vec, cl, static_cast<const T*>(table), out, M, K, kg, kg_per, dp, n_arr,
-      B_a);
+  // 16-byte cp.async of the index rows needs every step's row, and every
+  // column tile's part of it, aligned
+  const int vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 && (dp * ib) % 16 == 0 &&
+                  ((dp % COLS) * ib) % 16 == 0;
+  const dim3 grid(n_tiles * n_pc, m_blocks, z);
+  const T* tab = static_cast<const T*>(table);
+  if (n_pc > 1)
+    tlmac_fused_dot_kernel<G, T, BM, true><<<grid, DOT_THREADS, 0, s>>>(
+        a, idx, ib, vec, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
+  else
+    tlmac_fused_dot_kernel<G, T, BM, false><<<grid, DOT_THREADS, 0, s>>>(
+        a, idx, ib, vec, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
   return cudaGetLastError();
 }
 
@@ -510,14 +538,24 @@ cudaError_t launch_mma(const int8_t* a, const uint8_t* idx, int ib, const int8_t
                        int dp, int n_arr, int B_a, cudaStream_t s) {
   constexpr int BM = 128 / WN;
   const int m_blocks = (M + BM - 1) / BM;
+  const int n_pc = (dp + 64 * WN - 1) / (64 * WN);
   int kg_per = 0;
   const int z =
-      kg_slices(kg, MMA_KB >> G, n_tiles * m_blocks, 4 * sm_count(), &kg_per);
+      kg_slices(kg, MMA_KB >> G, n_tiles * n_pc * m_blocks, 4 * sm_count(), &kg_per);
   const cudaError_t e = zero_if(z > 1, out, (size_t)M * n_tiles * dp, s);
   if (e != cudaSuccess) return e;
-  tlmac_fused_mma_kernel<G, WN><<<dim3(n_tiles, m_blocks, z), MMA_THREADS, 0, s>>>(
-      a, idx, ib, cl, static_cast<const int8_t*>(table), out, M, K, kg, kg_per, dp, n_arr,
-      B_a);
+  const dim3 grid(n_tiles * n_pc, m_blocks, z);
+  const int8_t* tab = static_cast<const int8_t*>(table);
+  // WN = 1 takes dp <= 64 only (dispatch), so it never tiles
+  if constexpr (WN > 1) {
+    if (n_pc > 1) {
+      tlmac_fused_mma_kernel<G, WN, true><<<grid, MMA_THREADS, 0, s>>>(
+          a, idx, ib, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
+      return cudaGetLastError();
+    }
+  }
+  tlmac_fused_mma_kernel<G, WN, false><<<grid, MMA_THREADS, 0, s>>>(
+      a, idx, ib, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
   return cudaGetLastError();
 }
 
@@ -544,8 +582,8 @@ extern "C" int tlmac_fused_launch(const void* a, const void* exec_idx, int idx_b
                                   const void* step_cluster, const void* table,
                                   int table_bytes, void* out, int M, int K, int n_tiles,
                                   int kg, int dp, int n_arr, int B_a, int G, void* stream) {
-  if (M < 1 || B_a < 1 || B_a > 8 || G < 1 || G > 4 || K != kg * G || kg < 1 || dp < 1 ||
-      dp > MAX_DP || n_tiles < 1 || n_tiles > 2147483647 / MAX_DP ||
+  if (M < 1 || B_a < 1 || B_a > 8 || G < 1 || G > 6 || K != kg * G || kg < 1 || dp < 1 ||
+      n_tiles < 1 || (long long)n_tiles * (dp + COLS - 1) > 2147483647LL ||
       (idx_bytes != 1 && idx_bytes != 2) || (table_bytes != 1 && table_bytes != 2) ||
       (M + 15) / 16 > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -558,6 +596,8 @@ extern "C" int tlmac_fused_launch(const void* a, const void* exec_idx, int idx_b
     case 1: return (int)dispatch<1>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
     case 2: return (int)dispatch<2>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
     case 3: return (int)dispatch<3>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    default: return (int)dispatch<4>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
+    case 4: return (int)dispatch<4>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
+    case 5: return (int)dispatch<5>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
+    default: return (int)dispatch<6>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
   }
 }

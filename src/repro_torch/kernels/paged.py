@@ -199,18 +199,29 @@ def write_decode_kv(kv: dict, k, v, block_table, positions,
     return _write_kv(kv, pid, off, k[:, 0], v[:, 0], qspec)
 
 
-def write_chunk_kv(kv: dict, k, v, block_table_row, start: int,
+def write_chunk_kv(kv: dict, k, v, block_table_row, start,
                    qspec: Optional[KVQuantSpec] = None) -> dict:
     """Write one prefill chunk k/v ``[1, C, KV, hd]`` starting at
-    absolute position ``start`` into a slot's pages.  The padded tail
-    lands inside the slot's own pages beyond its length (masked on read,
-    overwritten by decode)."""
+    absolute position ``start`` (a 0-d int32 tensor on the pool's device,
+    or an int) into a slot's pages.  The padded tail lands inside the
+    slot's own pages beyond its length (masked on read, overwritten by
+    decode)."""
     C = k.shape[1]
     P = kv["k"].shape[1]
     pos = start + torch.arange(C, device=k.device)
     pid = block_table_row[pos // P]
     off = pos % P
     return _write_kv(kv, pid, off, k[0], v[0], qspec)
+
+
+def copy_page_kv(kv: dict, src: int, dst: int) -> dict:
+    """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
+    place across every leaf of one layer's pool, codes AND scale sidecars
+    (a CoW'd quantised page must dequantise as its source does).  Stacked
+    layers go through ``models/lm.cache_copy_page``.  Returns ``kv``."""
+    for leaf in kv.values():
+        leaf[dst] = leaf[src]
+    return kv
 
 
 def gather_kv(k_pages, v_pages, block_table):

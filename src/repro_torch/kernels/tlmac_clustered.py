@@ -21,7 +21,10 @@ tile) and ``tlmac_gemm_clustered_multi`` (every tile of a layer, one
 launch) launch the one CUDA kernel of ``csrc/tlmac_clustered.cu`` for
 CUDA tensors and run their plain versions for CPU tensors only; each
 counts its own launches (``launches``, ``launches_multi``).  The kernel
-reads the table as narrow rows (``tlmac_fused.narrow_table``: int8, or
+takes every plan the reference takes: G 1-6, any number of clusters, and
+a slice of any size (one too large for shared memory is held there in
+part, the rest read from device memory by the same kernel).  It reads
+the table as narrow rows (``tlmac_fused.narrow_table``: int8, or
 int16 where an entry leaves int8); ``device_schedule`` narrows it once,
 and on the card an int32 ``table_pad`` is refused.  The plain versions
 take any integer table.  ``tlmac_gemm_clustered_onehot_plain`` is the
@@ -55,9 +58,7 @@ def _launcher(name: str):
     if fn is None:
         lib = _build.load("tlmac_clustered")
         fn = getattr(lib, name)
-        if name == "tlmac_clustered_max_slice_bytes":
-            fn.argtypes = [ctypes.c_int] * 2
-        elif name == "tlmac_clustered_scratch_ints":
+        if name == "tlmac_clustered_scratch_ints":
             fn.argtypes = [ctypes.c_int] * 3
         else:
             n_int = 7 if name == "tlmac_clustered_launch" else 8
@@ -243,28 +244,11 @@ def _launch(codes_sorted, idx_sorted, table_pad, B_a, G, multi: bool):
                     ("table_pad", table_pad)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if G < 2:
-        raise ValueError(f"the cluster-scheduled kernel takes G >= 2, got {G}")
-    if table_pad.shape[0] > 128:
-        raise ValueError(f"the cluster-scheduled kernel takes at most 128 "
-                         f"clusters (int8 step_cluster), got "
-                         f"{table_pad.shape[0]}")
     if table_pad.data_ptr() % 16:
         raise ValueError("table_pad must be 16-byte aligned (its slices are "
                          "copied in 16-byte pieces)")
     n_tiles, n_clus, ms, D_p = idx_sorted.shape
     n_arr1 = table_pad.shape[1]
-    slice_bytes = n_arr1 * 2**G * table_pad.element_size()
-    limit = _launcher("tlmac_clustered_max_slice_bytes")(B_a, G)
-    if limit < 0:
-        raise RuntimeError("tlmac_clustered: shared-memory query failed")
-    if slice_bytes > limit:
-        raise ValueError(
-            f"table slice of {slice_bytes} bytes (N_arr+1={n_arr1}, G={G}, "
-            f"{table_pad.dtype}) exceeds the {limit} bytes of which two fit a "
-            f"block's shared memory beside its staging at B_a={B_a}; the "
-            "cluster-scheduled kernel does not tile N_arr: run such a plan "
-            "through tlmac_gemm (ops.tlmac_matmul impl='pallas')")
     M = codes_sorted.shape[1]
     dev = codes_sorted.device
     out = torch.empty((M, n_tiles * D_p), dtype=torch.int32, device=dev)

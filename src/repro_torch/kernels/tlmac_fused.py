@@ -151,9 +151,6 @@ def tlmac_gemm_fused(a_codes, exec_idx, step_cluster, table, *,
                          f"from narrow_table, made once with the params), "
                          f"got {table.dtype}")
     n_tiles, kg, dp = exec_idx.shape
-    if dp > 128 or G > 4:
-        raise ValueError(f"the kernel takes dp <= 128 and G <= 4, got dp={dp}, "
-                         f"G={G}")
     for name, t in (("a_codes", a_codes), ("exec_idx", exec_idx),
                     ("step_cluster", step_cluster), ("table", table)):
         if not t.is_contiguous():

@@ -83,10 +83,11 @@ def gqa_decode_paged(params, x, cfg, pages, block_table, positions,
     return apply_fn(params["wo"], out, cfg), kv
 
 
-def gqa_prefill_chunk(params, x, cfg, pages, block_table_row, start: int,
+def gqa_prefill_chunk(params, x, cfg, pages, block_table_row, start,
                       apply_fn=nn.serve_linear_apply):
     """One prefill chunk (B == 1): write the chunk's K/V into the slot's
-    pages, then read all of the slot's pages back with a causal mask."""
+    pages, then read all of the slot's pages back with a causal mask.
+    ``start`` is a 0-d int32 tensor on ``x``'s device (or an int)."""
     B, C, _ = x.shape
     qs = paged.qspec_for(cfg)
     q, k, v = _qkv(params, x, cfg, apply_fn)

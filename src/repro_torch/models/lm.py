@@ -8,8 +8,10 @@ JAX, on purpose:
 - the paged pools are updated IN PLACE (``prefill_chunk`` and
   ``decode_step_paged`` write the caches they are given and return the
   same objects), where JAX returns new arrays;
-- ``prefill_chunk`` takes ``start`` and ``last`` as Python ints (no
-  trace to keep shape-stable).
+- ``prefill_chunk`` takes ``start`` and ``last`` as 0-d int32 device
+  tensors (Python ints are accepted too), so one captured CUDA graph of
+  the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
+  trace does in JAX.
 """
 
 from __future__ import annotations
@@ -149,19 +151,34 @@ def _head(params):
 
 
 @torch.no_grad()
-def prefill_chunk(params, caches, tokens, start: int, block_table_row, cfg,
-                  last: int = 0):
+def prefill_chunk(params, caches, tokens, start, block_table_row, cfg,
+                  last=0):
     """One fixed-size prefill chunk: tokens ``[1, C]`` at positions
     ``[start, start + C)`` of the slot whose pages ``block_table_row
-    [max_blocks]`` names.  Returns ``(logits [vocab], caches)``: the
-    logits of chunk row ``last`` only."""
+    [max_blocks]`` names; ``start`` and ``last`` are 0-d int32 tensors on
+    the tokens' device (or ints).  Returns ``(logits [vocab], caches)``:
+    the logits of chunk row ``last`` only, picked on the device."""
     x = nn.embed_apply(params.embed.tree(), tokens)
     ctx = {"block_table": block_table_row, "start": start}
     x = _run_layers(params, caches, x, cfg, ctx, decode=False)
-    x = x[:, last:last + 1]
+    last = torch.as_tensor(last, device=x.device)
+    x = x.index_select(1, last.reshape(1).long())
     x = nn.rmsnorm_apply(params.final_norm.tree(), x)
     logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
     return logits[0, 0, : cfg.vocab], caches
+
+
+@torch.no_grad()
+def cache_copy_page(caches, src: int, dst: int):
+    """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
+    place across every layer's pool leaf (codes and scale sidecars; the
+    leaves are stacked ``[n_layers, n_pages, ...]``).  Returns the
+    caches."""
+    for seg in caches:
+        for pool in seg.values():
+            for leaf in pool.values():
+                leaf[:, dst] = leaf[:, src]
+    return caches
 
 
 @torch.no_grad()

@@ -206,11 +206,12 @@ def logits_apply(params, x, vocab: Optional[int] = None):
 
 
 def rotary_embedding(positions, dim: int, base: float = 10000.0):
-    """Returns (sin, cos) ``[..., dim/2]`` in f32."""
+    """Returns (sin, cos) ``[..., dim/2]`` in f32.  Every tensor is made
+    on the device (no host-to-device copy), so a CUDA graph can hold it."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
-    inv = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
-                                       device=positions.device), exps)
+    inv = 1.0 / torch.pow(torch.full((), base, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.sin(ang), torch.cos(ang)
 

@@ -1,5 +1,5 @@
 """The request record of the serve loops (port of
-``repro.serve.loop.Request``, serve-core fields only)."""
+``repro.serve.loop.Request``, serve-core fields and ``priority``)."""
 
 from __future__ import annotations
 
@@ -16,3 +16,5 @@ class Request:
     max_new_tokens: int = 16
     output: Optional[np.ndarray] = None   # generated tokens once finished
     finish_reason: Optional[str] = None   # 'stop' (eos) | 'length'
+    priority: Optional[int] = None        # admission priority (higher =
+                                          # sooner; None = the config's)

@@ -1,17 +1,46 @@
-"""Paged continuous-batching serve loop (port of the core of
-``repro.serve.paged``).
+"""Paged continuous-batching serve loop (port of ``repro.serve.paged``).
 
 Every attention layer's K/V lives in a paged pool; a request owns a list
 of pages recorded in its slot's block-table row.  Prompts are prefilled
 in fixed-size chunks; each decode step advances every live slot by one
 token at its own position, and a slot freed by a finished request is
-refilled from the queue at once (continuous batching).
+refilled at once (continuous batching).  The defaults are the
+reference's (``configs/base.py``):
 
-This core admits FIFO with reserved (worst-case) page accounting: a
-request's prompt plus its whole ``max_new_tokens`` budget is allocated
-at admission, so the pool can never run dry mid-decode.  Prefix cache,
-speculation, priorities, preemption, swap, fault injection and
-telemetry are not ported yet.
+- **On-demand pages** (``serve_on_demand_pages``): admission covers only
+  the padded prefill; decode pages are allocated at page-boundary
+  crossings, so concurrency is bounded by the live working set.  With it
+  off, admission reserves prompt + ``max_new_tokens`` (worst case).
+- **Priority scheduler and recompute preemption** (``serve/scheduler.py``,
+  ``serve_preempt_policy``): the queue drains best-first with aging; when
+  on-demand growth finds the pool empty, a victim slot (lowest priority,
+  most pages, least progress) is parked: its fully written pages move
+  into the prefix cache, and the request requeues with its generated
+  tokens, which re-admission replays through chunked prefill.
+- **Prefix cache** (``serve/prefix_cache.py``, ``serve_prefix_cache``):
+  finished prompts' pages are kept in a radix tree keyed by token
+  content; admission maps the longest cached page-aligned prefix
+  read-only into the slot and prefills only from the first chunk it does
+  not cover.  Shared pages are ref-counted; a cached page the suffix
+  prefill would write is copied first (copy-on-write).
+
+``submit`` rejects (``AdmissionError``) only what can never run: an empty
+prompt, one past ``s_max``, a padded prefill larger than the pool, and
+the ``serve_queue_limit`` backpressure bound; ``step`` raises
+``PoolExhaustedError`` when every slot is free and the best entry still
+gets no pages (reserved mode), or growth finds no victim.
+
+The forward set is fixed: one ``[1, chunk]`` prefill chunk and one
+``[B, 1]`` decode step, for any mix of prompt lengths.  On a CUDA device
+each is captured once in a CUDA graph (after an eager warm-up) into one
+graph pool and replayed from static device buffers that one host-to-
+device copy per argument fills per call: the counterpart of the
+reference's one ``jax.jit`` executable per shape.  On the CPU the same
+functions run eagerly.  ``compiled_shapes`` / ``check_compiled`` assert
+the set.
+
+Speculation, swap, telemetry, fault injection, cancellation, deadlines
+and tenant quotas are not ported yet.
 
 Physical page 0 is the scratch page: pinned, never handed out; idle
 slots' decode writes land there and freed rows are reset to it.
@@ -20,34 +49,41 @@ slots' decode writes land there and freed rows are reset to it.
 from __future__ import annotations
 
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import tlmac_fused as _tf
 from repro_torch.kernels.paged import PageSpec, spec_for
 from repro_torch.models import lm
 from repro_torch.serve.loop import Request
+from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.scheduler import (AdmissionError, PoolExhaustedError,
+                                         SchedEntry, Scheduler)
 
+__all__ = ["AdmissionError", "PoolExhaustedError", "PageManager",
+           "PagedServeLoop"]
 
-class AdmissionError(ValueError):
-    """A request that can never be served (rejected at submit)."""
-
-
-class PoolExhaustedError(RuntimeError):
-    """Every slot is free and the queue head still gets no pages."""
+# the kernels whose Python launch counters a captured graph records
+_COUNTED = {"tlmac_gemm_fused": _tf, "flash_decode": _fd}
 
 
 class PageManager:
     """Host-side ref-counted physical-page pool; page 0 is the pinned
-    scratch page.  ``release`` frees a page at refcount 0; double frees
-    and frees of the scratch page raise."""
+    scratch page.  Every other page is free (refcount 0) or referenced
+    (one per owning slot or tree node, one more per sharer).  ``release``
+    frees a page at refcount 0; double frees and frees of the scratch
+    page raise."""
 
     def __init__(self, n_pages: int):
         self.n_pages = n_pages
         self.free = deque(range(1, n_pages))
         self.refcnt = np.zeros(n_pages, np.int64)
         self.refcnt[0] = 1
+        self.allocs = 0      # pages handed out
+        self.frees = 0       # pages returned to the free list
         self.peak = 0
         self.exhaustions = 0
 
@@ -70,8 +106,16 @@ class PageManager:
                     f"free list corrupt: page {p} has refcount "
                     f"{self.refcnt[p]}")
             self.refcnt[p] = 1
+        self.allocs += n
         self.peak = max(self.peak, self.in_use)
         return pages
+
+    def retain(self, pages: List[int]) -> None:
+        """One more reference per page (sharing an already-live page)."""
+        for p in pages:
+            if self.refcnt[p] <= 0:
+                raise ValueError(f"retain of free page {p}")
+            self.refcnt[p] += 1
 
     def release(self, pages: List[int]) -> None:
         for p in pages:
@@ -83,6 +127,7 @@ class PageManager:
             self.refcnt[p] -= 1
             if self.refcnt[p] == 0:
                 self.free.append(p)
+                self.frees += 1
 
     def check(self) -> None:
         """Pages 1..n-1 partition into {free, refcount 0} and {off-list,
@@ -101,15 +146,109 @@ class PageManager:
                     f"page {p} leaked (off-list, refcount 0)"
 
 
+class FixedShapeForward:
+    """One forward entry point of the loop at fixed argument shapes.
+
+    Called with host arrays (numpy or ints, int32).  On the CPU it runs
+    ``fn`` eagerly on tensors made from them and records each distinct
+    argument shape (what ``jit`` would trace).  On a CUDA device the
+    first call at a shape allocates static device buffers, runs ``fn``
+    once eagerly on them (the warm-up: kernels built, workspaces
+    allocated), then captures ``fn`` into a CUDA graph in ``pool``; every
+    call copies its arguments into the static buffers (one pinned
+    host-to-device copy each) and replays the graph.  The returned logits
+    are the graph's static output: read them before the next call of any
+    forward sharing the pool.  A capture failure raises.
+
+    Kernel wrappers count their launches in Python, which a replay does
+    not run: ``graph_launches`` holds each kernel's launches recorded at
+    capture, ``replays`` the replays, and ``eager`` the eager runs
+    (warm-ups, or every CPU call); launches on the card are then
+    ``eager launches + graph_launches * replays``."""
+
+    def __init__(self, fn, device: torch.device, pool=None):
+        self.fn = fn
+        self.device = device
+        self.pool = pool
+        self.shapes = set()
+        self.graphs: Dict[tuple, dict] = {}
+        self.eager = 0
+        self.replays = 0
+
+    @property
+    def graph_launches(self) -> Dict[str, int]:
+        out = dict.fromkeys(_COUNTED, 0)
+        for g in self.graphs.values():
+            for k, n in g["launches"].items():
+                out[k] += n
+        return out
+
+    def n_compiled(self) -> int:
+        return len(self.graphs) if self.device.type == "cuda" \
+            else len(self.shapes)
+
+    def __call__(self, *args):
+        arrays = [np.asarray(a, np.int32) for a in args]
+        key = tuple(a.shape for a in arrays)
+        if self.device.type != "cuda":
+            self.shapes.add(key)
+            self.eager += 1
+            return self.fn(*[torch.from_numpy(a.copy()).to(self.device)
+                             for a in arrays])
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(key, arrays)
+        g["ready"].synchronize()          # the pinned buffers are free again
+        for host, a in zip(g["host"], arrays):
+            host.numpy()[...] = a
+        for static, host in zip(g["static"], g["host"]):
+            static.copy_(host, non_blocking=True)
+        g["ready"].record()
+        g["graph"].replay()
+        self.replays += 1
+        return g["out"]
+
+    def _capture(self, key, arrays) -> dict:
+        dev = self.device
+        host = [torch.from_numpy(a.copy()).pin_memory() for a in arrays]
+        static = [h.to(dev) for h in host]
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.fn(*static)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.eager += 1
+        before = {k: m.launches for k, m in _COUNTED.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            out = self.fn(*static)
+        g = {"graph": graph, "static": static, "host": host, "out": out,
+             "ready": torch.cuda.Event(),
+             "launches": {k: m.launches - before[k]
+                          for k, m in _COUNTED.items()}}
+        g["ready"].record(cur)
+        self.graphs[key] = g
+        return g
+
+
 class PagedServeLoop:
     """Slot-based continuous batching over a paged KV cache; greedy
-    decoding, FIFO admission, reserved page accounting.  ``params`` is
-    the ``ParamTree`` of ``lm.init_lm`` (or ``convert.params_from_jax``)
-    on ``device``."""
+    decoding, priority admission with aging, on-demand pages with
+    recompute preemption and a prefix cache by default
+    (``prefix_cache``, ``on_demand``, ``preempt_policy`` and
+    ``check_invariants`` follow the config when None).  ``params`` is the
+    ``ParamTree`` of ``lm.init_lm`` (or ``convert.params_from_jax``) on
+    ``device``; ``Request.priority`` (higher sooner) is honoured."""
 
     def __init__(self, params, cfg, batch_slots: int = 4, s_max: int = 128,
                  eos_id: Optional[int] = None, page_size: int = 16,
                  chunk: int = 16, n_pages: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 on_demand: Optional[bool] = None,
+                 preempt_policy: Optional[str] = None,
+                 check_invariants: Optional[bool] = None,
                  device="cuda"):
         lm.segments_for(cfg)          # raises for families not ported
         want = torch.device(device)
@@ -129,46 +268,95 @@ class PagedServeLoop:
                 f"chunk={chunk} pads prompts up to {padded_max} tokens, "
                 f"past the block-table range {self.spec.s_alloc}")
         self.pages = PageManager(self.spec.n_pages)
+        self.on_demand = bool(cfg.serve_on_demand_pages
+                              if on_demand is None else on_demand)
+        self.sched = Scheduler(
+            policy=(cfg.serve_preempt_policy if preempt_policy is None
+                    else preempt_policy),
+            aging=cfg.serve_sched_aging,
+            default_priority=cfg.serve_priority_default)
+        self.queue_limit = int(cfg.serve_queue_limit)
+        self.check_invariants = bool(cfg.serve_check_invariants
+                                     if check_invariants is None
+                                     else check_invariants)
+        if prefix_cache is None:
+            prefix_cache = cfg.serve_prefix_cache
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(page_size, self.pages,
+                        max_pages=cfg.serve_prefix_cache_pages)
+            if prefix_cache else None)
         self.caches = lm.init_caches(cfg, self.spec, device=self.device)
-        self.queue: deque = deque()
         self.done: List[Request] = []
         self.refills = 0              # mid-decode slot admissions
+        self.prefill_tokens_run = 0   # chunk tokens actually prefilled
+        self.prefill_tokens_saved = 0  # chunk tokens skipped via the cache
+        self.cow_copies = 0           # copy-on-write page duplications
         self.decode_steps = 0
+        self.preemptions = 0          # slots parked on pool exhaustion
+        self.resumes = 0              # parked requests re-admitted
+        self.resume_prefill_tokens = 0  # chunk tokens replayed at resume
+        self.preempted_tokens = 0     # KV positions dropped at preempt
+        self.grown_pages = 0          # on-demand page-boundary allocs
+        self.peak_live_slots = 0
         self.block_table = np.zeros((batch_slots, self.spec.max_blocks),
                                     np.int32)
         self.lens = np.zeros(batch_slots, np.int32)
         self.slots: List[Optional[dict]] = [None] * batch_slots
+        # the loop's whole forward set; on the card both share one pool
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+        self.forwards = {
+            "chunk": FixedShapeForward(self._chunk_fn, self.device, pool),
+            "decode": FixedShapeForward(self._decode_fn, self.device, pool),
+        }
 
     # -- the two forwards ----------------------------------------------------
 
-    def _prefill_chunk(self, tokens, start: int, bt_row, last: int):
-        logits, _ = lm.prefill_chunk(self.params, self.caches, tokens, start,
-                                     bt_row, self.cfg, last=last)
-        return logits
+    def _chunk_fn(self, tokens, start, bt_row, last):
+        return lm.prefill_chunk(self.params, self.caches, tokens, start,
+                                bt_row, self.cfg, last=last)[0]
+
+    def _decode_fn(self, tokens, positions, block_table):
+        return lm.decode_step_paged(self.params, self.caches, tokens,
+                                    positions, block_table, self.cfg)[0]
+
+    def _prefill_chunk(self, tokens, start, bt_row, last):
+        """tokens ``[1, C]``, ``start``, ``bt_row [max_blocks]``, ``last``
+        (host int32) -> logits ``[vocab]`` on the device."""
+        return self.forwards["chunk"](tokens, start, bt_row, last)
 
     def _decode(self, tokens, positions, block_table):
-        logits, _ = lm.decode_step_paged(self.params, self.caches, tokens,
-                                         positions, block_table, self.cfg)
-        return logits
-
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True)).to(self.device)
+        """tokens ``[B, 1]``, positions ``[B]``, block table ``[B,
+        max_blocks]`` (host int32) -> logits ``[B, vocab]`` on the
+        device."""
+        return self.forwards["decode"](tokens, positions, block_table)
 
     # -- admission -----------------------------------------------------------
 
     def submit(self, req: Request):
-        """Enqueue a request; one that can never be served raises
-        ``AdmissionError`` here."""
+        """Enqueue a request; one that can never be served, or one past
+        the queue limit, raises ``AdmissionError`` and leaves nothing
+        queued."""
         L = len(req.prompt)
         if not 0 < L <= self.S_max:
             raise AdmissionError(
                 f"prompt length {L} outside (0, s_max={self.S_max}]")
-        need = self._worst_blocks(L, req.max_new_tokens)
-        if need > self.spec.n_pages - 1:
+        usable = self.spec.n_pages - 1
+        if self._prefill_blocks(L) > usable:
+            # even fully cached prompt blocks are pages of this pool
             raise AdmissionError(
-                f"request {req.rid} can never fit: needs {need} pages, "
-                f"pool has {self.spec.n_pages - 1}")
-        self.queue.append(req)
+                f"request {req.rid} can never fit: prompt needs "
+                f"{self._prefill_blocks(L)} pages, pool has {usable}")
+        if self.queue_limit and len(self.sched) >= self.queue_limit:
+            raise AdmissionError(
+                f"backpressure: queue at serve_queue_limit="
+                f"{self.queue_limit}; retry later")
+        self.sched.push(req, req.priority)
+
+    def _prefill_blocks(self, L: int) -> int:
+        """Blocks the padded chunk prefill of ``L`` tokens writes."""
+        C, P = self.chunk, self.spec.page_size
+        return -(-min(-(-L // C) * C, self.spec.s_alloc) // P)
 
     def _worst_blocks(self, L: int, max_new: int) -> int:
         """Blocks a request can ever touch: the padded prefill plus decode
@@ -177,38 +365,142 @@ class PagedServeLoop:
         hi = min(max(-(-L // C) * C, L + max_new - 1), self.spec.s_alloc)
         return -(-hi // P)
 
+    def _admit_blocks(self, ent: SchedEntry) -> int:
+        """Blocks admission covers: the padded prefill (on-demand) or the
+        worst case through the remaining ``max_new`` budget (reserved)."""
+        L = len(ent.tokens)
+        if self.on_demand:
+            return self._prefill_blocks(L)
+        return self._worst_blocks(L, ent.req.max_new_tokens - len(ent.out))
+
+    def _plan(self, ent: SchedEntry, n_cached: int):
+        """Admission plan given ``n_cached`` matched prefix blocks.  The
+        first position that must run is ``p0 = min(n_cached * P, L - 1)``
+        (the last token always reruns: its logits seed decoding); chunks
+        start on C boundaries, so the first live chunk is ``ci0 = p0 //
+        C``, and a cached block overlapping ``[ci0 * C, ...)`` is CoW
+        duplicated.  Returns ``(total, ci0, n_keep, n_cow, need)``:
+        ``n_keep`` cached blocks stay mapped read-only, ``n_cow`` are
+        copied, and ``need`` fresh pages cover the copies and the rest."""
+        C, P = self.chunk, self.spec.page_size
+        L = len(ent.tokens)
+        total = self._admit_blocks(ent)
+        n_cached = min(n_cached, total)
+        p0 = min(n_cached * P, L - 1)
+        ci0 = p0 // C
+        n_keep = min(n_cached, (ci0 * C) // P)
+        n_cow = n_cached - n_keep
+        need = (total - n_cached) + n_cow
+        return total, ci0, n_keep, n_cow, need
+
+    def _pages_needed(self, req: Request, n_cached: int = 0) -> int:
+        """Fresh pages admission allocates for a fresh ``req``."""
+        return self._plan(self._transient_entry(req), n_cached)[4]
+
+    def _transient_entry(self, req: Request) -> SchedEntry:
+        """A throwaway entry for planning and error paths (never queued)."""
+        return SchedEntry(req=req, priority=0, tokens=req.prompt, out=[],
+                          seq=-1, enqueue_tick=0, t_submit=0.0,
+                          t_enqueue=0.0)
+
+    def _match_blocks(self, ent: SchedEntry) -> int:
+        """Cached full-page prefix length (blocks), taking no reference."""
+        if self.prefix is None:
+            return 0
+        return len(self.prefix.match(ent.tokens, record=False))
+
+    def _next_entry(self) -> Optional[SchedEntry]:
+        """The admission head: strictly best-first (no tenant quotas
+        yet)."""
+        return self.sched.peek()
+
+    def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` pages, evicting LRU unreferenced cached
+        prefixes when that can cover the shortfall."""
+        pages = self.pages.alloc(n)
+        if pages is None and self.prefix is not None:
+            short = n - self.pages.available
+            if self.prefix.evictable() >= short:
+                self.prefix.evict(short)
+                pages = self.pages.alloc(n)
+        return pages
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate page ``src`` into the fresh ``dst``
+        across every layer's pool (eager, outside the forward set)."""
+        lm.cache_copy_page(self.caches, src, dst)
+        self.cow_copies += 1
+
     def _admit(self, slot_i: int) -> str:
-        """Prefill the queue head into a free slot.  Returns 'admitted',
-        'finished' (done on its first token: the slot is free again) or
-        'blocked' (empty queue or pool short)."""
-        if not self.queue:
+        """Prefill the scheduler's best entry into a free slot.  Returns
+        'admitted', 'finished' (done on its first token: the slot is free
+        again) or 'blocked' (empty queue or pool short: the best entry
+        waits, nothing overtakes it).  A resumed entry's tokens are
+        prompt + generated so far: the replay recomputes the dropped K/V
+        and its last logits continue the argmax chain."""
+        ent = self._next_entry()
+        if ent is None:
             return "blocked"
-        req = self.queue[0]
-        tokens = np.asarray(req.prompt, np.int32)
+        tokens = ent.tokens
         L = len(tokens)
-        total = self._worst_blocks(L, req.max_new_tokens)
-        page_ids = self.pages.alloc(total)
+        hits = self.prefix.match(tokens, record=False) \
+            if self.prefix is not None else []
+        total, ci0, n_keep, n_cow, need = self._plan(ent, len(hits))
+        hits = hits[: n_keep + n_cow]
+        if hits:
+            # held so that eviction (ours, below) cannot reclaim them
+            self.prefix.lock(hits)
+        page_ids = self._alloc_with_evict(need)
+        if page_ids is None and hits:
+            # the locked hits can pin the pool themselves: admit without
+            # the cache (a request that fits alone always admits once
+            # every slot is free)
+            self.pages.release([n.page_id for n in hits])
+            hits = []
+            total, ci0, n_keep, n_cow, need = self._plan(ent, 0)
+            page_ids = self._alloc_with_evict(need)
         if page_ids is None:
             return "blocked"
-        self.queue.popleft()
-        blocks = np.asarray(page_ids, np.int32)
+        self.sched.pop(ent)
+        C, P = self.chunk, self.spec.page_size
+        if self.prefix is not None:
+            self.prefix.record_lookup(len(hits), L // P - len(hits))
+        blocks = np.zeros(total, np.int32)
+        shared = np.zeros(total, bool)
+        for b, node in enumerate(hits):
+            blocks[b] = node.page_id
+            shared[b] = True
+        blocks[len(hits):] = page_ids[: total - len(hits)]
+        # CoW the cached blocks the suffix prefill writes
+        cow_pool = page_ids[total - len(hits):]
+        for j, b in enumerate(range(n_keep, n_keep + n_cow)):
+            src, dst = int(blocks[b]), int(cow_pool[j])
+            self._cow(src, dst)
+            self.pages.release([src])     # drop the map reference
+            blocks[b] = dst
+            shared[b] = False
         row = np.zeros(self.spec.max_blocks, np.int32)
         row[:total] = blocks
         self.block_table[slot_i] = row
-        bt_row = self._to_dev(row)
-        C = self.chunk
         n_chunks = -(-L // C)
         logits = None
-        for ci in range(n_chunks):
-            buf = np.zeros(C, np.int32)
+        for ci in range(ci0, n_chunks):
+            buf = np.zeros((1, C), np.int32)
             seg = tokens[ci * C:(ci + 1) * C]
-            buf[: len(seg)] = seg
+            buf[0, : len(seg)] = seg
             last = (L - 1) - ci * C if ci == n_chunks - 1 else 0
-            logits = self._prefill_chunk(self._to_dev(buf[None]), ci * C,
-                                         bt_row, last)
+            logits = self._prefill_chunk(buf, ci * C, row, last)
+        run_tokens = (n_chunks - ci0) * C
+        self.prefill_tokens_run += run_tokens
+        self.prefill_tokens_saved += ci0 * C
+        if ent.out:
+            self.resumes += 1
+            self.resume_prefill_tokens += run_tokens
         tok0 = int(torch.argmax(logits))
         self.lens[slot_i] = L
-        entry = {"req": req, "out": [tok0], "cur": tok0, "blocks": blocks}
+        entry = {"req": ent.req, "out": ent.out + [tok0], "cur": tok0,
+                 "blocks": blocks, "shared": shared,
+                 "prio": ent.priority, "sched": ent}
         if self._done_now(entry) or L >= self.S_max:
             self._finish(slot_i, entry)
             return "finished"
@@ -221,6 +513,29 @@ class PagedServeLoop:
         return ((self.eos_id is not None and entry["out"][-1] == self.eos_id)
                 or len(entry["out"]) >= entry["req"].max_new_tokens)
 
+    def _release_slot(self, slot_i: int, entry) -> np.ndarray:
+        """Move the slot's fully written pages (positions ``[0, lens)``,
+        keyed by prompt + generated tokens) into the prefix cache, free
+        the rest, and reset the slot.  Returns the slot's token history
+        (prompt + generated)."""
+        lens = int(self.lens[slot_i])
+        full = np.concatenate([np.asarray(entry["req"].prompt, np.int32),
+                               np.asarray(entry["out"], np.int32)])
+        assert len(full) == lens + 1, \
+            f"slot {slot_i} token accounting diverged: {len(full)} vs " \
+            f"lens {lens} + 1"
+        blocks = entry["blocks"]
+        n_full = lens // self.spec.page_size
+        if self.prefix is not None and n_full:
+            self.prefix.insert(full, blocks[:n_full])
+            blocks = blocks[n_full:]
+        if len(blocks):
+            self.pages.release(list(blocks))
+        self.block_table[slot_i] = 0      # scratch page: no stale aliasing
+        self.lens[slot_i] = 0
+        self.slots[slot_i] = None
+        return full
+
     def _finish(self, slot_i: int, entry) -> None:
         req = entry["req"]
         req.output = np.asarray(entry["out"], np.int32)
@@ -228,10 +543,21 @@ class PagedServeLoop:
             "stop" if (self.eos_id is not None
                        and entry["out"][-1] == self.eos_id) else "length")
         self.done.append(req)
-        self.pages.release(list(entry["blocks"]))
-        self.block_table[slot_i] = 0      # scratch page: no stale aliasing
-        self.lens[slot_i] = 0
-        self.slots[slot_i] = None
+        self._release_slot(slot_i, entry)
+
+    def _preempt(self, slot_i: int) -> None:
+        """Park a live slot on pool exhaustion (recompute): its written
+        full pages go into the prefix cache (evictable under further
+        pressure, mapped back at resume if they survive), the rest free,
+        and the request requeues with its generated tokens."""
+        entry = self.slots[slot_i]
+        ent: SchedEntry = entry["sched"]
+        lens = int(self.lens[slot_i])
+        ent.tokens = self._release_slot(slot_i, entry)
+        ent.out = list(entry["out"])
+        self.sched.requeue(ent)
+        self.preemptions += 1
+        self.preempted_tokens += lens
 
     def _fill_free_slots(self, mid_decode: bool) -> None:
         for i in range(self.B):
@@ -251,32 +577,109 @@ class PagedServeLoop:
         return self.done
 
     def step(self) -> bool:
-        """One round: admissions into free slots, one decode step over the
-        live slots, then refill.  Returns True while work remains."""
+        """One round: admissions into free slots, then one decode step
+        over the live slots (preempting first if on-demand growth finds
+        the pool empty), then refill.  Returns True while work remains."""
+        self.sched.tick()
         mid = any(s is not None for s in self.slots)
         self._fill_free_slots(mid_decode=mid)
         live = [i for i in range(self.B) if self.slots[i] is not None]
+        self.peak_live_slots = max(self.peak_live_slots, len(live))
         if not live:
-            if self.queue:
-                req = self.queue[0]
+            if len(self.sched):
+                ent = self.sched.peek()
                 raise PoolExhaustedError(
-                    f"request {req.rid} needs "
-                    f"{self._worst_blocks(len(req.prompt), req.max_new_tokens)}"
-                    f" pages; pool has {self.spec.n_pages - 1}")
+                    f"request {ent.req.rid} needs "
+                    f"{self._plan(ent, self._match_blocks(ent))[4]} "
+                    f"fresh pages; pool has {self.spec.n_pages - 1}")
+            if self.check_invariants:
+                self._check()
             return False
-        if self._decode_once(live):
+        live = self._reserve_step(live)
+        freed = True        # every slot preempted: admit next round
+        if live:
+            freed = self._decode_once(live)
+        if freed:
             self._fill_free_slots(mid_decode=True)
-        return bool(self.queue or any(s is not None for s in self.slots))
+            self.peak_live_slots = max(
+                self.peak_live_slots, sum(s is not None for s in self.slots))
+        if self.check_invariants:
+            self._check()
+        return bool(len(self.sched) or any(s is not None for s in self.slots))
+
+    # -- on-demand growth / preemption ---------------------------------------
+
+    def _grow_to(self, slot_i: int, entry, last_blk: int) -> bool:
+        """Cover block ``last_blk`` in the slot's table (on-demand
+        growth); False when the pool and evictable prefixes cannot."""
+        while len(entry["blocks"]) <= last_blk:
+            pages = self._alloc_with_evict(1)
+            if pages is None:
+                return False
+            b = len(entry["blocks"])
+            entry["blocks"] = np.append(entry["blocks"], np.int32(pages[0]))
+            entry["shared"] = np.append(entry["shared"], False)
+            self.block_table[slot_i, b] = pages[0]
+            self.grown_pages += 1
+        return True
+
+    def _reserve_step(self, live: List[int]) -> List[int]:
+        """Secure this step's one-token write for every live slot,
+        highest priority first; on exhaustion the policy picks a victim
+        (possibly the needer itself) and parks it.  Returns the slots
+        that stay live."""
+        P = self.spec.page_size
+        order = sorted(live, key=lambda i: (-self.slots[i]["prio"], i))
+        dropped = set()
+        for i in order:
+            if i in dropped:
+                continue
+            entry = self.slots[i]
+            lens = int(self.lens[i])
+            while not self._grow_to(i, entry, lens // P):
+                cands = [(j, self.slots[j]["prio"],
+                          len(self.slots[j]["blocks"]),
+                          len(self.slots[j]["out"]))
+                         for j in live if j not in dropped]
+                vict = self.sched.select_victim(cands)
+                if vict is None:
+                    raise PoolExhaustedError(
+                        f"pool exhausted growing slot {i} and "
+                        f"serve_preempt_policy={self.sched.policy!r} "
+                        "allows no victim")
+                self._preempt(vict)
+                dropped.add(vict)
+                if vict == i:
+                    break
+        return [i for i in live if i not in dropped]
+
+    def _ensure_writable(self, slot_i: int, entry, blk: int) -> None:
+        """Copy-on-write guard before a decode write to block ``blk``
+        (keeps "no write lands on a page with other readers" local)."""
+        if blk >= len(entry["shared"]) or not entry["shared"][blk]:
+            return
+        pages = self._alloc_with_evict(1)
+        if pages is None:
+            raise PoolExhaustedError(
+                "pool exhausted during copy-on-write; admission should "
+                "have reserved this page")
+        src, dst = int(entry["blocks"][blk]), pages[0]
+        self._cow(src, dst)
+        self.pages.release([src])
+        entry["blocks"][blk] = dst
+        entry["shared"][blk] = False
+        self.block_table[slot_i, blk] = dst
 
     def _decode_once(self, live: List[int]) -> bool:
         """One ``[B, 1]`` decode step; True if any slot finished."""
+        P = self.spec.page_size
         cur = np.zeros((self.B, 1), np.int32)
         for i in live:
+            self._ensure_writable(i, self.slots[i], int(self.lens[i]) // P)
             cur[i, 0] = self.slots[i]["cur"]
-        logits = self._decode(self._to_dev(cur), self._to_dev(self.lens),
-                              self._to_dev(self.block_table))
+        logits = self._decode(cur, self.lens, self.block_table)
         self.decode_steps += 1
-        nxt = torch.argmax(logits, -1).cpu().numpy()
+        nxt = torch.argmax(logits, -1).cpu().numpy()   # the step's host read
         freed = False
         for i in live:
             entry = self.slots[i]
@@ -289,8 +692,61 @@ class PagedServeLoop:
                 freed = True
         return freed
 
+    # -- introspection -------------------------------------------------------
+
+    def _check(self) -> None:
+        """Structural checks (``serve_check_invariants``): page-pool
+        partition, tree consistency, queue sanity."""
+        self.pages.check()
+        if self.prefix is not None:
+            self.prefix.check()
+        self.sched.check()
+
     def kv_pool_bytes(self) -> int:
         """Device bytes of the whole paged KV pool (every layer)."""
         return int(sum(leaf.numel() * leaf.element_size()
                        for seg in self.caches for pool in seg.values()
                        for leaf in pool.values()))
+
+    def sched_stats(self) -> dict:
+        """Scheduling and preemption accounting."""
+        return {
+            **self.sched.stats(),
+            "on_demand": self.on_demand,
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "resume_prefill_tokens": self.resume_prefill_tokens,
+            "preempted_tokens": self.preempted_tokens,
+            "grown_pages": self.grown_pages,
+            "peak_live_slots": self.peak_live_slots,
+            "pool_pages_peak": self.pages.peak,
+            "pool_exhaustions": self.pages.exhaustions,
+        }
+
+    def pool_stats(self) -> dict:
+        """Page-pool accounting."""
+        return {
+            "n_pages": self.pages.n_pages,
+            "usable": self.pages.n_pages - 1,
+            "in_use": self.pages.in_use,
+            "available": self.pages.available,
+            "allocs": self.pages.allocs,
+            "frees": self.pages.frees,
+            "peak": self.pages.peak,
+            "exhaustions": self.pages.exhaustions,
+            "cow_copies": self.cow_copies,
+            "grown_pages": self.grown_pages,
+            "pool_bytes": self.kv_pool_bytes(),
+        }
+
+    def compiled_shapes(self) -> dict:
+        """Per-forward compile counts: captured CUDA graphs on the card,
+        distinct argument shapes seen on the CPU (what ``jit`` would
+        trace)."""
+        return {k: f.n_compiled() for k, f in self.forwards.items()}
+
+    def check_compiled(self) -> None:
+        """At most one compiled shape per forward (the CoW page copy runs
+        eagerly, outside the set)."""
+        for name, n in self.compiled_shapes().items():
+            assert n <= 1, f"{name} forward compiled {n} shapes"

@@ -239,15 +239,68 @@ def test_clustered_kernels_equal_plain_on_card(cuda, K, N, M, B_w, B_a, G,
         assert torch.equal(one, dense)
 
 
+def _clustered_random(dev, n_tiles, n_clus, ms, dp, M, B_a, G, n_arr1, dtype,
+                      seed):
+    """Random operands of kernels 5-6: a table with its zero row, indices
+    into the real rows with the last five steps of every run padding."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = (-128, 128) if dtype == torch.int8 else (-3000, 3000)
+    table = torch.randint(lo, hi, (n_clus, n_arr1, 2**G), generator=gen,
+                          device=dev).to(dtype)
+    table[:, -1] = 0                                      # the zero row
+    idx = torch.randint(0, n_arr1 - 1, (n_tiles, n_clus, ms, dp),
+                        generator=gen, device=dev).to(torch.int32)
+    idx[:, :, ms - 5:] = n_arr1 - 1                       # padding steps
+    codes = torch.randint(0, 2**G, (B_a, M, n_tiles * n_clus * ms),
+                          generator=gen, device=dev).to(torch.int8)
+    return codes, idx, table
+
+
 @pytest.mark.requires_cuda
-def test_clustered_kernel_rejects_a_slice_too_large_for_shared_memory(cuda):
-    # a G=6 plan at N_arr = 4096 has a 262 KB table slice even as int8
-    n_clus, n_arr1, ms, dp = 4, 4097, 8, 64
-    codes = torch.zeros((3, 5, n_clus * ms), dtype=torch.int8, device=cuda)
-    idx = torch.zeros((n_clus, ms, dp), dtype=torch.int32, device=cuda)
-    table = torch.zeros((n_clus, n_arr1, 64), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="shared"):
-        tc.tlmac_gemm_clustered(codes, idx, table, B_a=3, G=6)
+@pytest.mark.parametrize("n_clus,n_arr1,G,dtype", [
+    (4, 4097, 6, torch.int8),       # a 262 KB slice: held in part
+    (3, 4097, 6, torch.int16),      # 524 KB
+    (2, 9001, 5, torch.int8),       # 288 KB
+])
+def test_clustered_kernel_takes_a_slice_too_large_for_shared_memory(
+        cuda, n_clus, n_arr1, G, dtype):
+    """Kernels 5 and 6 on slices past shared memory: the head of each
+    slice stays resident, the rows past it are read from device memory by
+    the same kernel; equal to the plain versions."""
+    ms, dp, M, B_a = 24, 96, 70, 3
+    codes, idx, table = _clustered_random(cuda, 2, n_clus, ms, dp, M, B_a, G,
+                                          n_arr1, dtype, n_arr1 + G)
+    m0, l0 = tc.launches_multi, tc.launches
+    got = tc.tlmac_gemm_clustered_multi(codes, idx, table, B_a=B_a, G=G)
+    want = tc.tlmac_gemm_clustered_multi_plain(codes, idx, table, B_a=B_a,
+                                               G=G)
+    L = n_clus * ms
+    one = tc.tlmac_gemm_clustered(codes[:, :, :L].contiguous(), idx[0], table,
+                                  B_a=B_a, G=G)
+    torch.cuda.synchronize()
+    assert (tc.launches_multi, tc.launches) == (m0 + 1, l0 + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(one, want[:, :dp])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_clus,n_arr1,G,dtype", [
+    (130, 33, 3, torch.int8), (200, 17, 4, torch.int16),
+    (4, 37, 1, torch.int8), (5, 64, 1, torch.int16), (131, 9, 1, torch.int8),
+])
+@pytest.mark.parametrize("dp", [5, 64, 192])
+def test_clustered_kernel_g1_and_many_clusters_on_card(cuda, n_clus, n_arr1,
+                                                       G, dtype, dp):
+    """G = 1 (two entries per row; an odd row count makes a 2-byte-aligned
+    int8 slice) and more than 128 clusters, at dp 5 / 64 / 192."""
+    ms, M, B_a = 12, 67, 4
+    codes, idx, table = _clustered_random(cuda, 2, n_clus, ms, dp, M, B_a, G,
+                                          n_arr1, dtype, n_clus + dp)
+    got = tc.tlmac_gemm_clustered_multi(codes, idx, table, B_a=B_a, G=G)
+    want = tc.tlmac_gemm_clustered_multi_plain(codes, idx, table, B_a=B_a,
+                                               G=G)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 _PLANS = {}
@@ -266,9 +319,10 @@ def _clustered_plan(K, N, B_w, G, d_p, scale=1):
     return _PLANS[key]
 
 
-# (K, N, B_w, B_a, G, d_p): G 2-6, B_a 1-8, D_p 32/120/192, 1 to 8 tiles;
+# (K, N, B_w, B_a, G, d_p): G 1-6, B_a 1-8, D_p 32/120/192, 1 to 8 tiles;
 # D_p 30 (idx rows copied 4 bytes at a time) and 5 (odd: scalar stores)
 CLUSTERED_CARD = [(16, 64, 2, 1, 2, 32), (24, 96, 3, 2, 3, 32),
+                  (16, 64, 2, 3, 1, 32), (12, 192, 3, 4, 1, 192),
                   (32, 240, 3, 3, 4, 120), (40, 192, 3, 5, 5, 192),
                   (24, 256, 2, 8, 6, 32), (96, 384, 3, 3, 3, 192),
                   (64, 128, 3, 6, 4, 64), (48, 120, 3, 7, 3, 120),
@@ -374,6 +428,43 @@ def test_clustered_kernel_takes_every_int32_era_slice_and_4x_as_int8(
     assert torch.equal(got, want)
 
 
+# The reference's FUSED_SWEEP rows (tests/test_fused_autotune.py): (kg, M,
+# B_a), kg ragged against the kernels' steps and M against their row
+# blocks; widened here to every G and to D_p 5..192 (above 128 the tile
+# runs as two column tiles).
+FUSED_SWEEP = [(10, 7, 2), (12, 13, 3), (8, 37, 2), (12, 5, 3)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("kg,M,B_a", FUSED_SWEEP)
+def test_fused_lookup_gemm_domain_on_card(cuda, kg, M, B_a, G):
+    gen = torch.Generator(device=cuda).manual_seed(100 * G + kg + M)
+    n_tiles, n_clus = 2, 3
+    for dp in (5, 64, 128, 130, 192):
+        for n_arr, rows in ((40, torch.int8), (300, torch.int16)):
+            lim = 128 if rows == torch.int8 else 3000
+            table = torch.randint(-lim, lim, (n_clus, n_arr, 2**G),
+                                  generator=gen, device=cuda).to(rows)
+            ex = torch.randint(0, n_arr, (n_tiles, kg, dp), generator=gen,
+                               device=cuda).to(
+                torch.uint8 if n_arr <= 256 else torch.int16)
+            cl = torch.randint(0, n_clus, (n_tiles, kg), generator=gen,
+                               device=cuda).to(torch.int8)
+            a = torch.randint(0, 2**B_a, (M, kg * G), generator=gen,
+                              device=cuda).to(torch.int8)
+            for m in (M, 1, 64):
+                am = a[:m] if m <= M else a.repeat(-(-m // M), 1)[:m]
+                am = am.contiguous()
+                n0 = tf.launches
+                got = tf.tlmac_gemm_fused(am, ex, cl, table, B_a=B_a, G=G)
+                want = tf.tlmac_gemm_fused_plain(am, ex, cl, table, B_a=B_a,
+                                                 G=G)
+                torch.cuda.synchronize()
+                assert tf.launches == n0 + 1
+                assert torch.equal(got, want), (dp, rows, m)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("M", [4, 17, 150])
 @pytest.mark.parametrize("K,N,B_w,B_a,G,d_p", [(48, 128, 3, 3, 3, 64),
@@ -454,3 +545,86 @@ def test_flash_decode_single_launch_equals_plain(cuda, kv, n_splits):
     torch.cuda.synchronize()
     assert fd.launches == n0 + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the serve loop's forward set as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _smoke_loop(cuda, **kw):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.paged import PagedServeLoop
+
+    cfg = smoke_config("codeqwen1.5-7b")
+    params = lm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    return cfg, PagedServeLoop(params, cfg, batch_slots=2, s_max=48,
+                               page_size=4, chunk=8, device=cuda,
+                               check_invariants=True, **kw)
+
+
+@pytest.mark.requires_cuda
+def test_graph_replay_equals_eager_and_one_graph_per_forward_on_card(cuda):
+    """Every forward of a mixed-length, shared-prefix run is replayed from
+    the loop's CUDA graphs and also run eagerly on the same inputs: the
+    logits are bit-equal, including chunks that start after a prefix hit.
+    Afterwards one graph per forward exists, and the launch counters add
+    up: launches recorded at capture x replays + eager launches."""
+    from repro_torch.kernels import flash_decode as fd
+
+    cfg, loop = _smoke_loop(cuda)
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, cfg.vocab, 12).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab, n)
+                               .astype(np.int32)]) for n in (3, 7, 1, 10, 5)]
+    prompts += [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                for n in (2, 19, 33)]
+    checked = {"chunk": 0, "decode": 0, "hit_chunk": 0}
+
+    def parity(kind, graph_fn, eager_fn):
+        def wrapper(*a):
+            got = graph_fn(*a).clone()
+            want = eager_fn(*[torch.as_tensor(np.asarray(x, np.int32),
+                                              device=cuda) for x in a])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), kind
+            checked[kind] += 1
+            if kind == "chunk" and int(a[1]) > 0 and loop.prefix.hit_blocks:
+                checked["hit_chunk"] += 1
+            return got
+        return wrapper
+
+    loop._prefill_chunk = parity("chunk", loop._prefill_chunk,
+                                 loop._chunk_fn)
+    loop._decode = parity("decode", loop._decode, loop._decode_fn)
+    from repro_torch.serve.loop import Request
+
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new_tokens=4 + i % 3))
+    k1, k2 = tf.launches, fd.launches
+    done = loop.run()
+    torch.cuda.synchronize()
+    assert len(done) == len(prompts)
+    assert loop.prefill_tokens_saved > 0 and checked["hit_chunk"] > 0
+    loop.check_compiled()
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+    fw = loop.forwards
+    assert fw["chunk"].replays == checked["chunk"]
+    assert fw["decode"].replays == checked["decode"]
+    # eager launches: the warm-ups and the parity runs (one per forward)
+    n_eager = {k: f.eager + f.replays for k, f in fw.items()}
+    want_k1 = 7 * cfg.n_layers * sum(f.eager + 2 * f.replays
+                                     for f in fw.values())
+    got_k1 = (tf.launches - k1 - sum(f.graph_launches["tlmac_gemm_fused"]
+                                     for f in fw.values())
+              + sum(f.graph_launches["tlmac_gemm_fused"] * f.replays
+                    for f in fw.values()))
+    assert got_k1 == want_k1, (got_k1, want_k1, n_eager)
+    got_k2 = (fd.launches - k2 - fw["decode"].graph_launches["flash_decode"]
+              + fw["decode"].graph_launches["flash_decode"]
+              * fw["decode"].replays)
+    assert got_k2 == cfg.n_layers * (fw["decode"].eager
+                                     + 2 * fw["decode"].replays)
+    loop.pages.check()
