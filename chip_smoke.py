@@ -11,7 +11,8 @@ Phases, in order; any failure raises and exits non-zero:
    each, started together) and print the build time;
 3. kernels 1-2 (fused lookup GEMM, flash-decode) against their plain
    PyTorch versions at the serve path's shapes (kernel 1 at M 1, 4, 16,
-   17 and 64, on tables narrowed once as the serve params hold them),
+   17, 20 and 64, on tables narrowed once as the serve params hold them;
+   M 20 is the verify window of 4 slots x 5 tokens),
    and kernel 1 at the edges of its dp4a and mma.sync paths (G 3/4,
    ragged kg, odd dp, uint8/int16 indices, int16 rows) and over the whole
    domain the reference takes (G 1-6, dp up to 256): the lookup GEMM
@@ -55,6 +56,19 @@ Phases, in order; any failure raises and exits non-zero:
    defaults (prefix hits, skipped chunks, tokens equal to the cache-off
    run where the top-2 margin is clear), and in a pool small enough to
    preempt (every request finishes, no page leaks);
+   then speculation at the same width (``phase_serve_spec``): a verify
+   replay checked bit-equal to eager and verify rows bit-equal to
+   sequential decode steps on one cache state, then six requests (three
+   repeat a span) served with speculation off and the gathered decode
+   reader (the baseline T), with spec_k 4 and a replay drafter over T at
+   corruption 0, 0.4 and 1.0, and with the n-gram drafter: every token
+   equal to T, accept rate, tokens per slot-step, decode and verify step
+   medians, three graphs, and each run's own launches (kernel 1 = 7 x
+   layers x forwards, no flash-decode); then the main path's requests
+   with telemetry off and on in turns (``phase_telemetry``): tokens and
+   graphs equal to the off run, the lifecycle trace valid, phase
+   histograms, TTFT and queue waits, each run's median whole step and
+   wall time, and the Chrome trace written to a temporary directory;
 8. the port on the card against the port on the CPU (plain versions) on
    the two smoke configs, teacher-forced, logits within tolerance;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
@@ -64,8 +78,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
    the quickstart's shape equal to the dense integer GEMM.
 
-The line before the last is the kernel JSON (all six kernels); the last
-line is the device JSON.  Needs one CUDA card; exits non-zero without
+The line before the last is the kernel JSON (all six kernels, launches
+counted on the main paths: the serve main path for kernels 1-2, the paper
+path for kernels 3-6); the last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
 
@@ -195,7 +210,8 @@ GEMM_SHAPES = {  # name: (K, N, dp) of codeqwen1.5-7b's serve linears
 }
 DECODE_LAYER_MIX = {"q/k/v/o 4096->4096": 4, "wi/wg 4096->13440": 2,
                     "wo 13440->4096": 1}
-GEMM_MS = (1, 4, 16, 17, 64)   # both inner products and their boundary
+GEMM_MS = (1, 4, 16, 17, 20, 64)  # both inner products, their boundary,
+                                  # and the verify window (4 slots x 5)
 INT_MM_MIN_M = 32              # torch._int_mm refuses M <= 16: pad to 32
 
 
@@ -228,7 +244,8 @@ def _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G):
     return lambda: torch._int_mm(a_pad, w)[:M]
 
 
-def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
+def phase_gemm(chunk: int, batch: int, verify: int, B_a=3, G=4, n_arr=4096,
+               n_clus=4):
     import torch
 
     from repro_torch.kernels import tlmac_fused as tf
@@ -255,7 +272,7 @@ def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
             got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
             want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G)
             _equal(f"lookup GEMM {name} M={M}", got, want)
-            if M not in (batch, chunk):
+            if M not in (batch, chunk, verify):
                 log(f"  lookup GEMM {name:20s} M={M:3d}: equal int32")
                 continue
             it = iter(range(1 << 30))
@@ -294,7 +311,7 @@ def phase_gemm(chunk: int, batch: int, B_a=3, G=4, n_arr=4096, n_clus=4):
                 f"[{max(M, INT_MM_MIN_M)},{K}]x[{K},{N}] {dense_ms:.4f} ms")
         del plans
     fields = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
-    for M in sorted({batch, chunk}):
+    for M in sorted({batch, chunk, verify}):
         tot = {f: sum(rows[(n, M)][f] * c for n, c in DECODE_LAYER_MIX.items())
                for f in fields}
         log(f"  one layer's 7 lookup GEMMs at M={M}: kernel {tot['ms']:.4f} "
@@ -1310,51 +1327,23 @@ def phase_main(cfg, params):
         f"{(sum(by_kind.values()) + pool) / 2**30:.3f} GiB")
     graph_parity(loop, cfg)
 
-    times = {"prefill": [], "decode": []}
-    spans = {"prefill": [], "decode": []}   # device ms between CUDA events
-    calls = {"prefill": 0, "decode": 0}
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-
-    def timed(kind, fn):
-        def wrapper(*a, **kw):
-            if kind == "decode" and calls[kind] == PROFILED_STEP:
-                logits = _profiled(fn, a, kw)    # kept out of the timings
-            else:
-                sync()
-                t = time.perf_counter()
-                ev[0].record()
-                logits = fn(*a, **kw)
-                ev[1].record()
-                sync()
-                times[kind].append(time.perf_counter() - t)
-                spans[kind].append(ev[0].elapsed_time(ev[1]))
-            calls[kind] += 1
-            if not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"non-finite logits in a {kind} forward")
-            return logits
-        return wrapper
-
-    loop._prefill_chunk = timed("prefill", loop._prefill_chunk)
-    loop._decode = timed("decode", loop._decode)
+    steps = _step_times(loop, ("_prefill_chunk", "_decode"),
+                        profiled="_decode")
     reqs = _requests(cfg.vocab, PROMPT_LENS, MAX_NEW, SEED)
     for r in reqs:
         loop.submit(r)
     torch.cuda.reset_peak_memory_stats()
     # every launch counter set to 0 just before the run: the wrappers'
     # (eager launches) and the graphs' replay counts
-    tf.launches = 0
-    fd.launches = 0
-    for f in loop.forwards.values():
-        f.eager = f.replays = 0
+    _reset_launches(loop)
     t_run = time.perf_counter()
     done = loop.run()
     sync()
     wall = time.perf_counter() - t_run
+    calls = {"prefill": steps["_prefill_chunk"]["calls"],
+             "decode": steps["_decode"]["calls"]}
     eager = {"tlmac_gemm_fused": tf.launches, "flash_decode": fd.launches}
-    counts = dict(eager)
-    for f in loop.forwards.values():
-        for k, n in f.graph_launches.items():
-            counts[k] += n * f.replays
+    counts, _ = _read_launches(loop)
     assert len(done) == len(reqs), (len(done), len(reqs))
     for r in done:
         assert len(r.output) == MAX_NEW, (r.rid, len(r.output))
@@ -1371,24 +1360,22 @@ def phase_main(cfg, params):
     assert counts["flash_decode"] == want_flash, (counts, want_flash)
     loop.pages.check()
     loop.prefix.check()
-    dec = sorted(times["decode"])
+    dec = sorted(steps["_decode"]["ms"])
+    prefill_s = sum(steps["_prefill_chunk"]["ms"]) / 1e3
     prompt_tokens = sum(PROMPT_LENS)
     log(f"  served {len(done)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
         f"{calls['prefill']} prefill chunks (chunk {CHUNK}), "
         f"{calls['decode']} decode steps, {loop.refills} mid-decode "
         "admissions; all logits finite; compiled "
         f"{loop.compiled_shapes()} (check_compiled holds)")
-    span = sorted(spans["decode"])
-    log(f"  decode step: median {dec[len(dec) // 2] * 1e3:.2f} ms, min "
-        f"{dec[0] * 1e3:.2f} ms, max {dec[-1] * 1e3:.2f} ms "
-        f"(batch_slots 4, host clock around a synchronised step); device "
-        f"span (CUDA events around the copies and the replay) median "
-        f"{span[len(span) // 2]:.2f} ms, "
-        f"{span[len(span) // 2] / (dec[len(dec) // 2] * 1e3):.1%} of the "
-        "median step")
-    log(f"  prefill: {prompt_tokens} prompt tokens in "
-        f"{sum(times['prefill']):.2f} s = "
-        f"{prompt_tokens / sum(times['prefill']):.1f} tok/s "
+    span = _median(steps["_decode"]["span"])
+    log(f"  decode step: median {_median(dec):.2f} ms, min {dec[0]:.2f} ms, "
+        f"max {dec[-1]:.2f} ms (batch_slots 4, host clock around a "
+        f"synchronised step); device span (CUDA events around the copies "
+        f"and the replay) median {span:.2f} ms, {span / _median(dec):.1%} "
+        f"of the median step")
+    log(f"  prefill: {prompt_tokens} prompt tokens in {prefill_s:.2f} s = "
+        f"{prompt_tokens / prefill_s:.1f} tok/s "
         f"({calls['prefill'] * CHUNK} padded chunk tokens)")
     log(f"  max_memory_allocated during the run: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1407,7 +1394,8 @@ def phase_main(cfg, params):
     del loop
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, dict(outputs={r.rid: r.output.tolist() for r in done},
+                        decode_ms=_median(dec))
 
 
 # ---------------------------------------------------------------------------
@@ -1552,6 +1540,380 @@ def phase_serve_features(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# speculation at full width: n-gram and replay drafters, the verify graph
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                  # drafts per slot: a [4, 5] verify window
+SPAN = 48                   # repeated span of the speculative prompts
+CORRUPTIONS = (0.0, 0.4, 1.0)
+
+
+def _spec_requests(vocab, seed):
+    """Six requests of the main path's prompt lengths and 32 new tokens;
+    requests 1, 3 and 5 end with a 48-token span copied from their own
+    first tokens, so the n-gram drafter finds matches in the prompt."""
+    import numpy as np
+
+    from repro_torch.serve.loop import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate(PROMPT_LENS):
+        p = rng.integers(0, vocab, n).astype(np.int32)
+        if i % 2:
+            p[n - SPAN:] = p[:SPAN]
+        reqs.append(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    return reqs
+
+
+def _replay_drafter(streams, corrupt_p, vocab, seed=0):
+    """``tests/test_spec_decode.py::ReplayDrafter``: replays each request's
+    known continuation, corrupting every proposed token with probability
+    ``corrupt_p`` (0: every draft right, 1: every window rejected at its
+    first row)."""
+    import numpy as np
+
+    from repro_torch.serve.spec import Drafter
+
+    class ReplayDrafter(Drafter):
+        def __init__(self):
+            self.streams = [np.asarray(s, np.int64) for s in streams]
+            self.rng = np.random.default_rng(seed)
+
+        def propose(self, context, k):
+            ctx = np.asarray(context, np.int64)
+            for s in self.streams:
+                if len(s) >= len(ctx) and np.array_equal(s[: len(ctx)], ctx):
+                    d = s[len(ctx): len(ctx) + k].astype(np.int32)
+                    flip = self.rng.random(len(d)) < corrupt_p
+                    return np.where(flip, (d + 1) % vocab, d)
+            return np.zeros(0, np.int32)
+
+    return ReplayDrafter()
+
+
+def _capture_forwards(loop):
+    """Capture every forward of ``loop`` before a counted run: one call
+    each on all-zero inputs (block tables of page 0, n_writes 0), whose
+    writes all land in the scratch page.  Then every launch of the run is
+    a replay's (the counters are reset after this)."""
+    import numpy as np
+
+    B, MB = loop.B, loop.spec.max_blocks
+    z = lambda *shape: np.zeros(shape, np.int32)        # noqa: E731
+    loop._prefill_chunk(z(1, loop.chunk), 0, z(MB), 0)
+    loop._decode(z(B, 1), z(B), z(B, MB))
+    if "verify" in loop.forwards:
+        loop._verify(z(B, loop.spec_k + 1), z(B), z(B), z(B, MB))
+    if DEV == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _reset_launches(loop):
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    tf.launches = fd.launches = 0
+    for f in loop.forwards.values():
+        f.eager = f.replays = 0
+
+
+def _read_launches(loop):
+    """Launches since ``_reset_launches``: eager ones plus the launches
+    recorded at capture x replays; and the forwards that ran."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    counts = {"tlmac_gemm_fused": tf.launches, "flash_decode": fd.launches}
+    for f in loop.forwards.values():
+        for k, n in f.graph_launches.items():
+            counts[k] += n * f.replays
+    return counts, sum(f.eager + f.replays for f in loop.forwards.values())
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def _step_times(loop, names, profiled=None):
+    """Wrap the loop's forwards ``names``: per call, host ms around a
+    synchronised call and the device span (ms between CUDA events around
+    it); every call's logits must be finite.  Call ``PROFILED_STEP`` of
+    the forward ``profiled`` runs under torch.profiler instead and is kept
+    out of the timings.  Returns ``{name: {"ms", "span", "calls"}}``."""
+    import torch
+
+    steps = {n: {"ms": [], "span": [], "calls": 0} for n in names}
+
+    def timed(name, fn):
+        rec = steps[name]
+
+        def wrapper(*a):
+            if name == profiled and rec["calls"] == PROFILED_STEP:
+                out = _profiled(fn, a, {})
+            elif DEV != "cuda":
+                out = fn(*a)
+            else:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ev[0].record()
+                out = fn(*a)
+                ev[1].record()
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t) * 1e3)
+                rec["span"].append(ev[0].elapsed_time(ev[1]))
+            rec["calls"] += 1
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"non-finite logits in a {name} forward")
+            return out
+        return wrapper
+
+    for n in names:
+        setattr(loop, n, timed(n, getattr(loop, n)))
+    return steps
+
+
+def verify_parity(loop, cfg):
+    """On a speculative loop (decode pinned to the gathered reader): one
+    verify replay equals the eager verify forward bit for bit; then the
+    same window run as sequential decode replays against one verify
+    replay, on the same cache state: verify row j must equal decode step
+    j bit for bit, the reference's contract.  Then the attention alone of
+    one layer at these shapes (graph replay): the verify window's gather
+    + masked softmax and the gathered decode reader's.  Returns the two
+    attention times (ms a step over every layer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import paged as pk
+    from repro_torch.models import attention as at
+
+    rng = np.random.default_rng(SEED + 3)
+    B, MB, K1 = loop.B, loop.spec.max_blocks, loop.spec_k + 1
+    bt = (np.arange(B * MB, dtype=np.int32).reshape(B, MB) + 1) \
+        % (loop.spec.n_pages - 1) + 1
+    pos = np.array([200, 37, 511, 0][:B], np.int32)
+    toks = rng.integers(0, cfg.vocab, (B, K1)).astype(np.int32)
+    n_writes = np.array([K1, 3, K1, 0][:B], np.int32)
+    got = loop._verify(toks, pos, n_writes, bt).clone()
+    want = loop._verify_fn(*[torch.as_tensor(x, device=DEV)
+                             for x in (toks, pos, n_writes, bt)])
+    if not torch.equal(got, want):
+        raise AssertionError(
+            "verify graph replay differs from eager by "
+            f"{(got.float() - want.float()).abs().max().item()}")
+    seq = []
+    for j in range(K1):
+        seq.append(loop._decode(toks[:, j: j + 1], pos + j, bt).clone())
+    win = loop._verify(toks, pos, np.full(B, K1, np.int32), bt).clone()
+    diff = max((win[:, j].float() - seq[j].float()).abs().max().item()
+               for j in range(K1))
+    if diff != 0:
+        raise AssertionError("verify rows differ from sequential decode steps"
+                             f" by max |dlogit| {diff}")
+    log(f"  verify graph replay == eager, bit for bit ([{B}, {K1}] window, "
+        f"n_writes {n_writes.tolist()}); verify row j == decode step j bit "
+        "for bit (lax reader, graph replays, same cache state)")
+    if DEV != "cuda":
+        return float("nan"), float("nan")
+    qs = pk.qspec_for(cfg)
+    pool = {n: leaf[0] for n, leaf in loop.caches[0]["b0"].items()}
+    q = torch.randn((B, K1, cfg.n_heads, cfg.kv_head_dim), device=DEV,
+                    dtype=torch.bfloat16)
+    bt_d, pos_d = torch.as_tensor(bt, device=DEV), torch.as_tensor(
+        pos, device=DEV)
+
+    def verify_attention():         # gqa_verify_paged after its K/V write
+        kc, vc = pk.gather_kv_deq(pool, bt_d, qs)
+        iq = pos_d[:, None, None] + torch.arange(K1, device=DEV)[None, :,
+                                                                 None]
+        mask = torch.arange(kc.shape[1], device=DEV)[None, None, :] <= iq
+        return at._sdpa(q, kc, vc, mask[:, None, None], cfg)
+
+    t_v = graph_ms(verify_attention, iters=8)
+    t_d = graph_ms(lambda: pk._attend_lax(q[:, :1], pool, bt_d, pos_d, None,
+                                          qs), iters=8)
+    log(f"  attention alone, one layer (graph replay): verify window "
+        f"{t_v:.4f} ms, gathered decode reader {t_d:.4f} ms; x "
+        f"{cfg.n_layers} layers: {t_v * cfg.n_layers:.2f} / "
+        f"{t_d * cfg.n_layers:.2f} ms a step")
+    return t_v * cfg.n_layers, t_d * cfg.n_layers
+
+
+def phase_serve_spec(cfg, params):
+    """Speculation on the main path's model and loop: the six-request set
+    (three prompts repeat a span) served with speculation off and the
+    gathered decode reader (the baseline, tokens T), then with spec_k 4
+    and a replay drafter over T at corruption 0, 0.4 and 1.0, then with
+    the n-gram drafter.  Per run: every token equal to T (verify rows are
+    bit-equal to decode steps, ``verify_parity``), accept rate and tokens
+    per slot-step, decode and verify step medians, the forward set, and
+    the run's own launches: kernel 1 7 x layers x forwards, flash-decode
+    none."""
+    import numpy as np
+    import torch
+
+    reqs = lambda: _spec_requests(cfg.vocab, SEED + 4)     # noqa: E731
+    loop = main_loop(params, cfg, spec_k=SPEC_K,
+                     drafter=_replay_drafter([], 0.0, cfg.vocab))
+    attn_v, attn_d = verify_parity(loop, cfg)
+    del loop
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    want = None
+    runs = [("spec off, lax", dict(attn_impl="lax"))]
+    runs += [(f"replay p={p}", dict(spec_k=SPEC_K, corrupt=p))
+             for p in CORRUPTIONS]
+    runs.append(("n-gram", dict(spec_k=SPEC_K, drafter="ngram")))
+    for name, kw in runs:
+        if "corrupt" in kw:
+            streams = [np.concatenate([r.prompt, want[r.rid]])
+                       for r in reqs()]
+            kw = dict(spec_k=SPEC_K, drafter=_replay_drafter(
+                streams, kw.pop("corrupt"), cfg.vocab, seed=SEED))
+        loop = main_loop(params, cfg, **kw)
+        _capture_forwards(loop)
+        steps = _step_times(loop, ("_decode", "_verify"))
+        for r in reqs():
+            loop.submit(r)
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches(loop)
+        t = time.perf_counter()
+        done = {r.rid: r.output.tolist() for r in loop.run()}
+        wall = time.perf_counter() - t
+        counts, n_fwd = _read_launches(loop)
+        assert sorted(done) == list(range(len(PROMPT_LENS))), sorted(done)
+        assert all(len(o) == MAX_NEW for o in done.values())
+        loop.check_compiled()
+        shapes = loop.compiled_shapes()
+        assert shapes == ({"chunk": 1, "decode": 1, "verify": 1}
+                          if loop.drafter is not None
+                          else {"chunk": 1, "decode": 1}), shapes
+        if DEV == "cuda":
+            # captured before the reset: every forward of the run a replay
+            assert n_fwd == sum(f.replays for f in loop.forwards.values())
+            want_k1 = 7 * cfg.n_layers * n_fwd
+            assert counts["tlmac_gemm_fused"] == want_k1, (counts, want_k1)
+            assert counts["flash_decode"] == 0, counts
+        loop.pages.check()
+        st = loop.spec_stats()
+        if want is None:
+            want = done
+            cmp = "baseline T"
+        elif done != want:
+            raise AssertionError(f"{name}: tokens differ from T")
+        else:
+            cmp = f"all {len(PROMPT_LENS) * MAX_NEW} tokens equal to T"
+        dec = [_median(steps["_decode"][k]) for k in ("ms", "span")]
+        ver = [_median(steps["_verify"][k]) for k in ("ms", "span")]
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if DEV == "cuda" else float("nan"))
+        log(f"  {name}: {wall:.2f} s; {cmp}; accept rate "
+            f"{st['accept_rate']:.3f} ({st['accepted']} of {st['proposed']}),"
+            f" tokens per slot-step {st['tokens_per_step']:.3f}; "
+            f"{st['decode_steps']} decode steps median {dec[0]:.2f} ms "
+            f"(device span {dec[1]:.2f}), {st['spec_steps']} verify steps "
+            f"median {ver[0]:.2f} ms (device span {ver[1]:.2f}); compiled "
+            f"{shapes}; this run's launches: lookup GEMM "
+            f"{counts['tlmac_gemm_fused']} (= 7 x {cfg.n_layers} x {n_fwd} "
+            f"forwards), flash-decode {counts['flash_decode']}; "
+            f"max_memory_allocated {peak:.3f} GiB")
+        if name == "replay p=1.0":          # every slot-step a full window
+            log(f"  attention share of the step (attention alone x layers "
+                f"over the device span): verify {attn_v / ver[1]:.1%} of "
+                f"{ver[1]:.2f} ms, decode {attn_d / dec[1]:.1%} of "
+                f"{dec[1]:.2f} ms")
+        del loop
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _timed_steps(loop):
+    """Wrap ``loop.step``: host ms of every whole step (admission, the
+    forward and its synchronising argmax read, acceptance, and with
+    telemetry on every event, histogram, gauge and profiler range)."""
+    ms = []
+    step = loop.step
+
+    def wrapper():
+        t = time.perf_counter()
+        more = step()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return more
+    loop.step = wrapper
+    return ms
+
+
+def phase_telemetry(cfg, params, main_run):
+    """The main path's six requests with telemetry off and on, in turns
+    (off, on, on, off): every run's tokens equal the main path's and its
+    forward set is the two graphs; the traced runs' lifecycle validates;
+    the phase histograms, TTFT and queue waits of the first traced run
+    are printed, with each run's median whole step and wall time, which
+    is what telemetry costs; its Chrome trace is exported to a temporary
+    directory and counted."""
+    import tempfile
+
+    from repro_torch.serve.telemetry import validate_lifecycle
+
+    cost = {True: [], False: []}
+    traced = None
+    for tel in (False, True, True, False):
+        loop = main_loop(params, cfg, telemetry=tel)
+        _capture_forwards(loop)
+        ms = _timed_steps(loop)
+        for r in _requests(cfg.vocab, PROMPT_LENS, MAX_NEW, SEED):
+            loop.submit(r)
+        t = time.perf_counter()
+        done = {r.rid: r.output.tolist() for r in loop.run()}
+        cost[tel].append((_median(ms), time.perf_counter() - t, len(ms)))
+        if done != main_run["outputs"]:
+            raise AssertionError(f"telemetry={tel} changed the tokens")
+        loop.check_compiled()
+        assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+        if tel:
+            seqs = validate_lifecycle(loop.tel.tracer.events)
+            assert len(seqs) == len(PROMPT_LENS), seqs
+            if traced is None:
+                traced = dict(hist=loop.metrics()["telemetry"]["histograms"],
+                              st=loop.sched_stats())
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "trace.json")
+                    traced["events"] = loop.export_trace(path)["events"]
+                    traced["bytes"] = os.path.getsize(path)
+        del loop
+        gc.collect()
+
+    def q(name):
+        h = traced["hist"][name]
+        return (f"{name} p50 {h['p50'] * 1e3:.2f} ms p99 "
+                f"{h['p99'] * 1e3:.2f} ms (n {h['count']})")
+    log(f"  telemetry on: tokens equal to the main path's, compiled "
+        "{'chunk': 1, 'decode': 1}, lifecycle valid for "
+        f"{len(PROMPT_LENS)} requests; {q('phase.prefill_chunk_s')}; "
+        f"{q('phase.decode_s')}; {q('phase.reserve_s')}")
+    for key in ("ttft_s", "queue_wait_s"):
+        s = traced["st"][key]
+        log(f"  {key}: n {s['count']}, p50 {s['p50'] * 1e3:.1f} ms, p99 "
+            f"{s['p99'] * 1e3:.1f} ms, max {s['max'] * 1e3:.1f} ms")
+    fmt = lambda runs: ", ".join(                            # noqa: E731
+        f"{m:.3f} ms ({n} steps, run {w:.3f} s)" for m, w, n in runs)
+    log(f"  decode step median as whole step() calls (admission, forward, "
+        f"argmax read, acceptance, telemetry), host clock, runs in turns "
+        f"off/on/on/off: "
+        f"off {fmt(cost[False])}; on {fmt(cost[True])} (main path decode "
+        f"step {main_run['decode_ms']:.2f} ms); Chrome trace "
+        f"{traced['events']} events, {traced['bytes']} bytes (temporary "
+        "directory)")
+
+
+# ---------------------------------------------------------------------------
 # card vs CPU on the smoke configs
 # ---------------------------------------------------------------------------
 
@@ -1629,7 +1991,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     phase("lookup GEMM vs plain (int32, must be equal)")
-    gemm = phase_gemm(chunk=CHUNK, batch=4)
+    gemm = phase_gemm(chunk=CHUNK, batch=4, verify=4 * (SPEC_K + 1))
     phase_gemm_edges()
     phase_gemm_domain()
     phase("flash-decode vs plain")
@@ -1648,9 +2010,14 @@ def main() -> int:
     if args.only == "all":
         phase("main path (serve)")
         cfg, params = init_main_model()
-        counts.update(phase_main(cfg, params))
+        main_counts, main_run = phase_main(cfg, params)
+        counts.update(main_counts)
         phase("serve features: shared prefix, pool pressure")
         phase_serve_features(cfg, params)
+        phase("serve speculation: n-gram and replay drafters, verify graph")
+        phase_serve_spec(cfg, params)
+        phase("serve telemetry: the main path's requests, telemetry on")
+        phase_telemetry(cfg, params, main_run)
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -32,6 +32,9 @@ class ArchConfig:
     tlmac_narr_cap: int = 4096   # LUT-pool capacity budget for plan shapes
     serve_impl: str = "tlmac"    # only 'tlmac' is served by this package
     serve_kv_dtype: str = "fp"   # paged KV pool dtype: fp | int8 | int4
+    serve_paged_attn_impl: str = "auto"  # paged decode attention reader:
+                                 # 'auto' / 'flash' = the flash-decode
+                                 # kernel, 'lax' = gather + masked softmax
     serve_shared_act_quant: bool = True  # swiglu wi/wg share wi's a_step
     # --- paged serve loop: admission, paging, preemption (the
     # reference's names and defaults) ---
@@ -44,6 +47,14 @@ class ArchConfig:
     serve_priority_default: int = 0   # priority of a request without one
     serve_queue_limit: int = 0    # submit backpressure bound (0 = none)
     serve_check_invariants: bool = False  # structural checks every step
+    # --- speculation and telemetry (serve/spec.py, serve/telemetry.py) ---
+    serve_spec_k: int = 0         # draft up to k tokens per live slot and
+                                  # score all k+1 in one verify forward
+                                  # (0 = off: plain one-token decode)
+    serve_spec_drafter: str = "ngram"  # 'ngram' (prompt lookup) or 'none'
+    serve_telemetry: bool = False  # lifecycle tracer + phase histograms
+    serve_trace_path: str = ""    # run() exports the Chrome trace here
+                                  # (and a JSONL twin at path + 'l')
 
     @property
     def kv_head_dim(self) -> int:

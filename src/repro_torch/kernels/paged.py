@@ -214,6 +214,28 @@ def write_chunk_kv(kv: dict, k, v, block_table_row, start,
     return _write_kv(kv, pid, off, k[0], v[0], qspec)
 
 
+def write_spec_kv(kv: dict, k, v, block_table, positions, n_writes,
+                  qspec: Optional[KVQuantSpec] = None) -> dict:
+    """Write a fixed-width speculative verify window per slot: k/v ``[B,
+    K1, KV, hd]``, row ``j`` of slot ``b`` at absolute position
+    ``positions[b] + j``.  Only the first ``n_writes[b]`` rows are real
+    (the current token plus the live draft); the window's padding rows go
+    to the scratch page (page 0), codes and scales alike, as an idle
+    slot's decode write does.  The block index is clamped into the
+    table's range before the gather: a padding row of a slot near
+    capacity may compute ``pos // P`` one past the last block."""
+    K1 = k.shape[1]
+    P = kv["k"].shape[1]
+    ar = torch.arange(K1, device=k.device)
+    pos = positions[:, None] + ar[None, :]                    # [B, K1]
+    blk = torch.clamp(pos // P, max=block_table.shape[1] - 1).long()
+    pid = torch.gather(block_table, 1, blk)                   # [B, K1]
+    valid = ar[None, :] < n_writes[:, None]
+    pid = torch.where(valid, pid, torch.zeros_like(pid))      # pad -> scratch
+    off = pos % P
+    return _write_kv(kv, pid, off, k, v, qspec)
+
+
 def copy_page_kv(kv: dict, src: int, dst: int) -> dict:
     """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
     place across every leaf of one layer's pool, codes AND scale sidecars

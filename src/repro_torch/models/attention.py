@@ -3,9 +3,10 @@
 
 Head layout: q ``[B, S, H, hd]``; kv ``[B, S, KV, hd]``.  Decode reads
 the paged pool through the hand-written flash-decode kernel (its plain
-version for CPU tensors); chunked prefill gathers the slot's pages and
-runs the plain masked softmax, as the JAX package does outside Pallas.
-Pool writes happen in place."""
+version for CPU tensors) or, with ``serve_paged_attn_impl='lax'``, the
+gathered reader; chunked prefill and the speculative verify window
+gather the slot's pages and run the plain masked softmax, as the JAX
+package does outside Pallas.  Pool writes happen in place."""
 
 from __future__ import annotations
 
@@ -59,11 +60,19 @@ def _sdpa(q, k, v, mask, cfg):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(q.dtype)
 
 
+DECODE_IMPLS = ("auto", "flash", "lax")
+
+
 def gqa_decode_paged(params, x, cfg, pages, block_table, positions,
-                     apply_fn=nn.serve_linear_apply):
+                     apply_fn=nn.serve_linear_apply, impl: str = "auto"):
     """Single-token decode against a paged pool (written in place).
-    ``positions [B]`` int32 per-slot write positions.  Full attention in
-    four splits: no ported config has a sliding window."""
+    ``positions [B]`` int32 per-slot write positions.  ``impl`` picks the
+    reader: ``'auto'`` and ``'flash'`` run flash-decode (full attention
+    in four splits: no ported config has a sliding window), ``'lax'`` the
+    gather + masked softmax reader (``paged._attend_lax``)."""
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"paged attention impl {impl!r} not in "
+                         f"{DECODE_IMPLS}")
     B = x.shape[0]
     qs = paged.qspec_for(cfg)
     q, k, v = _qkv(params, x, cfg, apply_fn)
@@ -71,6 +80,9 @@ def gqa_decode_paged(params, x, cfg, pages, block_table, positions,
     q = nn.apply_rotary(q, sin, cos)
     k = nn.apply_rotary(k, sin, cos)
     kv = paged.write_decode_kv(pages, k, v, block_table, positions, qs)
+    if impl == "lax":
+        out = paged._attend_lax(q, kv, block_table, positions, None, qs)
+        return apply_fn(params["wo"], out, cfg), kv
     ksc, vsc = paged.pool_scales(kv)
     H, hd = cfg.n_heads, cfg.kv_head_dim
     KV = cfg.n_kv
@@ -104,3 +116,31 @@ def gqa_prefill_chunk(params, x, cfg, pages, block_table_row, start,
     out = _sdpa(q, kc, vc, mask, cfg)
     H, hd = cfg.n_heads, cfg.kv_head_dim
     return apply_fn(params["wo"], out.reshape(B, C, H * hd), cfg), kv
+
+
+def gqa_verify_paged(params, x, cfg, pages, block_table, positions, n_writes,
+                     apply_fn=nn.serve_linear_apply):
+    """Speculative-verify attention: a fixed ``K1``-token window per slot.
+    ``x [B, K1, d]`` holds each slot's current token and its draft; row
+    ``j`` sits at position ``positions[b] + j``.  Every row's K/V is
+    written first (rows past ``n_writes[b]`` to the scratch page), then
+    each row attends through the block table with its own causal mask
+    (row ``j`` sees positions ``<= positions[b] + j``), through the same
+    gather + masked softmax as the ``'lax'`` decode reader."""
+    B, K1, _ = x.shape
+    qs = paged.qspec_for(cfg)
+    q, k, v = _qkv(params, x, cfg, apply_fn)
+    pos = positions[:, None] + torch.arange(K1, device=x.device)[None, :]
+    sin, cos = nn.rotary_embedding(pos, cfg.kv_head_dim)
+    q = nn.apply_rotary(q, sin, cos)
+    k = nn.apply_rotary(k, sin, cos)
+    kv = paged.write_spec_kv(pages, k, v, block_table, positions, n_writes,
+                             qs)
+    kc, vc = paged.gather_kv_deq(kv, block_table, qs)
+    S_alloc = kc.shape[1]
+    iq = pos[:, :, None]                                      # [B, K1, 1]
+    ik = torch.arange(S_alloc, device=x.device)[None, None, :]
+    mask = ik <= iq
+    out = _sdpa(q, kc, vc, mask[:, None, None], cfg)         # [B,K1,H,hd]
+    H, hd = cfg.n_heads, cfg.kv_head_dim
+    return apply_fn(params["wo"], out.reshape(B, K1, H * hd), cfg), kv

@@ -11,7 +11,11 @@ JAX, on purpose:
 - ``prefill_chunk`` takes ``start`` and ``last`` as 0-d int32 device
   tensors (Python ints are accepted too), so one captured CUDA graph of
   the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
-  trace does in JAX.
+  trace does in JAX; ``verify_step_paged`` takes ``positions`` and
+  ``n_writes`` as device tensors for the same reason;
+- the ``jax.named_scope`` labels of the three forwards are
+  ``torch.profiler.record_function`` ranges (host ranges: inside a
+  captured graph they are recorded at capture, not at replay).
 """
 
 from __future__ import annotations
@@ -49,15 +53,17 @@ def init_ffn(gen, cfg, device="cuda"):
 
 
 def ffn_apply(params, x, cfg, apply_fn):
+    """The gated product reaches ``wo`` in f32: XLA fuses it into
+    ``wo``'s activation quantiser and drops its rounding to bf16."""
     pair_apply = getattr(apply_fn, "pair_apply", None)
     if (pair_apply is not None and cfg.serve_shared_act_quant
             and "wg" in params):
         h, g = pair_apply(params["wi"], params["wg"], x, cfg)
-        h = h * torch.nn.functional.silu(g)
+        h = h.float() * nn.silu(g)
     else:
         h = apply_fn(params["wi"], x, cfg)
         if "wg" in params:
-            h = h * torch.nn.functional.silu(apply_fn(params["wg"], x, cfg))
+            h = h.float() * nn.silu(apply_fn(params["wg"], x, cfg))
         else:
             h = torch.nn.functional.gelu(h)
     return apply_fn(params["wo"], h, cfg)
@@ -77,21 +83,31 @@ def init_block(gen, kind: str, cfg, device="cuda"):
 def apply_block(kind: str, params, x, cfg, apply_fn, cache, paged_ctx,
                 decode: bool):
     """Paged branch of the JAX ``apply_block`` plus its shared tail.
-    ``paged_ctx``: ``{'block_table', 'positions'}`` for decode,
+    ``paged_ctx``: ``{'block_table', 'positions', 'n_writes'}`` for a
+    verify window, ``{'block_table', 'positions', 'impl'}`` for decode,
     ``{'block_table', 'start'}`` for a prefill chunk."""
     if kind != "attn":
         raise ValueError(f"block kind {kind!r} is not ported")
     h = nn.rmsnorm_apply(params["norm1"], x)
-    if decode:
+    if "n_writes" in paged_ctx:
+        y, kv = attn.gqa_verify_paged(
+            params["attn"], h, cfg, cache, paged_ctx["block_table"],
+            paged_ctx["positions"], paged_ctx["n_writes"],
+            apply_fn=apply_fn)
+    elif decode:
         y, kv = attn.gqa_decode_paged(
             params["attn"], h, cfg, cache, paged_ctx["block_table"],
-            paged_ctx["positions"], apply_fn=apply_fn)
+            paged_ctx["positions"], apply_fn=apply_fn,
+            impl=paged_ctx.get("impl", "auto"))
     else:
         y, kv = attn.gqa_prefill_chunk(
             params["attn"], h, cfg, cache, paged_ctx["block_table"],
             paged_ctx["start"], apply_fn=apply_fn)
-    x = x + y
-    hf = nn.rmsnorm_apply(params["norm2"], x)
+    # XLA fuses the residual add into the norm after it: the norm reads
+    # the add's f32 sum, unrounded, while the stream keeps its bf16 sum
+    s = x.float() + y
+    x = s.to(x.dtype)
+    hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
     return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), kv
 
 
@@ -158,13 +174,14 @@ def prefill_chunk(params, caches, tokens, start, block_table_row, cfg,
     [max_blocks]`` names; ``start`` and ``last`` are 0-d int32 tensors on
     the tokens' device (or ints).  Returns ``(logits [vocab], caches)``:
     the logits of chunk row ``last`` only, picked on the device."""
-    x = nn.embed_apply(params.embed.tree(), tokens)
-    ctx = {"block_table": block_table_row, "start": start}
-    x = _run_layers(params, caches, x, cfg, ctx, decode=False)
-    last = torch.as_tensor(last, device=x.device)
-    x = x.index_select(1, last.reshape(1).long())
-    x = nn.rmsnorm_apply(params.final_norm.tree(), x)
-    logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+    with torch.profiler.record_function("repro_torch.lm.prefill_chunk"):
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        ctx = {"block_table": block_table_row, "start": start}
+        x = _run_layers(params, caches, x, cfg, ctx, decode=False)
+        last = torch.as_tensor(last, device=x.device)
+        x = x.index_select(1, last.reshape(1).long())
+        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
+        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
     return logits[0, 0, : cfg.vocab], caches
 
 
@@ -185,10 +202,35 @@ def cache_copy_page(caches, src: int, dst: int):
 def decode_step_paged(params, caches, tokens, positions, block_table, cfg):
     """One paged decode step: tokens ``[B, 1]``, ``positions [B]`` int32,
     ``block_table [B, max_blocks]`` int32.  Idle slots carry an all-zero
-    block-table row (writes land in the scratch page)."""
-    x = nn.embed_apply(params.embed.tree(), tokens)
-    ctx = {"block_table": block_table, "positions": positions}
-    x = _run_layers(params, caches, x, cfg, ctx, decode=True)
-    x = nn.rmsnorm_apply(params.final_norm.tree(), x)
-    logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+    block-table row (writes land in the scratch page).  The attention
+    reader follows ``cfg.serve_paged_attn_impl``."""
+    with torch.profiler.record_function("repro_torch.lm.decode_step_paged"):
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        ctx = {"block_table": block_table, "positions": positions,
+               "impl": cfg.serve_paged_attn_impl}
+        x = _run_layers(params, caches, x, cfg, ctx, decode=True)
+        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
+        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
     return logits[:, 0, : cfg.vocab], caches
+
+
+@torch.no_grad()
+def verify_step_paged(params, caches, tokens, positions, n_writes,
+                      block_table, cfg):
+    """Speculative verify pass: a fixed ``K1``-token window per slot in
+    one forward.  tokens ``[B, K1]`` (each slot's current token and its
+    draft; row ``j`` at position ``positions[b] + j``), ``positions [B]``
+    and ``n_writes [B]`` (real rows per slot; padding rows write to the
+    scratch page) int32, ``block_table [B, max_blocks]`` int32, all
+    tensors on the params' device.  Returns ``(logits [B, K1, vocab],
+    caches)``: row ``j``'s logits are what a sequential decode step after
+    accepting rows ``0..j`` gives.  Verify attention has no reader
+    choice: it always runs the gather + masked softmax."""
+    with torch.profiler.record_function("repro_torch.lm.verify_step_paged"):
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        ctx = {"block_table": block_table, "positions": positions,
+               "n_writes": n_writes}
+        x = _run_layers(params, caches, x, cfg, ctx, decode=True)
+        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
+        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+    return logits[:, :, : cfg.vocab], caches

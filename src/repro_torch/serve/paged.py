@@ -24,23 +24,41 @@ reference's (``configs/base.py``):
   not cover.  Shared pages are ref-counted; a cached page the suffix
   prefill would write is copied first (copy-on-write).
 
+- **Self-speculative decoding** (``serve_spec_k`` > 0, ``serve/spec.py``):
+  a model-free drafter (prompt-lookup n-grams by default) proposes up to
+  ``k`` tokens per live slot; one batched ``[B, k + 1]`` verify forward
+  scores the current token and the draft, and greedy acceptance keeps
+  the longest draft prefix that matches the model's own argmax chain
+  plus one bonus token.  Rejected rows roll back by not advancing
+  ``lens``; padding rows of the fixed window write to the scratch page.
+  A draft that cannot get pages is truncated, never preempted for.
+  Verify attention is the gather + masked softmax, so with a drafter on
+  the decode reader is pinned to the same ``'lax'`` reader
+  (``serve_paged_attn_impl``): one output stream, one attention path.
+- **Telemetry** (``serve_telemetry``, ``serve/telemetry.py``): the
+  reference's lifecycle events per request, phase histograms
+  (``phase.reserve_s``, ``phase.prefill_chunk_s``, ``phase.decode_s``,
+  ``phase.verify_s``, ``phase.cow_s``), gauges and profiler ranges; off,
+  the loop holds the inert ``telemetry.NULL``.  TTFT and queue-wait
+  histograms are always kept.
+
 ``submit`` rejects (``AdmissionError``) only what can never run: an empty
 prompt, one past ``s_max``, a padded prefill larger than the pool, and
 the ``serve_queue_limit`` backpressure bound; ``step`` raises
 ``PoolExhaustedError`` when every slot is free and the best entry still
 gets no pages (reserved mode), or growth finds no victim.
 
-The forward set is fixed: one ``[1, chunk]`` prefill chunk and one
-``[B, 1]`` decode step, for any mix of prompt lengths.  On a CUDA device
-each is captured once in a CUDA graph (after an eager warm-up) into one
-graph pool and replayed from static device buffers that one host-to-
-device copy per argument fills per call: the counterpart of the
-reference's one ``jax.jit`` executable per shape.  On the CPU the same
-functions run eagerly.  ``compiled_shapes`` / ``check_compiled`` assert
-the set.
+The forward set is fixed: one ``[1, chunk]`` prefill chunk, one ``[B,
+1]`` decode step and, with a drafter on, one ``[B, k + 1]`` verify
+window, for any mix of prompt lengths.  On a CUDA device each is
+captured once in a CUDA graph (after an eager warm-up) into one graph
+pool and replayed from static device buffers that one host-to-device
+copy per argument fills per call: the counterpart of the reference's one
+``jax.jit`` executable per shape.  On the CPU the same functions run
+eagerly.  ``compiled_shapes`` / ``check_compiled`` assert the set.
 
-Speculation, swap, telemetry, fault injection, cancellation, deadlines
-and tenant quotas are not ported yet.
+Swap, fault injection, cancellation, deadlines and tenant quotas are not
+ported yet.
 
 Physical page 0 is the scratch page: pinned, never handed out; idle
 slots' decode writes land there and freed rows are reset to it.
@@ -48,6 +66,8 @@ slots' decode writes land there and freed rows are reset to it.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -56,18 +76,32 @@ import torch
 
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import tlmac_fused as _tf
-from repro_torch.kernels.paged import PageSpec, spec_for
+from repro_torch.kernels.paged import PageSpec, qspec_for, spec_for
 from repro_torch.models import lm
+from repro_torch.models.attention import DECODE_IMPLS
 from repro_torch.serve.loop import Request
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import (AdmissionError, PoolExhaustedError,
-                                         SchedEntry, Scheduler)
+                                         SchedEntry, Scheduler, tenant_of)
+from repro_torch.serve.spec import make_drafter
+from repro_torch.serve.telemetry import NULL, Histogram, Telemetry, jsonable
 
 __all__ = ["AdmissionError", "PoolExhaustedError", "PageManager",
            "PagedServeLoop"]
 
 # the kernels whose Python launch counters a captured graph records
 _COUNTED = {"tlmac_gemm_fused": _tf, "flash_decode": _fd}
+# one warm-up and capture stream per device, shared by every loop's
+# forwards: cuBLAS keeps a workspace for each stream it has run on, so a
+# stream per capture would hold one more workspace for every graph built
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    s = _CAPTURE_STREAMS.get(dev)
+    if s is None:
+        s = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return s
 
 
 class PageManager:
@@ -154,7 +188,8 @@ class FixedShapeForward:
     argument shape (what ``jit`` would trace).  On a CUDA device the
     first call at a shape allocates static device buffers, runs ``fn``
     once eagerly on them (the warm-up: kernels built, workspaces
-    allocated), then captures ``fn`` into a CUDA graph in ``pool``; every
+    allocated), then captures ``fn`` into a CUDA graph in ``pool``, both
+    on one side stream per device shared by every loop; every
     call copies its arguments into the static buffers (one pinned
     host-to-device copy each) and replays the graph.  The returned logits
     are the graph's static output: read them before the next call of any
@@ -213,7 +248,7 @@ class FixedShapeForward:
         host = [torch.from_numpy(a.copy()).pin_memory() for a in arrays]
         static = [h.to(dev) for h in host]
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _capture_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.fn(*static)
@@ -222,7 +257,7 @@ class FixedShapeForward:
         self.eager += 1
         before = {k: m.launches for k, m in _COUNTED.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool, stream=side):
             out = self.fn(*static)
         g = {"graph": graph, "static": static, "host": host, "out": out,
              "ready": torch.cuda.Event(),
@@ -236,19 +271,25 @@ class FixedShapeForward:
 class PagedServeLoop:
     """Slot-based continuous batching over a paged KV cache; greedy
     decoding, priority admission with aging, on-demand pages with
-    recompute preemption and a prefix cache by default
-    (``prefix_cache``, ``on_demand``, ``preempt_policy`` and
-    ``check_invariants`` follow the config when None).  ``params`` is the
-    ``ParamTree`` of ``lm.init_lm`` (or ``convert.params_from_jax``) on
-    ``device``; ``Request.priority`` (higher sooner) is honoured."""
+    recompute preemption and a prefix cache by default.  ``attn_impl``,
+    ``prefix_cache``, ``spec_k``, ``drafter`` (a name or a
+    ``spec.Drafter``), ``on_demand``, ``preempt_policy``,
+    ``check_invariants``, ``telemetry`` and ``trace_path`` follow the
+    config when None.  ``params`` is the ``ParamTree`` of ``lm.init_lm``
+    (or ``convert.params_from_jax``) on ``device``; ``Request.priority``
+    (higher sooner) is honoured."""
 
     def __init__(self, params, cfg, batch_slots: int = 4, s_max: int = 128,
                  eos_id: Optional[int] = None, page_size: int = 16,
                  chunk: int = 16, n_pages: Optional[int] = None,
+                 attn_impl: Optional[str] = None,
                  prefix_cache: Optional[bool] = None,
+                 spec_k: Optional[int] = None, drafter=None,
                  on_demand: Optional[bool] = None,
                  preempt_policy: Optional[str] = None,
                  check_invariants: Optional[bool] = None,
+                 telemetry: Optional[bool] = None,
+                 trace_path: Optional[str] = None,
                  device="cuda"):
         lm.segments_for(cfg)          # raises for families not ported
         want = torch.device(device)
@@ -256,6 +297,34 @@ class PagedServeLoop:
         if have.type != want.type or want.index not in (None, have.index):
             raise ValueError(f"params live on {have}, loop device is {want}")
         self.device = have
+        if attn_impl is not None:
+            cfg = dataclasses.replace(cfg, serve_paged_attn_impl=attn_impl)
+        self.spec_k = int(cfg.serve_spec_k if spec_k is None else spec_k)
+        if self.spec_k > 0:
+            self.drafter = make_drafter(
+                cfg.serve_spec_drafter if drafter is None else drafter)
+        else:
+            self.drafter = None
+            if drafter is not None and make_drafter(drafter) is not None:
+                raise ValueError(
+                    "a drafter was passed but speculation is off; set "
+                    "spec_k > 0 (or cfg.serve_spec_k) to enable it")
+        if self.drafter is not None:
+            # verify attention is the gather + masked softmax; decode is
+            # pinned to the same reader so that one output stream never
+            # mixes two attention paths.  An explicit other reader is an
+            # error, not a silent override.
+            if attn_impl is not None and attn_impl != "lax":
+                raise ValueError(
+                    f"attn_impl={attn_impl!r} conflicts with speculative "
+                    "decoding: verify attention always runs the gathered "
+                    "reader, so the decode step is pinned to 'lax'; pass "
+                    "attn_impl='lax' (or None), or disable speculation")
+            cfg = dataclasses.replace(cfg, serve_paged_attn_impl="lax")
+        if cfg.serve_paged_attn_impl not in DECODE_IMPLS:
+            raise ValueError(
+                f"serve_paged_attn_impl {cfg.serve_paged_attn_impl!r} not "
+                f"in {DECODE_IMPLS}")
         self.params, self.cfg = params, cfg
         self.B, self.S_max = batch_slots, s_max
         self.eos_id = eos_id
@@ -279,11 +348,17 @@ class PagedServeLoop:
         self.check_invariants = bool(cfg.serve_check_invariants
                                      if check_invariants is None
                                      else check_invariants)
+        # host-side either way: the forwards and their graphs are the same
+        tel_on = bool(cfg.serve_telemetry if telemetry is None
+                      else telemetry)
+        self.tel = Telemetry() if tel_on else NULL
+        self.trace_path = str(cfg.serve_trace_path if trace_path is None
+                              else trace_path)
         if prefix_cache is None:
             prefix_cache = cfg.serve_prefix_cache
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(page_size, self.pages,
-                        max_pages=cfg.serve_prefix_cache_pages)
+                        max_pages=cfg.serve_prefix_cache_pages, tel=self.tel)
             if prefix_cache else None)
         self.caches = lm.init_caches(cfg, self.spec, device=self.device)
         self.done: List[Request] = []
@@ -291,26 +366,36 @@ class PagedServeLoop:
         self.prefill_tokens_run = 0   # chunk tokens actually prefilled
         self.prefill_tokens_saved = 0  # chunk tokens skipped via the cache
         self.cow_copies = 0           # copy-on-write page duplications
-        self.decode_steps = 0
+        self.decode_steps = 0         # plain [B, 1] decode forwards
+        self.spec_steps = 0           # [B, k+1] verify forwards
+        self.spec_proposed = 0        # draft tokens offered to verify
+        self.spec_accepted = 0        # draft tokens the argmax confirmed
+        self.gen_tokens = 0           # tokens emitted by decode/verify
+        self.slot_steps = 0           # live-slot participations in
+                                      # decode/verify forwards
         self.preemptions = 0          # slots parked on pool exhaustion
         self.resumes = 0              # parked requests re-admitted
         self.resume_prefill_tokens = 0  # chunk tokens replayed at resume
         self.preempted_tokens = 0     # KV positions dropped at preempt
         self.grown_pages = 0          # on-demand page-boundary allocs
         self.peak_live_slots = 0
+        self.ttft_s = Histogram()     # submit -> first token, per request
         self.block_table = np.zeros((batch_slots, self.spec.max_blocks),
                                     np.int32)
         self.lens = np.zeros(batch_slots, np.int32)
         self.slots: List[Optional[dict]] = [None] * batch_slots
-        # the loop's whole forward set; on the card both share one pool
+        # the loop's whole forward set; on the card all share one pool
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == "cuda" else None)
         self.forwards = {
             "chunk": FixedShapeForward(self._chunk_fn, self.device, pool),
             "decode": FixedShapeForward(self._decode_fn, self.device, pool),
         }
+        if self.drafter is not None:
+            self.forwards["verify"] = FixedShapeForward(
+                self._verify_fn, self.device, pool)
 
-    # -- the two forwards ----------------------------------------------------
+    # -- the forwards --------------------------------------------------------
 
     def _chunk_fn(self, tokens, start, bt_row, last):
         return lm.prefill_chunk(self.params, self.caches, tokens, start,
@@ -319,6 +404,11 @@ class PagedServeLoop:
     def _decode_fn(self, tokens, positions, block_table):
         return lm.decode_step_paged(self.params, self.caches, tokens,
                                     positions, block_table, self.cfg)[0]
+
+    def _verify_fn(self, tokens, positions, n_writes, block_table):
+        return lm.verify_step_paged(self.params, self.caches, tokens,
+                                    positions, n_writes, block_table,
+                                    self.cfg)[0]
 
     def _prefill_chunk(self, tokens, start, bt_row, last):
         """tokens ``[1, C]``, ``start``, ``bt_row [max_blocks]``, ``last``
@@ -330,6 +420,19 @@ class PagedServeLoop:
         max_blocks]`` (host int32) -> logits ``[B, vocab]`` on the
         device."""
         return self.forwards["decode"](tokens, positions, block_table)
+
+    def _verify(self, tokens, positions, n_writes, block_table):
+        """tokens ``[B, k+1]``, positions ``[B]``, n_writes ``[B]``, block
+        table ``[B, max_blocks]`` (host int32) -> logits ``[B, k+1,
+        vocab]`` on the device."""
+        return self.forwards["verify"](tokens, positions, n_writes,
+                                       block_table)
+
+    def _sync(self) -> None:
+        """Wait for the device (telemetry on: a phase span then covers the
+        device's work, not its launch)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- admission -----------------------------------------------------------
 
@@ -351,7 +454,9 @@ class PagedServeLoop:
             raise AdmissionError(
                 f"backpressure: queue at serve_queue_limit="
                 f"{self.queue_limit}; retry later")
-        self.sched.push(req, req.priority)
+        ent = self.sched.push(req, req.priority)
+        self.tel.event("submit", req.rid, prompt_tokens=L,
+                       priority=ent.priority, tenant=tenant_of(req))
 
     def _prefill_blocks(self, L: int) -> int:
         """Blocks the padded chunk prefill of ``L`` tokens writes."""
@@ -428,7 +533,15 @@ class PagedServeLoop:
     def _cow(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate page ``src`` into the fresh ``dst``
         across every layer's pool (eager, outside the forward set)."""
-        lm.cache_copy_page(self.caches, src, dst)
+        tel = self.tel
+        t0 = tel.now()
+        with tel.annotate("repro_torch.serve.cow_copy"):
+            lm.cache_copy_page(self.caches, src, dst)
+            if tel.enabled:
+                self._sync()
+        t1 = tel.now()
+        tel.event("cow_copy", t0=t0, t1=t1, src=src, dst=dst)
+        tel.observe("phase.cow_s", t1 - t0)
         self.cow_copies += 1
 
     def _admit(self, slot_i: int) -> str:
@@ -462,6 +575,15 @@ class PagedServeLoop:
         if page_ids is None:
             return "blocked"
         self.sched.pop(ent)
+        tel, rid = self.tel, ent.req.rid
+        t_adm = tel.now()
+        # the queued span covers the latest (re-)enqueue; a resume shows
+        # preempted -> queued -> resumed on the request's track
+        tel.event("queued", rid, t0=tel.rel(ent.t_enqueue), t1=t_adm,
+                  preemptions=ent.preemptions)
+        tel.event("resumed" if ent.out else "admitted", rid,
+                  cached_blocks=len(hits), restored_blocks=0,
+                  fresh_pages=need, cow=n_cow)
         C, P = self.chunk, self.spec.page_size
         if self.prefix is not None:
             self.prefix.record_lookup(len(hits), L // P - len(hits))
@@ -489,7 +611,15 @@ class PagedServeLoop:
             seg = tokens[ci * C:(ci + 1) * C]
             buf[0, : len(seg)] = seg
             last = (L - 1) - ci * C if ci == n_chunks - 1 else 0
-            logits = self._prefill_chunk(buf, ci * C, row, last)
+            t0c = tel.now()
+            with tel.annotate("repro_torch.serve.prefill_chunk"):
+                logits = self._prefill_chunk(buf, ci * C, row, last)
+                if tel.enabled:
+                    self._sync()
+            t1c = tel.now()
+            tel.event("prefill_chunk", rid, t0=t0c, t1=t1c, chunk=ci,
+                      start=ci * C, tokens=C)
+            tel.observe("phase.prefill_chunk_s", t1c - t0c)
         run_tokens = (n_chunks - ci0) * C
         self.prefill_tokens_run += run_tokens
         self.prefill_tokens_saved += ci0 * C
@@ -497,6 +627,8 @@ class PagedServeLoop:
             self.resumes += 1
             self.resume_prefill_tokens += run_tokens
         tok0 = int(torch.argmax(logits))
+        if not ent.out:
+            self.ttft_s.observe(time.monotonic() - ent.t_submit)
         self.lens[slot_i] = L
         entry = {"req": ent.req, "out": ent.out + [tok0], "cur": tok0,
                  "blocks": blocks, "shared": shared,
@@ -543,6 +675,8 @@ class PagedServeLoop:
             "stop" if (self.eos_id is not None
                        and entry["out"][-1] == self.eos_id) else "length")
         self.done.append(req)
+        self.tel.event("finished", req.rid, tokens=len(entry["out"]),
+                       pages=len(entry["blocks"]))
         self._release_slot(slot_i, entry)
 
     def _preempt(self, slot_i: int) -> None:
@@ -553,11 +687,15 @@ class PagedServeLoop:
         entry = self.slots[slot_i]
         ent: SchedEntry = entry["sched"]
         lens = int(self.lens[slot_i])
+        n_full = lens // self.spec.page_size
+        parked = n_full if self.prefix is not None else 0
         ent.tokens = self._release_slot(slot_i, entry)
         ent.out = list(entry["out"])
         self.sched.requeue(ent)
         self.preemptions += 1
         self.preempted_tokens += lens
+        self.tel.event("preempted", entry["req"].rid, tokens_dropped=lens,
+                       pages_parked=parked, pages_swapped=0)
 
     def _fill_free_slots(self, mid_decode: bool) -> None:
         for i in range(self.B):
@@ -571,15 +709,20 @@ class PagedServeLoop:
                     break
 
     def run(self) -> List[Request]:
-        """Drain the queue; returns finished requests."""
+        """Drain the queue; returns finished requests.  With telemetry on
+        and a trace path set, the drain exports the Chrome trace (and a
+        JSONL twin) when it completes."""
         while self.step():
             pass
+        if self.trace_path and self.tel.enabled:
+            self.export_trace()
         return self.done
 
     def step(self) -> bool:
-        """One round: admissions into free slots, then one decode step
-        over the live slots (preempting first if on-demand growth finds
-        the pool empty), then refill.  Returns True while work remains."""
+        """One round: admissions into free slots, then one decode or
+        verify forward over the live slots (preempting first if on-demand
+        growth finds the pool empty), then refill.  Returns True while
+        work remains."""
         self.sched.tick()
         mid = any(s is not None for s in self.slots)
         self._fill_free_slots(mid_decode=mid)
@@ -595,16 +738,29 @@ class PagedServeLoop:
             if self.check_invariants:
                 self._check()
             return False
-        live = self._reserve_step(live)
+        drafts = self._propose(live)
+        t0r = self.tel.now()
+        live, drafts = self._reserve_step(live, drafts)
+        self.tel.observe("phase.reserve_s", self.tel.now() - t0r)
         freed = True        # every slot preempted: admit next round
         if live:
-            freed = self._decode_once(live)
+            if any(len(drafts[i]) for i in live):
+                freed = self._verify_once(live, drafts)
+            else:
+                # no slot drafted (speculation off, an n-gram miss, or
+                # every draft clamped to 0): the [B, 1] decode shape
+                freed = self._decode_once(live)
         if freed:
             self._fill_free_slots(mid_decode=True)
             self.peak_live_slots = max(
                 self.peak_live_slots, sum(s is not None for s in self.slots))
         if self.check_invariants:
             self._check()
+        if self.tel.enabled:
+            self.tel.set_gauge("live_slots",
+                               sum(s is not None for s in self.slots))
+            self.tel.set_gauge("queued", len(self.sched))
+            self.tel.set_gauge("pool_pages_in_use", self.pages.in_use)
         return bool(len(self.sched) or any(s is not None for s in self.slots))
 
     # -- on-demand growth / preemption ---------------------------------------
@@ -621,13 +777,17 @@ class PagedServeLoop:
             entry["shared"] = np.append(entry["shared"], False)
             self.block_table[slot_i, b] = pages[0]
             self.grown_pages += 1
+            self.tel.event("grow_page", entry["req"].rid, page=pages[0],
+                           block=b)
         return True
 
-    def _reserve_step(self, live: List[int]) -> List[int]:
-        """Secure this step's one-token write for every live slot,
-        highest priority first; on exhaustion the policy picks a victim
-        (possibly the needer itself) and parks it.  Returns the slots
-        that stay live."""
+    def _reserve_step(self, live: List[int], drafts: dict):
+        """Secure this step's page writes for every live slot, highest
+        priority first.  The one-token write is worth preempting for: on
+        exhaustion the policy picks a victim (possibly the needer itself)
+        and parks it.  A draft that cannot get pages is truncated, never
+        preempted for.  Returns the slots that stay live and the (possibly
+        truncated) drafts."""
         P = self.spec.page_size
         order = sorted(live, key=lambda i: (-self.slots[i]["prio"], i))
         dropped = set()
@@ -651,7 +811,18 @@ class PagedServeLoop:
                 dropped.add(vict)
                 if vict == i:
                     break
-        return [i for i in live if i not in dropped]
+            if i in dropped:
+                continue
+            d = drafts.get(i)
+            if d is not None and len(d):
+                while len(d) and not self._grow_to(
+                        i, entry, (lens + len(d)) // P):
+                    # shrink to what the allocated pages hold; the failed
+                    # grow means len(d) exceeds the fit, so this ends
+                    fit = len(entry["blocks"]) * P - 1 - lens
+                    d = d[: max(0, fit)]
+                drafts[i] = d
+        return [i for i in live if i not in dropped], drafts
 
     def _ensure_writable(self, slot_i: int, entry, blk: int) -> None:
         """Copy-on-write guard before a decode write to block ``blk``
@@ -670,6 +841,53 @@ class PagedServeLoop:
         entry["shared"][blk] = False
         self.block_table[slot_i, blk] = dst
 
+    # -- speculative decoding ------------------------------------------------
+
+    def _draft_cap(self, i: int, entry) -> int:
+        """Longest draft slot ``i`` may verify this step: a full accept
+        (``k`` drafts + 1 bonus) must not overshoot ``max_new`` or
+        ``S_max``; reserved mode also clamps to the slot's allocated
+        pages (on-demand mode grows or truncates in ``_reserve_step``)."""
+        lens = int(self.lens[i])
+        remaining = entry["req"].max_new_tokens - len(entry["out"])
+        alloc_room = (self.S_max if self.on_demand
+                      else len(entry["blocks"]) * self.spec.page_size)
+        room = min(self.S_max, alloc_room) - 1 - lens
+        return max(0, min(self.spec_k, remaining - 1, room))
+
+    def _propose(self, live: List[int]) -> dict:
+        """Per-slot draft proposals (empty arrays when not drafting)."""
+        empty = np.zeros(0, np.int32)
+        if self.drafter is None:
+            return {i: empty for i in live}
+        drafts = {}
+        for i in live:
+            entry = self.slots[i]
+            cap = self._draft_cap(i, entry)
+            if cap <= 0:
+                drafts[i] = empty
+                continue
+            ctx = np.concatenate([np.asarray(entry["req"].prompt, np.int32),
+                                  np.asarray(entry["out"], np.int32)])
+            d = np.asarray(self.drafter.propose(ctx, cap), np.int32)
+            drafts[i] = d[:cap]
+        return drafts
+
+    def _accept(self, i: int, entry, tokens):
+        """Append ``tokens`` to slot ``i`` one by one with a sequential
+        decode's finish checks (eos drops the rest).  Returns
+        ``(appended, finished)``."""
+        for n, t in enumerate(tokens):
+            self.lens[i] += 1
+            tok = int(t)
+            entry["out"].append(tok)
+            entry["cur"] = tok
+            self.gen_tokens += 1
+            if self._done_now(entry) or self.lens[i] >= self.S_max:
+                self._finish(i, entry)
+                return n + 1, True
+        return len(tokens), False
+
     def _decode_once(self, live: List[int]) -> bool:
         """One ``[B, 1]`` decode step; True if any slot finished."""
         P = self.spec.page_size
@@ -677,19 +895,70 @@ class PagedServeLoop:
         for i in live:
             self._ensure_writable(i, self.slots[i], int(self.lens[i]) // P)
             cur[i, 0] = self.slots[i]["cur"]
-        logits = self._decode(cur, self.lens, self.block_table)
+        tel = self.tel
+        t0 = tel.now()
+        with tel.annotate("repro_torch.serve.decode_step"):
+            logits = self._decode(cur, self.lens, self.block_table)
         self.decode_steps += 1
+        self.slot_steps += len(live)
         nxt = torch.argmax(logits, -1).cpu().numpy()   # the step's host read
+        # the host read waited for the device, so t1 covers the step; the
+        # events go out before _accept so 'finished' follows 'decode'
+        t1 = tel.now()
+        tel.observe("phase.decode_s", t1 - t0)
+        freed = False
+        for i in live:
+            tel.event("decode", self.slots[i]["req"].rid, t0=t0, t1=t1,
+                      pos=int(self.lens[i]))
+            _, fin = self._accept(i, self.slots[i], [int(nxt[i])])
+            freed |= fin
+        return freed
+
+    def _verify_once(self, live: List[int], drafts: dict) -> bool:
+        """One ``[B, k+1]`` verify step: score every slot's current token
+        and draft in one forward, keep the longest draft prefix matching
+        the argmax chain plus one bonus token.  Rejected rows cost
+        nothing: ``lens`` advances over accepted tokens only, so their
+        writes sit past every later mask until overwritten.  Every block
+        the window's valid writes touch is copy-on-write guarded first."""
+        K1 = self.spec_k + 1
+        P = self.spec.page_size
+        toks = np.zeros((self.B, K1), np.int32)
+        n_writes = np.zeros(self.B, np.int32)
+        for i in live:
+            entry = self.slots[i]
+            d = drafts[i]
+            toks[i, 0] = entry["cur"]
+            toks[i, 1: 1 + len(d)] = d
+            n_writes[i] = 1 + len(d)
+            lens = int(self.lens[i])
+            for blk in range(lens // P, (lens + len(d)) // P + 1):
+                self._ensure_writable(i, entry, blk)
+        tel = self.tel
+        t0 = tel.now()
+        with tel.annotate("repro_torch.serve.verify_step"):
+            logits = self._verify(toks, self.lens, n_writes, self.block_table)
+        self.spec_steps += 1
+        self.slot_steps += len(live)
+        greedy = torch.argmax(logits, -1).cpu().numpy()      # [B, K1]
+        t1 = tel.now()
+        tel.observe("phase.verify_s", t1 - t0)
         freed = False
         for i in live:
             entry = self.slots[i]
-            self.lens[i] += 1
-            tok = int(nxt[i])
-            entry["out"].append(tok)
-            entry["cur"] = tok
-            if self._done_now(entry) or self.lens[i] >= self.S_max:
-                self._finish(i, entry)
-                freed = True
+            d, g = drafts[i], greedy[i]
+            m = 0
+            while m < len(d) and g[m] == d[m]:
+                m += 1
+            tel.event("verify", entry["req"].rid, t0=t0, t1=t1,
+                      proposed=len(d), matched=m, pos=int(self.lens[i]))
+            self.spec_proposed += len(d)
+            # g[:m] is the accepted draft and g[m] the bonus token (for
+            # m == 0, row 0's argmax: the plain decode step's token); an
+            # eos inside the window drops the rest of the match
+            appended, fin = self._accept(i, entry, g[: m + 1])
+            self.spec_accepted += min(appended, m)
+            freed |= fin
         return freed
 
     # -- introspection -------------------------------------------------------
@@ -708,8 +977,22 @@ class PagedServeLoop:
                        for seg in self.caches for pool in seg.values()
                        for leaf in pool.values()))
 
+    def spec_stats(self) -> dict:
+        """Decode-phase accounting: ``tokens_per_step`` is tokens emitted
+        per live-slot participation in a decode/verify forward, so plain
+        greedy decode measures exactly 1.0 at any batch size."""
+        return {
+            "decode_steps": self.decode_steps,
+            "spec_steps": self.spec_steps,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "accept_rate": self.spec_accepted / max(self.spec_proposed, 1),
+            "tokens_per_step": self.gen_tokens / max(self.slot_steps, 1),
+        }
+
     def sched_stats(self) -> dict:
-        """Scheduling and preemption accounting."""
+        """Scheduling and preemption accounting, with the bounded TTFT
+        and queue-wait summaries."""
         return {
             **self.sched.stats(),
             "on_demand": self.on_demand,
@@ -721,6 +1004,7 @@ class PagedServeLoop:
             "peak_live_slots": self.peak_live_slots,
             "pool_pages_peak": self.pages.peak,
             "pool_exhaustions": self.pages.exhaustions,
+            "ttft_s": self.ttft_s.summary(),
         }
 
     def pool_stats(self) -> dict:
@@ -739,6 +1023,46 @@ class PagedServeLoop:
             "pool_bytes": self.kv_pool_bytes(),
         }
 
+    def metrics(self) -> dict:
+        """One JSON-serialisable snapshot of the subsystems the port has
+        (pool, prefix cache, speculation, KV quantisation, scheduler);
+        the ``telemetry`` section (registry and tracer depth) appears
+        only with telemetry on."""
+        qs = qspec_for(self.cfg)
+        doc = {
+            "pool": self.pool_stats(),
+            "prefix_cache": (self.prefix.stats() if self.prefix is not None
+                             else {"enabled": False}),
+            "spec": {**self.spec_stats(),
+                     "k": self.spec_k,
+                     "gen_tokens": self.gen_tokens,
+                     "refills": self.refills,
+                     "prefill_tokens_run": self.prefill_tokens_run,
+                     "prefill_tokens_saved": self.prefill_tokens_saved},
+            "quant": {"kv_dtype": qs.dtype, "quantised": qs.quantised,
+                      "pool_bytes": self.kv_pool_bytes()},
+            "scheduler": self.sched_stats(),
+        }
+        if self.tel.enabled:
+            doc["telemetry"] = {
+                **self.tel.registry.snapshot(),
+                "trace_events": len(self.tel.tracer.events),
+                "trace_dropped": self.tel.tracer.dropped,
+            }
+        return jsonable(doc)
+
+    def export_trace(self, chrome_path: Optional[str] = None,
+                     jsonl_path: Optional[str] = None) -> dict:
+        """Write the lifecycle trace: Chrome trace-event JSON at
+        ``chrome_path`` (default ``trace_path``) and a JSONL twin
+        (default: the same path + 'l').  ``{}`` when telemetry is off or
+        no path is given."""
+        path = chrome_path or self.trace_path
+        if not path or not self.tel.enabled:
+            return {}
+        return self.tel.export(chrome_path=path,
+                               jsonl_path=jsonl_path or path + "l")
+
     def compiled_shapes(self) -> dict:
         """Per-forward compile counts: captured CUDA graphs on the card,
         distinct argument shapes seen on the CPU (what ``jit`` would
@@ -746,7 +1070,8 @@ class PagedServeLoop:
         return {k: f.n_compiled() for k, f in self.forwards.items()}
 
     def check_compiled(self) -> None:
-        """At most one compiled shape per forward (the CoW page copy runs
-        eagerly, outside the set)."""
+        """At most one compiled shape per forward (chunk, decode and, with
+        a drafter, verify; the CoW page copy runs eagerly, outside the
+        set)."""
         for name, n in self.compiled_shapes().items():
             assert n <= 1, f"{name} forward compiled {n} shapes"

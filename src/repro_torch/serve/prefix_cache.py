@@ -1,6 +1,6 @@
 """Radix-tree prefix cache: content-addressed sharing of paged KV (port
 of ``repro.serve.prefix_cache``; framework-free, a copy of the
-reference's without its telemetry).
+reference's).
 
 Each node owns ONE physical page of the paged pool and is keyed by the
 ``page_size`` tokens that page covers; the path from the root spells the
@@ -25,6 +25,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+from repro_torch.serve import telemetry
+
 
 class RadixNode:
     """One cached page: ``key`` = the page's tokens, path = history."""
@@ -45,12 +47,16 @@ class PrefixCache:
 
     ``max_pages`` (0 = unbounded) caps the pages the tree keeps; past it,
     LRU leaves are evicted after each insert.  Under pool pressure the
-    serve loop also calls ``evict`` directly."""
+    serve loop also calls ``evict`` directly.  ``tel`` (the loop's
+    telemetry facade, ``telemetry.NULL`` when None) records each eviction
+    as a ``prefix_evict`` event."""
 
-    def __init__(self, page_size: int, pages, max_pages: int = 0):
+    def __init__(self, page_size: int, pages, max_pages: int = 0,
+                 tel=None):
         self.P = page_size
         self.pages = pages                    # serve.paged.PageManager
         self.max_pages = max_pages
+        self.tel = tel if tel is not None else telemetry.NULL
         self.root = RadixNode((), -1, None)   # sentinel: owns no page
         self.n_nodes = 0
         self._tick = 0
@@ -171,6 +177,9 @@ class PrefixCache:
                 self.n_nodes -= 1
                 self.evicted += 1
                 freed += 1
+        if freed:
+            self.tel.event("prefix_evict", pages=freed,
+                           nodes_left=self.n_nodes)
         return freed
 
     # -- introspection ------------------------------------------------------

@@ -19,8 +19,9 @@ find the pool empty; this module makes that survivable:
 - a parked entry's ``tokens`` are prompt plus every generated token, and
   re-admission replays them through chunked prefill (recompute-resume).
 
-Pure host metadata.  Queue-wait histograms (telemetry) and the swap
-policy are not ported yet.
+Pure host metadata.  ``queue_wait_s`` (a bounded ``telemetry.Histogram``)
+records each admitted entry's wait since its latest enqueue, observed at
+``pop``.  The swap policy is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Iterable, List, Optional, Sequence, Tuple
+
+from repro_torch.serve.telemetry import Histogram
 
 
 class AdmissionError(ValueError):
@@ -83,6 +86,7 @@ class Scheduler:
         self.requeued = 0        # preemption re-entries
         self.removed = 0         # entries dropped without admission
         self.peak_queue = 0
+        self.queue_wait_s = Histogram()
 
     # -- queue --------------------------------------------------------------
 
@@ -142,11 +146,15 @@ class Scheduler:
                    key=lambda e: (self.effective_priority(e), -e.seq))
 
     def pop(self, ent: SchedEntry) -> None:
-        """Remove an entry the loop is admitting."""
+        """Remove an entry the loop is admitting; records its queue wait
+        (since the latest enqueue: a resume's wait counts from its
+        requeue)."""
         self._q.remove(ent)
+        self.queue_wait_s.observe(time.monotonic() - ent.t_enqueue)
 
     def remove(self, ent: SchedEntry) -> None:
-        """Drop a queued entry without admitting it."""
+        """Drop a queued entry without admitting it (no queue-wait
+        observation: that histogram measures waits ended by admission)."""
         self._q.remove(ent)
         self.removed += 1
 
@@ -179,6 +187,7 @@ class Scheduler:
             "removed": self.removed,
             "peak_queue": self.peak_queue,
             "ticks": self.ticks,
+            "queue_wait_s": self.queue_wait_s.summary(),
         }
 
     def check(self) -> None:

@@ -628,3 +628,109 @@ def test_graph_replay_equals_eager_and_one_graph_per_forward_on_card(cuda):
     assert got_k2 == cfg.n_layers * (fw["decode"].eager
                                      + 2 * fw["decode"].replays)
     loop.pages.check()
+
+
+# ---------------------------------------------------------------------------
+# speculation: kernel 1 at the verify window's M, the verify graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,N,dp", [(64, 128, 8), (128, 240, 120)])
+def test_fused_lookup_gemm_at_verify_m_equals_plain_on_card(cuda, K, N, dp):
+    """Kernel 1 at M = 20 (4 slots x a 5-token verify window, past the
+    dp4a path's 16 rows) on narrow tables, int32-equal to its plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    G, B_a, n_arr = 4, 3, 600
+    ex = torch.randint(0, n_arr, (N // dp, K // G, dp), generator=gen,
+                       device=cuda).to(torch.int16)
+    cl = torch.randint(0, 4, (N // dp, K // G), generator=gen,
+                       device=cuda).to(torch.int8)
+    table = tf.narrow_table(torch.randint(-8, 8, (4, n_arr, 2**G),
+                                          dtype=torch.int32, generator=gen,
+                                          device=cuda))
+    a = torch.randint(0, 2**B_a, (20, K), generator=gen,
+                      device=cuda).to(torch.int8)
+    n0 = tf.launches
+    got = tf.tlmac_gemm_fused(a, ex, cl, table, B_a=B_a, G=G)
+    torch.cuda.synchronize()
+    assert tf.launches == n0 + 1
+    assert torch.equal(got, tf.tlmac_gemm_fused_plain(a, ex, cl, table,
+                                                      B_a=B_a, G=G))
+
+
+def _replay_drafter(streams, corrupt_p, vocab, seed):
+    from repro_torch.serve.spec import Drafter
+
+    class ReplayDrafter(Drafter):
+        """``tests/test_spec_decode.py::ReplayDrafter``."""
+
+        def __init__(self):
+            self.rng = np.random.default_rng(seed)
+
+        def propose(self, context, k):
+            ctx = np.asarray(context, np.int64)
+            for s in streams:
+                if len(s) >= len(ctx) and np.array_equal(s[: len(ctx)], ctx):
+                    d = s[len(ctx): len(ctx) + k].astype(np.int32)
+                    flip = self.rng.random(len(d)) < corrupt_p
+                    return np.where(flip, (d + 1) % vocab, d)
+            return np.zeros(0, np.int32)
+
+    return ReplayDrafter()
+
+
+@pytest.mark.requires_cuda
+def test_verify_graph_replay_equals_eager_on_card(cuda):
+    """The verify forward's CUDA graph replays bit-equal to the eager
+    verify forward (a padded row and an idle slot included), and the
+    speculative loop's three forwards are one graph each."""
+    cfg, loop = _smoke_loop(cuda, spec_k=3,
+                            drafter=_replay_drafter([], 0.0, 1, 0))
+    rng = np.random.default_rng(5)
+    MB = loop.spec.max_blocks
+    bt = (np.arange(2 * MB, dtype=np.int32).reshape(2, MB) + 1) \
+        % (loop.spec.n_pages - 1) + 1
+    for pos, nw in (([9, 0], [4, 0]), ([30, 5], [2, 4])):
+        toks = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+        args = (toks, np.array(pos, np.int32), np.array(nw, np.int32), bt)
+        got = loop._verify(*args).clone()
+        want = loop._verify_fn(*[torch.as_tensor(x, device=cuda)
+                                 for x in args])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert loop.compiled_shapes()["verify"] == 1
+    assert loop.forwards["verify"].graph_launches["flash_decode"] == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("corrupt_p", [0.0, 0.4, 1.0])
+def test_spec_loop_gives_spec_off_tokens_on_card(cuda, corrupt_p):
+    """On the smoke config, a speculative run with the replay drafter over
+    the spec-off ('lax') run's tokens T emits T, with decode and verify
+    replayed from graphs and no flash-decode launch."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.serve.loop import Request
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)   # smoke vocab
+               for n in (6, 11, 3, 9)]
+    cfg, off = _smoke_loop(cuda, attn_impl="lax")
+    for i, p in enumerate(prompts):
+        off.submit(Request(rid=i, prompt=p, max_new_tokens=6 + i))
+    want = {r.rid: r.output.tolist() for r in off.run()}
+    streams = [np.concatenate([p, want[i]]).astype(np.int64)
+               for i, p in enumerate(prompts)]
+    _, on = _smoke_loop(cuda, spec_k=3, drafter=_replay_drafter(
+        streams, corrupt_p, cfg.vocab, 2))
+    for i, p in enumerate(prompts):
+        on.submit(Request(rid=i, prompt=p, max_new_tokens=6 + i))
+    k2 = fd.launches
+    got = {r.rid: r.output.tolist() for r in on.run()}
+    torch.cuda.synchronize()
+    assert got == want
+    assert fd.launches == k2
+    assert on.spec_steps > 0 and on.forwards["verify"].replays > 0
+    on.check_compiled()
+    on.pages.check()

@@ -274,3 +274,57 @@ def test_paged_forwards_match_jax_lax(arch, kv_dtype):
         a = want[:, live].float().numpy()
         b = got[:, live].float().numpy()
         np.testing.assert_allclose(b, a, atol=LOGIT_TOL * max(np.abs(a).max(), 1))
+
+
+def test_silu_rounds_every_op_as_xla():
+    """``nn.silu`` equals ``jax.nn.silu`` (eager and jitted) on every bf16
+    input with a normal result, bit for bit: XLA rounds each op of
+    ``x * (1 / (1 + exp(-x)))`` to bf16, where torch's fused ``silu``
+    rounds once and differs by one ulp on a few percent of inputs."""
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    x = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    a = x.float().abs()
+    x = x[torch.isfinite(a) & (a >= 1e-30) & (a < 60)]
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    got = tnn.silu(x).float().numpy()
+    for fn in (jax.nn.silu, jax.jit(jax.nn.silu)):
+        assert np.array_equal(got, np.asarray(fn(jx), np.float32))
+    fused = torch.nn.functional.silu(x).float().numpy()
+    assert (fused != got).mean() > 0.01
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_block_tail_rounds_as_xla_fuses_it(arch):
+    """The two roundings XLA drops when it fuses a block's tail, which the
+    port copies: the norm after attention reads the residual sum in f32
+    (``lm.apply_block``), and the FFN's gated product reaches ``wo``'s
+    activation quantiser in f32 (``lm.ffn_apply``).  Both equal the
+    jitted JAX functions bit for bit; rounding either to bf16 first
+    differs from them on these inputs."""
+    jcfg, tcfg, params, tp = _model(arch)
+    rng = np.random.default_rng(7)
+    d = jcfg.d_model
+    x = jnp.asarray(rng.standard_normal((64, d)), jnp.bfloat16)
+    y = jnp.asarray(rng.standard_normal((64, d)) * 0.5, jnp.bfloat16)
+    tx, ty = (convert.to_torch(np.asarray(t), "cpu") for t in (x, y))
+    scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, y: jnn.rmsnorm_apply(
+        {"scale": jnp.asarray(scale)}, x + y))(x, y), np.float32)
+    tn = {"scale": torch.from_numpy(scale)}
+    got = tnn.rmsnorm_apply(tn, tx.float() + ty, dtype=torch.bfloat16)
+    assert np.array_equal(got.float().numpy(), want)
+    assert not np.array_equal(
+        tnn.rmsnorm_apply(tn, tx + ty).float().numpy(), want)
+
+    jffn = jax.tree.map(lambda a: a[0], params["segments"][0]["b0"]["ffn"])
+    tffn = tp.layers(0)[0]["b0"]["ffn"]
+    h = jnp.asarray(rng.standard_normal((256, d)), jnp.bfloat16)
+    apply_fn = jlm._apply_fn_for("serve")
+    want = np.asarray(jax.jit(lambda p, h: jlm.ffn_apply(
+        p, h, jcfg, apply_fn))(jffn, h), np.float32)
+    th = convert.to_torch(np.asarray(h), "cpu")
+    got = tlm.ffn_apply(tffn, th, tcfg, tnn.serve_linear_apply)
+    assert np.array_equal(got.float().numpy(), want)
+    hi, g = tnn.serve_linear_pair_apply(tffn["wi"], tffn["wg"], th, tcfg)
+    rounded = tnn.serve_linear_apply(tffn["wo"], hi * tnn.silu(g), tcfg)
+    assert not np.array_equal(rounded.float().numpy(), want)
