@@ -69,6 +69,19 @@ Phases, in order; any failure raises and exits non-zero:
    graphs equal to the off run, the lifecycle trace valid, phase
    histograms, TTFT and queue waits, each run's median whole step and
    wall time, and the Chrome trace written to a temporary directory;
+   then the swap tier (``phase_swap_roundtrip``): the full-width fp, int8
+   and int4 pools, 8 pages out through the staging ring and back into
+   other pages, bytes and CRC-32 equal, GB/s each way and CRC ms per
+   page; then the main path's prompts with 96 new tokens in a 62-page
+   pool that preempts twice (``phase_serve_swap``), served with swap
+   policy never, always, auto (fp) and always (int8): every request
+   finishes, no leak, launches counted per run, the always runs restore
+   pages and replay fewer tokens, with the swap timings (put and match
+   CRC, gather and copies, restore); then seeded faults
+   (``phase_faults``): cancels and admission stalls against a fault-free
+   run (tokens equal where the margin is clear), the reference's chaos
+   rates with tenant quotas (every request done or ended with a typed
+   error, no page or host byte leaked), and the typed door errors;
 8. the port on the card against the port on the CPU (plain versions) on
    the two smoke configs, teacher-forced, logits within tolerance;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
@@ -1914,6 +1927,477 @@ def phase_telemetry(cfg, params, main_run):
 
 
 # ---------------------------------------------------------------------------
+# swap tier, faults, cancellation, deadlines and tenants at full width
+# ---------------------------------------------------------------------------
+
+ROUNDTRIP_REPS = 5          # timed round trips per pool dtype
+# the main path's six prompts with 96 new tokens each, in a pool that
+# on-demand growth exhausts twice (at 32 new tokens growth is 1-2 pages a
+# request, and no pool size preempts more than once): admitting the first
+# four takes 4 + 8 + 16 + 20 = 48 pages, their growth to 96 tokens 11 more
+SWAP_MAX_NEW = 96
+SWAP_POOL_PAGES = 62        # 61 usable
+CHAOS_RATES = {"alloc": 0.15, "swap_put": 0.25, "swap_corrupt": 0.5,
+               "admit_stall": 0.1, "cancel": 0.04}   # tests/test_faults.py
+FAULT_SEED = 7              # (i): two cancels, four stalls
+CHAOS_SEED = 8              # (ii): preempts, restores and drops torn pages
+DEADLINE_S = 600.0          # generous: the fault runs take seconds
+
+
+def _page_host(caches, p):
+    """Page ``p`` of every pool leaf, read to the host leaf by leaf (not
+    through the ring), as a host page."""
+    from repro_torch.serve.faults import tree_map
+    from repro_torch.serve.swap import host_array
+
+    return tree_map(lambda leaf: host_array(leaf[:, p].cpu()), caches)
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def phase_swap_roundtrip(cfg):
+    """The full-width pool in fp, int8 and int4 with seeded contents:
+    one ring transaction of pages (``serve_swap_ring_pages``, 8) out
+    through the staging ring (gather, pinned copy,
+    event) and split per page as the loop does, then scattered in place
+    into other page ids (``stage_to_device``: stacked into pinned buffers
+    on the host, copied; ``cache_swap_in``).  Every page's bytes and
+    CRC-32 must equal its source's, taken leaf by leaf before the move.
+    Prints GB/s each way (host clock around synchronised work, median of
+    ``ROUNDTRIP_REPS`` after one untimed round), the host-to-device time
+    split into the host stack and the copy with the scatter, and the CRC
+    ms per page."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.paged import spec_for
+    from repro_torch.models import lm
+    from repro_torch.serve.faults import tree_leaves, tree_map
+    from repro_torch.serve.swap import (StagingRing, page_checksum,
+                                        stage_to_device)
+
+    dev = torch.device(DEV)
+    sync = (lambda: torch.cuda.synchronize()) if DEV == "cuda" \
+        else (lambda: None)
+    width = cfg.serve_swap_ring_pages
+    src = list(range(1, width + 1))
+    dst = list(range(width + 1, 2 * width + 1))
+    for kv in ("fp", "int8", "int4"):
+        kcfg = dataclasses.replace(cfg, serve_kv_dtype=kv)
+        spec = spec_for(1024, 4, page_size=16, n_pages=2 * width + 1)
+        caches = lm.init_caches(kcfg, spec, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+        for leaf in tree_leaves(caches):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-128, 128, leaf.shape, device=DEV,
+                                         generator=gen, dtype=torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, device=DEV,
+                                       generator=gen).to(leaf.dtype))
+        ptrs = [leaf.data_ptr() for leaf in tree_leaves(caches)]
+        before = [page_checksum(_page_host(caches, p)) for p in src]
+        page_bytes = sum(a.nbytes for a in tree_leaves(_page_host(caches, 1)))
+        nbytes = page_bytes * width
+        d2h, h2d, stack, crc = [], [], [], []
+        src_t = torch.tensor(src, device=dev)
+        dst_t = torch.tensor(dst, device=dev)
+        for rep in range(ROUNDTRIP_REPS + 1):     # round 0: pinned warm-up
+            ring = StagingRing(width=width)
+            sync()
+            t = time.perf_counter()
+            ring.stage(0, lm.cache_swap_out(caches, src_t))
+            ((_, host),) = ring.drain()
+            t_out = time.perf_counter() - t
+            pages = [tree_map(lambda a: a[:, j].copy(), host)
+                     for j in range(width)]
+            del host
+            t = time.perf_counter()
+            sums = [page_checksum(pg) for pg in pages]
+            t_crc = (time.perf_counter() - t) / width
+            if sums != before:
+                raise AssertionError(f"{kv}: a page's CRC changed on the "
+                                     "way out")
+            # the host half of stage_to_device alone, as it stacks
+            t = time.perf_counter()
+            for xs in zip(*[tree_leaves(pg) for pg in pages]):
+                np.stack(xs, axis=1)
+            t_stack = time.perf_counter() - t
+            sync()
+            t = time.perf_counter()
+            staged = tree_map(lambda *xs: stage_to_device(xs, dev), *pages)
+            lm.cache_swap_in(caches, staged, dst_t)
+            sync()
+            t_in = time.perf_counter() - t
+            del staged, pages
+            if rep:
+                d2h.append(t_out)
+                crc.append(t_crc)
+                stack.append(t_stack)
+                h2d.append(t_in)
+        assert ptrs == [leaf.data_ptr() for leaf in tree_leaves(caches)], \
+            "cache_swap_in moved a pool leaf"
+        for leaf in tree_leaves(caches):
+            if not _same_bytes(leaf[:, dst], leaf[:, src]):
+                raise AssertionError(f"{kv}: restored pages differ")
+        after = [page_checksum(_page_host(caches, p)) for p in dst]
+        if after != before:
+            raise AssertionError(f"{kv}: restored pages' CRC differs")
+        med = lambda xs: float(np.median(xs))          # noqa: E731
+        log(f"  {kv} pool: page {page_bytes / 2**20:.3f} MiB ({cfg.n_layers}"
+            f" layers, {len(tree_leaves(caches))} leaves); {width} pages "
+            f"({nbytes / 2**20:.1f} MiB) out and back, bytes and CRC-32 of "
+            f"every page equal to its source's; device-to-host (gather, "
+            f"pinned copy, event) {nbytes / med(d2h) / 1e9:.2f} GB/s "
+            f"({med(d2h) * 1e3:.2f} ms), host-to-device (stack into pinned, "
+            f"copy, scatter) {nbytes / med(h2d) / 1e9:.2f} GB/s "
+            f"({med(h2d) * 1e3:.2f} ms; a numpy stack of the same pages "
+            f"alone {med(stack) * 1e3:.2f} ms), CRC-32 "
+            f"{med(crc) * 1e3:.2f} ms a page ({page_bytes / med(crc) / 1e9:.2f}"
+            f" GB/s); medians of {ROUNDTRIP_REPS}")
+        del caches
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _swap_timers(loop):
+    """Wrap the loop's swap work: seconds in ``_swap_out`` (of which the
+    ring's ``stage`` and ``drain``: gathers, pinned copies and the waits
+    for them; and ``SwapStore.put``, of which the CRC; the rest is the
+    per-page host copies), in ``SwapStore.match`` (of which the CRC) and
+    in ``_swap_restore``.  Returns the accumulators and an undo for the
+    module-level checksum hook."""
+    from repro_torch.serve import swap as swap_mod
+
+    acc = dict(out_s=0.0, ring_s=0.0, put_s=0.0, put_crc_s=0.0, put_crc_n=0,
+               match_s=0.0, match_crc_s=0.0, match_crc_n=0, restore_s=0.0,
+               matches=0)
+    where = []
+    crc = swap_mod.page_checksum
+
+    def timed_crc(data):
+        t = time.perf_counter()
+        c = crc(data)
+        if where:
+            acc[where[-1] + "_crc_s"] += time.perf_counter() - t
+            acc[where[-1] + "_crc_n"] += 1
+        return c
+
+    def timed(key, fn, ctx=None):
+        def wrapper(*a, **kw):
+            if ctx:
+                where.append(ctx)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t
+                if ctx:
+                    where.pop()
+        return wrapper
+
+    swap_mod.page_checksum = timed_crc
+    loop._swap_out = timed("out_s", loop._swap_out)
+    loop._swap_restore = timed("restore_s", loop._swap_restore)
+    ring = loop.swap_ring
+    ring.stage = timed("ring_s", ring.stage)
+    ring.drain = timed("ring_s", ring.drain)
+    loop.swap.put = timed("put_s", loop.swap.put, "put")
+    match = timed("match_s", loop.swap.match, "match")
+
+    def counted_match(*a, **kw):
+        acc["matches"] += 1
+        return match(*a, **kw)
+    loop.swap.match = counted_match
+
+    def undo():
+        swap_mod.page_checksum = crc
+    return acc, undo
+
+
+def _drained(loop):
+    """After a run: every structure checks, and once the prefix cache is
+    evicted no pool page is held; the host store's ledgers are exact."""
+    loop.check_compiled()
+    loop.pages.check()
+    loop.sched.check()
+    if loop.prefix is not None:
+        loop.prefix.check()
+        loop.prefix.evict(10**6)
+    assert loop.pages.in_use == 0, f"{loop.pages.in_use} pool pages leaked"
+    if loop.swap is not None:
+        loop.swap.check()
+
+
+def phase_serve_swap(cfg, params, main_run):
+    """The main path's six prompts, ``SWAP_MAX_NEW`` new tokens each, in a
+    ``SWAP_POOL_PAGES`` pool, where on-demand growth preempts at least
+    twice: with ``swap_policy='never'`` (recompute,
+    the baseline), ``'always'`` and ``'auto'`` on the fp pool and
+    ``'always'`` on int8.  Every run: every request finishes, the forward
+    set is the two graphs, no page leaks, the store's ledgers hold, and
+    kernels 1-2 launch 7 x layers x forwards and layers x decode steps
+    (counters set to 0 just before the run).  The 'always' runs restore
+    pages and replay fewer tokens than 'never'.  Prints preemptions, the
+    policy's choices and rates, pages and bytes each way, restored against
+    replayed tokens, the swap timings (swap-out: gather, pinned copy and
+    put with its CRC; the CRC at every match; restore: pinned copy,
+    scatter, synchronise), wall time and the share of tokens equal to the
+    unpressured main path (not bit-exact: the partial tail page is
+    recomputed through the chunk's attention; the first ``MAX_NEW`` tokens
+    of each request are compared)."""
+    import dataclasses
+
+    import torch
+
+    usable = SWAP_POOL_PAGES - 1
+    blocks = [-(-(-(-n // CHUNK) * CHUNK) // 16) for n in PROMPT_LENS]
+    grown = [-(-(n + SWAP_MAX_NEW - 1) // 16) for n in PROMPT_LENS]
+    log(f"  pool {SWAP_POOL_PAGES} pages ({usable} usable): prefill pages "
+        f"{blocks} (first four {sum(blocks[:4])}), final pages {grown} "
+        f"(first four {sum(grown[:4])}) at {SWAP_MAX_NEW} new tokens: growth"
+        " must preempt")
+    n_tok = len(PROMPT_LENS) * MAX_NEW
+    runs = {}
+    for name, kv, policy in (("never", "fp", "never"),
+                             ("always", "fp", "always"),
+                             ("auto", "fp", "auto"),
+                             ("always int8", "int8", "always")):
+        loop = main_loop(params, dataclasses.replace(cfg, serve_kv_dtype=kv),
+                         n_pages=SWAP_POOL_PAGES, swap=True,
+                         swap_policy=policy)
+        _capture_forwards(loop)
+        acc, undo = _swap_timers(loop)
+        for r in _requests(cfg.vocab, PROMPT_LENS, SWAP_MAX_NEW, SEED):
+            loop.submit(r)
+        _reset_launches(loop)
+        t = time.perf_counter()
+        try:
+            done = {r.rid: r.output.tolist() for r in loop.run()}
+        finally:
+            undo()
+        wall = time.perf_counter() - t
+        counts, n_fwd = _read_launches(loop)
+        assert sorted(done) == list(range(len(PROMPT_LENS))), sorted(done)
+        assert all(len(o) == SWAP_MAX_NEW for o in done.values())
+        assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}, \
+            loop.compiled_shapes()
+        if DEV == "cuda":
+            n_dec = loop.forwards["decode"].replays
+            assert n_fwd == sum(f.replays for f in loop.forwards.values())
+            assert counts["tlmac_gemm_fused"] == 7 * cfg.n_layers * n_fwd, \
+                counts
+            assert counts["flash_decode"] == cfg.n_layers * n_dec, counts
+        st, sw = loop.sched_stats(), loop.swap_stats()
+        _drained(loop)
+        # 'auto' may recompute a victim, which changes the later paging
+        assert st["preemptions"] >= (1 if policy == "auto" else 2), \
+            st["preemptions"]
+        same = sum(a == b for rid, o in done.items()
+                   for a, b in zip(o, main_run["outputs"][rid]))
+        runs[name] = dict(st=st, sw=sw, wall=wall)
+        pol = sw["policy"]
+        log(f"  {name} ({kv}): {wall:.2f} s; preemptions {st['preemptions']}"
+            f", policy chose swap {pol['chose_swap']} / recompute "
+            f"{pol['chose_recompute']} (prefill "
+            f"{pol['prefill_tok_per_s']:.0f} tok/s, copy "
+            f"{pol['copy_bytes_per_s'] / 1e9:.3f} GB/s measured); pages out "
+            f"{sw['swapped_out_pages']} ({sw['swap_out_bytes'] / 2**20:.1f} "
+            f"MiB), in {sw['swapped_in_pages']} "
+            f"({sw['swap_in_bytes'] / 2**20:.1f} MiB), page "
+            f"{sw['page_bytes'] / 2**20:.3f} MiB; tokens restored "
+            f"{sw['restored_tokens']}, replayed {st['resume_prefill_tokens']}"
+            f" in {st['resumes']} resumes; store {sw['store']['pages']} pages"
+            f" {sw['store']['bytes'] / 2**20:.1f} MiB at the end, "
+            f"{sw['store']['hit_blocks']} hit blocks in {acc['matches']} "
+            f"matches; {same} of {n_tok} tokens ({same / n_tok:.1%}) equal to"
+            f" the unpressured main path; launches: lookup GEMM "
+            f"{counts['tlmac_gemm_fused']} (7 x {cfg.n_layers} x {n_fwd}), "
+            f"flash-decode {counts['flash_decode']}")
+        ms = lambda s, n=1: f"{s * 1e3 / max(n, 1):.2f} ms"   # noqa: E731
+        log(f"    swap timings (host clock): swap-out {ms(acc['out_s'])} in "
+            f"all, of which the ring (gathers, pinned copies, waits) "
+            f"{ms(acc['ring_s'])}, put {ms(acc['put_s'])} (CRC "
+            f"{ms(acc['put_crc_s'])} over {acc['put_crc_n']} pages, "
+            f"{ms(acc['put_crc_s'], acc['put_crc_n'])} a page) and the "
+            f"per-page host copies "
+            f"{ms(acc['out_s'] - acc['ring_s'] - acc['put_s'])}; "
+            f"matches {ms(acc['match_s'])} (CRC {ms(acc['match_crc_s'])} "
+            f"over {acc['match_crc_n']} pages); restore "
+            f"{ms(acc['restore_s'])} ({sw['swap_in_bytes'] / max(acc['restore_s'], 1e-9) / 1e9:.2f} GB/s)")
+        del loop
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    never, always = runs["never"]["st"], runs["always"]["st"]
+    for name in ("always", "always int8"):
+        sw, st = runs[name]["sw"], runs[name]["st"]
+        assert sw["swapped_in_pages"] > 0 and sw["restored_tokens"] > 0, sw
+        assert st["resume_prefill_tokens"] < never["resume_prefill_tokens"], \
+            (name, st["resume_prefill_tokens"],
+             never["resume_prefill_tokens"])
+    log(f"  replayed tokens: never {never['resume_prefill_tokens']}, always "
+        f"{always['resume_prefill_tokens']} (restored "
+        f"{runs['always']['sw']['restored_tokens']})")
+    return runs
+
+
+def _tenant_requests(vocab, max_new=MAX_NEW):
+    reqs = _requests(vocab, PROMPT_LENS, max_new, SEED)
+    for r in reqs:
+        r.tenant = "a" if r.rid % 2 == 0 else "b"
+        r.deadline_s = DEADLINE_S
+    return reqs
+
+
+def phase_faults(cfg, params):
+    """Seeded faults on the main path's six requests, tenants a and b and
+    a generous deadline: (i) cancels and admission stalls, swap off,
+    against a fault-free run: every finished request's tokens and every
+    cancelled request's partial output equal the fault-free run's
+    exactly (stronger than the top-2 margin rule of
+    ``phase_serve_features``, which at full width clears almost no
+    token: a stall moves a request to other batch-mates and other steps,
+    and no kernel of the decode step mixes slots); (ii) the reference's chaos rates
+    with every site armed, swap 'always', the swap phase's traffic and
+    ``SWAP_POOL_PAGES`` pool, and tenant page and swap-byte quotas in full-width pages (every
+    request done or failed with a typed error, no page or host byte
+    leaked, the lifecycle valid, the forward set the two graphs).  Then
+    the door: a spent deadline and a tenant's queue limit raise their
+    typed errors."""
+    import torch
+
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.loop import Request
+    from repro_torch.serve.scheduler import (CancelledError,
+                                             DeadlineExceededError,
+                                             QuotaExceededError)
+    from repro_torch.serve.telemetry import validate_lifecycle
+
+    def free():
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+    base = main_loop(params, cfg)
+    margins = _serve_margins(base)
+    for r in _tenant_requests(cfg.vocab):
+        base.submit(r)
+    want = {r.rid: r.output.tolist() for r in base.run()}
+    clear = {rid: margins(rid) for rid in want}
+    _drained(base)
+    del base
+    free()
+
+    def agree(rid, got):
+        """``got`` must be a prefix of the fault-free run's tokens;
+        returns how many of them clear the top-2 margin."""
+        if got != want[rid][:len(got)]:
+            raise AssertionError(f"request {rid}: tokens differ from the "
+                                 "fault-free run")
+        return sum(clear[rid][:len(got)])
+
+    plan = FaultPlan(seed=FAULT_SEED, rates={"cancel": 0.05,
+                                             "admit_stall": 0.2})
+    loop = main_loop(params, cfg, faults=plan, telemetry=True)
+    for r in _tenant_requests(cfg.vocab):
+        loop.submit(r)
+    t = time.perf_counter()
+    loop.run()
+    wall = time.perf_counter() - t
+    fired = loop.faults.stats()["fired"]
+    assert fired["cancel"] + fired["admit_stall"] > 0, fired
+    compared = 0
+    for r in loop.done:
+        assert r.error is None and len(r.output) == MAX_NEW
+        compared += agree(r.rid, r.output.tolist())
+    for r in loop.failed:
+        assert r.finish_reason == "cancelled" and \
+            isinstance(r.error, CancelledError), (r.rid, r.error)
+        assert len(r.output) <= MAX_NEW
+        compared += agree(r.rid, r.output.tolist())
+    assert len(loop.done) + len(loop.failed) == len(PROMPT_LENS)
+    validate_lifecycle(loop.tel.tracer.events)
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+    _drained(loop)
+    log(f"  (i) cancel + admit_stall, seed {FAULT_SEED}, swap off: {wall:.2f}"
+        f" s; fired {fired}; done {sorted(r.rid for r in loop.done)}, "
+        f"cancelled {sorted((r.rid, len(r.output)) for r in loop.failed)} "
+        f"(rid, tokens kept); every token equal to the fault-free run's "
+        f"({compared} of them with a clear top-2 margin); tenants "
+        f"{loop.tenant_stats()['tenants']}")
+    del loop
+    free()
+
+    # one fp page: K and V, bf16, every layer
+    page = 2 * 2 * cfg.n_layers * 16 * cfg.n_kv * cfg.kv_head_dim
+    quota, swap_budget = 30, 24 * page
+    loop = main_loop(params, cfg, n_pages=SWAP_POOL_PAGES, swap=True,
+                     swap_policy="always", telemetry=True,
+                     faults=FaultPlan(seed=CHAOS_SEED, rates=CHAOS_RATES),
+                     tenant_page_quota=quota, tenant_swap_bytes=swap_budget)
+    for r in _tenant_requests(cfg.vocab, SWAP_MAX_NEW):
+        loop.submit(r)
+    t = time.perf_counter()
+    loop.run()
+    wall = time.perf_counter() - t
+    for r in loop.done:
+        assert r.error is None and r.finish_reason in ("stop", "length")
+    for r in loop.failed:
+        assert (r.finish_reason, type(r.error)) in (
+            ("cancelled", CancelledError),
+            ("deadline", DeadlineExceededError)), (r.rid, r.error)
+    assert len(loop.done) + len(loop.failed) == len(PROMPT_LENS)
+    assert not {r.rid for r in loop.done} & {r.rid for r in loop.failed}
+    validate_lifecycle(loop.tel.tracer.events)
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+    fs, sw = loop.faults.stats(), loop.swap_stats()
+    assert sum(fs["fired"].values()) > 0, fs
+    assert sw["store"]["corrupt_dropped"] <= fs["fired"]["swap_corrupt"]
+    ts = loop.tenant_stats()
+    _drained(loop)
+    log(f"  (ii) chaos {CHAOS_RATES}, seed {CHAOS_SEED}, swap always, "
+        f"{SWAP_POOL_PAGES}-page pool, tenant page quota {quota}, tenant "
+        f"swap budget {swap_budget / 2**20:.0f} MiB (24 pages): {wall:.2f} "
+        f"s; fired {fs['fired']} of armed {fs['armed']}; done "
+        f"{sorted(r.rid for r in loop.done)}, failed "
+        f"{sorted((r.rid, r.finish_reason) for r in loop.failed)}; "
+        f"preemptions {loop.preemptions}, pages out "
+        f"{sw['swapped_out_pages']}, in {sw['swapped_in_pages']}, "
+        f"corrupt_dropped {sw['store']['corrupt_dropped']}, refused puts "
+        f"{sw['store']['refused_puts']}, purged {sw['store']['purged_pages']}"
+        f", tenant evictions {sw['store']['evicted_pages']}; no page or host "
+        f"byte leaked; tenant_stats {ts}")
+    del loop
+    free()
+
+    door = main_loop(params, cfg, n_pages=40, tenant_queue_limit=1)
+    p = _requests(cfg.vocab, (64,), 4, SEED)[0].prompt
+    door.submit(Request(rid=0, prompt=p, tenant="a"))
+    for req, err in ((Request(rid=1, prompt=p, deadline_s=0.0),
+                      DeadlineExceededError),
+                     (Request(rid=2, prompt=p, tenant="a"),
+                      QuotaExceededError)):
+        try:
+            door.submit(req)
+        except err as e:
+            log(f"  door: request {req.rid} -> {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"request {req.rid} was not refused")
+    assert len(door.sched) == 1
+    del door
+    free()
+
+
+# ---------------------------------------------------------------------------
 # card vs CPU on the smoke configs
 # ---------------------------------------------------------------------------
 
@@ -2018,6 +2502,12 @@ def main() -> int:
         phase_serve_spec(cfg, params)
         phase("serve telemetry: the main path's requests, telemetry on")
         phase_telemetry(cfg, params, main_run)
+        phase("swap round trip: full-width pools through the staging ring")
+        phase_swap_roundtrip(cfg)
+        phase("serve under pool pressure with swap")
+        phase_serve_swap(cfg, params, main_run)
+        phase("faults, cancellation, deadlines, tenants")
+        phase_faults(cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -47,6 +47,17 @@ class ArchConfig:
     serve_priority_default: int = 0   # priority of a request without one
     serve_queue_limit: int = 0    # submit backpressure bound (0 = none)
     serve_check_invariants: bool = False  # structural checks every step
+    # --- swap tier, deadlines and tenants (serve/swap.py, serve/faults.py)
+    serve_swap: bool = False      # copy preemption victims' pages to host
+                                  # memory and restore them at resume
+    serve_swap_bytes: int = 0     # host budget of the swap store (0 = none)
+    serve_swap_policy: str = "auto"  # per victim: 'auto' (measured rates),
+                                  # 'always' or 'never'
+    serve_swap_ring_pages: int = 8  # pages per staging-ring transaction
+    serve_deadline_s: float = 0.0  # default TTL from submit (0 = none)
+    serve_tenant_page_quota: int = 0  # soft cap on a tenant's live pages
+    serve_tenant_swap_bytes: int = 0  # per-tenant swap-store budget
+    serve_tenant_queue_limit: int = 0  # per-tenant queued-request bound
     # --- speculation and telemetry (serve/spec.py, serve/telemetry.py) ---
     serve_spec_k: int = 0         # draft up to k tokens per live slot and
                                   # score all k+1 in one verify forward

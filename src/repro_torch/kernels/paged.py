@@ -246,6 +246,25 @@ def copy_page_kv(kv: dict, src: int, dst: int) -> dict:
     return kv
 
 
+def swap_out_kv(kv: dict, page_ids) -> dict:
+    """Gather the whole pages ``page_ids [R]`` (a fixed-width long
+    tensor on the pool's device; short transactions pad with the scratch
+    page) of one layer's pool into fresh ``[R, page_size, ...]`` tensors,
+    codes and scale sidecars alike, for a device-to-host swap."""
+    return {name: leaf[page_ids] for name, leaf in kv.items()}
+
+
+def swap_in_kv(kv: dict, staged: dict, page_ids) -> dict:
+    """Inverse of ``swap_out_kv``, in place: scatter ``staged`` leaves
+    ``[R, page_size, ...]`` into pages ``page_ids``.  A staged leaf holds
+    the pool leaf's bytes, in its dtype or as an integer view of the same
+    width (bf16 as int16), and is written bit for bit; padding rows carry
+    page id 0 and land in the scratch page.  Returns ``kv``."""
+    for name, leaf in kv.items():
+        leaf[page_ids] = staged[name].view(leaf.dtype)
+    return kv
+
+
 def gather_kv(k_pages, v_pages, block_table):
     """Per-slot K/V ``[B, MB*P, KV, hd]`` through the block table."""
     B, MB = block_table.shape

@@ -5,9 +5,11 @@ Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
 loop over layers replaces ``_segment_scan_cached``.  Differences from
 JAX, on purpose:
 
-- the paged pools are updated IN PLACE (``prefill_chunk`` and
-  ``decode_step_paged`` write the caches they are given and return the
-  same objects), where JAX returns new arrays;
+- the paged pools are updated IN PLACE (``prefill_chunk``,
+  ``decode_step_paged``, ``verify_step_paged``, ``cache_copy_page`` and
+  ``cache_swap_in`` write the caches they are given and return the same
+  objects), where JAX returns new arrays: the serve loop's captured
+  graphs hold the pools' addresses;
 - ``prefill_chunk`` takes ``start`` and ``last`` as 0-d int32 device
   tensors (Python ints are accepted too), so one captured CUDA graph of
   the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
@@ -195,6 +197,30 @@ def cache_copy_page(caches, src: int, dst: int):
         for pool in seg.values():
             for leaf in pool.values():
                 leaf[:, dst] = leaf[:, src]
+    return caches
+
+
+@torch.no_grad()
+def cache_swap_out(caches, page_ids):
+    """Device side of swap-out: gather the pages ``page_ids [R]`` (a
+    fixed-width long tensor on the caches' device) across every layer's
+    pool into fresh leaves ``[n_layers, R, P, ...]``, the caches'
+    structure (``kernels/paged.swap_out_kv`` per layer)."""
+    return [{b: {name: leaf[:, page_ids] for name, leaf in pool.items()}
+             for b, pool in seg.items()} for seg in caches]
+
+
+@torch.no_grad()
+def cache_swap_in(caches, staged, page_ids):
+    """Device side of swap-in, IN PLACE (the captured forwards hold the
+    pools' addresses): scatter ``staged`` leaves ``[n_layers, R, P, ...]``
+    (each leaf's bytes, in its dtype or an integer view of the same width)
+    into pages ``page_ids [R]`` of every layer's pool.  Padding rows
+    target the scratch page.  Returns the caches."""
+    for seg, sseg in zip(caches, staged):
+        for b, pool in seg.items():
+            for name, leaf in pool.items():
+                leaf[:, page_ids] = sseg[b][name].view(leaf.dtype)
     return caches
 
 

@@ -35,6 +35,24 @@ reference's (``configs/base.py``):
   Verify attention is the gather + masked softmax, so with a drafter on
   the decode reader is pinned to the same ``'lax'`` reader
   (``serve_paged_attn_impl``): one output stream, one attention path.
+- **Swap tier** (``serve_swap``, ``serve/swap.py``): a victim's written
+  pages can instead be copied to host memory through the staging ring
+  (codes and scales: quantised pools swap losslessly) and, at resume,
+  scattered into fresh pages before the block table maps them: no token
+  replay, at the price of two copies.  ``scheduler.SwapPolicy`` chooses
+  per victim from measured prefill and copy rates; the host store is
+  keyed like the radix tree, so swapped prefixes serve any request that
+  shares them, and it may evict freely (an evicted page costs recompute).
+  Every host page carries a CRC-32 seal, verified before it is restored.
+- **Faults, cancellation, deadlines, tenants** (``serve/faults.py``):
+  ``cancel`` ends a request in any state (live, queued, swapped out) and
+  releases its pages and host bytes; a request past its ``deadline_s``
+  is shed at the next step boundary; both keep the partial output and a
+  typed ``Request.error`` and land in ``failed``.  A tenant at its page
+  quota is passed over at admission while an under-quota tenant waits;
+  per-tenant swap-byte budgets and queue limits bound the rest.  A
+  seeded ``FaultPlan`` injects pool exhaustion, swap refusals, torn host
+  pages, admission stalls and cancels.
 - **Telemetry** (``serve_telemetry``, ``serve/telemetry.py``): the
   reference's lifecycle events per request, phase histograms
   (``phase.reserve_s``, ``phase.prefill_chunk_s``, ``phase.decode_s``,
@@ -43,8 +61,10 @@ reference's (``configs/base.py``):
   histograms are always kept.
 
 ``submit`` rejects (``AdmissionError``) only what can never run: an empty
-prompt, one past ``s_max``, a padded prefill larger than the pool, and
-the ``serve_queue_limit`` backpressure bound; ``step`` raises
+prompt, one past ``s_max``, a padded prefill larger than the pool, a
+spent deadline (``DeadlineExceededError``), a tenant at its queue limit
+(``QuotaExceededError``) and the ``serve_queue_limit`` backpressure
+bound; ``step`` raises
 ``PoolExhaustedError`` when every slot is free and the best entry still
 gets no pages (reserved mode), or growth finds no victim.
 
@@ -55,10 +75,9 @@ captured once in a CUDA graph (after an eager warm-up) into one graph
 pool and replayed from static device buffers that one host-to-device
 copy per argument fills per call: the counterpart of the reference's one
 ``jax.jit`` executable per shape.  On the CPU the same functions run
-eagerly.  ``compiled_shapes`` / ``check_compiled`` assert the set.
-
-Swap, fault injection, cancellation, deadlines and tenant quotas are not
-ported yet.
+eagerly.  ``compiled_shapes`` / ``check_compiled`` assert the set.  The
+swap gather and scatter are eager indexing outside the set; the scatter
+writes the pools in place, so the graphs read the restored pages.
 
 Physical page 0 is the scratch page: pinned, never handed out; idle
 slots' decode writes land there and freed rows are reset to it.
@@ -79,14 +98,20 @@ from repro_torch.kernels import tlmac_fused as _tf
 from repro_torch.kernels.paged import PageSpec, qspec_for, spec_for
 from repro_torch.models import lm
 from repro_torch.models.attention import DECODE_IMPLS
+from repro_torch.serve.faults import make_injector, tree_leaves, tree_map
 from repro_torch.serve.loop import Request
 from repro_torch.serve.prefix_cache import PrefixCache
-from repro_torch.serve.scheduler import (AdmissionError, PoolExhaustedError,
-                                         SchedEntry, Scheduler, tenant_of)
+from repro_torch.serve.scheduler import (AdmissionError, CancelledError,
+                                         DeadlineExceededError,
+                                         PoolExhaustedError,
+                                         QuotaExceededError, SchedEntry,
+                                         Scheduler, SwapPolicy, tenant_of)
 from repro_torch.serve.spec import make_drafter
+from repro_torch.serve.swap import StagingRing, SwapStore, stage_to_device
 from repro_torch.serve.telemetry import NULL, Histogram, Telemetry, jsonable
 
-__all__ = ["AdmissionError", "PoolExhaustedError", "PageManager",
+__all__ = ["AdmissionError", "CancelledError", "DeadlineExceededError",
+           "PoolExhaustedError", "QuotaExceededError", "PageManager",
            "PagedServeLoop"]
 
 # the kernels whose Python launch counters a captured graph records
@@ -273,11 +298,14 @@ class PagedServeLoop:
     decoding, priority admission with aging, on-demand pages with
     recompute preemption and a prefix cache by default.  ``attn_impl``,
     ``prefix_cache``, ``spec_k``, ``drafter`` (a name or a
-    ``spec.Drafter``), ``on_demand``, ``preempt_policy``,
-    ``check_invariants``, ``telemetry`` and ``trace_path`` follow the
-    config when None.  ``params`` is the ``ParamTree`` of ``lm.init_lm``
-    (or ``convert.params_from_jax``) on ``device``; ``Request.priority``
-    (higher sooner) is honoured."""
+    ``spec.Drafter``), ``on_demand``, ``preempt_policy``, ``swap``,
+    ``swap_bytes``, ``swap_policy``, ``check_invariants``, ``telemetry``,
+    ``trace_path``, ``tenant_page_quota``, ``tenant_swap_bytes``,
+    ``tenant_queue_limit`` and ``deadline_s`` follow the config when
+    None; ``faults`` is a ``faults.FaultPlan``, an injector or None
+    (inert).  ``params`` is the ``ParamTree`` of ``lm.init_lm`` (or
+    ``convert.params_from_jax``) on ``device``; ``Request.priority``
+    (higher sooner), ``tenant`` and ``deadline_s`` are honoured."""
 
     def __init__(self, params, cfg, batch_slots: int = 4, s_max: int = 128,
                  eos_id: Optional[int] = None, page_size: int = 16,
@@ -287,9 +315,17 @@ class PagedServeLoop:
                  spec_k: Optional[int] = None, drafter=None,
                  on_demand: Optional[bool] = None,
                  preempt_policy: Optional[str] = None,
+                 swap: Optional[bool] = None,
+                 swap_bytes: Optional[int] = None,
+                 swap_policy: Optional[str] = None,
                  check_invariants: Optional[bool] = None,
                  telemetry: Optional[bool] = None,
                  trace_path: Optional[str] = None,
+                 tenant_page_quota: Optional[int] = None,
+                 tenant_swap_bytes: Optional[int] = None,
+                 tenant_queue_limit: Optional[int] = None,
+                 deadline_s: Optional[float] = None,
+                 faults=None,
                  device="cuda"):
         lm.segments_for(cfg)          # raises for families not ported
         want = torch.device(device)
@@ -345,6 +381,41 @@ class PagedServeLoop:
             aging=cfg.serve_sched_aging,
             default_priority=cfg.serve_priority_default)
         self.queue_limit = int(cfg.serve_queue_limit)
+        # per-tenant knobs (0 = off): the page quota is soft (passed over
+        # only while an under-quota tenant waits), the queue limit hard
+        self.tenant_page_quota = int(cfg.serve_tenant_page_quota
+                                     if tenant_page_quota is None
+                                     else tenant_page_quota)
+        self.tenant_queue_limit = int(cfg.serve_tenant_queue_limit
+                                      if tenant_queue_limit is None
+                                      else tenant_queue_limit)
+        # default TTL (a request's own deadline_s overrides; 0 = none)
+        self.deadline_s = float(cfg.serve_deadline_s if deadline_s is None
+                                else deadline_s)
+        # made before the swap store, which shares it
+        self.faults = make_injector(faults)
+        self._injected_block = False   # an admission this step was blocked
+                                       # by an injected fault, not the pool
+        # host-RAM swap tier: off, the store, policy and ring are None
+        swap_on = bool(cfg.serve_swap if swap is None else swap)
+        if swap_on:
+            self.swap: Optional[SwapStore] = SwapStore(
+                page_size,
+                max_bytes=int(cfg.serve_swap_bytes if swap_bytes is None
+                              else swap_bytes),
+                tenant_budget=int(cfg.serve_tenant_swap_bytes
+                                  if tenant_swap_bytes is None
+                                  else tenant_swap_bytes),
+                faults=self.faults)
+            self.swap_policy: Optional[SwapPolicy] = SwapPolicy(
+                mode=(cfg.serve_swap_policy if swap_policy is None
+                      else swap_policy))
+            self.swap_ring: Optional[StagingRing] = StagingRing(
+                width=int(cfg.serve_swap_ring_pages))
+        else:
+            self.swap = None
+            self.swap_policy = None
+            self.swap_ring = None
         self.check_invariants = bool(cfg.serve_check_invariants
                                      if check_invariants is None
                                      else check_invariants)
@@ -362,6 +433,12 @@ class PagedServeLoop:
             if prefix_cache else None)
         self.caches = lm.init_caches(cfg, self.spec, device=self.device)
         self.done: List[Request] = []
+        # cancelled or expired requests (partial output, typed error);
+        # disjoint from done
+        self.failed: List[Request] = []
+        self.cancelled = 0            # client or injected cancels
+        self.expired = 0              # deadline sheds
+        self.tenant_counters: dict = {}   # tenant -> terminal counters
         self.refills = 0              # mid-decode slot admissions
         self.prefill_tokens_run = 0   # chunk tokens actually prefilled
         self.prefill_tokens_saved = 0  # chunk tokens skipped via the cache
@@ -377,6 +454,11 @@ class PagedServeLoop:
         self.resumes = 0              # parked requests re-admitted
         self.resume_prefill_tokens = 0  # chunk tokens replayed at resume
         self.preempted_tokens = 0     # KV positions dropped at preempt
+        self.swapped_out_pages = 0    # pages landed in the host store
+        self.swapped_in_pages = 0     # host pages restored to the device
+        self.swap_out_bytes = 0       # device -> host bytes stored
+        self.swap_in_bytes = 0        # host -> device bytes restored
+        self.swap_restored_tokens = 0  # positions resumed without replay
         self.grown_pages = 0          # on-demand page-boundary allocs
         self.peak_live_slots = 0
         self.ttft_s = Histogram()     # submit -> first token, per request
@@ -437,9 +519,11 @@ class PagedServeLoop:
     # -- admission -----------------------------------------------------------
 
     def submit(self, req: Request):
-        """Enqueue a request; one that can never be served, or one past
-        the queue limit, raises ``AdmissionError`` and leaves nothing
-        queued."""
+        """Enqueue a request.  One that can never be served, one with a
+        spent deadline (``DeadlineExceededError``), one whose tenant is
+        at its queue limit (``QuotaExceededError``) or one past the queue
+        limit raises an ``AdmissionError``; every check runs before the
+        push and the event, so a rejected submit leaves nothing behind."""
         L = len(req.prompt)
         if not 0 < L <= self.S_max:
             raise AdmissionError(
@@ -450,13 +534,29 @@ class PagedServeLoop:
             raise AdmissionError(
                 f"request {req.rid} can never fit: prompt needs "
                 f"{self._prefill_blocks(L)} pages, pool has {usable}")
+        dl = req.deadline_s
+        if dl is None and self.deadline_s > 0:
+            dl = self.deadline_s
+        if dl is not None and dl <= 0:
+            raise DeadlineExceededError(
+                f"request {req.rid} submitted with a spent deadline "
+                f"budget ({dl}s); shed at the door")
+        tenant = tenant_of(req)
+        if self.tenant_queue_limit:
+            n_t = sum(1 for e in self.sched.queued()
+                      if tenant_of(e.req) == tenant)
+            if n_t >= self.tenant_queue_limit:
+                raise QuotaExceededError(
+                    f"tenant {tenant!r} at serve_tenant_queue_limit="
+                    f"{self.tenant_queue_limit}; retry later")
         if self.queue_limit and len(self.sched) >= self.queue_limit:
             raise AdmissionError(
                 f"backpressure: queue at serve_queue_limit="
                 f"{self.queue_limit}; retry later")
         ent = self.sched.push(req, req.priority)
+        ent.deadline_s = dl
         self.tel.event("submit", req.rid, prompt_tokens=L,
-                       priority=ent.priority, tenant=tenant_of(req))
+                       priority=ent.priority, tenant=tenant)
 
     def _prefill_blocks(self, L: int) -> int:
         """Blocks the padded chunk prefill of ``L`` tokens writes."""
@@ -478,25 +578,29 @@ class PagedServeLoop:
             return self._prefill_blocks(L)
         return self._worst_blocks(L, ent.req.max_new_tokens - len(ent.out))
 
-    def _plan(self, ent: SchedEntry, n_cached: int):
-        """Admission plan given ``n_cached`` matched prefix blocks.  The
-        first position that must run is ``p0 = min(n_cached * P, L - 1)``
-        (the last token always reruns: its logits seed decoding); chunks
-        start on C boundaries, so the first live chunk is ``ci0 = p0 //
-        C``, and a cached block overlapping ``[ci0 * C, ...)`` is CoW
-        duplicated.  Returns ``(total, ci0, n_keep, n_cow, need)``:
-        ``n_keep`` cached blocks stay mapped read-only, ``n_cow`` are
-        copied, and ``need`` fresh pages cover the copies and the rest."""
+    def _plan(self, ent: SchedEntry, n_cached: int, n_swap: int = 0):
+        """Admission plan given ``n_cached`` matched prefix blocks and
+        ``n_swap`` host-store blocks after them.  The first position that
+        must run is ``p0 = min((n_cached + n_swap) * P, L - 1)`` (the
+        last token always reruns: its logits seed decoding); chunks start
+        on C boundaries, so the first live chunk is ``ci0 = p0 // C``,
+        and a cached block overlapping ``[ci0 * C, ...)`` is CoW
+        duplicated.  Restored blocks land in fresh private pages and need
+        no copy (a recompute over one rewrites the same K/V).  Returns
+        ``(total, ci0, n_keep, n_cow, need, n_swap)``: ``n_keep`` cached
+        blocks stay mapped read-only, ``n_cow`` are copied, and ``need``
+        fresh pages cover the copies, the restored blocks and the rest."""
         C, P = self.chunk, self.spec.page_size
         L = len(ent.tokens)
         total = self._admit_blocks(ent)
         n_cached = min(n_cached, total)
-        p0 = min(n_cached * P, L - 1)
+        n_swap = min(n_swap, total - n_cached)
+        p0 = min((n_cached + n_swap) * P, L - 1)
         ci0 = p0 // C
         n_keep = min(n_cached, (ci0 * C) // P)
         n_cow = n_cached - n_keep
         need = (total - n_cached) + n_cow
-        return total, ci0, n_keep, n_cow, need
+        return total, ci0, n_keep, n_cow, need, n_swap
 
     def _pages_needed(self, req: Request, n_cached: int = 0) -> int:
         """Fresh pages admission allocates for a fresh ``req``."""
@@ -514,10 +618,34 @@ class PagedServeLoop:
             return 0
         return len(self.prefix.match(ent.tokens, record=False))
 
+    def _tenant_pages(self) -> dict:
+        """Pool pages each tenant's live slots reference (a shared page
+        counts once per referencing tenant)."""
+        held: dict = {}
+        for s in self.slots:
+            if s is not None:
+                t = tenant_of(s["req"])
+                held[t] = held.get(t, 0) + len(s["blocks"])
+        return held
+
     def _next_entry(self) -> Optional[SchedEntry]:
-        """The admission head: strictly best-first (no tenant quotas
-        yet)."""
-        return self.sched.peek()
+        """The admission head: best-first (effective priority, then the
+        lightest-loaded tenant, then FIFO), except that a tenant at its
+        page quota is passed over while an under-quota tenant has work
+        queued; with only over-quota work waiting the best admits anyway
+        (soft, work-conserving)."""
+        held = self._tenant_pages()
+        ent = self.sched.peek(tenant_load=held)
+        if (ent is not None and self.tenant_page_quota
+                and held.get(tenant_of(ent.req), 0)
+                >= self.tenant_page_quota):
+            alt = self.sched.peek(
+                eligible=lambda e: (held.get(tenant_of(e.req), 0)
+                                    < self.tenant_page_quota),
+                tenant_load=held)
+            if alt is not None:
+                ent = alt
+        return ent
 
     def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` pages, evicting LRU unreferenced cached
@@ -550,39 +678,65 @@ class PagedServeLoop:
         again) or 'blocked' (empty queue or pool short: the best entry
         waits, nothing overtakes it).  A resumed entry's tokens are
         prompt + generated so far: the replay recomputes the dropped K/V
-        and its last logits continue the argmax chain."""
+        and its last logits continue the argmax chain; host-store hits
+        after the device hits are restored instead of replayed."""
         ent = self._next_entry()
         if ent is None:
             return "blocked"
+        if self.faults.fire("admit_stall"):
+            self._injected_block = True   # the head waits one round
+            return "blocked"
         tokens = ent.tokens
         L = len(tokens)
+        # record=False: a blocked head re-matches every round
         hits = self.prefix.match(tokens, record=False) \
             if self.prefix is not None else []
-        total, ci0, n_keep, n_cow, need = self._plan(ent, len(hits))
+        # host-store hits fill in after the device hits (only a
+        # consecutive run maps, and a device page is cheaper)
+        swap_hits = self.swap.match(tokens, start_block=len(hits)) \
+            if self.swap is not None else []
+        total, ci0, n_keep, n_cow, need, n_swap = self._plan(
+            ent, len(hits), len(swap_hits))
         hits = hits[: n_keep + n_cow]
+        swap_hits = swap_hits[:n_swap]
         if hits:
             # held so that eviction (ours, below) cannot reclaim them
             self.prefix.lock(hits)
+        if self.faults.fire("alloc"):
+            # injected exhaustion: as a short pool, drop the locks, wait
+            if hits:
+                self.pages.release([n.page_id for n in hits])
+            self._injected_block = True
+            return "blocked"
         page_ids = self._alloc_with_evict(need)
         if page_ids is None and hits:
             # the locked hits can pin the pool themselves: admit without
             # the cache (a request that fits alone always admits once
-            # every slot is free)
+            # every slot is free); host-store hits pin no pool page, so
+            # they are matched again from block 0
             self.pages.release([n.page_id for n in hits])
             hits = []
-            total, ci0, n_keep, n_cow, need = self._plan(ent, 0)
+            swap_hits = self.swap.match(tokens, start_block=0) \
+                if self.swap is not None else []
+            total, ci0, n_keep, n_cow, need, n_swap = self._plan(
+                ent, 0, len(swap_hits))
+            swap_hits = swap_hits[:n_swap]
             page_ids = self._alloc_with_evict(need)
         if page_ids is None:
             return "blocked"
         self.sched.pop(ent)
+        # live again: its host pages are plain shared cache from here on
+        ent.swap_blocks = 0
         tel, rid = self.tel, ent.req.rid
         t_adm = tel.now()
         # the queued span covers the latest (re-)enqueue; a resume shows
         # preempted -> queued -> resumed on the request's track
         tel.event("queued", rid, t0=tel.rel(ent.t_enqueue), t1=t_adm,
                   preemptions=ent.preemptions)
+        if swap_hits:
+            tel.event("swapped_in", rid, blocks=len(swap_hits))
         tel.event("resumed" if ent.out else "admitted", rid,
-                  cached_blocks=len(hits), restored_blocks=0,
+                  cached_blocks=len(hits), restored_blocks=len(swap_hits),
                   fresh_pages=need, cow=n_cow)
         C, P = self.chunk, self.spec.page_size
         if self.prefix is not None:
@@ -601,11 +755,21 @@ class PagedServeLoop:
             self.pages.release([src])     # drop the map reference
             blocks[b] = dst
             shared[b] = False
+        if swap_hits:
+            # restored before the block table maps the pages: every
+            # position below the first live chunk holds its K/V by the
+            # time the suffix prefill (or the first decode) reads it
+            lo = len(hits)
+            self._swap_restore(swap_hits, blocks[lo: lo + len(swap_hits)])
+            self.swap_restored_tokens += len(swap_hits) * P
         row = np.zeros(self.spec.max_blocks, np.int32)
         row[:total] = blocks
         self.block_table[slot_i] = row
         n_chunks = -(-L // C)
         logits = None
+        # perf_counter, not tel.now() (NULL's clock reads 0): the swap
+        # policy needs real rates with telemetry off
+        t0p = time.perf_counter() if self.swap_policy is not None else 0.0
         for ci in range(ci0, n_chunks):
             buf = np.zeros((1, C), np.int32)
             seg = tokens[ci * C:(ci + 1) * C]
@@ -627,6 +791,11 @@ class PagedServeLoop:
             self.resumes += 1
             self.resume_prefill_tokens += run_tokens
         tok0 = int(torch.argmax(logits))
+        if self.swap_policy is not None and n_chunks > ci0:
+            # the argmax read waited for the device: the window covers the
+            # chunks' execution
+            self.swap_policy.observe_prefill(
+                run_tokens, time.perf_counter() - t0p)
         if not ent.out:
             self.ttft_s.observe(time.monotonic() - ent.t_submit)
         self.lens[slot_i] = L
@@ -645,20 +814,26 @@ class PagedServeLoop:
         return ((self.eos_id is not None and entry["out"][-1] == self.eos_id)
                 or len(entry["out"]) >= entry["req"].max_new_tokens)
 
-    def _release_slot(self, slot_i: int, entry) -> np.ndarray:
-        """Move the slot's fully written pages (positions ``[0, lens)``,
-        keyed by prompt + generated tokens) into the prefix cache, free
-        the rest, and reset the slot.  Returns the slot's token history
-        (prompt + generated)."""
-        lens = int(self.lens[slot_i])
+    def _history(self, slot_i: int, entry) -> np.ndarray:
+        """The slot's token history, prompt + generated; positions ``[0,
+        lens)`` of it are written (the last emitted token is not)."""
         full = np.concatenate([np.asarray(entry["req"].prompt, np.int32),
                                np.asarray(entry["out"], np.int32)])
+        lens = int(self.lens[slot_i])
         assert len(full) == lens + 1, \
             f"slot {slot_i} token accounting diverged: {len(full)} vs " \
             f"lens {lens} + 1"
+        return full
+
+    def _release_slot(self, slot_i: int, entry, park: bool = True):
+        """Reset the slot.  With ``park``, its fully written pages (keyed
+        by the token history) move into the prefix cache and the rest
+        free; without, every page frees (a shared page drops this slot's
+        reference only)."""
+        full = self._history(slot_i, entry)
         blocks = entry["blocks"]
-        n_full = lens // self.spec.page_size
-        if self.prefix is not None and n_full:
+        n_full = int(self.lens[slot_i]) // self.spec.page_size
+        if park and self.prefix is not None and n_full:
             self.prefix.insert(full, blocks[:n_full])
             blocks = blocks[n_full:]
         if len(blocks):
@@ -666,7 +841,6 @@ class PagedServeLoop:
         self.block_table[slot_i] = 0      # scratch page: no stale aliasing
         self.lens[slot_i] = 0
         self.slots[slot_i] = None
-        return full
 
     def _finish(self, slot_i: int, entry) -> None:
         req = entry["req"]
@@ -675,27 +849,203 @@ class PagedServeLoop:
             "stop" if (self.eos_id is not None
                        and entry["out"][-1] == self.eos_id) else "length")
         self.done.append(req)
+        self._tenant_bump(tenant_of(req), "completed")
         self.tel.event("finished", req.rid, tokens=len(entry["out"]),
                        pages=len(entry["blocks"]))
         self._release_slot(slot_i, entry)
 
     def _preempt(self, slot_i: int) -> None:
-        """Park a live slot on pool exhaustion (recompute): its written
-        full pages go into the prefix cache (evictable under further
-        pressure, mapped back at resume if they survive), the rest free,
-        and the request requeues with its generated tokens."""
+        """Park a live slot on pool exhaustion.  Its fully written pages
+        are either copied to the host store (swap tier on and the policy
+        says so: every device page then frees, and the resume restores
+        them) or moved into the prefix cache (recompute: evictable, and
+        mapped back at resume if they survive); the request requeues with
+        its generated tokens.  A put refused by the host budget only
+        costs replay."""
         entry = self.slots[slot_i]
         ent: SchedEntry = entry["sched"]
         lens = int(self.lens[slot_i])
+        full = self._history(slot_i, entry)
         n_full = lens // self.spec.page_size
-        parked = n_full if self.prefix is not None else 0
-        ent.tokens = self._release_slot(slot_i, entry)
+        swapped = 0
+        if (n_full and self.swap is not None
+                and self.swap_policy.decide(
+                    replay_tokens=lens,
+                    nbytes=n_full * self.page_bytes())):
+            # the ring is drained inside: every gather has landed on the
+            # host before the pages are released below
+            swapped = self._swap_out(full, entry["blocks"][:n_full],
+                                     tenant=tenant_of(entry["req"]))
+        parked = n_full if not swapped and self.prefix is not None else 0
+        self._release_slot(slot_i, entry, park=not swapped)
+        ent.tokens = full
         ent.out = list(entry["out"])
+        # what a cancel or deadline shed while parked purges (refused
+        # puts leave gaps; purge skips them)
+        ent.swap_blocks = n_full if swapped else 0
         self.sched.requeue(ent)
         self.preemptions += 1
         self.preempted_tokens += lens
         self.tel.event("preempted", entry["req"].rid, tokens_dropped=lens,
-                       pages_parked=parked, pages_swapped=0)
+                       pages_parked=parked, pages_swapped=swapped)
+        if swapped:
+            self.tel.event("swapped_out", entry["req"].rid, pages=swapped,
+                           bytes=swapped * self.page_bytes())
+
+    # -- cancellation / deadlines --------------------------------------------
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """End request ``rid`` from any state and release what it holds:
+        a live slot parks its written full pages in the prefix cache and
+        frees the rest; a queued entry leaves the queue (no queue-wait
+        observation), and a swapped-out one has its host pages purged.
+        The request lands in ``failed`` with its partial output, a typed
+        ``error`` and ``finish_reason``.  False when ``rid`` is not in
+        flight (cancel is idempotent)."""
+        for i in range(self.B):
+            e = self.slots[i]
+            if e is not None and e["req"].rid == rid:
+                self._terminate_slot(i, e, reason)
+                return True
+        for ent in self.sched.queued():
+            if ent.req.rid == rid:
+                self.sched.remove(ent)
+                self._purge_swapped(ent)
+                self._mark_terminated(ent.req, reason, ent.out)
+                return True
+        return False
+
+    def _terminate_slot(self, slot_i: int, entry, reason: str) -> None:
+        """Release a live slot as a recompute preemption does, but end
+        the request instead of parking it."""
+        self._release_slot(slot_i, entry)
+        self._mark_terminated(entry["req"], reason, entry["out"])
+
+    def _purge_swapped(self, ent: SchedEntry) -> None:
+        """Drop a parked entry's host-store pages (no-op unless it owns
+        swapped blocks)."""
+        if self.swap is not None and ent.swap_blocks:
+            self.swap.purge(ent.tokens, ent.swap_blocks)
+            ent.swap_blocks = 0
+
+    def _mark_terminated(self, req: Request, reason: str, out) -> None:
+        """Terminal bookkeeping of a cancel or a deadline shed."""
+        req.output = np.asarray(list(out), np.int32)
+        req.finish_reason = reason
+        if reason == "deadline":
+            req.error = DeadlineExceededError(
+                f"request {req.rid} exceeded its deadline budget")
+            self.expired += 1
+            self._tenant_bump(tenant_of(req), "expired")
+        else:
+            req.error = CancelledError(f"request {req.rid} cancelled")
+            self.cancelled += 1
+            self._tenant_bump(tenant_of(req), "cancelled")
+        self.failed.append(req)
+        self.tel.event("cancelled", req.rid, reason=reason,
+                       tokens=len(req.output))
+
+    def _enforce_deadlines(self) -> None:
+        """Shed every request past its TTL, queued (host pages purged) or
+        live, once per step before admissions: a doomed entry never
+        prefills.  Never mid-forward."""
+        now = time.monotonic()
+        for ent in list(self.sched.queued()):
+            if (ent.deadline_s is not None
+                    and now - ent.t_submit >= ent.deadline_s):
+                self.sched.remove(ent)
+                self._purge_swapped(ent)
+                self._mark_terminated(ent.req, "deadline", ent.out)
+        for i in range(self.B):
+            e = self.slots[i]
+            if e is None:
+                continue
+            dl = e["sched"].deadline_s
+            if dl is not None and now - e["sched"].t_submit >= dl:
+                self._terminate_slot(i, e, "deadline")
+
+    def _tenant_bump(self, tenant: str, key: str) -> None:
+        d = self.tenant_counters.setdefault(tenant, {})
+        d[key] = d.get(key, 0) + 1
+
+    # -- host-RAM swap tier ---------------------------------------------------
+
+    def page_bytes(self) -> int:
+        """Bytes of one physical page across every layer's pool (codes
+        and scales): the swap policy's unit, a host page's footprint."""
+        return self.kv_pool_bytes() // self.spec.n_pages
+
+    def _swap_out(self, full, blocks, tenant=None) -> int:
+        """Copy the written full pages ``blocks`` of token history
+        ``full`` to the host through the staging ring and put each in the
+        store.  Returns how many are host-resident afterwards.  Each
+        transaction gathers the ring's width of pages (a short tail pads
+        with the scratch page, sliced off before storing)."""
+        ring = self.swap_ring
+        R = ring.width
+        t0 = time.perf_counter()
+        stored = 0
+        bytes0 = self.swap_out_bytes
+        for base in range(0, len(blocks), R):
+            tail = [int(b) for b in blocks[base: base + R]]
+            pids = np.zeros(R, np.int64)     # scratch-page padding
+            pids[: len(tail)] = tail
+            with self.tel.annotate("repro_torch.serve.swap_gather"):
+                dev = lm.cache_swap_out(
+                    self.caches, torch.from_numpy(pids).to(self.device))
+            for meta, host in ring.stage((base, len(tail)), dev):
+                stored += self._store_staged(full, meta, host, tenant)
+        for meta, host in ring.drain():
+            stored += self._store_staged(full, meta, host, tenant)
+        moved = self.swap_out_bytes - bytes0
+        if moved:
+            self.swap_policy.observe_copy(moved, time.perf_counter() - t0)
+        self.swapped_out_pages += stored
+        if self.tel.enabled and stored:
+            self.tel.inc("swap.out_pages", stored)
+            self.tel.inc("swap.out_bytes", moved)
+        return stored
+
+    def _store_staged(self, full, meta, host, tenant=None) -> int:
+        """Split one matured transaction (leaves ``[n_layers, R, P,
+        ...]``) into per-page copies, ``[n_layers, P, ...]`` and
+        C-contiguous, and store each under its content key."""
+        base, n = meta
+        stored = 0
+        for j in range(n):
+            page = tree_map(lambda a: a[:, j].copy(), host)
+            if self.swap.put(full, base + j, page, tenant=tenant):
+                stored += 1
+                self.swap_out_bytes += int(
+                    sum(a.nbytes for a in tree_leaves(page)))
+        return stored
+
+    def _swap_restore(self, host_pages, dest) -> None:
+        """Scatter host pages into the fresh device pages ``dest`` in
+        ring-width transactions (a short tail repeats its last page onto
+        the scratch page), in place; then wait for the device, so the
+        policy learns copy times, not launch times."""
+        R = self.swap_ring.width
+        t0 = time.perf_counter()
+        nbytes = 0
+        for base in range(0, len(host_pages), R):
+            tail = host_pages[base: base + R]
+            pids = np.zeros(R, np.int64)
+            pids[: len(tail)] = dest[base: base + len(tail)]
+            padded = list(tail) + [tail[-1]] * (R - len(tail))
+            staged = tree_map(lambda *xs: stage_to_device(xs, self.device),
+                              *[p.data for p in padded])
+            with self.tel.annotate("repro_torch.serve.swap_scatter"):
+                lm.cache_swap_in(self.caches, staged,
+                                 torch.from_numpy(pids).to(self.device))
+            nbytes += sum(p.nbytes for p in tail)
+        self._sync()
+        self.swap_policy.observe_copy(nbytes, time.perf_counter() - t0)
+        self.swapped_in_pages += len(host_pages)
+        self.swap_in_bytes += nbytes
+        if self.tel.enabled:
+            self.tel.inc("swap.in_pages", len(host_pages))
+            self.tel.inc("swap.in_bytes", nbytes)
 
     def _fill_free_slots(self, mid_decode: bool) -> None:
         for i in range(self.B):
@@ -719,17 +1069,29 @@ class PagedServeLoop:
         return self.done
 
     def step(self) -> bool:
-        """One round: admissions into free slots, then one decode or
-        verify forward over the live slots (preempting first if on-demand
-        growth finds the pool empty), then refill.  Returns True while
-        work remains."""
+        """One round: an injected cancel if the plan fires one, deadline
+        sheds, admissions into free slots, then one decode or verify
+        forward over the live slots (preempting first if on-demand growth
+        finds the pool empty), then refill.  Returns True while work
+        remains."""
         self.sched.tick()
+        self._injected_block = False
+        if self.faults.fire("cancel"):
+            # a client disconnect: a seeded pick over everything in
+            # flight, live slots first, then the queue
+            rids = [s["req"].rid for s in self.slots if s is not None]
+            rids += [e.req.rid for e in self.sched.queued()]
+            if rids:
+                self.cancel(self.faults.choice(rids))
+        self._enforce_deadlines()
         mid = any(s is not None for s in self.slots)
         self._fill_free_slots(mid_decode=mid)
         live = [i for i in range(self.B) if self.slots[i] is not None]
         self.peak_live_slots = max(self.peak_live_slots, len(live))
         if not live:
             if len(self.sched):
+                if self._injected_block:
+                    return True           # a fake fault: retry next round
                 ent = self.sched.peek()
                 raise PoolExhaustedError(
                     f"request {ent.req.rid} needs "
@@ -769,6 +1131,9 @@ class PagedServeLoop:
         """Cover block ``last_blk`` in the slot's table (on-demand
         growth); False when the pool and evictable prefixes cannot."""
         while len(entry["blocks"]) <= last_blk:
+            # the injected exhaustion fires only where a real alloc is due
+            if self.faults.fire("alloc"):
+                return False
             pages = self._alloc_with_evict(1)
             if pages is None:
                 return False
@@ -965,10 +1330,12 @@ class PagedServeLoop:
 
     def _check(self) -> None:
         """Structural checks (``serve_check_invariants``): page-pool
-        partition, tree consistency, queue sanity."""
+        partition, tree consistency, swap ledgers, queue sanity."""
         self.pages.check()
         if self.prefix is not None:
             self.prefix.check()
+        if self.swap is not None:
+            self.swap.check()
         self.sched.check()
 
     def kv_pool_bytes(self) -> int:
@@ -996,10 +1363,16 @@ class PagedServeLoop:
         return {
             **self.sched.stats(),
             "on_demand": self.on_demand,
+            "cancelled": self.cancelled,
+            "expired": self.expired,
+            "failed": len(self.failed),
             "preemptions": self.preemptions,
             "resumes": self.resumes,
             "resume_prefill_tokens": self.resume_prefill_tokens,
             "preempted_tokens": self.preempted_tokens,
+            "swapped_out_pages": self.swapped_out_pages,
+            "swapped_in_pages": self.swapped_in_pages,
+            "swap_restored_tokens": self.swap_restored_tokens,
             "grown_pages": self.grown_pages,
             "peak_live_slots": self.peak_live_slots,
             "pool_pages_peak": self.pages.peak,
@@ -1023,11 +1396,62 @@ class PagedServeLoop:
             "pool_bytes": self.kv_pool_bytes(),
         }
 
+    def swap_stats(self) -> dict:
+        """Swap-tier accounting: store occupancy, the policy's choices
+        and measured rates, traffic each way, and ``restored_tokens``
+        (positions resumed without replay)."""
+        if self.swap is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "store": self.swap.stats(),
+            "policy": self.swap_policy.stats(),
+            "ring_width": self.swap_ring.width,
+            "ring_transactions": self.swap_ring.transactions,
+            "swapped_out_pages": self.swapped_out_pages,
+            "swapped_in_pages": self.swapped_in_pages,
+            "swap_out_bytes": self.swap_out_bytes,
+            "swap_in_bytes": self.swap_in_bytes,
+            "restored_tokens": self.swap_restored_tokens,
+            "page_bytes": self.page_bytes(),
+        }
+
+    def tenant_stats(self) -> dict:
+        """Per-tenant accounting: live pages and queue depth, terminal
+        counters and swap bytes per tenant, and the configured quotas."""
+        held = self._tenant_pages()
+        queued: dict = {}
+        for e in self.sched.queued():
+            t = tenant_of(e.req)
+            queued[t] = queued.get(t, 0) + 1
+        swap_b = self.swap.tenant_bytes if self.swap is not None else {}
+        names = sorted(set(held) | set(queued)
+                       | set(self.tenant_counters) | set(swap_b))
+        per = {}
+        for t in names:
+            c = self.tenant_counters.get(t, {})
+            per[t] = {
+                "pages_held": held.get(t, 0),
+                "queued": queued.get(t, 0),
+                "completed": c.get("completed", 0),
+                "cancelled": c.get("cancelled", 0),
+                "expired": c.get("expired", 0),
+                "swap_bytes": swap_b.get(t, 0),
+            }
+        return {
+            "page_quota": self.tenant_page_quota,
+            "queue_limit": self.tenant_queue_limit,
+            "swap_budget": (self.swap.tenant_budget
+                            if self.swap is not None else 0),
+            "tenants": per,
+        }
+
     def metrics(self) -> dict:
-        """One JSON-serialisable snapshot of the subsystems the port has
-        (pool, prefix cache, speculation, KV quantisation, scheduler);
-        the ``telemetry`` section (registry and tracer depth) appears
-        only with telemetry on."""
+        """One JSON-serialisable snapshot of every subsystem: pool,
+        prefix cache, speculation, KV quantisation, scheduler, swap tier,
+        tenants and fault injection (the reference's ``autotune`` section
+        is not ported); the ``telemetry`` section (registry and tracer
+        depth) appears only with telemetry on."""
         qs = qspec_for(self.cfg)
         doc = {
             "pool": self.pool_stats(),
@@ -1042,6 +1466,9 @@ class PagedServeLoop:
             "quant": {"kv_dtype": qs.dtype, "quantised": qs.quantised,
                       "pool_bytes": self.kv_pool_bytes()},
             "scheduler": self.sched_stats(),
+            "swap": self.swap_stats(),
+            "tenants": self.tenant_stats(),
+            "faults": self.faults.stats(),
         }
         if self.tel.enabled:
             doc["telemetry"] = {
@@ -1071,7 +1498,7 @@ class PagedServeLoop:
 
     def check_compiled(self) -> None:
         """At most one compiled shape per forward (chunk, decode and, with
-        a drafter, verify; the CoW page copy runs eagerly, outside the
-        set)."""
+        a drafter, verify; the CoW page copy and the swap gather and
+        scatter run eagerly, outside the set)."""
         for name, n in self.compiled_shapes().items():
             assert n <= 1, f"{name} forward compiled {n} shapes"

@@ -1,6 +1,5 @@
-"""Priority admission queue and preemption policy of the paged loop (port
-of ``repro.serve.scheduler``: errors, ``tenant_of``, ``SchedEntry``,
-``Scheduler``).
+"""Priority admission queue, preemption policy and swap policy of the
+paged loop (port of ``repro.serve.scheduler``).
 
 With on-demand pages (``cfg.serve_on_demand_pages``) a decode step can
 find the pool empty; this module makes that survivable:
@@ -8,6 +7,9 @@ find the pool empty; this module makes that survivable:
 - typed errors: ``AdmissionError`` fails a ``submit`` that can never be
   served (empty prompt, prompt past ``s_max``, prompt pages past the
   pool, the ``serve_queue_limit`` backpressure bound);
+  ``DeadlineExceededError`` (a spent TTL, at the door or in flight) and
+  ``QuotaExceededError`` (a tenant's queued share is full) extend it;
+  ``CancelledError`` is attached to a cancelled request, never raised;
   ``PoolExhaustedError`` is raised by ``step`` when the pool cannot
   cover a lone request and no victim exists;
 - the queue drains best-first by ``priority`` (higher sooner), FIFO
@@ -16,12 +18,17 @@ find the pool empty; this module makes that survivable:
 - ``select_victim`` picks the live slot to park on exhaustion: lowest
   priority, then most pages, then least progress, then latest slot;
   ``policy='never'`` forbids preemption;
+- ``peek(tenant_load=...)`` breaks equal effective priorities toward the
+  tenant holding the fewest pool pages, and ``peek(eligible=...)`` lets
+  the loop pass over tenants at their page quota;
 - a parked entry's ``tokens`` are prompt plus every generated token, and
-  re-admission replays them through chunked prefill (recompute-resume).
+  re-admission replays them through chunked prefill (recompute-resume);
+- ``SwapPolicy`` decides per victim between that replay and copying its
+  pages to host memory (``serve/swap.py``), from measured rates.
 
 Pure host metadata.  ``queue_wait_s`` (a bounded ``telemetry.Histogram``)
 records each admitted entry's wait since its latest enqueue, observed at
-``pop``.  The swap policy is not ported yet.
+``pop`` (``remove``, a cancel or deadline shed, observes nothing).
 """
 
 from __future__ import annotations
@@ -36,6 +43,21 @@ from repro_torch.serve.telemetry import Histogram
 class AdmissionError(ValueError):
     """A request that can never be served as submitted (rejected at
     ``submit``)."""
+
+
+class DeadlineExceededError(AdmissionError):
+    """The request's deadline budget is spent: raised by ``submit`` for a
+    budget already spent, attached as ``Request.error`` when the loop
+    sheds a queued or live request past its deadline."""
+
+
+class QuotaExceededError(AdmissionError):
+    """A tenant's queued-request share is full (raised by ``submit``)."""
+
+
+class CancelledError(RuntimeError):
+    """The request was cancelled; attached as ``Request.error``, never
+    raised by the loop."""
 
 
 class PoolExhaustedError(RuntimeError):
@@ -64,6 +86,12 @@ class SchedEntry:
     t_submit: float              # original submit time
     t_enqueue: float             # latest enqueue time
     preemptions: int = 0
+    deadline_s: Optional[float] = None  # TTL from t_submit (None: none);
+                                 # enforced at step boundaries
+    swap_blocks: int = 0         # full blocks this parked entry may hold
+                                 # in the host SwapStore (set at swap-out,
+                                 # cleared at re-admission): a cancel or
+                                 # deadline shed purges exactly these
 
 
 class Scheduler:
@@ -200,3 +228,68 @@ class Scheduler:
             assert len(e.tokens) > 0, "empty entry in queue"
             assert len(e.out) < getattr(e.req, "max_new_tokens", 1 << 30), \
                 "finished entry still queued"
+
+
+class SwapPolicy:
+    """Per-victim recompute-vs-swap decision from measured rates.  Swap
+    wins when ``2 * nbytes / copy_bytes_per_s < replay_tokens /
+    prefill_tok_per_s``; both rates are exponential moving averages of
+    what the loop measures (``observe_prefill`` around its chunked
+    prefill, ``observe_copy`` around the swap copies).  Until both exist
+    the policy swaps (the only way to learn the copy rate).
+    ``mode='always'`` pins the swap path, ``'never'`` disables it,
+    ``'auto'`` compares."""
+
+    MODES = ("auto", "always", "never")
+
+    def __init__(self, mode: str = "auto", alpha: float = 0.25):
+        if mode not in self.MODES:
+            raise ValueError(
+                f"swap policy {mode!r} not in {self.MODES}")
+        self.mode = mode
+        self.alpha = float(alpha)
+        self.prefill_tok_per_s = 0.0     # 0.0: not measured yet
+        self.copy_bytes_per_s = 0.0
+        self.chose_swap = 0
+        self.chose_recompute = 0
+
+    def _ema(self, old: float, sample: float) -> float:
+        return sample if old == 0.0 else \
+            (1.0 - self.alpha) * old + self.alpha * sample
+
+    def observe_prefill(self, tokens: int, dt_s: float) -> None:
+        if tokens > 0 and dt_s > 0.0:
+            self.prefill_tok_per_s = self._ema(
+                self.prefill_tok_per_s, tokens / dt_s)
+
+    def observe_copy(self, nbytes: int, dt_s: float) -> None:
+        if nbytes > 0 and dt_s > 0.0:
+            self.copy_bytes_per_s = self._ema(
+                self.copy_bytes_per_s, nbytes / dt_s)
+
+    def decide(self, replay_tokens: int, nbytes: int) -> bool:
+        """True: swap this victim's pages out; False: recompute."""
+        if self.mode == "never":
+            swap = False
+        elif self.mode == "always":
+            swap = True
+        elif not (self.prefill_tok_per_s and self.copy_bytes_per_s):
+            swap = True
+        else:
+            swap_cost_s = 2.0 * nbytes / self.copy_bytes_per_s
+            replay_cost_s = replay_tokens / self.prefill_tok_per_s
+            swap = swap_cost_s < replay_cost_s
+        if swap:
+            self.chose_swap += 1
+        else:
+            self.chose_recompute += 1
+        return swap
+
+    def stats(self) -> dict:
+        return {
+            "mode": self.mode,
+            "prefill_tok_per_s": self.prefill_tok_per_s,
+            "copy_bytes_per_s": self.copy_bytes_per_s,
+            "chose_swap": self.chose_swap,
+            "chose_recompute": self.chose_recompute,
+        }

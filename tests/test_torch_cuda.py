@@ -734,3 +734,60 @@ def test_spec_loop_gives_spec_off_tokens_on_card(cuda, corrupt_p):
     assert on.spec_steps > 0 and on.forwards["verify"].replays > 0
     on.check_compiled()
     on.pages.check()
+
+
+@pytest.mark.requires_cuda
+def test_swap_restores_in_place_and_the_graphs_read_them_on_card(cuda):
+    """Swap pinned on, in a pool that preempts: every restored page's
+    bytes on the card carry the host page's CRC-32 seal, and the run ends
+    with nothing leaked.  Then new bytes scattered into a page with
+    ``cache_swap_in`` change the captured decode graph's logits exactly as
+    they change the eager decode's: the scatter writes the pool the
+    graphs hold, in place."""
+    from repro_torch.models import lm
+    from repro_torch.serve.faults import tree_leaves, tree_map
+    from repro_torch.serve.loop import Request
+    from repro_torch.serve.swap import host_array, page_checksum
+
+    cfg, loop = _smoke_loop(cuda, swap=True, swap_policy="always", n_pages=9)
+    restore, restored = loop._swap_restore, []
+
+    def checked(host_pages, dest):
+        restore(host_pages, dest)
+        for hp, d in zip(host_pages, dest):
+            got = tree_map(lambda leaf: host_array(leaf[:, int(d)].cpu()),
+                           loop.caches)
+            assert page_checksum(got) == hp.checksum
+            restored.append(int(d))
+    loop._swap_restore = checked
+    rng = np.random.default_rng(11)
+    for i, (n, mn) in enumerate(((9, 12), (10, 11), (7, 10), (12, 9))):
+        loop.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                            .astype(np.int32), max_new_tokens=mn))
+    assert len(loop.run()) == 4
+    assert loop.preemptions > 0 and restored
+    loop.check_compiled()
+    loop.prefix.evict(10**6)
+    assert loop.pages.in_use == 0
+    loop.swap.check()
+
+    MB = loop.spec.max_blocks
+    bt = np.zeros((loop.B, MB), np.int32)
+    bt[0, :3] = [1, 2, 3]
+    args = (np.array([[5], [0]], np.int32), np.array([9, 0], np.int32), bt)
+    outs = []
+    for seed in (1, 2):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        staged = tree_map(lambda leaf: torch.randn(
+            leaf[:, :1].shape, device=cuda, generator=gen).to(leaf.dtype),
+            loop.caches)
+        ptrs = [t.data_ptr() for t in tree_leaves(loop.caches)]
+        lm.cache_swap_in(loop.caches, staged, torch.tensor([2], device=cuda))
+        assert ptrs == [t.data_ptr() for t in tree_leaves(loop.caches)]
+        got = loop._decode(*args).clone()
+        want = loop._decode_fn(*[torch.as_tensor(x, device=cuda)
+                                 for x in args])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1])

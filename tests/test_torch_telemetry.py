@@ -343,7 +343,11 @@ def test_metrics_agree_with_stats():
     loop.run()
     m = loop.metrics()
     assert set(m) == {"pool", "prefix_cache", "spec", "quant", "scheduler",
-                      "telemetry"}
+                      "swap", "tenants", "faults", "telemetry"}
+    assert m["swap"] == {"enabled": False} and m["faults"] == {
+        "enabled": False}
+    assert m["tenants"] == ttel.jsonable(loop.tenant_stats())
+    assert m["tenants"]["tenants"]["default"]["completed"] == 5
     for k, v in loop.spec_stats().items():
         assert m["spec"][k] == v
     assert m["spec"]["k"] == 2 and m["spec"]["gen_tokens"] == loop.gen_tokens
