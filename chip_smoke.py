@@ -22,7 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
    the bound and a library yardstick: one ``torch._int_mm`` of the
    one-hot coefficients against the gathered table rows (held equal),
    beside a dense int8 ``_int_mm`` of the same shape as context, and
-   SDPA over the gathered K/V;
+   SDPA over the gathered K/V; then both at the dense families' shapes
+   (kernel 1 at command-r-35b's four linear shapes, kernel 2 at rep 8,
+   hd 64 and a 2048-token window over slots past it);
 4. kernels 3-6 (bit-plane pack, lookup GEMM on packed codes, the
    cluster-scheduled GEMM for one tile and for every tile) against their
    plain versions and the dense integer GEMM on small compiled plans, at
@@ -82,8 +84,25 @@ Phases, in order; any failure raises and exits non-zero:
    run (tokens equal where the margin is clear), the reference's chaos
    rates with tenant quotas (every request done or ended with a typed
    error, no page or host byte leaked), and the typed door errors;
+   then the other dense families the reference pages
+   (``phase_families``), each drawn on the card with its init peak
+   printed (the params plus at most one layer) and freed before the
+   next: command-r-35b at full width and depth served as the main path
+   is (six requests, both graphs, launches asserted), then the dense
+   oracle at its width (``phase_dense_oracle``: four requests solo
+   through the dense ``ServeLoop`` and through the paged loop with the
+   gathered reader, fp then int8 pools, tokens equal where the margin is
+   clear, the share of bit-equal logits rows printed);
+   internvl2-76b's backbone and minicpm-2b at full width and depth (four
+   requests x 16 tokens); the 2048-token sliding window at
+   codeqwen1.5-7b's width (8 layers, prompts past the window, kernel 2
+   held against the gathered reader at the first step past it); and the
+   int8 and mixed serve layouts on a 4-layer codeqwen-shaped stack (the
+   int8 linears equal to their plain product, the mixed tree served with
+   kernel 1 on the attention linears only);
 8. the port on the card against the port on the CPU (plain versions) on
-   the two smoke configs, teacher-forced, logits within tolerance;
+   the five dense families' smoke configs (minicpm's, of head dim 18,
+   with the gathered reader), teacher-forced, logits within tolerance;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
    every conv as a lookup conv (kernels 4 + 3) and as one
    cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
@@ -100,6 +119,7 @@ one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -616,7 +636,8 @@ RESNET_HW = 56      # the map sizes ImageNet ResNet-18's basic blocks see
 def _equal(name, got, want):
     import torch
 
-    torch.cuda.synchronize()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, want "
                              f"{want.dtype} {tuple(want.shape)}")
@@ -1275,9 +1296,9 @@ def main_loop(params, cfg, **kw):
     priority preemption) unless ``kw`` overrides them."""
     from repro_torch.serve.paged import PagedServeLoop
 
-    return PagedServeLoop(params, cfg, batch_slots=4, s_max=1024,
-                          page_size=16, chunk=CHUNK, device=DEV,
-                          check_invariants=True, **kw)
+    kw = dict(dict(batch_slots=4, s_max=1024, page_size=16, chunk=CHUNK,
+                   device=DEV, check_invariants=True), **kw)
+    return PagedServeLoop(params, cfg, **kw)
 
 
 def graph_parity(loop, cfg):
@@ -1303,8 +1324,9 @@ def graph_parity(loop, cfg):
     for kind, args, graph_fn, eager_fn in cases:
         got = graph_fn(*args).clone()
         want = eager_fn(*[torch.as_tensor(np.asarray(x, np.int32),
-                                          device="cuda") for x in args])
-        torch.cuda.synchronize()
+                                          device=DEV) for x in args])
+        if DEV == "cuda":
+            torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(
                 f"{kind} graph replay differs from eager by "
@@ -1315,16 +1337,29 @@ def graph_parity(loop, cfg):
             f"{k} {f.graph_launches}" for k, f in loop.forwards.items()))
 
 
-def phase_main(cfg, params):
+def _lookup_linears(params) -> int:
+    """Serve linears of one layer that run the lookup GEMM (kernel 1):
+    those whose params carry a TLMAC table."""
+    lp = params.layers(0)[0]
+    return sum("table" in lin for blk in lp.values()
+               for sub in ("attn", "ffn") for lin in blk[sub].values())
+
+
+def phase_main(cfg, params, lens=PROMPT_LENS, max_new=MAX_NEW, setup=None,
+               **kw):
     """The main path: full-width codeqwen1.5-7b served on the card under
-    the reference's defaults, its two forwards replayed from CUDA graphs."""
+    the reference's defaults, its two forwards replayed from CUDA graphs.
+    Later families run the same path over ``lens`` prompts of ``max_new``
+    tokens (``kw`` goes to the loop, ``setup(loop)`` may wrap its forwards
+    before the run); the launch assertions count every serve linear's
+    lookup GEMM, ``7 x layers`` a forward when all seven are TLMAC."""
     import torch
 
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import tlmac_fused as tf
 
     sync = torch.cuda.synchronize
-    loop = main_loop(params, cfg)
+    loop = main_loop(params, cfg, **kw)
     by_kind = {}
     for name, t in params.named_buffers():
         kind = name.rsplit(".", 1)[-1]
@@ -1342,7 +1377,9 @@ def phase_main(cfg, params):
 
     steps = _step_times(loop, ("_prefill_chunk", "_decode"),
                         profiled="_decode")
-    reqs = _requests(cfg.vocab, PROMPT_LENS, MAX_NEW, SEED)
+    if setup is not None:
+        setup(loop)
+    reqs = _requests(cfg.vocab, lens, max_new, SEED)
     for r in reqs:
         loop.submit(r)
     torch.cuda.reset_peak_memory_stats()
@@ -1359,24 +1396,28 @@ def phase_main(cfg, params):
     counts, _ = _read_launches(loop)
     assert len(done) == len(reqs), (len(done), len(reqs))
     for r in done:
-        assert len(r.output) == MAX_NEW, (r.rid, len(r.output))
+        assert len(r.output) == max_new, (r.rid, len(r.output))
         assert 0 <= int(r.output.min()) and int(r.output.max()) < cfg.vocab
-    assert loop.refills >= 2, f"only {loop.refills} mid-decode admissions"
+    if len(lens) > loop.B:
+        assert loop.refills >= 2, f"only {loop.refills} mid-decode admissions"
     loop.check_compiled()
     assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}, \
         loop.compiled_shapes()
-    assert {k: f.replays for k, f in loop.forwards.items()} == {
-        "chunk": calls["prefill"], "decode": calls["decode"]}
-    want_gemm = 7 * cfg.n_layers * (calls["prefill"] + calls["decode"])
-    want_flash = cfg.n_layers * calls["decode"]
-    assert counts["tlmac_gemm_fused"] == want_gemm, (counts, want_gemm)
-    assert counts["flash_decode"] == want_flash, (counts, want_flash)
+    per_layer = _lookup_linears(params)
+    if DEV == "cuda":         # plain versions (the CPU) count nothing
+        assert {k: f.replays for k, f in loop.forwards.items()} == {
+            "chunk": calls["prefill"], "decode": calls["decode"]}
+        want_gemm = per_layer * cfg.n_layers * (calls["prefill"]
+                                                + calls["decode"])
+        want_flash = cfg.n_layers * calls["decode"]
+        assert counts["tlmac_gemm_fused"] == want_gemm, (counts, want_gemm)
+        assert counts["flash_decode"] == want_flash, (counts, want_flash)
     loop.pages.check()
     loop.prefix.check()
     dec = sorted(steps["_decode"]["ms"])
     prefill_s = sum(steps["_prefill_chunk"]["ms"]) / 1e3
-    prompt_tokens = sum(PROMPT_LENS)
-    log(f"  served {len(done)} requests x {MAX_NEW} tokens in {wall:.2f} s: "
+    prompt_tokens = sum(lens)
+    log(f"  served {len(done)} requests x {max_new} tokens in {wall:.2f} s: "
         f"{calls['prefill']} prefill chunks (chunk {CHUNK}), "
         f"{calls['decode']} decode steps, {loop.refills} mid-decode "
         "admissions; all logits finite; compiled "
@@ -1398,7 +1439,8 @@ def phase_main(cfg, params):
         f"on-demand pages grown {st['grown_pages']}, preemptions "
         f"{st['preemptions']}, peak live slots {st['peak_live_slots']}, pool "
         f"peak {st['pool_pages_peak']} of {loop.spec.n_pages - 1} pages")
-    log(f"  launches: lookup GEMM {counts['tlmac_gemm_fused']} (= 7 x "
+    log(f"  launches: lookup GEMM {counts['tlmac_gemm_fused']} (= "
+        f"{per_layer} x "
         f"{cfg.n_layers} layers x {calls['prefill'] + calls['decode']} "
         f"forwards), flash-decode {counts['flash_decode']} (= {cfg.n_layers}"
         f" x {calls['decode']} decode steps): graph launches recorded at "
@@ -1408,7 +1450,8 @@ def phase_main(cfg, params):
     gc.collect()
     torch.cuda.empty_cache()
     return counts, dict(outputs={r.rid: r.output.tolist() for r in done},
-                        decode_ms=_median(dec))
+                        decode_ms=_median(dec), prefill_tok_s=prompt_tokens
+                        / prefill_s, wall=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1666,8 +1709,11 @@ def _step_times(loop, names, profiled=None):
         def wrapper(*a):
             if name == profiled and rec["calls"] == PROFILED_STEP:
                 out = _profiled(fn, a, {})
-            elif DEV != "cuda":
+            elif DEV != "cuda":       # a rehearsal: host time only
+                t = time.perf_counter()
                 out = fn(*a)
+                rec["ms"].append((time.perf_counter() - t) * 1e3)
+                rec["span"].append(rec["ms"][-1])
             else:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 torch.cuda.synchronize()
@@ -2398,6 +2444,456 @@ def phase_faults(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# the dense families at full width, the dense oracle, the window, layouts
+# ---------------------------------------------------------------------------
+
+FAMILY_MAX_NEW = 16      # new tokens of the internvl2/minicpm/window/mixed runs
+ORACLE_N = 4             # main-path requests run through the dense oracle
+WINDOW = 2048            # attn_local window: the reference's default
+WINDOW_LENS = (2300, 3000, 37, 300)   # two past the window, two inside it
+WINDOW_LAYERS = 8        # depth cut of the window family (codeqwen width)
+WINDOW_S_MAX = 4096
+LAYOUT_LAYERS = 4        # depth of the int8 / mixed codeqwen-shaped stack
+INIT_SLACK = 64 << 20    # allocator rounding allowed over params + a layer
+LINEARS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+           ("ffn", "wi"), ("ffn", "wg"), ("ffn", "wo")]
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _tree_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in [*module.parameters(), *module.buffers()])
+
+
+def init_family(cfg, cut: str = "full depth"):
+    """Draw ``cfg``'s serve params on the card (``lm.init_lm``, one stacked
+    leaf filled layer by layer) and print the init time and peak: the
+    params' bytes plus at most one layer's (``INIT_SLACK`` for the
+    allocator's rounding).  Returns the params."""
+    import torch
+
+    from repro_torch.models import lm
+
+    _free()
+    base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = lm.init_lm(cfg, gen, device=DEV)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total = _tree_bytes(params)
+    layer = _tree_bytes(params.segments) // cfg.n_layers
+    msg = (f"  init {cfg.name} ({cfg.n_layers} layers, {cut}; d_model "
+           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv}, hd "
+           f"{cfg.kv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+           f"{', tied head' if cfg.tie_embeddings else ''}, serve_impl "
+           f"{cfg.serve_impl}) on the card: {secs:.1f} s; params "
+           f"{total / 2**30:.3f} GiB")
+    if DEV == "cuda":
+        peak = torch.cuda.max_memory_allocated() - base
+        msg += (f", init peak {peak / 2**30:.3f} GiB = params + "
+                f"{(peak - total) / 2**30:.3f} GiB (one layer "
+                f"{layer / 2**30:.3f} GiB)")
+        if peak > total + layer + INIT_SLACK:
+            raise AssertionError(f"init peak {peak} > params {total} + one "
+                                 f"layer {layer}")
+    log(msg)
+    return params
+
+
+def _calibrate_int8(params):
+    """Calibrated steps for the int8 linears of ``params`` (the reference's
+    init holds steps of 1): ``a_step`` 1/32 and ``w_step`` 3 / (127
+    sqrt(K)), the absmax calibration of unit activations and N(0, 1/K)
+    weights, as ``tests/_torch_families.py`` does."""
+    import torch
+
+    def walk(tree):
+        for v in tree.values():
+            if not isinstance(v, dict):
+                continue
+            if "w8" in v:
+                K = v["w8"].shape[-2]
+                with torch.no_grad():
+                    v["a_step"].fill_(1.0 / 32)
+                    v["w_step"].fill_(3.0 / (127.0 * math.sqrt(K)))
+            else:
+                walk(v)
+
+    for seg in params.tree()["segments"]:
+        walk(seg)
+
+
+def phase_family_kernels(B_a=3, G=4, n_arr=4096, n_clus=4):
+    """Kernels 1-2 at the shapes the new families give them, against
+    their plain versions: kernel 1 at command-r-35b's linears (k/v 8192 ->
+    1024, q/o 8192 -> 8192, wi/wg 8192 -> 22528, wo 22528 -> 8192) at the
+    serve path's M, timed at M = 4; kernel 2 at rep 8 (64 heads over 8),
+    at hd 64 (minicpm-2b) and with the 2048-token window over slots past
+    it, on fp and int8 pools."""
+    import torch
+
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.models.nn import _pick_dp
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n0 = tf.launches
+    for name, (K, N) in {"k/v 8192->1024": (8192, 1024),
+                         "q/o 8192->8192": (8192, 8192),
+                         "wi/wg 8192->22528": (8192, 22528),
+                         "wo 22528->8192": (22528, 8192)}.items():
+        dp = _pick_dp(N, 128)
+        nt, kg = N // dp, K // G
+        idx = torch.randint(0, n_arr, (nt, kg, dp), dtype=torch.int16,
+                            generator=gen, device="cuda")
+        cl = torch.randint(0, n_clus, (nt, kg), dtype=torch.int8,
+                           generator=gen, device="cuda")
+        tab = tf.narrow_table(torch.randint(-8, 8, (n_clus, n_arr, 2**G),
+                                            dtype=torch.int32, generator=gen,
+                                            device="cuda"))
+        for M in (1, 4, 20, 64):
+            aq = torch.randint(0, 2**B_a, (M, K), dtype=torch.int8,
+                               generator=gen, device="cuda")
+            got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+            _equal(f"lookup GEMM {name} M={M}", got,
+                   tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G))
+            if M == 4:
+                ms = graph_ms(lambda: tf.tlmac_gemm_fused(
+                    aq, idx, cl, tab, B_a=B_a, G=G))
+                nbytes = (M * K + idx.numel() * 2 + cl.numel() + tab.numel()
+                          + M * N * 4)
+                b = _gemm_bound(M, kg, N, G, nbytes)
+                log(f"  lookup GEMM {name:18s} (dp {dp}): equal int32 at M "
+                    f"1, 4, 20, 64; M=4 kernel {ms:.4f} ms, bound "
+                    f"{b['bound_ms']:.4f} ms ({_bound_by(b)}), "
+                    f"{b['bound_ms'] / ms:.1%} of bound")
+        del idx, cl, tab
+    worst = 0.0
+    cases = [
+        ("rep8 hd128 KV8 (command-r, internvl2)",
+         dict(B=4, KV=8, rep=8, hd=128, P=16, MB=64, lens=MAIN_LENS,
+              window=None, n_splits=4)),
+        ("rep1 hd64 KV36 (minicpm)",
+         dict(B=4, KV=36, rep=1, hd=64, P=16, MB=64, lens=MAIN_LENS,
+              window=None, n_splits=4)),
+        ("rep1 hd128 KV32 window 2048, past it",
+         dict(B=4, KV=32, rep=1, hd=128, P=16, MB=256,
+              lens=(2301, 3001, 38, 301), window=WINDOW, n_splits=4)),
+    ]
+    for kv in ("fp", "int8"):
+        for label, c in cases:
+            a = _flash_case(gen, kv, **c)
+            got = _flash_kernel(a)
+            err = (got - _flash_plain(a)).abs().max().item()
+            worst = max(worst, err)
+            if not err <= FLASH_TOL:
+                raise AssertionError(f"flash-decode {kv} {label}: max abs err "
+                                     f"{err} > {FLASH_TOL}")
+            if c["window"]:
+                full = _flash_kernel(dict(a, window=None))
+                assert (full - got).abs().max().item() > 100 * FLASH_TOL, \
+                    "the window changed nothing"
+            log(f"  flash-decode {kv:4s} {label:38s}: max abs err {err:.3e}")
+            del a
+    tf.launches = n0          # comparison launches are not the path's
+    return worst
+
+
+def _logit_rows(loop):
+    """Hook a paged loop: per request, the host f32 logits row behind each
+    emitted token (the admission's last chunk, then decode rows)."""
+    first, rows, cur = {}, {}, {}
+    pop, chunk, decode = loop.sched.pop, loop._prefill_chunk, loop._decode
+
+    def pop_w(ent):
+        cur["rid"] = ent.req.rid
+        return pop(ent)
+
+    def chunk_w(*a):
+        lg = chunk(*a)
+        first[cur["rid"]] = lg.float().cpu()        # the last chunk's wins
+        return lg
+
+    def decode_w(*a):
+        lg = decode(*a)
+        host = lg.float().cpu()
+        for i, s in enumerate(loop.slots):
+            if s is not None:
+                rows.setdefault(s["req"].rid, []).append(host[i])
+        return lg
+
+    loop.sched.pop, loop._prefill_chunk, loop._decode = pop_w, chunk_w, \
+        decode_w
+    return lambda rid: [first[rid]] + rows.get(rid, [])
+
+
+def _oracle_rows(loop):
+    """Hook a dense ``ServeLoop`` run one request at a time: per request,
+    the host f32 logits row of each argmax (prefill, then decode steps)."""
+    rows = {}
+    argmax = loop._argmax
+
+    def argmax_w(logits):
+        rid = len(loop.done)            # solo: the request being served
+        rows.setdefault(rid, []).append(logits[0].float().cpu())
+        return argmax(logits)
+
+    loop._argmax = argmax_w
+    return rows
+
+
+def _clear(row) -> bool:
+    top2 = row.topk(2).values
+    return bool(top2[0] - top2[1] > LOGIT_TOL * row.abs().max())
+
+
+def phase_dense_oracle(cfg, params):
+    """The reference's paged-vs-dense contract on the card at full width:
+    the main path's first four requests run solo through the port's dense
+    ``ServeLoop`` (eager, dense caches) and together through
+    ``PagedServeLoop`` with the gathered reader (``attn_impl='lax'``), at
+    one ``s_max`` equal to ``max_blocks x page_size``, so both readers
+    reduce over the same length; on an fp pool, then on an int8 pool
+    against the dense loop's round-tripped f32 cache.  Tokens must be
+    equal wherever the dense run's top-2 margin clears LOGIT_TOL x its
+    max |logit| (up to the first near tie: later tokens follow it); the
+    share of bit-equal logits rows is printed."""
+    import torch
+
+    from repro_torch.serve.loop import ServeLoop
+
+    lens = PROMPT_LENS[:ORACLE_N]
+    for kv in ("fp", "int8"):
+        kcfg = dataclasses.replace(cfg, serve_kv_dtype=kv)
+        oracle = ServeLoop(params, kcfg, batch_slots=1, s_max=1024,
+                           device=DEV)
+        orows = _oracle_rows(oracle)
+        t = time.perf_counter()
+        for r in _requests(cfg.vocab, lens, MAX_NEW, SEED):
+            oracle.submit(r)
+            oracle.run()
+        t_dense = time.perf_counter() - t
+        dense = {r.rid: r.output.tolist() for r in oracle.done}
+        del oracle
+        _free()
+        loop = main_loop(params, kcfg, attn_impl="lax")
+        assert loop.spec.s_alloc == 1024
+        prow = _logit_rows(loop)
+        for r in _requests(cfg.vocab, lens, MAX_NEW, SEED):
+            loop.submit(r)
+        t = time.perf_counter()
+        paged = {r.rid: r.output.tolist() for r in loop.run()}
+        t_paged = time.perf_counter() - t
+        compared = exact = 0
+        for rid, toks in dense.items():
+            assert len(toks) == len(paged[rid]) == MAX_NEW
+            for td, tp, rd, rp in zip(toks, paged[rid], orows[rid],
+                                      prow(rid)):
+                if not _clear(rd):
+                    break
+                if td != tp:
+                    raise AssertionError(
+                        f"{kv}: request {rid}, paged token {tp} != dense "
+                        f"{td} where the dense margin is clear")
+                compared += 1
+                exact += bool(torch.equal(rd, rp))
+        same = sum(a == b for rid in dense
+                   for a, b in zip(dense[rid], paged[rid]))
+        n_tok = ORACLE_N * MAX_NEW
+        log(f"  dense oracle, {kv} KV: {ORACLE_N} requests x {MAX_NEW} "
+            f"tokens, dense loop solo {t_dense:.2f} s (eager), paged 'lax' "
+            f"{t_paged:.2f} s; {compared} tokens with a clear margin all "
+            f"equal ({same} of {n_tok} equal in all); bit-equal logits rows "
+            f"{exact} of {compared} ({exact / max(compared, 1):.1%})")
+        del loop
+        _free()
+
+
+def _window_check(loop, cfg, done):
+    """Wrap the loop's decode: at the first step with a slot past the
+    window, hold flash-decode (kernel 2, window ``local_window``) against
+    the gathered ``'lax'`` reader on layer 0's pool, the step's block
+    table and positions, within FLASH_TOL (f32 sums in another order) of
+    the output's scale where it exceeds 1 (a served pool holds the
+    model's V, not unit noise); and show the window changes the result.
+    The comparison's launches are taken back out."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged as pk
+
+    decode = loop._decode
+    W = cfg.local_window
+
+    def wrapper(tokens, positions, block_table):
+        lg = decode(tokens, positions, block_table)
+        if not done and int(np.max(positions)) > W:
+            n0 = fd.launches
+            qs = pk.qspec_for(cfg)
+            pool = {n: leaf[0] for n, leaf in loop.caches[0]["b0"].items()}
+            B, H, KV, hd = loop.B, cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+            # queries at the keys' inverse scale: scores of order one,
+            # where a served pool's raw keys would saturate the softmax
+            k_rms = pool["k"].float().pow(2).mean().sqrt().item() \
+                if not qs.quantised else 1.0
+            q = (torch.randn((B, 1, H, hd), generator=gen, device=DEV)
+                 / max(k_rms, 1.0)).bfloat16()
+            pos = torch.as_tensor(np.asarray(positions, np.int32), device=DEV)
+            bt = torch.as_tensor(np.asarray(block_table, np.int32),
+                                 device=DEV)
+            ksc, vsc = pk.pool_scales(pool)
+            got = fd.flash_decode(q.reshape(B, KV, H // KV, hd), pool["k"],
+                                  pool["v"], bt, pos + 1, window=W,
+                                  n_splits=4, k_scales=ksc, v_scales=vsc,
+                                  kv_dtype=qs.dtype).reshape(B, H * hd)
+            want = pk._attend_lax(q.float(), pool, bt, pos, W, qs)[:, 0]
+            full = pk._attend_lax(q.float(), pool, bt, pos, None, qs)[:, 0]
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            fd.launches = n0
+            past = [int(p) for p in np.asarray(positions) if p > W]
+            if not err <= FLASH_TOL * scale:
+                raise AssertionError(f"window flash-decode vs lax: {err} > "
+                                     f"{FLASH_TOL} x {scale}")
+            moved = (full - want).abs().max().item()
+            assert moved > 100 * FLASH_TOL, "the window changed nothing"
+            done.append(err)
+            log(f"  window {W}: flash-decode vs the gathered reader on "
+                f"layer 0's pool at positions {np.asarray(positions).tolist()}"
+                f" ({len(past)} slots past the window): max abs err "
+                f"{err:.3e} (tolerance {FLASH_TOL} x max(1, max |out|) = "
+                f"{FLASH_TOL * scale:.3e}); full attention differs by "
+                f"{moved:.3f}")
+        return lg
+    loop._decode = wrapper
+
+
+def phase_families():
+    """The dense families the reference pages, at full width: command-r-35b
+    (full depth, the main path's six requests, then the dense oracle),
+    internvl2-76b's backbone and minicpm-2b (full depth, four requests x 16
+    tokens), the sliding window at codeqwen1.5-7b's width (8 layers,
+    prompts of 2300/3000/37/300 tokens, s_max 4096), and the int8 and
+    mixed serve layouts on a 4-layer codeqwen-shaped stack.  Each model is
+    freed before the next is drawn.  Returns the runs' figures."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    phase("command-r-35b at full width and depth (serve)")
+    cfg = get_config("command-r-35b")
+    params = init_family(cfg)
+    out["command-r-35b"] = phase_main(cfg, params)
+    phase("dense oracle at command-r-35b's width: paged 'lax' vs ServeLoop")
+    phase_dense_oracle(cfg, params)
+    del params
+    for name in ("internvl2-76b", "minicpm-2b"):
+        phase(f"{name} at full width and depth (serve)")
+        cfg = get_config(name)
+        params = init_family(cfg)
+        out[name] = phase_main(cfg, params, lens=MAIN_LENS,
+                               max_new=FAMILY_MAX_NEW)
+        del params
+    phase("sliding window 2048 at codeqwen1.5-7b's width (serve)")
+    out["window"] = phase_window()
+    phase("int8 and mixed serve layouts at codeqwen1.5-7b's width")
+    out["layouts"] = phase_layouts()
+    _free()
+    return out
+
+
+def phase_window():
+    """The sliding window at codeqwen1.5-7b's width: ``attn_local``
+    blocks (window 2048), 8 layers, s_max 4096, prompts of 2300 and 3000
+    tokens past the window and two inside it, 16 new tokens each; kernel
+    2 held against the gathered reader at the first step past the
+    window."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(
+        get_config("codeqwen1.5-7b"), family="hybrid",
+        block_pattern=("attn_local",), local_window=WINDOW,
+        n_layers=WINDOW_LAYERS, name="codeqwen1.5-7b attn_local")
+    params = init_family(cfg, cut="cut from 32")
+    checked = []
+    run = phase_main(cfg, params, lens=WINDOW_LENS, max_new=FAMILY_MAX_NEW,
+                     s_max=WINDOW_S_MAX,
+                     setup=lambda loop: _window_check(loop, cfg, checked))
+    assert checked, "no decode step ran past the window"
+    return run
+
+
+def phase_layouts():
+    """A 4-layer codeqwen1.5-7b-shaped stack: the int8 layout's seven
+    linears on the card (``torch._int_mm``) held equal to their plain
+    product (an exact f64 product of the codes, on the card) at M 1, 4,
+    17 and 64, one layer's seven timed at M = 4 against their byte bound;
+    then a mixed tree (TLMAC attention, int8 FFN) serving four requests
+    through ``PagedServeLoop``: kernel 1 launches 4 x layers a forward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn
+
+    base = dataclasses.replace(get_config("codeqwen1.5-7b"),
+                               n_layers=LAYOUT_LAYERS)
+    cut = "cut from 32"
+    c8 = dataclasses.replace(base, serve_impl="int8",
+                             name="codeqwen1.5-7b int8")
+    p8 = init_family(c8, cut)
+    _calibrate_int8(p8)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    layer = p8.layers(0)[0]["b0"]
+    t_layer = b_layer = 0.0
+    for blk, name in LINEARS:
+        lin = layer[blk][name]
+        K, N = lin["w8"].shape
+        bias = blk == "attn" and name != "wo" and c8.qkv_bias
+        for M in (1, 4, 17, 64):
+            x = (torch.randn((M, K), generator=gen, device=DEV) * 2).bfloat16()
+            got = nn.serve_linear_apply(lin, x, c8, use_bias=bias)
+            aq = torch.clamp(torch.round(x.float() / lin["a_step"]), -127, 127)
+            yi = torch.matmul(aq.double(), lin["w8"].double()).to(torch.int32)
+            want = (yi.float() * (lin["a_step"] * lin["w_step"])).bfloat16()
+            if bias:
+                want = want + lin["b"]
+            _equal(f"int8 linear {blk}.{name} M={M}", got, want)
+            if M == 4 and DEV == "cuda":
+                t_layer += graph_ms(lambda: nn.serve_linear_apply(
+                    lin, x, c8, use_bias=bias))
+                b_layer += (K * N + M * K + M * N * 2) / HBM_BYTES_S * 1e3
+    log(f"  int8 layout: 7 linears of layer 0 equal to the plain product at "
+        f"M 1, 4, 17, 64; one layer's seven at M=4: {t_layer:.4f} ms "
+        f"(graph replay), byte bound {b_layer:.4f} ms "
+        f"({b_layer / max(t_layer, 1e-9):.1%} of bound)")
+    ffn = p8.tree()["segments"][0]["b0"]["ffn"]
+    pt = init_family(dataclasses.replace(base, name="codeqwen1.5-7b mixed"),
+                     cut)
+    tree = pt.tree()
+    tree["segments"][0]["b0"]["ffn"] = ffn
+    mixed = nn.ParamTree(tree)
+    del p8, pt, tree, ffn
+    _free()
+    assert _lookup_linears(mixed) == 4
+    cfg = dataclasses.replace(base, name="codeqwen1.5-7b mixed")
+    run = phase_main(cfg, mixed, lens=MAIN_LENS, max_new=FAMILY_MAX_NEW)
+    del mixed
+    return dict(int8_layer_ms=t_layer, int8_layer_bound_ms=b_layer,
+                mixed=run)
+
+
+# ---------------------------------------------------------------------------
 # card vs CPU on the smoke configs
 # ---------------------------------------------------------------------------
 
@@ -2409,12 +2905,17 @@ def phase_reference(seed: int = SEED):
     from repro_torch.models import lm
     from repro_torch.serve.paged import PagedServeLoop
 
-    for name in ("codeqwen1.5-7b", "mistral-large-123b"):
+    # minicpm's smoke head dim is 18: kernel 2 takes multiples of 8 only
+    # (ROADMAP queue 3), so that family reads with the gathered reader
+    for name, impl in (("codeqwen1.5-7b", None), ("mistral-large-123b", None),
+                       ("minicpm-2b", "lax"), ("command-r-35b", None),
+                       ("internvl2-76b", None)):
         cfg = smoke_config(name)
         params = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
                             device="cpu")
         reqs = lambda: _requests(cfg.vocab, (6, 11, 3, 9, 5), 6, seed)
-        kw = dict(batch_slots=2, s_max=48, page_size=8, chunk=8)
+        kw = dict(batch_slots=2, s_max=48, page_size=8, chunk=8,
+                  attn_impl=impl)
         ref = PagedServeLoop(params, cfg, device="cpu", **kw)
         rec = []
         for kind in ("_prefill_chunk", "_decode"):
@@ -2480,6 +2981,8 @@ def main() -> int:
     phase_gemm_domain()
     phase("flash-decode vs plain")
     flash = phase_flash()
+    phase("kernels 1-2 at the dense families' shapes vs plain")
+    flash["max_abs_err"] = max(flash["max_abs_err"], phase_family_kernels())
     phase("kernels 3-6 vs plain on small compiled plans")
     phase_lookup_small()
     phase_clustered_domain()
@@ -2511,6 +3014,7 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        phase_families()
         phase("card vs CPU on smoke configs")
         phase_reference()
         phase("paper path (ResNet-18 compile-and-execute)")

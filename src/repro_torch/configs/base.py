@@ -1,12 +1,12 @@
 """Architecture configuration: the subset of ``repro.configs.base`` that
-the paged TLMAC serve path reads.  ``QuantConfig`` lives in
+the serve path reads.  ``QuantConfig`` lives in
 ``repro_torch.core.quant.quantizers``, as in the reference."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.quant.quantizers import QuantConfig
 
@@ -14,7 +14,7 @@ from repro_torch.core.quant.quantizers import QuantConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # only 'dense' is served by this package
+    family: str                  # dense | vlm | hybrid (attn_local only)
     n_layers: int
     d_model: int
     n_heads: int
@@ -22,6 +22,16 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    # --- attention ---
+    attn_kind: str = "gqa"       # only 'gqa' is served by this package
+    local_window: int = 2048     # attn_local blocks' sliding window
+    # --- hybrid: the block pattern of a segment ('attn_local' only) ---
+    block_pattern: Tuple[str, ...] = ()
+    # --- enc-dec: not served by this package ---
+    n_enc_layers: int = 0
+    # --- vlm frontend stub: a 'front' leaf carried, never read ---
+    frontend: str = "none"       # none | patch | frames
+    frontend_len: int = 0        # prepended embedding positions
     act: str = "swiglu"
     tie_embeddings: bool = False
     qkv_bias: bool = False
@@ -30,7 +40,9 @@ class ArchConfig:
     tlmac_G: int = 4
     tlmac_dp: int = 128
     tlmac_narr_cap: int = 4096   # LUT-pool capacity budget for plan shapes
-    serve_impl: str = "tlmac"    # only 'tlmac' is served by this package
+    serve_impl: str = "tlmac"    # serve linears: dense | int8 | tlmac
+                                 # (apply dispatches on the params, so
+                                 # mixed layouts serve too)
     serve_kv_dtype: str = "fp"   # paged KV pool dtype: fp | int8 | int4
     serve_paged_attn_impl: str = "auto"  # paged decode attention reader:
                                  # 'auto' / 'flash' = the flash-decode
@@ -67,6 +79,12 @@ class ArchConfig:
     serve_trace_path: str = ""    # run() exports the Chrome trace here
                                   # (and a JSONL twin at path + 'l')
 
+    def __post_init__(self):
+        if self.attn_kind != "gqa":
+            raise ValueError(f"attn_kind {self.attn_kind!r} is not ported")
+        if self.n_enc_layers:
+            raise ValueError("encoder-decoder configs are not ported")
+
     @property
     def kv_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -74,7 +92,10 @@ class ArchConfig:
 
 _ALIASES = {
     "codeqwen1.5-7b": "codeqwen15_7b",
+    "minicpm-2b": "minicpm_2b",
     "mistral-large-123b": "mistral_large_123b",
+    "command-r-35b": "command_r_35b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 

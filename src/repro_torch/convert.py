@@ -1,5 +1,5 @@
-"""Convert the JAX package's params (serve LMs, ResNet) and paged pools
-into the port's tensors.  Compiled TLMAC plans are numpy on both sides
+"""Convert the JAX package's params (serve LMs, ResNet), paged pools and
+dense caches into the port's tensors.  Compiled TLMAC plans are numpy on both sides
 and need no conversion.
 
 Inputs are the JAX pytrees already turned into nested dicts and lists of
@@ -11,10 +11,12 @@ reinterpreted as ``torch.bfloat16`` (bit-exact).
 ``params_from_jax`` stores ``embed``/``head`` in bf16 although JAX keeps
 them in f32: every use casts them to bf16 first (``embed_apply``,
 ``logits_apply``), so storing the rounded values keeps every number the
-forward computes, at half the memory.  After the JAX tree is mirrored
-leaf for leaf, every TLMAC serve linear gains one derived leaf,
-``table_narrow`` (``kernels.tlmac_fused.narrow_table`` of its table),
-which the lookup kernel reads.
+forward computes, at half the memory.  Every other leaf is mirrored as
+it is: each serve linear's layout (TLMAC plans, ``w8``/``w_step``/
+``a_step`` of int8, bf16 ``w`` of dense, mixed within one tree) and a VLM
+config's ``front`` leaf.  Then every TLMAC serve linear gains one derived
+leaf, ``table_narrow`` (``kernels.tlmac_fused.narrow_table`` of its
+table), which the lookup kernel reads.
 """
 
 from __future__ import annotations
@@ -70,6 +72,15 @@ def pool_from_jax(tree, device="cuda"):
     """JAX paged caches (``lm.init_caches(..., paged=spec)[0]`` as numpy:
     a list per segment of ``{'b0': {'k', 'v'[, 'ks', 'vs']}}``) -> the
     same structure of tensors."""
+    return _tree(tree, device)
+
+
+def dense_caches_from_jax(tree, device="cuda"):
+    """JAX dense caches (``lm.init_caches(cfg, B, S_max)[0]`` or a
+    ``prefill``'s, as numpy: a list per segment of ``{'b0': {'k', 'v'}}``
+    with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32) -> the same
+    structure of tensors, as ``lm.init_caches(cfg, B=, S_max=)`` holds
+    them."""
     return _tree(tree, device)
 
 

@@ -144,6 +144,14 @@ def dequantise_kv(codes: torch.Tensor, scales: torch.Tensor,
     return codes.to(torch.float32) * scales.to(torch.float32)[..., None]
 
 
+def kv_roundtrip(x: torch.Tensor, qspec: KVQuantSpec) -> torch.Tensor:
+    """quantise -> dequantise (f32): what the dense oracle writes into its
+    cache, so that it attends over the values a quantised pool's readers
+    see."""
+    codes, scales = quantise_kv(x, qspec)
+    return dequantise_kv(codes, scales, qspec)
+
+
 def zero_kv_pool(spec: PageSpec, KV: int, hd: int,
                  qspec: Optional[KVQuantSpec] = None, n_layers: int = 0,
                  device="cuda") -> dict:

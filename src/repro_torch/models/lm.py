@@ -1,21 +1,26 @@
-"""LM backbone of the paged serve path (port of the serve subset of
-``repro.models.lm`` for dense ``attn`` blocks).
+"""LM backbone of the serve path (port of the serve subset of
+``repro.models.lm`` for GQA ``attn`` and sliding-window ``attn_local``
+blocks): the paged forwards of ``serve.paged.PagedServeLoop`` and the
+dense-cache forwards (``prefill``, ``decode_step``) of the oracle loop
+``serve.loop.ServeLoop``.
 
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
 loop over layers replaces ``_segment_scan_cached``.  Differences from
 JAX, on purpose:
 
-- the paged pools are updated IN PLACE (``prefill_chunk``,
-  ``decode_step_paged``, ``verify_step_paged``, ``cache_copy_page`` and
-  ``cache_swap_in`` write the caches they are given and return the same
-  objects), where JAX returns new arrays: the serve loop's captured
-  graphs hold the pools' addresses;
+- the caches are updated IN PLACE (``prefill_chunk``,
+  ``decode_step_paged``, ``verify_step_paged``, ``decode_step``,
+  ``cache_copy_page`` and ``cache_swap_in`` write the caches they are
+  given and return the same objects), where JAX returns new arrays: the
+  serve loop's captured graphs hold the pools' addresses;
 - ``prefill_chunk`` takes ``start`` and ``last`` as 0-d int32 device
   tensors (Python ints are accepted too), so one captured CUDA graph of
   the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
   trace does in JAX; ``verify_step_paged`` takes ``positions`` and
   ``n_writes`` as device tensors for the same reason;
-- the ``jax.named_scope`` labels of the three forwards are
+- ``prefill`` takes the token tensor, not a batch dict: the serve loops
+  never pass a frontend's embeddings;
+- the ``jax.named_scope`` labels of the forwards are
   ``torch.profiler.record_function`` ranges (host ranges: inside a
   captured graph they are recorded at capture, not at replay).
 """
@@ -23,10 +28,12 @@ JAX, on purpose:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.quant import quantizers as Q
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
 from repro_torch.models import nn
@@ -39,10 +46,33 @@ class Segment:
 
 
 def segments_for(cfg) -> List[Segment]:
-    """Dense families only: one segment of ``attn`` blocks."""
+    """The reference's segments for the families this package serves:
+    ``dense``/``vlm`` one segment of ``attn`` blocks; ``hybrid`` its
+    ``block_pattern`` repeated, the remainder a trailing partial segment
+    (only ``attn``/``attn_local`` blocks are ported: ``init_block``
+    refuses the others)."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rglru", "rglru", "attn_local")
+        segs = [Segment(tuple(pat), L // len(pat))]
+        rem = L % len(pat)
+        if rem:
+            segs.append(Segment(tuple(pat[:rem]), 1))
+        return segs
     if cfg.family not in ("dense", "vlm"):
         raise ValueError(f"family {cfg.family!r} is not ported")
-    return [Segment(("attn",), cfg.n_layers)]
+    return [Segment(("attn",), L)]
+
+
+# Block kinds whose serve cache lives in a paged pool.
+PAGED_KINDS = ("attn", "attn_local")
+
+
+def supports_paged(cfg) -> bool:
+    """True when every block's serve cache can be paged (the paged serve
+    loop's admission precondition)."""
+    return all(kind in PAGED_KINDS
+               for seg in segments_for(cfg) for kind in seg.pattern)
 
 
 def init_ffn(gen, cfg, device="cuda"):
@@ -72,7 +102,7 @@ def ffn_apply(params, x, cfg, apply_fn):
 
 
 def init_block(gen, kind: str, cfg, device="cuda"):
-    if kind != "attn":
+    if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
     return {
         "norm1": nn.init_rmsnorm(cfg.d_model, device),
@@ -82,68 +112,192 @@ def init_block(gen, kind: str, cfg, device="cuda"):
     }
 
 
-def apply_block(kind: str, params, x, cfg, apply_fn, cache, paged_ctx,
-                decode: bool):
-    """Paged branch of the JAX ``apply_block`` plus its shared tail.
-    ``paged_ctx``: ``{'block_table', 'positions', 'n_writes'}`` for a
-    verify window, ``{'block_table', 'positions', 'impl'}`` for decode,
-    ``{'block_table', 'start'}`` for a prefill chunk."""
-    if kind != "attn":
+def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
+                decode: bool = False, paged_ctx=None):
+    """One ``attn``/``attn_local`` block; returns ``(x, cache)``.
+
+    ``paged_ctx`` routes attention through the layer's paged pool
+    ``cache``: ``{'block_table', 'positions', 'n_writes'}`` for a verify
+    window, ``{'block_table', 'positions', 'impl'}`` for decode,
+    ``{'block_table', 'start'}`` for a prefill chunk.  Without it the
+    dense cache ``{'k', 'v'}`` is read and written at the shared
+    position ``pos`` (decode, ring buffer for ``attn_local``) or filled
+    by the prompt (prefill; ``cache`` None runs no store)."""
+    if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
+    window = cfg.local_window if kind == "attn_local" else None
     h = nn.rmsnorm_apply(params["norm1"], x)
-    if "n_writes" in paged_ctx:
-        y, kv = attn.gqa_verify_paged(
-            params["attn"], h, cfg, cache, paged_ctx["block_table"],
-            paged_ctx["positions"], paged_ctx["n_writes"],
-            apply_fn=apply_fn)
+    if paged_ctx is not None:
+        if "n_writes" in paged_ctx:
+            y, cache = attn.gqa_verify_paged(
+                params["attn"], h, cfg, cache, paged_ctx["block_table"],
+                paged_ctx["positions"], paged_ctx["n_writes"],
+                window=window, apply_fn=apply_fn)
+        elif decode:
+            y, cache = attn.gqa_decode_paged(
+                params["attn"], h, cfg, cache, paged_ctx["block_table"],
+                paged_ctx["positions"], window=window, apply_fn=apply_fn,
+                impl=paged_ctx.get("impl", "auto"))
+        else:
+            y, cache = attn.gqa_prefill_chunk(
+                params["attn"], h, cfg, cache, paged_ctx["block_table"],
+                paged_ctx["start"], window=window, apply_fn=apply_fn)
     elif decode:
-        y, kv = attn.gqa_decode_paged(
-            params["attn"], h, cfg, cache, paged_ctx["block_table"],
-            paged_ctx["positions"], apply_fn=apply_fn,
-            impl=paged_ctx.get("impl", "auto"))
+        if kind == "attn_local":
+            y = _local_decode(params["attn"], h, cfg, cache, pos, apply_fn)
+        else:
+            y, _ = attn.gqa_decode(params["attn"], h, cfg,
+                                   (cache["k"], cache["v"]), pos,
+                                   apply_fn=apply_fn)
     else:
-        y, kv = attn.gqa_prefill_chunk(
-            params["attn"], h, cfg, cache, paged_ctx["block_table"],
-            paged_ctx["start"], apply_fn=apply_fn)
+        y, kv = attn.gqa_train(params["attn"], h, cfg, window=window,
+                               apply_fn=apply_fn,
+                               kv_quant_rt=cache is not None)
+        if cache is not None:
+            _store_prefill(kind, cache, kv)
     # XLA fuses the residual add into the norm after it: the norm reads
     # the add's f32 sum, unrounded, while the stream keeps its bf16 sum
     s = x.float() + y
     x = s.to(x.dtype)
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
-    return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), kv
+    return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), cache
 
 
-def _stack(trees):
-    """``jax.vmap``-style stacking of per-layer dicts into [n, ...]."""
-    first = trees[0]
-    return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
-            else torch.stack([t[k] for t in trees]) for k in first}
+def _store_prefill(kind: str, cache, kv) -> None:
+    """Write a prefill's K/V ``[B, S, KV, hd]`` into the dense cache, in
+    place: positions ``[0, S)`` of an ``attn`` cache; for ``attn_local``
+    the last ``W`` keys at ring indices ``0..`` (zeros after them when
+    ``S < W``).  Under a quantised ``serve_kv_dtype`` the K/V arrive
+    round-tripped already (``gqa_train``), so the store is a plain cast
+    into the f32 cache."""
+    k, v = kv
+    if kind == "attn_local":
+        W = cache["k"].shape[1]
+        k, v = k[:, -W:], v[:, -W:]
+        cache["k"].zero_()
+        cache["v"].zero_()
+    S = k.shape[1]
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+
+
+def _local_decode(params, h, cfg, cache, pos: int, apply_fn):
+    """Ring-buffer sliding-window decode: the step's K/V go to index
+    ``pos % W`` in place, and every index ``<= pos`` is read (rotary is
+    absolute, so order in the ring does not matter)."""
+    B = h.shape[0]
+    q, k, v = attn._qkv(params, h, cfg, apply_fn)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
+    q = nn.apply_rotary(q, sin, cos)
+    k = nn.apply_rotary(k, sin, cos)
+    qs = paged_kernels.qspec_for(cfg)
+    if qs.quantised:        # the equal-quantisation oracle
+        k = paged_kernels.kv_roundtrip(k, qs)
+        v = paged_kernels.kv_roundtrip(v, qs)
+    kc, vc = cache["k"], cache["v"]
+    W = kc.shape[1]
+    slot = pos % W
+    kc[:, slot:slot + 1] = k.to(kc.dtype)
+    vc[:, slot:slot + 1] = v.to(vc.dtype)
+    j = torch.arange(W, device=h.device)[None, :]
+    out = attn._sdpa(q, kc, vc, j <= pos, cfg)
+    return apply_fn(params["wo"], out.reshape(B, 1, -1), cfg)
+
+
+def init_front(gen, cfg, device="cuda") -> dict:
+    """The frontend stub's projection, as the reference's train-path
+    linear (``linear_impl='qdq'``): ``w [d_front, d_model]`` f32, its LSQ
+    step and N2UQ activation params.  The serve forwards never read it."""
+    d_front = 1024 if cfg.frontend == "frames" else 1152
+    w = torch.randn((d_front, cfg.d_model), generator=gen,
+                    dtype=torch.float32, device=device) / math.sqrt(d_front)
+    return {"w": w,
+            "w_step": Q.lsq_init(w, cfg.quant.w_bits, per_channel=True),
+            "aq": Q.n2uq_act_init(cfg.quant.a_bits, device=device)}
+
+
+def _fill(dst, src, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _fill(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def _empty_stack(tree, n: int):
+    return {k: _empty_stack(v, n) if isinstance(v, dict)
+            else torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def init_segment(gen, seg: Segment, cfg, device="cuda") -> dict:
+    """One segment's params stacked ``[seg.n, ...]``: every leaf is
+    allocated once and filled layer by layer, each layer drawn from
+    ``gen`` in order and freed once copied, so the peak is the stacked
+    params plus one layer."""
+    out = None
+    for i in range(seg.n):
+        layer = {f"b{bi}": init_block(gen, kind, cfg, device)
+                 for bi, kind in enumerate(seg.pattern)}
+        if out is None:
+            out = _empty_stack(layer, seg.n)
+        _fill(out, layer, i)
+        del layer
+    return out
 
 
 def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
             device="cuda") -> nn.ParamTree:
-    """Serve params with random TLMAC plans drawn from ``gen`` (a
-    generator on ``device``).  Returns a ``ParamTree``."""
+    """Serve params with random serve linears (``cfg.serve_impl``) drawn
+    from ``gen`` (a generator on ``device``), and the frontend stub's
+    ``front`` leaf where ``cfg.frontend`` is set.  Returns a
+    ``ParamTree``."""
     if purpose != "serve":
         raise ValueError("only the serve path is ported")
     p = {"embed": nn.init_embedding(gen, cfg.vocab, cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["head"] = nn.init_embedding(gen, cfg.vocab, cfg.d_model, device)
+    if cfg.frontend != "none":
+        p["front"] = init_front(gen, cfg, device)
     p["final_norm"] = nn.init_rmsnorm(cfg.d_model, device)
-    segs = []
-    for seg in segments_for(cfg):
-        layers = [{f"b{bi}": init_block(gen, kind, cfg, device)
-                   for bi, kind in enumerate(seg.pattern)}
-                  for _ in range(seg.n)]
-        segs.append(_stack(layers))
-        del layers
-    p["segments"] = segs
+    p["segments"] = [init_segment(gen, seg, cfg, device)
+                     for seg in segments_for(cfg)]
     return nn.ParamTree(p)
 
 
-def init_caches(cfg, paged: paged_kernels.PageSpec, device="cuda"):
-    """Stacked paged pools per segment: ``[{'b0': {'k', 'v'[, 'ks',
-    'vs']}}]`` with leaves ``[n_layers, n_pages, P, KV, hd]``."""
+def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
+               device="cuda") -> dict:
+    """Dense decode cache of one block kind (stacked ``[n_layers, ...]``
+    when ``n_layers > 0``): ``attn`` ``[B, S_max, KV, hd]``, ``attn_local``
+    a ring of ``min(local_window, S_max)``.  bf16, or f32 under a
+    quantised ``serve_kv_dtype``: the cache then holds round-tripped
+    values, so the dense loop is the equal-quantisation oracle of the
+    paged path."""
+    if kind not in PAGED_KINDS:
+        raise ValueError(f"block kind {kind!r} is not ported")
+    S = min(cfg.local_window, S_max) if kind == "attn_local" else S_max
+    dt = (torch.float32 if paged_kernels.qspec_for(cfg).quantised
+          else torch.bfloat16)
+    lead = (n_layers,) if n_layers else ()
+    shape = (*lead, B, S, cfg.n_kv, cfg.kv_head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
+                device="cuda", B: int = 0, S_max: int = 0):
+    """Stacked caches per segment, ``[{'b0': {...}}]``.  With ``paged``
+    (a ``PageSpec``), paged pools ``{'k', 'v'[, 'ks', 'vs']}`` with leaves
+    ``[n_layers, n_pages, P, KV, hd]``; without, the dense caches of
+    ``zero_cache`` for ``B`` slots of ``S_max`` positions."""
+    if paged is None:
+        return [{f"b{bi}": zero_cache(kind, cfg, B, S_max, seg.n, device)
+                 for bi, kind in enumerate(seg.pattern)}
+                for seg in segments_for(cfg)]
+    if not supports_paged(cfg):
+        raise ValueError(f"config {cfg.name!r} has block kinds that cannot "
+                         "be paged")
     qs = paged_kernels.qspec_for(cfg)
     return [{f"b{bi}": paged_kernels.zero_kv_pool(
                 paged, cfg.n_kv, cfg.kv_head_dim, qs, n_layers=seg.n,
@@ -152,20 +306,57 @@ def init_caches(cfg, paged: paged_kernels.PageSpec, device="cuda"):
             for seg in segments_for(cfg)]
 
 
-def _run_layers(params, caches, x, cfg, paged_ctx, decode: bool):
+def _run_layers(params, caches, x, cfg, decode: bool, paged_ctx=None,
+                pos=None):
     apply_fn = nn.serve_linear_apply
     for si, seg in enumerate(segments_for(cfg)):
         for i, lp in enumerate(params.layers(si)):
             for bi, kind in enumerate(seg.pattern):
-                pool = caches[si][f"b{bi}"]
-                layer_pool = {name: leaf[i] for name, leaf in pool.items()}
+                cache = None
+                if caches is not None:
+                    cache = {name: leaf[i]
+                             for name, leaf in caches[si][f"b{bi}"].items()}
                 x, _ = apply_block(kind, lp[f"b{bi}"], x, cfg, apply_fn,
-                                   layer_pool, paged_ctx, decode)
+                                   cache=cache, pos=pos, decode=decode,
+                                   paged_ctx=paged_ctx)
     return x
 
 
 def _head(params):
     return params.head.tree() if hasattr(params, "head") else params.embed.tree()
+
+
+def _logits(params, x, cfg):
+    x = nn.rmsnorm_apply(params.final_norm.tree(), x)
+    return nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg, S_max: Optional[int] = None):
+    """Dense-cache prefill of the oracle loop: tokens ``[B, S]`` from
+    position 0 (left-padded by the loop).  Returns ``(logits [B,
+    vocab], caches)``, fresh dense caches of ``S_max`` (default ``S``)
+    positions holding the prompt's K/V."""
+    with torch.profiler.record_function("repro_torch.lm.prefill"):
+        B, S = tokens.shape
+        dev = params.embed.emb.device
+        caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S)
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        x = _run_layers(params, caches, x, cfg, decode=False)
+        logits = _logits(params, x[:, -1:], cfg)
+    return logits[:, 0, : cfg.vocab], caches
+
+
+@torch.no_grad()
+def decode_step(params, caches, tokens, pos: int, cfg):
+    """One dense decode step at the shared position ``pos`` (an int):
+    tokens ``[B, 1]``; the dense caches are written in place.  Returns
+    ``(logits [B, vocab], caches)``."""
+    with torch.profiler.record_function("repro_torch.lm.decode_step"):
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        x = _run_layers(params, caches, x, cfg, decode=True, pos=pos)
+        logits = _logits(params, x, cfg)
+    return logits[:, 0, : cfg.vocab], caches
 
 
 @torch.no_grad()
@@ -179,11 +370,10 @@ def prefill_chunk(params, caches, tokens, start, block_table_row, cfg,
     with torch.profiler.record_function("repro_torch.lm.prefill_chunk"):
         x = nn.embed_apply(params.embed.tree(), tokens)
         ctx = {"block_table": block_table_row, "start": start}
-        x = _run_layers(params, caches, x, cfg, ctx, decode=False)
+        x = _run_layers(params, caches, x, cfg, decode=False, paged_ctx=ctx)
         last = torch.as_tensor(last, device=x.device)
-        x = x.index_select(1, last.reshape(1).long())
-        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
-        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+        logits = _logits(params, x.index_select(1, last.reshape(1).long()),
+                         cfg)
     return logits[0, 0, : cfg.vocab], caches
 
 
@@ -234,9 +424,8 @@ def decode_step_paged(params, caches, tokens, positions, block_table, cfg):
         x = nn.embed_apply(params.embed.tree(), tokens)
         ctx = {"block_table": block_table, "positions": positions,
                "impl": cfg.serve_paged_attn_impl}
-        x = _run_layers(params, caches, x, cfg, ctx, decode=True)
-        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
-        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+        x = _run_layers(params, caches, x, cfg, decode=True, paged_ctx=ctx)
+        logits = _logits(params, x, cfg)
     return logits[:, 0, : cfg.vocab], caches
 
 
@@ -256,7 +445,6 @@ def verify_step_paged(params, caches, tokens, positions, n_writes,
         x = nn.embed_apply(params.embed.tree(), tokens)
         ctx = {"block_table": block_table, "positions": positions,
                "n_writes": n_writes}
-        x = _run_layers(params, caches, x, cfg, ctx, decode=True)
-        x = nn.rmsnorm_apply(params.final_norm.tree(), x)
-        logits = nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+        x = _run_layers(params, caches, x, cfg, decode=True, paged_ctx=ctx)
+        logits = _logits(params, x, cfg)
     return logits[:, :, : cfg.vocab], caches

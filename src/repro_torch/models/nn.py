@@ -1,5 +1,6 @@
 """NN primitives of the serve path (port of the serve subset of
-``repro.models.nn``): TLMAC serve linears, norms, embeddings, rotary.
+``repro.models.nn``): serve linears (dense, int8 and TLMAC layouts),
+norms, embeddings, rotary.
 
 Parameters travel as nested dicts of tensors, like the JAX pytrees;
 ``ParamTree`` holds such a tree as an ``nn.Module`` (float leaves are
@@ -7,6 +8,7 @@ frozen ``Parameter``s, integer plan arrays are buffers)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -98,31 +100,79 @@ def _pick_dp(N: int, want: int) -> int:
 
 def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
                       use_bias: bool = False, device="cuda") -> dict:
-    """TLMAC serve-linear params at the plan's capacity shapes, drawn
-    from ``gen`` (which must live on ``device``): int32 tables, uint8
-    (N_arr <= 256) or int16 indices, int8 step clusters, and the table's
-    narrow rows (``table_narrow``) that the lookup kernel reads."""
-    if cfg.serve_impl != "tlmac":
-        raise ValueError(f"serve_impl {cfg.serve_impl!r} is not ported")
-    G, dp = cfg.tlmac_G, _pick_dp(N, cfg.tlmac_dp)
-    ps = plan_shapes(K, N, G, cfg.quant.w_bits, n_arr_cap=cfg.tlmac_narr_cap,
-                     d_p=dp)
-    n_tiles, kg = N // dp, K // G
-    idx_dtype = torch.uint8 if ps["N_arr"] <= 256 else torch.int16
+    """Serve-linear params of ``cfg.serve_impl``, drawn from ``gen``
+    (which must live on ``device``):
+
+    - ``dense``: ``w`` bf16 ``[K, N]``, N(0, 1/K);
+    - ``int8``: ``w8`` int8 ``[K, N]`` in [-127, 126], ``w_step [N]`` and
+      ``a_step`` f32 ones;
+    - ``tlmac``: the plan's capacity shapes: int32 tables, uint8
+      (N_arr <= 256) or int16 indices, int8 step clusters, and the
+      table's narrow rows (``table_narrow``) that the lookup kernel
+      reads."""
+    impl = cfg.serve_impl
     kw = dict(generator=gen, device=device)
-    p = {
-        "table": torch.randint(-8, 8, ps["table"][0], dtype=torch.int32, **kw),
-        "exec_idx": torch.randint(0, ps["N_arr"], (n_tiles, kg, dp),
-                                  dtype=idx_dtype, **kw),
-        "step_cluster": torch.randint(0, ps["N_clus"], (n_tiles, kg),
-                                      dtype=torch.int8, **kw),
-        "w_step": torch.ones(N, dtype=torch.float32, device=device),
-        "a_step": torch.ones((), dtype=torch.float32, device=device),
-    }
-    p["table_narrow"] = narrow_table(p["table"])
+    if impl == "dense":     # drawn in bf16: no f32 copy at init
+        w = torch.randn((K, N), dtype=torch.bfloat16, **kw)
+        p = {"w": w.mul_(1.0 / math.sqrt(K))}
+    elif impl == "int8":
+        p = {
+            "w8": torch.randint(-127, 127, (K, N), dtype=torch.int8, **kw),
+            "w_step": torch.ones(N, dtype=torch.float32, device=device),
+            "a_step": torch.ones((), dtype=torch.float32, device=device),
+        }
+    elif impl == "tlmac":
+        G, dp = cfg.tlmac_G, _pick_dp(N, cfg.tlmac_dp)
+        ps = plan_shapes(K, N, G, cfg.quant.w_bits,
+                         n_arr_cap=cfg.tlmac_narr_cap, d_p=dp)
+        n_tiles, kg = N // dp, K // G
+        idx_dtype = torch.uint8 if ps["N_arr"] <= 256 else torch.int16
+        p = {
+            "table": torch.randint(-8, 8, ps["table"][0], dtype=torch.int32,
+                                   **kw),
+            "exec_idx": torch.randint(0, ps["N_arr"], (n_tiles, kg, dp),
+                                      dtype=idx_dtype, **kw),
+            "step_cluster": torch.randint(0, ps["N_clus"], (n_tiles, kg),
+                                          dtype=torch.int8, **kw),
+            "w_step": torch.ones(N, dtype=torch.float32, device=device),
+            "a_step": torch.ones((), dtype=torch.float32, device=device),
+        }
+        p["table_narrow"] = narrow_table(p["table"])
+    else:
+        raise ValueError(f"serve_impl {impl!r} not in dense | int8 | tlmac")
     if use_bias:
         p["b"] = torch.zeros(N, dtype=torch.bfloat16, device=device)
     return p
+
+
+def layout(params) -> str:
+    """The serve layout of one linear's params: ``'table'`` => tlmac,
+    ``'w8'`` => int8, ``'w'`` => dense (the reference's dispatch)."""
+    return "tlmac" if "table" in params else (
+        "int8" if "w8" in params else "dense")
+
+
+INT_MM_MIN_M = 32   # torch._int_mm refuses M <= 16: zero rows pad M to 32
+
+
+def int8_matmul(aq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``aq [M, K] @ w8 [K, N]`` of int8 operands.  On the
+    card one ``torch._int_mm`` (cuBLASLt int8 GEMM; K and N must be
+    multiples of 8, and zero rows pad M past 16); on the CPU an int32
+    product (no rounding anywhere)."""
+    if aq.device.type != "cuda":
+        return torch.matmul(aq.to(torch.int32), w8.to(torch.int32))
+    M, K = aq.shape
+    N = w8.shape[1]
+    if K % 8 or N % 8:
+        raise ValueError(f"int8 serve linear on the card needs K and N in "
+                         f"multiples of 8, got K={K}, N={N}")
+    Mp = max(INT_MM_MIN_M, -(-M // 8) * 8)
+    if Mp != M:
+        a = torch.zeros((Mp, K), dtype=torch.int8, device=aq.device)
+        a[:M] = aq
+        return torch._int_mm(a, w8)[:M]
+    return torch._int_mm(aq.contiguous(), w8)
 
 
 def _tlmac_quant_pack(a_step, x, cfg):
@@ -151,20 +201,48 @@ def _tlmac_gemm(params, aq, lead, cfg):
 
 
 def serve_linear_apply(params, x, cfg, use_bias: bool = False):
-    """Serve-path forward ``[..., K] -> [..., N]`` (TLMAC params only)."""
-    if "table" not in params:
-        raise ValueError("only TLMAC serve linears are ported")
-    aq = _tlmac_quant_pack(params["a_step"], x, cfg)
-    y = _tlmac_gemm(params, aq, x.shape[:-1], cfg)
+    """Serve-path forward ``[..., K] -> [..., N]``, dispatched on the
+    params (``layout``), so mixed-precision layer layouts serve:
+
+    - dense: ``x`` rounded to bf16 times the bf16 ``w``, summed in f32,
+      to bf16: one bf16 ``torch.matmul`` on the card (cuBLAS accumulates
+      in f32); on the CPU the f32 product of the bf16 operands, which is
+      XLA's CPU dot (a CPU bf16 GEMM orders its sums differently);
+    - int8: activations rounded half to even on ``a_step``, clipped to
+      +-127, an exact int8 x int8 -> int32 product (``int8_matmul``),
+      then ``yi * (a_step * w_step)`` in f32, to bf16;
+    - tlmac: the fused lookup GEMM (kernel 1) on quantised codes."""
+    impl = layout(params)
+    if impl == "dense":
+        w = params["w"]
+        xb = x.to(COMPUTE_DTYPE)
+        if xb.device.type == "cuda":
+            y = torch.matmul(xb, w)
+        else:     # XLA's CPU dot: f32 products and sums of bf16 operands
+            y = torch.matmul(xb.float(), w.float()).to(COMPUTE_DTYPE)
+    elif impl == "int8":
+        a_step = params["a_step"]
+        K = x.shape[-1]
+        aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
+                         -127, 127).to(torch.int8).reshape(-1, K)
+        yi = int8_matmul(aq, params["w8"])
+        y = (yi.to(torch.float32) * (a_step * params["w_step"])).to(
+            COMPUTE_DTYPE).reshape(*x.shape[:-1], -1)
+    else:
+        aq = _tlmac_quant_pack(params["a_step"], x, cfg)
+        y = _tlmac_gemm(params, aq, x.shape[:-1], cfg)
     if use_bias:
         y = y + params["b"].to(y.dtype)
     return y
 
 
 def serve_linear_pair_apply(p1, p2, x, cfg):
-    """Two TLMAC linears reading the same tensor (swiglu wi/wg): one
-    activation quantisation on the first branch's ``a_step`` feeds both
-    lookup GEMMs."""
+    """Two serve linears reading the same tensor (swiglu wi/wg).  A tlmac
+    pair shares one activation quantisation on the first branch's
+    ``a_step`` for both lookup GEMMs; any other layout runs two
+    independent applies."""
+    if layout(p1) != "tlmac" or layout(p2) != "tlmac":
+        return serve_linear_apply(p1, x, cfg), serve_linear_apply(p2, x, cfg)
     aq = _tlmac_quant_pack(p1["a_step"], x, cfg)
     lead = x.shape[:-1]
     y1 = _tlmac_gemm(p1, aq, lead, cfg)
@@ -240,11 +318,12 @@ def act_fn(kind: str):
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda"):
-    """Embedding drawn N(0, 0.02^2) in f32 and stored in bf16: every use
-    casts it to bf16 first, so storing bf16 loses nothing."""
+    """Embedding drawn N(0, 0.02^2) in bf16, the dtype every use casts it
+    to; drawn there directly, so no f32 copy is ever held (a 256000 x
+    8192 f32 draw alone would be 8.4 GB)."""
     emb = torch.randn((padded_vocab(vocab), d), generator=gen,
-                      dtype=torch.float32, device=device) * 0.02
-    return {"emb": emb.to(torch.bfloat16)}
+                      dtype=torch.bfloat16, device=device)
+    return {"emb": emb.mul_(0.02)}
 
 
 def init_rmsnorm(d: int, device="cuda"):

@@ -327,7 +327,10 @@ class PagedServeLoop:
                  deadline_s: Optional[float] = None,
                  faults=None,
                  device="cuda"):
-        lm.segments_for(cfg)          # raises for families not ported
+        if not lm.supports_paged(cfg):   # raises for families not ported
+            raise ValueError(
+                f"config {cfg.name!r} has non-pageable block kinds; "
+                "use serve.loop.ServeLoop (dense caches)")
         want = torch.device(device)
         have = next(params.parameters()).device
         if have.type != want.type or want.index not in (None, have.index):

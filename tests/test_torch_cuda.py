@@ -791,3 +791,136 @@ def test_swap_restores_in_place_and_the_graphs_read_them_on_card(cuda):
         assert torch.equal(got, want)
         outs.append(got)
     assert not torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# the dense families: kernel 2 at their shapes, the int8 layout, the window
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("rep,hd,window,P,MB", [
+    (8, 128, None, 16, 64),     # command-r / internvl2: 64 heads over 8
+    (1, 64, None, 16, 64),      # minicpm: hd 64, MHA
+    (1, 128, 2048, 16, 256),    # the window family: 2048 of up to 4096
+])
+def test_flash_decode_at_the_families_shapes_equals_plain(cuda, kv, rep, hd,
+                                                          window, P, MB):
+    """One launch against the plain version at the new families' decode
+    shapes; with the window, slots past it (3000, 2300), one inside it
+    (100) and an idle slot."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged
+
+    gen = torch.Generator(device=cuda).manual_seed(rep * hd)
+    B, KV = 4, 8 if rep == 8 else 4
+    n_pages = B * MB + 1
+    k, v = (torch.randn((n_pages, P, KV, hd), generator=gen, device=cuda)
+            for _ in range(2))
+    qs = paged.KVQuantSpec(kv)
+    if kv == "fp":
+        pools = dict(k_pages=k.bfloat16(), v_pages=v.bfloat16())
+    else:
+        (kc, ks), (vc, vs) = paged.quantise_kv(k, qs), paged.quantise_kv(v, qs)
+        pools = dict(k_pages=kc, v_pages=vc, k_scales=ks, v_scales=vs)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[:B * MB]
+          + 1).reshape(B, MB).to(torch.int32)
+    bt[2] = 0
+    S = MB * P
+    lengths = torch.tensor([min(3000, S), min(2300, S - 7), 1, 100],
+                           dtype=torch.int32, device=cuda)
+    q = torch.randn((B, KV, rep, hd), generator=gen, device=cuda).bfloat16()
+    kw = dict(pools, n_splits=4, kv_dtype=kv, window=window)
+    n0 = fd.launches
+    got = fd.flash_decode(q, block_table=bt, lengths=lengths, **kw)
+    want = fd.combine_splits(*fd.flash_decode_partials_plain(
+        q, block_table=bt, lengths=lengths, **kw))
+    torch.cuda.synchronize()
+    assert fd.launches == n0 + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
+def test_int8_layout_equals_the_cpu_product_on_card(cuda, M):
+    """The int8 serve linear on the card (``torch._int_mm``, rows padded
+    past 16) against the same linear on the CPU (exact int32): equal."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import nn
+
+    cfg = dataclasses.replace(smoke_config("codeqwen1.5-7b"),
+                              serve_impl="int8")
+    gen = torch.Generator().manual_seed(M)
+    p = nn.init_serve_linear(gen, 256, 136, cfg, use_bias=True, device="cpu")
+    p["a_step"] = torch.tensor(1.0 / 32)
+    p["w_step"] = torch.rand(136, generator=gen) * 1e-3
+    x = torch.randn((M, 256), generator=gen).bfloat16() * 3
+    want = nn.serve_linear_apply(p, x, cfg, use_bias=True)
+    aq = torch.clamp(torch.round(x.float() / 0.03125), -127, 127).to(torch.int8)
+    yi = nn.int8_matmul(aq.to(cuda), p["w8"].to(cuda))
+    assert torch.equal(yi.cpu(), nn.int8_matmul(aq, p["w8"]))
+    got = nn.serve_linear_apply({k: t.to(cuda) for k, t in p.items()},
+                                x.to(cuda), cfg, use_bias=True)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        nn.int8_matmul(aq[:, :250].to(cuda), p["w8"][:250].to(cuda))
+
+
+@pytest.mark.requires_cuda
+def test_window_decode_graph_reads_pages_past_the_window_on_card(cuda):
+    """A sliding-window family (``attn_local``, window 8) served with its
+    decode step replayed from a CUDA graph: replay equals eager bit for
+    bit on slots whose history runs past the window, and the flash reader
+    stays within the kernel tolerance of the gathered one."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import paged
+    from repro_torch.models import lm
+    from repro_torch.serve.loop import Request
+    from repro_torch.serve.paged import PagedServeLoop
+
+    cfg = dataclasses.replace(smoke_config("codeqwen1.5-7b"), family="hybrid",
+                              block_pattern=("attn_local",), local_window=8)
+    params = lm.init_lm(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    loop = PagedServeLoop(params, cfg, batch_slots=2, s_max=48, page_size=4,
+                          chunk=8, device=cuda, check_invariants=True)
+    seen = []
+
+    def parity(graph_fn, eager_fn):
+        def wrapper(*a):
+            got = graph_fn(*a).clone()
+            args = [torch.as_tensor(np.asarray(x, np.int32), device=cuda)
+                    for x in a]
+            want = eager_fn(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            seen.append(int(np.max(a[1])))
+            return got
+        return wrapper
+
+    loop._decode = parity(loop._decode, loop._decode_fn)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((19, 5, 30)):
+        loop.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                            .astype(np.int32), max_new_tokens=6))
+    assert len(loop.run()) == 3
+    assert max(seen) >= 3 * cfg.local_window
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+    # the two readers on one state past the window
+    spec = paged.spec_for(48, 2, page_size=4)
+    caches = lm.init_caches(cfg, spec, device=cuda)
+    for leaf in caches[0]["b0"].values():
+        leaf.copy_(torch.randn(leaf.shape, device=cuda).to(leaf.dtype))
+    bt = torch.arange(1, 25, device=cuda, dtype=torch.int32).reshape(2, 12)
+    pos = torch.tensor([40, 17], dtype=torch.int32, device=cuda)
+    cur = torch.tensor([[3], [9]], dtype=torch.int32, device=cuda)
+    out = {}
+    for impl in ("lax", "flash"):
+        c = [{b: {n: t.clone() for n, t in p.items()} for b, p in s.items()}
+             for s in caches]
+        out[impl] = lm.decode_step_paged(
+            params, c, cur, pos, bt,
+            dataclasses.replace(cfg, serve_paged_attn_impl=impl))[0].float()
+    scale = out["lax"].abs().max()
+    assert (out["lax"] - out["flash"]).abs().max() <= 2e-2 * scale
