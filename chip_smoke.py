@@ -3,6 +3,13 @@
 
     python3 chip_smoke.py                 # everything, as the check runs it
     python3 chip_smoke.py --only kernels  # build + kernel phases only
+    python3 chip_smoke.py --only k12      # kernels 1-2 timed at the main
+                                          # path's shapes, one JSON line
+
+``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
+(``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
+to compare two checkouts on one card, copy this script into each and run
+them in turns in one call (parent, change, change, parent).
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -18,7 +25,9 @@ Phases, in order; any failure raises and exits non-zero:
    domain the reference takes (G 1-6, dp up to 256): the lookup GEMM
    must be bit-equal in int32, flash-decode within the stated f32
    tolerance over fp/int8/int4 pools, windows, idle slots, 1 to 16
-   splits and two rep chunks; times of the kernel, the plain version,
+   splits, two rep chunks and head dims off its 8-element pieces (18, 36,
+   100, 126: the ragged instances, hd 126 timed beside hd 128); times of
+   the kernel, the plain version,
    the bound and a library yardstick: one ``torch._int_mm`` of the
    one-hot coefficients against the gathered table rows (held equal),
    beside a dense int8 ``_int_mm`` of the same shape as context, and
@@ -99,10 +108,25 @@ Phases, in order; any failure raises and exits non-zero:
    held against the gathered reader at the first step past it); and the
    int8 and mixed serve layouts on a 4-layer codeqwen-shaped stack (the
    int8 linears equal to their plain product, the mixed tree served with
-   kernel 1 on the attention linears only);
+   kernel 1 on the attention linears only); then the MoE family
+   (``phase_moe``): deepseek-v3-671b's widths with GQA blocks (the
+   reference's moe-gqa), cut to 11 of 61 layers (3 dense + 8 MoE), its
+   ``plan_shapes`` reckoning printed, drawn on the card (init peak
+   asserted), kernel 1's single linears at its widths (a dense layer's
+   q/k/v/o and FFN, the shared expert) int32-equal at M 4 and 64,
+   kernel 2 at its decode shape (128 KV heads of dim 56) on fp, int8
+   and int4 pools, kernel 1's expert axis int32-equal to its plain
+   version at one MoE layer's 256-expert wi/wg/wo at M 4 and 2 and
+   timed against its bound, four requests x 16 tokens served from CUDA graphs as the
+   main path is (kernel 1 once per lookup linear a forward, three expert
+   stacks a MoE layer, asserted), and one eager decode step profiled by
+   MoE phase (route, dispatch einsums, experts, combine einsums, shared
+   experts), with the step's device time split into kernel 1's expert
+   stacks (by that range), its single linears, kernel 2 and the rest;
 8. the port on the card against the port on the CPU (plain versions) on
-   the five dense families' smoke configs (minicpm's, of head dim 18,
-   with the gathered reader), teacher-forced, logits within tolerance;
+   six smoke configs (the five dense families', minicpm's at head dim
+   18, and the MoE smoke), every one read with kernel 2,
+   teacher-forced, logits within tolerance;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
    every conv as a lookup conv (kernels 4 + 3) and as one
    cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
@@ -556,6 +580,19 @@ def phase_flash():
         ("rep12 hd128 KV8 (2 rep chunks), idle slot",
          dict(B=3, KV=8, rep=12, hd=128, P=16, MB=32, lens=(1, 300, 77),
               window=None, n_splits=3, idle=(0,))),
+        # head dims off the 8-element lane pieces (the RAGGED instances)
+        ("rep4 hd18 KV2 (ragged), idle slot",
+         dict(B=3, KV=2, rep=4, hd=18, P=8, MB=6, lens=(1, 20, 48),
+              window=None, n_splits=4, idle=(0,))),
+        ("rep1 hd36 KV4 (ragged), window 64",
+         dict(B=4, KV=4, rep=1, hd=36, P=16, MB=16, lens=(53, 144, 227, 3),
+              window=64, n_splits=2)),
+        ("rep8 hd100 KV2 (ragged)",
+         dict(B=2, KV=2, rep=8, hd=100, P=16, MB=32, lens=(300, 511),
+              window=None, n_splits=4)),
+        ("rep1 hd126 KV32 (ragged)",
+         dict(B=4, KV=32, rep=1, hd=126, P=16, MB=64, lens=MAIN_LENS,
+              window=None, n_splits=4)),
     ]
     for kv in ("fp", "int8", "int4"):
         for label, c in cases:
@@ -570,8 +607,30 @@ def phase_flash():
                                      f"{err} > {FLASH_TOL}")
             log(f"  flash-decode {kv:4s} {label:34s}: max abs err {err:.3e}")
 
-    # timed at the main path's decode shape: B=4 slots of full-width
-    # codeqwen (KV=32, rep=1, hd=128), 16-token pages, s_max=1024
+    row = flash_main_timing(gen)
+    # the RAGGED path at the same shape but hd 126 (bytes read one by one)
+    reps, ms = row.pop("reps"), row["ms"]
+    r = _flash_case(gen, "fp", 4, 32, 1, 126, 16, 64, MAIN_LENS, None, 4)
+    rcopies = [r] + [dict(r, k_pages=r["k_pages"].clone(),
+                          v_pages=r["v_pages"].clone())
+                     for _ in range(reps - 1)]
+    it = iter(range(1 << 30))
+    ragged_ms = graph_ms(lambda: _flash_kernel(rcopies[next(it) % reps]),
+                         iters=50)
+    r_bytes = row.pop("nbytes") * 126 / 128
+    log(f"  flash-decode fp at hd 126 (ragged instance), same shape: kernel "
+        f"{ragged_ms:.4f} ms, byte bound {r_bytes / HBM_BYTES_S * 1e3:.4f} ms"
+        f" ({ragged_ms / ms:.2f}x the hd-128 kernel)")
+    return dict(row, max_abs_err=worst, ragged_hd126_ms=ragged_ms)
+
+
+def flash_main_timing(gen):
+    """Kernel 2 timed at the main path's decode shape: B=4 slots of
+    full-width codeqwen (KV=32, rep=1, hd=128), 16-token pages,
+    s_max=1024, pool copies rotated past the L2; the plain version, the
+    bound and SDPA over gathered K/V beside it."""
+    import torch
+
     B, KV, rep, hd, P, MB = 4, 32, 1, 128, 16, 64
     a = _flash_case(gen, "fp", B, KV, rep, hd, P, MB, MAIN_LENS, None, 4)
     reps = rotation(a["k_pages"].numel() * 4)
@@ -613,8 +672,8 @@ def phase_flash():
                 replaces="src/repro/kernels/flash_decode.py:206",
                 shape=f"B=4 KV=32 rep=1 hd=128 P=16 MB=64 fp, lengths "
                       f"{list(MAIN_LENS)}, 4 splits",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, reps=reps, nbytes=nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -1256,14 +1315,17 @@ def _profiled(fn, a, kw):
             f"{1 - span / wall:.1%}")
         return logits
     gemm = sum(v for k, v in by_name.items() if "tlmac_fused_" in k)
+    expert = sum(v for k, v in by_name.items() if "tlmac_fused_expert_" in k)
     flash = sum(v for k, v in by_name.items() if "flash_decode_kernel" in k)
     others = sorted(((v, k) for k, v in by_name.items()
                      if "tlmac_fused_" not in k
                      and "flash_decode_kernel" not in k), reverse=True)
+    split = (f" (expert-stacked {expert:.2f} ms, single linears "
+             f"{gemm - expert:.2f} ms)" if expert else "")
     log(f"  profiled decode step {PROFILED_STEP}: wall {wall:.2f} ms (under "
         f"the profiler), device busy {busy:.2f} ms ({busy / wall:.1%}), idle "
-        f"{1 - busy / wall:.1%}; lookup GEMM {gemm:.2f} ms, flash-decode "
-        f"{flash:.2f} ms, {len(others)} other kernels "
+        f"{1 - busy / wall:.1%}; lookup GEMM {gemm:.2f} ms{split}, "
+        f"flash-decode {flash:.2f} ms, {len(others)} other kernels "
         f"{busy - gemm - flash:.2f} ms; CUDA events around the replay "
         f"{span:.2f} ms")
     for v, k in others[:5]:
@@ -1337,12 +1399,23 @@ def graph_parity(loop, cfg):
             f"{k} {f.graph_launches}" for k, f in loop.forwards.items()))
 
 
-def _lookup_linears(params) -> int:
-    """Serve linears of one layer that run the lookup GEMM (kernel 1):
-    those whose params carry a TLMAC table."""
-    lp = params.layers(0)[0]
-    return sum("table" in lin for blk in lp.values()
-               for sub in ("attn", "ffn") for lin in blk[sub].values())
+def _lookup_launches(params):
+    """Kernel-1 launches of one forward: every serve linear whose params
+    carry a TLMAC table, one launch each, an expert stack included, over
+    every layer of every segment; and how many of them are expert stacks
+    (``exec_idx [E, n_tiles, kg, dp]``).  Returns (total, expert)."""
+    def walk(tree):
+        if "table" in tree:
+            return 1, int(tree["exec_idx"].dim() == 4)
+        sums = [walk(v) for v in tree.values() if isinstance(v, dict)]
+        return sum(a for a, _ in sums), sum(b for _, b in sums)
+
+    total = expert = 0
+    for si in range(len(params.segments)):
+        layers = params.layers(si)
+        n, e = walk(layers[0])
+        total, expert = total + n * len(layers), expert + e * len(layers)
+    return total, expert
 
 
 def phase_main(cfg, params, lens=PROMPT_LENS, max_new=MAX_NEW, setup=None,
@@ -1403,14 +1476,16 @@ def phase_main(cfg, params, lens=PROMPT_LENS, max_new=MAX_NEW, setup=None,
     loop.check_compiled()
     assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}, \
         loop.compiled_shapes()
-    per_layer = _lookup_linears(params)
+    per_fwd, per_fwd_expert = _lookup_launches(params)
+    forwards = calls["prefill"] + calls["decode"]
     if DEV == "cuda":         # plain versions (the CPU) count nothing
         assert {k: f.replays for k, f in loop.forwards.items()} == {
             "chunk": calls["prefill"], "decode": calls["decode"]}
-        want_gemm = per_layer * cfg.n_layers * (calls["prefill"]
-                                                + calls["decode"])
         want_flash = cfg.n_layers * calls["decode"]
-        assert counts["tlmac_gemm_fused"] == want_gemm, (counts, want_gemm)
+        assert counts["tlmac_gemm_fused"] == per_fwd * forwards, (
+            counts, per_fwd * forwards)
+        assert counts["tlmac_gemm_fused_expert"] == (
+            per_fwd_expert * forwards), (counts, per_fwd_expert * forwards)
         assert counts["flash_decode"] == want_flash, (counts, want_flash)
     loop.pages.check()
     loop.prefix.check()
@@ -1439,10 +1514,13 @@ def phase_main(cfg, params, lens=PROMPT_LENS, max_new=MAX_NEW, setup=None,
         f"on-demand pages grown {st['grown_pages']}, preemptions "
         f"{st['preemptions']}, peak live slots {st['peak_live_slots']}, pool "
         f"peak {st['pool_pages_peak']} of {loop.spec.n_pages - 1} pages")
+    expert_note = (f", of which expert-stacked "
+                   f"{counts['tlmac_gemm_fused_expert']} (= "
+                   f"{per_fwd_expert} x {forwards})" if per_fwd_expert
+                   else "")
     log(f"  launches: lookup GEMM {counts['tlmac_gemm_fused']} (= "
-        f"{per_layer} x "
-        f"{cfg.n_layers} layers x {calls['prefill'] + calls['decode']} "
-        f"forwards), flash-decode {counts['flash_decode']} (= {cfg.n_layers}"
+        f"{per_fwd} a forward x {forwards} forwards{expert_note}), "
+        f"flash-decode {counts['flash_decode']} (= {cfg.n_layers}"
         f" x {calls['decode']} decode steps): graph launches recorded at "
         f"capture x replays ({', '.join(f'{k} {f.replays}' for k, f in loop.forwards.items())}"
         f") + eager launches {eager}")
@@ -1671,7 +1749,7 @@ def _reset_launches(loop):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import tlmac_fused as tf
 
-    tf.launches = fd.launches = 0
+    tf.launches = tf.expert_launches = fd.launches = 0
     for f in loop.forwards.values():
         f.eager = f.replays = 0
 
@@ -1682,7 +1760,9 @@ def _read_launches(loop):
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import tlmac_fused as tf
 
-    counts = {"tlmac_gemm_fused": tf.launches, "flash_decode": fd.launches}
+    counts = {"tlmac_gemm_fused": tf.launches,
+              "tlmac_gemm_fused_expert": tf.expert_launches,
+              "flash_decode": fd.launches}
     for f in loop.forwards.values():
         for k, n in f.graph_launches.items():
             counts[k] += n * f.replays
@@ -2492,7 +2572,8 @@ def init_family(cfg, cut: str = "full depth"):
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     total = _tree_bytes(params)
-    layer = _tree_bytes(params.segments) // cfg.n_layers
+    layer = max(_tree_bytes(seg) // s.n for seg, s in
+                zip(params.segments, lm.segments_for(cfg)))
     msg = (f"  init {cfg.name} ({cfg.n_layers} layers, {cut}; d_model "
            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv}, hd "
            f"{cfg.kv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
@@ -2885,12 +2966,271 @@ def phase_layouts():
     mixed = nn.ParamTree(tree)
     del p8, pt, tree, ffn
     _free()
-    assert _lookup_linears(mixed) == 4
+    assert _lookup_launches(mixed) == (4 * LAYOUT_LAYERS, 0)
     cfg = dataclasses.replace(base, name="codeqwen1.5-7b mixed")
     run = phase_main(cfg, mixed, lens=MAIN_LENS, max_new=FAMILY_MAX_NEW)
     del mixed
     return dict(int8_layer_ms=t_layer, int8_layer_bound_ms=b_layer,
                 mixed=run)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: deepseek-v3's widths with GQA attention (moe-gqa)
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 11          # depth cut of moe-gqa: the 3 dense + 8 MoE of 61
+MOE_MS = (4, 2)          # rows an expert sees: a decode step of 4 slots
+                         # (cap 1 x 4 groups), a 64-token chunk (cap 2)
+MOE_LINEAR_MS = (4, CHUNK)   # rows a single linear sees: decode, a chunk
+MOE_SINGLE = [("dense layer", "attn", n) for n in ("wq", "wk", "wv", "wo")] + [
+    ("dense layer", "ffn", n) for n in ("wi", "wg", "wo")] + [
+    ("MoE layer", "moe", n) for n in ("shared_wi", "shared_wg", "shared_wo")]
+
+
+def moe_config(n_layers: int = MOE_LAYERS):
+    """deepseek-v3-671b with GQA blocks (the reference's moe-gqa: MLA does
+    not page), widths unchanged, ``n_layers`` of 61."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"),
+                               attn_kind="gqa", n_layers=n_layers,
+                               name="deepseek-v3-671b moe-gqa")
+
+
+def _idx_bytes(cfg, K, N):
+    """The exec_idx bytes of one serve linear K -> N by ``plan_shapes``."""
+    from repro_torch.core.tlmac.compile import plan_shapes
+    from repro_torch.models.nn import _pick_dp
+
+    dp = _pick_dp(N, cfg.tlmac_dp)
+    ps = plan_shapes(K, N, cfg.tlmac_G, cfg.quant.w_bits,
+                     n_arr_cap=cfg.tlmac_narr_cap, d_p=dp)
+    return (N // dp) * (K // cfg.tlmac_G) * dp * (1 if ps["N_arr"] <= 256
+                                                  else 2), ps["N_arr"]
+
+
+def moe_reckoning(cfg):
+    """Print the index bytes of the model by ``plan_shapes``: one expert
+    linear, a MoE layer (experts, attention, shared expert), a dense layer,
+    the embedding and head, at 61 layers and at ``cfg.n_layers``."""
+    d, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert
+    qkvo = cfg.n_heads * cfg.kv_head_dim
+    kv = cfg.n_kv * cfg.kv_head_dim
+    wi, n_arr = _idx_bytes(cfg, d, F)
+    wo, _ = _idx_bytes(cfg, F, d)
+    experts = E * (2 * wi + wo)
+    attn = (_idx_bytes(cfg, d, qkvo)[0] + 2 * _idx_bytes(cfg, d, kv)[0]
+            + _idx_bytes(cfg, qkvo, d)[0])
+    Fs = F * cfg.n_shared
+    shared = 2 * _idx_bytes(cfg, d, Fs)[0] + _idx_bytes(cfg, Fs, d)[0]
+    dense = attn + 2 * _idx_bytes(cfg, d, cfg.d_ff)[0] + _idx_bytes(
+        cfg, cfg.d_ff, d)[0]
+    emb = 2 * (cfg.vocab + (-cfg.vocab) % 16) * d * 2
+    moe_layer = experts + attn + shared
+
+    def total(L):
+        return (emb + cfg.moe_layer_start * dense
+                + (L - cfg.moe_layer_start) * moe_layer)
+    G = 1e9
+    log(f"  plan_shapes reckoning (N_arr {n_arr}, "
+        f"{'uint8' if n_arr <= 256 else 'int16'} indices): one expert "
+        f"linear {d}->{F} {wi / 1e6:.2f} MB; a MoE layer {moe_layer / G:.3f}"
+        f" GB = {E} experts x 3 {experts / G:.3f} GB + attention "
+        f"{attn / 1e6:.1f} MB + shared expert {shared / 1e6:.1f} MB; a dense "
+        f"layer {dense / G:.3f} GB; embedding + head {emb / G:.3f} GB; "
+        f"61 layers {total(61) / G:.1f} GB, {cfg.n_layers} layers "
+        f"{total(cfg.n_layers) / G:.2f} GB (indices and bf16 embeddings)")
+
+
+def phase_moe_kernels(cfg, params, B_a=3):
+    """Kernels 1-2 at the moe-gqa path's shapes, against their plain
+    versions: kernel 1's single linears from the drawn params (one dense
+    layer's q/k/v/o and FFN, a MoE layer's shared expert; N_arr 512) at M
+    4 and 64, int32-equal; kernel 2 at the decode shape (4 slots, 128 KV
+    heads of dim 56, 16-token pages) on fp, int8 and int4 pools, within
+    ``FLASH_TOL``; kernel 1's expert axis on one MoE layer's
+    expert-stacked wi, wg and wo (256 experts), at M 4 (decode) and 2 (a
+    64-token chunk), each int32-equal to its plain version (a loop over
+    the experts) and timed (graph replay) against its bound; at M 4, wi
+    also as 256 single launches.  Returns kernel 1's expert-stack row and
+    kernel 2's worst error."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    G = cfg.tlmac_G
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    n0, e0, f0 = tf.launches, tf.expert_launches, fd.launches
+    blocks = {"dense layer": params.layers(0)[0]["b0"],
+              "MoE layer": params.layers(1)[0]["b0"]}
+    for where, blk, name in MOE_SINGLE:
+        lin = blocks[where][blk][name]
+        idx, cl, tab = lin["exec_idx"], lin["step_cluster"], lin["table_narrow"]
+        nt, kg, dp = idx.shape
+        for M in MOE_LINEAR_MS:
+            aq = torch.randint(0, 2**B_a, (M, kg * G), dtype=torch.int8,
+                               generator=gen, device=DEV)
+            _equal(f"lookup GEMM {where} {blk}.{name} M={M}",
+                   tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G),
+                   tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G))
+        log(f"  lookup GEMM {where} {blk}.{name} {kg * G}->{nt * dp} (dp "
+            f"{dp}, N_arr {tab.shape[-2]}, {idx.dtype}): equal int32 at M "
+            f"{', '.join(map(str, MOE_LINEAR_MS))}")
+    worst = 0.0
+    if DEV == "cuda":
+        for kv in ("fp", "int8", "int4"):
+            a = _flash_case(gen, kv, B=4, KV=cfg.n_kv,
+                            rep=cfg.n_heads // cfg.n_kv, hd=cfg.kv_head_dim,
+                            P=16, MB=64, lens=MAIN_LENS, window=None,
+                            n_splits=4)
+            err = (_flash_kernel(a) - _flash_plain(a)).abs().max().item()
+            worst = max(worst, err)
+            if not err <= FLASH_TOL:
+                raise AssertionError(f"flash-decode {kv} moe-gqa decode "
+                                     f"shape: max abs err {err} > "
+                                     f"{FLASH_TOL}")
+            log(f"  flash-decode {kv:4s} moe-gqa decode shape (B 4, KV "
+                f"{cfg.n_kv}, rep {cfg.n_heads // cfg.n_kv}, hd "
+                f"{cfg.kv_head_dim}, P 16, MB 64): max abs err {err:.3e}")
+            del a
+    layer = blocks["MoE layer"]["moe"]
+    row = {"flash_max_abs_err": worst}
+    for name in ("wi", "wg", "wo"):
+        lin = layer[name]
+        idx, cl, tab = lin["exec_idx"], lin["step_cluster"], lin["table_narrow"]
+        E, nt, kg, dp = idx.shape
+        K, N = kg * G, nt * dp
+        for M in MOE_MS:
+            aq = torch.randint(0, 2**B_a, (E, M, K), dtype=torch.int8,
+                               generator=gen, device=DEV)
+            got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+            want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G)
+            _equal(f"expert-stacked lookup GEMM {name} [{E}] {K}->{N} M={M}",
+                   got, want)
+            del want
+            if DEV != "cuda":
+                continue
+            ms = graph_ms(lambda: tf.tlmac_gemm_fused(
+                aq, idx, cl, tab, B_a=B_a, G=G), iters=10, replays=3)
+            nbytes = (aq.numel() + idx.numel() * idx.element_size()
+                      + cl.numel() + tab.numel() * tab.element_size()
+                      + E * M * N * 4)
+            b = _gemm_bound(E * M, kg, N, G, nbytes)
+            acc = row.setdefault(M, dict(ms=0.0, bound_ms=0.0, bytes=0))
+            acc["ms"] += ms
+            acc["bound_ms"] += b["bound_ms"]
+            acc["bytes"] += nbytes
+            msg = (f"  expert-stacked lookup GEMM {name} [{E}] {K}->{N} (dp "
+                   f"{dp}) M={M}: equal int32; kernel {ms:.4f} ms (one "
+                   f"launch), bound {b['bound_ms']:.4f} ms ({_bound_by(b)}), "
+                   f"{b['bound_ms'] / ms:.1%} of bound")
+            if name == "wi" and M == 4:
+                single = graph_ms(lambda: [tf.tlmac_gemm_fused(
+                    aq[e], idx[e], cl[e], tab[e], B_a=B_a, G=G)
+                    for e in range(E)], iters=2, replays=2)
+                msg += f"; {E} single launches {single:.4f} ms"
+                row["single_launches_ms"] = single
+            log(msg)
+    # comparisons are not the path's
+    tf.launches, tf.expert_launches, fd.launches = n0, e0, f0
+    for M in MOE_MS:
+        if M in row:
+            r = row[M]
+            log(f"  one MoE layer's three expert stacks at M={M}: "
+                f"{r['ms']:.4f} ms against a {r['bound_ms']:.4f} ms bound "
+                f"({r['bytes'] / 1e9:.3f} GB; {r['bound_ms'] / r['ms']:.1%})")
+    return row
+
+
+def _moe_glue(cfg, params):
+    """One eager decode step (4 slots at the main path's lengths) under
+    torch.profiler: device ms of each MoE phase's range (route, dispatch
+    einsums, expert linears, combine einsums, shared experts) summed over
+    the MoE layers, and the step's device time split into kernel 1's
+    expert stacks, its single linears, kernel 2 and the rest (the range
+    spans the profiler records on the device are not kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import paged as pk
+    from repro_torch.models import lm
+
+    B = 4
+    spec = pk.spec_for(1024, B, page_size=16)
+    caches = lm.init_caches(cfg, spec, device=DEV)
+    MB = spec.max_blocks
+    bt = (torch.arange(B * MB, dtype=torch.int32, device=DEV).reshape(B, MB)
+          % (spec.n_pages - 1) + 1)
+    pos = torch.tensor(MAIN_LENS, dtype=torch.int32, device=DEV)
+    cur = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    step = lambda: lm.decode_step_paged(params, caches, cur, pos, bt, cfg)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ranges, by_kernel = {}, {}
+    for e in prof.key_averages():
+        if e.key.startswith("repro_torch."):
+            if e.key.startswith("repro_torch.moe."):
+                ranges[e.key.rsplit(".", 1)[-1]] = (
+                    getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0)) / 1e3
+        elif getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = (getattr(e, "self_device_time_total", None)
+                                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+    k1 = sum(v for k, v in by_kernel.items() if "tlmac_fused_" in k)
+    stacks = sum(v for k, v in by_kernel.items() if "tlmac_fused_expert_" in k)
+    k2 = sum(v for k, v in by_kernel.items() if "flash_decode_kernel" in k)
+    busy = sum(by_kernel.values())
+    others = sorted(((v, k) for k, v in by_kernel.items()
+                     if "tlmac_fused_" not in k
+                     and "flash_decode_kernel" not in k), reverse=True)
+    del caches
+    names = ("route", "dispatch", "experts", "combine", "shared")
+    if not any(ranges.get(n) for n in names):
+        log("  MoE phases of an eager decode step: the profiler gave the "
+            "ranges no device time (not measured)")
+        return ranges
+    log(f"  MoE phases of an eager decode step ({cfg.n_layers - cfg.moe_layer_start}"
+        f" MoE layers, device ms by profiler range): " + ", ".join(
+            f"{n} {ranges.get(n, 0.0):.3f}" for n in names))
+    log(f"  the eager decode step's device time {busy:.3f} ms: kernel 1 "
+        f"expert stacks {stacks:.3f} ms, kernel 1 single linears "
+        f"{k1 - stacks:.3f} ms, kernel 2 {k2:.3f} ms, {len(others)} other "
+        f"kernels {busy - k1 - k2:.3f} ms (the dispatch and combine "
+        f"einsums among them, as the ranges above)")
+    for v, k in others[:3]:
+        log(f"    {v:8.3f} ms  {k[:90]}")
+    return dict(ranges, stacks=stacks, k1=k1, k2=k2, busy=busy)
+
+
+def phase_moe():
+    """The reference's MoE path at deepseek-v3-671b's widths (GQA blocks,
+    128 heads over 128 of dim 56, 256 experts top 8 with one shared,
+    d_expert 2048, vocab 129280), cut to 11 of 61 layers (3 dense + 8 MoE):
+    drawn on the card (init peak asserted), kernel 1's expert axis held
+    against its plain version at the real shapes, then four prompts x 16
+    tokens served through ``PagedServeLoop`` under CUDA graphs as the main
+    path is (launches asserted: every lookup linear once a forward, three
+    expert stacks a MoE layer), and the MoE phases of a decode step
+    profiled.  Returns the run's figures."""
+    cfg = moe_config()
+    moe_reckoning(cfg)
+    params = init_family(cfg, cut=f"cut from 61: {cfg.moe_layer_start} "
+                                  f"dense + {MOE_LAYERS - cfg.moe_layer_start}"
+                                  f" MoE")
+    rows = phase_moe_kernels(cfg, params)
+    counts, run = phase_main(cfg, params, lens=MAIN_LENS,
+                             max_new=FAMILY_MAX_NEW)
+    _free()
+    if DEV == "cuda":
+        run["glue"] = _moe_glue(cfg, params)
+    del params
+    _free()
+    return dict(run, counts=counts, expert_rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -2905,17 +3245,18 @@ def phase_reference(seed: int = SEED):
     from repro_torch.models import lm
     from repro_torch.serve.paged import PagedServeLoop
 
-    # minicpm's smoke head dim is 18: kernel 2 takes multiples of 8 only
-    # (ROADMAP queue 3), so that family reads with the gathered reader
-    for name, impl in (("codeqwen1.5-7b", None), ("mistral-large-123b", None),
-                       ("minicpm-2b", "lax"), ("command-r-35b", None),
-                       ("internvl2-76b", None)):
-        cfg = smoke_config(name)
+    # every family reads with kernel 2, minicpm's smoke at head dim 18 too;
+    # the MoE family is deepseek-v3's smoke with GQA (the reference's
+    # moe-gqa), its expert linears through kernel 1's expert axis
+    moe_gqa = dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                                  attn_kind="gqa", name="ds-moe-gqa")
+    for name in ("codeqwen1.5-7b", "mistral-large-123b", "minicpm-2b",
+                 "command-r-35b", "internvl2-76b", "moe-gqa"):
+        cfg = moe_gqa if name == "moe-gqa" else smoke_config(name)
         params = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
                             device="cpu")
         reqs = lambda: _requests(cfg.vocab, (6, 11, 3, 9, 5), 6, seed)
-        kw = dict(batch_slots=2, s_max=48, page_size=8, chunk=8,
-                  attn_impl=impl)
+        kw = dict(batch_slots=2, s_max=48, page_size=8, chunk=8)
         ref = PagedServeLoop(params, cfg, device="cpu", **kw)
         rec = []
         for kind in ("_prefill_chunk", "_decode"):
@@ -2947,14 +3288,15 @@ def phase_reference(seed: int = SEED):
         if not worst <= LOGIT_TOL * scale:
             raise AssertionError(f"{name} smoke: card vs CPU logits differ by "
                                  f"{worst} > {LOGIT_TOL} x {scale}")
-        log(f"  {name} smoke: {len(rec)} teacher-forced forwards, card vs "
-            f"CPU max |dlogit| {worst:.3e} (scale {scale:.3f}, tolerance "
-            f"{LOGIT_TOL} x scale)")
+        log(f"  {name} smoke (hd {cfg.kv_head_dim}): {len(rec)} "
+            f"teacher-forced forwards, card vs CPU max |dlogit| {worst:.3e} "
+            f"(scale {scale:.3f}, tolerance {LOGIT_TOL} x scale)")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("all", "kernels"), default="all")
+    ap.add_argument("--only", choices=("all", "kernels", "k12"),
+                    default="all")
     args = ap.parse_args()
 
     import torch
@@ -2968,8 +3310,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(gpu_line())
     t0 = time.perf_counter()
-    logs = _build.build(SOURCES)
-    log(f"build: {' + '.join(n + '.cu' for n in SOURCES)} with nvcc -arch "
+    sources = SOURCES[:2] if args.only == "k12" else SOURCES
+    logs = _build.build(sources)
+    log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
         f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2977,6 +3320,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     phase("lookup GEMM vs plain (int32, must be equal)")
     gemm = phase_gemm(chunk=CHUNK, batch=4, verify=4 * (SPEC_K + 1))
+    if args.only == "k12":
+        phase("flash-decode at the main path's shape")
+        flash = flash_main_timing(torch.Generator(device="cuda").manual_seed(2))
+        log(json.dumps({"k12": {"kernel1_layer_ms": gemm["ms"],
+                                "kernel2_ms": flash["ms"]}}))
+        return 0
     phase_gemm_edges()
     phase_gemm_domain()
     phase("flash-decode vs plain")
@@ -3015,6 +3364,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_families()
+        phase("moe-gqa at deepseek-v3-671b's widths (serve, 11 of 61 layers)")
+        moe = phase_moe()
+        flash["max_abs_err"] = max(flash["max_abs_err"],
+                                   moe["expert_rows"]["flash_max_abs_err"])
+        gemm["expert_stack"] = dict(
+            shape="one MoE layer's wi/wg/wo, 256 experts, M=4",
+            ms=moe["expert_rows"].get(4, {}).get("ms"),
+            bound_ms=moe["expert_rows"].get(4, {}).get("bound_ms"),
+            launches_moe_path=moe["counts"]["tlmac_gemm_fused_expert"],
+            launches_moe_path_all=moe["counts"]["tlmac_gemm_fused"])
         phase("card vs CPU on smoke configs")
         phase_reference()
         phase("paper path (ResNet-18 compile-and-execute)")

@@ -14,7 +14,7 @@ from repro_torch.core.quant.quantizers import QuantConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | vlm | hybrid (attn_local only)
+    family: str                  # dense | vlm | moe | hybrid (attn_local only)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,8 +23,22 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None
     # --- attention ---
-    attn_kind: str = "gqa"       # only 'gqa' is served by this package
+    attn_kind: str = "gqa"       # gqa | mla; only 'gqa' blocks are built
+                                 # (models.lm refuses an MLA block)
     local_window: int = 2048     # attn_local blocks' sliding window
+    # mla dims (deepseek-style latent attention), carried as plain data
+    mla_q_lora: int = 1536
+    mla_kv_lora: int = 512
+    mla_rope_dim: int = 64
+    mla_nope_dim: int = 128
+    mla_v_dim: int = 128
+    # --- moe (models/moe.py) ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_expert: int = 0
+    moe_layer_start: int = 0     # dense layers before MoE starts (DSv3: 3)
+    capacity_factor: float = 1.25
     # --- hybrid: the block pattern of a segment ('attn_local' only) ---
     block_pattern: Tuple[str, ...] = ()
     # --- enc-dec: not served by this package ---
@@ -80,8 +94,6 @@ class ArchConfig:
                                   # (and a JSONL twin at path + 'l')
 
     def __post_init__(self):
-        if self.attn_kind != "gqa":
-            raise ValueError(f"attn_kind {self.attn_kind!r} is not ported")
         if self.n_enc_layers:
             raise ValueError("encoder-decoder configs are not ported")
 
@@ -96,6 +108,7 @@ _ALIASES = {
     "mistral-large-123b": "mistral_large_123b",
     "command-r-35b": "command_r_35b",
     "internvl2-76b": "internvl2_76b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

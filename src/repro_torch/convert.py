@@ -13,10 +13,12 @@ them in f32: every use casts them to bf16 first (``embed_apply``,
 ``logits_apply``), so storing the rounded values keeps every number the
 forward computes, at half the memory.  Every other leaf is mirrored as
 it is: each serve linear's layout (TLMAC plans, ``w8``/``w_step``/
-``a_step`` of int8, bf16 ``w`` of dense, mixed within one tree) and a VLM
+``a_step`` of int8, bf16 ``w`` of dense, mixed within one tree), a MoE
+layer's expert-stacked linears (leaves ``[L, E, ...]``) and a VLM
 config's ``front`` leaf.  Then every TLMAC serve linear gains one derived
 leaf, ``table_narrow`` (``kernels.tlmac_fused.narrow_table`` of its
-table), which the lookup kernel reads.
+table, an expert stack's ``[L, E, n_clus, N_arr, 2^G]`` narrowed as one),
+which the lookup kernel reads.
 """
 
 from __future__ import annotations

@@ -22,7 +22,12 @@
 //     length, so every split of a short and of a long slot has equal work;
 //   - warps own key rows: a row of hd elements is read by hd/8 lanes, each
 //     one 16-byte (bf16), 8-byte (int8) or 4-byte (int4) piece, dequantised
-//     in registers (the scale multiplies the reduced dot product);
+//     in registers (the scale multiplies the reduced dot product).  A head
+//     dim that is not a multiple of 8 (any hd in 1..256, even for int4 as
+//     the reference's codec packs pairs) takes the RAGGED instances: rows
+//     then start at any byte, so each lane copies its piece byte by byte
+//     into the same ring, zero past the row's end, and reads q and writes
+//     the output element by element;
 //   - q . k is a warp-shuffle reduction; the online max and sum per query
 //     head live in registers (warp-uniform), and the warps of a block merge
 //     through shared memory once, at the end of the block's keys;
@@ -97,7 +102,7 @@ __device__ __forceinline__ void unpack8(const uint32_t* w, float (&x)[8]) {
   }
 }
 
-template <int KIND, int REPT>
+template <int KIND, int REPT, bool RAGGED>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const __nv_bfloat16* __restrict__ q,         // [B, KV, rep, hd]
     const uint8_t* __restrict__ k_pages,         // [n_pages, P, KV, row bytes]
@@ -154,10 +159,16 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 #pragma unroll
   for (int r = 0; r < REPT; ++r) {
     const int h = rc * REPT + r;
+    const __nv_bfloat16* qrow = q + (((size_t)b * KV + g) * rep + h) * hd + e0;
     if (lane_on && h < rep) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(q + (((size_t)b * KV + g) * rep + h) * hd + e0);
-      const uint32_t ww[4] = {raw.x, raw.y, raw.z, raw.w};
-      unpack8<0>(ww, qv[r]);
+      if constexpr (RAGGED) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) qv[r][i] = e0 + i < hd ? __bfloat162float(qrow[i]) : 0.f;
+      } else {
+        const uint4 raw = *reinterpret_cast<const uint4*>(qrow);
+        const uint32_t ww[4] = {raw.x, raw.y, raw.z, raw.w};
+        unpack8<0>(ww, qv[r]);
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) qv[r][i] = 0.f;
@@ -182,8 +193,18 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
                                  : __ldg(block_table + (size_t)b * MB + key / P);
       const size_t row = ((size_t)pid * P + (key % P)) * KV + g;
       if (lane_on) {
-        cp_async<EB>(&s_k[w][st][lane][0], k_pages + row * row_bytes + sub * EB);
-        cp_async<EB>(&s_v[w][st][lane][0], v_pages + row * row_bytes + sub * EB);
+        const size_t off = row * row_bytes + sub * EB;
+        if constexpr (RAGGED) {   // the piece's bytes inside the row, then zeros
+          const int nb = row_bytes - sub * EB;
+#pragma unroll
+          for (int j = 0; j < EB; ++j) {
+            s_k[w][st][lane][j] = j < nb ? __ldg(k_pages + off + j) : (uint8_t)0;
+            s_v[w][st][lane][j] = j < nb ? __ldg(v_pages + off + j) : (uint8_t)0;
+          }
+        } else {
+          cp_async<EB>(&s_k[w][st][lane][0], k_pages + off);
+          cp_async<EB>(&s_v[w][st][lane][0], v_pages + off);
+        }
       }
       if (KIND != 0) {   // one scale per row, the same for all its lanes
         ksc[st] = __bfloat162float(k_scales[row]);
@@ -262,7 +283,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 #pragma unroll
     for (int r = 0; r < REPT; ++r)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s_acc[(w * REPT + r) * hd + e0 + i] = acc[r][i];
+      for (int i = 0; i < 8; ++i)
+        if (!RAGGED || e0 + i < hd) s_acc[(w * REPT + r) * hd + e0 + i] = acc[r][i];
   }
   if (lane == 0) {
 #pragma unroll
@@ -326,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   if (tid == 0) tickets[bg] = 0;
 }
 
-template <int KIND, int REPT>
+template <int KIND, int REPT, bool RAGGED>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16* q,
                    const uint8_t* kp, const uint8_t* vp, const __nv_bfloat16* ks,
                    const __nv_bfloat16* vs, const int32_t* bt, const int32_t* ln, float* out,
@@ -334,10 +356,11 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16*
                    int P, int MB, int window, int lpr_log, float scale) {
   if (smem > 32 * 1024) {   // beside up to 16 KB of static ring buffers
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<KIND, REPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_decode_kernel<KIND, REPT, RAGGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
-  flash_decode_kernel<KIND, REPT><<<grid, THREADS, smem, st>>>(
+  flash_decode_kernel<KIND, REPT, RAGGED><<<grid, THREADS, smem, st>>>(
       q, kp, vp, ks, vs, bt, ln, out, ws_acc, ws_ml, tickets, KV, rep, n_rc, hd, P, MB, window,
       lpr_log, scale);
   return cudaGetLastError();
@@ -352,9 +375,14 @@ cudaError_t dispatch_rep(int rept, dim3 grid, size_t smem, cudaStream_t st,
                          int window, int lpr_log, float scale) {
 #define REPRO_FD_ARGS grid, smem, st, q, kp, vp, ks, vs, bt, ln, out, ws_acc, ws_ml, tickets, \
                       KV, rep, n_rc, hd, P, MB, window, lpr_log, scale
-  if (rept == 1) return launch<KIND, 1>(REPRO_FD_ARGS);
-  if (rept == 4) return launch<KIND, 4>(REPRO_FD_ARGS);
-  return launch<KIND, 8>(REPRO_FD_ARGS);
+  if (hd % 8) {
+    if (rept == 1) return launch<KIND, 1, true>(REPRO_FD_ARGS);
+    if (rept == 4) return launch<KIND, 4, true>(REPRO_FD_ARGS);
+    return launch<KIND, 8, true>(REPRO_FD_ARGS);
+  }
+  if (rept == 1) return launch<KIND, 1, false>(REPRO_FD_ARGS);
+  if (rept == 4) return launch<KIND, 4, false>(REPRO_FD_ARGS);
+  return launch<KIND, 8, false>(REPRO_FD_ARGS);
 #undef REPRO_FD_ARGS
 }
 
@@ -364,7 +392,9 @@ cudaError_t dispatch_rep(int rept, dim3 grid, size_t smem, cudaStream_t st,
 // takes ceil(rep / 8) rep chunks).
 extern "C" int flash_decode_rep_tile(int rep) { return rep == 1 ? 1 : (rep <= 4 ? 4 : 8); }
 
-// kind: 0 fp (bf16 pages), 1 int8, 2 int4.  window < 0 means no window.
+// kind: 0 fp (bf16 pages), 1 int8, 2 int4.  hd in 1..256 (even for int4;
+// multiples of 8 take the 16/8/4-byte pieces, others the RAGGED instances).
+// window < 0 means no window.
 // n_splits > 1 needs ws_acc [B*KV*n_rc*n_splits*REPT*hd], ws_ml
 // [B*KV*n_rc*n_splits*REPT*2] f32 and tickets [B*KV*n_rc] int32 holding
 // zeros (the kernel leaves them zero).  Returns cudaGetLastError() after
@@ -375,7 +405,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k_pages, const voi
                                    void* ws_acc, void* ws_ml, void* tickets, int B, int KV,
                                    int rep, int hd, int P, int MB, int n_splits, int window,
                                    int kind, float scale, void* stream) {
-  if (B < 1 || KV < 1 || rep < 1 || hd < 8 || hd > MAX_HD || hd % 8 != 0 || P < 1 ||
+  if (B < 1 || KV < 1 || rep < 1 || hd < 1 || hd > MAX_HD || (kind == 2 && hd % 2) || P < 1 ||
       MB < 1 || n_splits < 1 || n_splits > 65535 || kind < 0 || kind > 2 ||
       (n_splits > 1 && (ws_acc == nullptr || ws_ml == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;

@@ -55,6 +55,19 @@
 // added into a zeroed output with int32 atomics (exact and order-free).
 // Ragged kg and any dp are handled by bounds; G in 1..6 (2^G one-hot entries
 // per group: 64 at G = 6, rows of 64 bytes as int8 and 128 as int16).
+//
+// Expert axis (the reference's jax.vmap over an expert-stacked linear,
+// src/repro/models/nn.py::serve_expert_linear_apply): E experts' operands
+// a [E, M, K], exec_idx [E, n_tiles, kg, dp], step_cluster [E, n_tiles, kg]
+// and table [E, n_clus, N_arr, 2^G] -> out [E, M, N] in one launch.  The
+// grid's z axis runs over (expert, kg slice); a block offsets every operand
+// by its expert's stride and then computes what the single-linear kernel
+// computes.  The expert instances are separate kernels
+// (tlmac_fused_expert_*), so E = 1 launches the same code as before and a
+// profile tells the two apart.  One instance set that always applies the
+// offsets (E = 1: expert 0) ran a codeqwen decode layer's single linears
+// 2-3% slower at M = 4 and 9-12% at M = 20 and 64 on an H100
+// (chip_smoke.py --only k12): the offset pointers then live in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -231,15 +244,41 @@ constexpr int DOT_KC = 16;         // groups per staged step
 
 // TILED: dp > COLS, the grid's x axis runs over (tile, column tile); the
 // serve path's dp <= 128 takes the instance without it (no index division).
-template <int G, typename T, int BM, bool TILED>
-__global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
+// Per-expert operand strides of an expert-stacked launch (elements of a,
+// step_cluster, table and out; bytes of exec_idx) and the kg slices of one
+// expert (the grid's z axis is expert x slice).
+struct ExpertStrides {
+  long long a, idx, cl, tab, out;
+  int zs;
+};
+
+// Sets `zsl` (the block's kg slice) and `split` (whether slices share the
+// output), and moves an expert-stacked launch's operands to the block's
+// expert.
+#define REPRO_EXPERT_SLICE()                                 \
+  int zsl = blockIdx.z;                                      \
+  bool split = gridDim.z > 1;                                \
+  if constexpr (EXPERT) {                                    \
+    const int e = blockIdx.z / es.zs;                        \
+    zsl = blockIdx.z - e * es.zs;                            \
+    split = es.zs > 1;                                       \
+    a += e * es.a;                                           \
+    exec_idx += e * es.idx;                                  \
+    step_cluster += e * es.cl;                               \
+    table += e * es.tab;                                     \
+    out += e * es.out;                                       \
+  }
+
+template <int G, typename T, int BM, bool TILED, bool EXPERT>
+__device__ __forceinline__ void tlmac_fused_dot_body(
     const int8_t* __restrict__ a,             // [M, K]
     const uint8_t* __restrict__ exec_idx,     // [n_tiles, kg, dp] of ib bytes each
     int ib, int vec_idx,
     const int8_t* __restrict__ step_cluster,  // [n_tiles, kg]
     const T* __restrict__ table,              // [n_clus * n_arr, 2^G]
     int32_t* __restrict__ out,                // [M, n_tiles * dp]
-    int M, int K, int kg, int kg_per, int dp, int n_pc, int n_arr, int B_a) {
+    int M, int K, int kg, int kg_per, int dp, int n_pc, int n_arr, int B_a,
+    const ExpertStrides& es) {
   constexpr int C = 1 << G;
   constexpr int CW = C >= 4 ? C / 4 : 1;      // coef words per (m, kg)
   constexpr int RB = C * (int)sizeof(T);      // row bytes
@@ -259,7 +298,8 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
   const int m0 = blockIdx.y * BM;
   const int p = threadIdx.x;
   const size_t N = (size_t)(TILED ? gridDim.x / n_pc : gridDim.x) * dp;
-  const int k_beg = blockIdx.z * kg_per;
+  REPRO_EXPERT_SLICE();
+  const int k_beg = zsl * kg_per;
   const int k_end = min(kg, k_beg + kg_per);
   const uint8_t* idx_tile = exec_idx + ((size_t)nt * kg * dp + c0) * ib;
   const int8_t* cl_tile = step_cluster + (size_t)nt * kg;
@@ -347,11 +387,28 @@ __global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(
     __syncthreads();   // s_coef, s_clbase and s_idx[buf] are consumed
   }
   if (p >= dpb) return;
-  const bool atomic = gridDim.z > 1;
 #pragma unroll
   for (int m = 0; m < BM; ++m)
     if (m0 + m < M)
-      store_out(out + (size_t)(m0 + m) * N + (size_t)nt * dp + c0 + p, acc[m], atomic);
+      store_out(out + (size_t)(m0 + m) * N + (size_t)nt * dp + c0 + p, acc[m], split);
+}
+
+#define REPRO_DOT_PARAMS                                                                   \
+  const int8_t *__restrict__ a, const uint8_t *__restrict__ exec_idx, int ib, int vec_idx, \
+      const int8_t *__restrict__ step_cluster, const T *__restrict__ table,                \
+      int32_t *__restrict__ out, int M, int K, int kg, int kg_per, int dp, int n_pc,       \
+      int n_arr, int B_a, ExpertStrides es
+#define REPRO_DOT_ARGS \
+  a, exec_idx, ib, vec_idx, step_cluster, table, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a, es
+
+template <int G, typename T, int BM, bool TILED>
+__global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_dot_kernel(REPRO_DOT_PARAMS) {
+  tlmac_fused_dot_body<G, T, BM, TILED, false>(REPRO_DOT_ARGS);
+}
+
+template <int G, typename T, int BM, bool TILED>
+__global__ void __launch_bounds__(DOT_THREADS) tlmac_fused_expert_dot_kernel(REPRO_DOT_PARAMS) {
+  tlmac_fused_dot_body<G, T, BM, TILED, true>(REPRO_DOT_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,12 +421,12 @@ constexpr int MMA_LD = MMA_KB + 16;  // smem row stride: conflict-free fragments
 
 // WN = 1: 8 warps over 8 m16 tiles, each all n8 tiles of dp <= 64.
 // WN = 2: 4 m16 tiles x 2 column halves of a 128-column tile of dp.
-template <int G, int WN, bool TILED>
-__global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
+template <int G, int WN, bool TILED, bool EXPERT>
+__device__ __forceinline__ void tlmac_fused_mma_body(
     const int8_t* __restrict__ a, const uint8_t* __restrict__ exec_idx, int ib,
     const int8_t* __restrict__ step_cluster, const int8_t* __restrict__ table,
     int32_t* __restrict__ out, int M, int K, int kg, int kg_per, int dp, int n_pc, int n_arr,
-    int B_a) {
+    int B_a, const ExpertStrides& es) {
   constexpr int C = 1 << G;
   constexpr int CW = C >= 4 ? C / 4 : 1;
   constexpr int KC = MMA_KB / C;    // groups per step
@@ -392,7 +449,8 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
   const int wn = WN == 1 ? 0 : (warp >> 2);
   const int nt8 = (dpb + 7) / 8;
   const size_t N = (size_t)(TILED ? gridDim.x / n_pc : gridDim.x) * dp;
-  const int k_beg = blockIdx.z * kg_per;
+  REPRO_EXPERT_SLICE();
+  const int k_beg = zsl * kg_per;
   const int k_end = min(kg, k_beg + kg_per);
   const uint8_t* idx_tile = exec_idx + (size_t)nt * kg * dp * ib;
   const int8_t* cl_tile = step_cluster + (size_t)nt * kg;
@@ -458,7 +516,6 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
     }
     __syncthreads();
   }
-  const bool atomic = gridDim.z > 1;
   const int r0 = m0 + wm * 16 + grp;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -469,9 +526,27 @@ __global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(
       const int row = r0 + (e >> 1) * 8;
       const int col = n8 * 8 + tig * 2 + (e & 1);
       if (row < M && col < dpb)
-        store_out(out + (size_t)row * N + (size_t)nt * dp + c0 + col, acc[j][e], atomic);
+        store_out(out + (size_t)row * N + (size_t)nt * dp + c0 + col, acc[j][e], split);
     }
   }
+}
+
+#define REPRO_MMA_PARAMS                                                            \
+  const int8_t *__restrict__ a, const uint8_t *__restrict__ exec_idx, int ib,       \
+      const int8_t *__restrict__ step_cluster, const int8_t *__restrict__ table,    \
+      int32_t *__restrict__ out, int M, int K, int kg, int kg_per, int dp, int n_pc, \
+      int n_arr, int B_a, ExpertStrides es
+#define REPRO_MMA_ARGS \
+  a, exec_idx, ib, step_cluster, table, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a, es
+
+template <int G, int WN, bool TILED>
+__global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_mma_kernel(REPRO_MMA_PARAMS) {
+  tlmac_fused_mma_body<G, WN, TILED, false>(REPRO_MMA_ARGS);
+}
+
+template <int G, int WN, bool TILED>
+__global__ void __launch_bounds__(MMA_THREADS) tlmac_fused_expert_mma_kernel(REPRO_MMA_PARAMS) {
+  tlmac_fused_mma_body<G, WN, TILED, true>(REPRO_MMA_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -507,63 +582,98 @@ cudaError_t zero_if(bool split, int32_t* out, size_t n, cudaStream_t s) {
   return split ? cudaMemsetAsync(out, 0, n * sizeof(int32_t), s) : cudaSuccess;
 }
 
+// The launch geometry shared by both kernels: E experts of n_tiles x n_pc
+// column tiles x m_blocks, kg split into z slices per expert (the grid's z
+// axis is E x z, at most 65535).  Zeroes the output when slices share it.
+struct Geometry {
+  dim3 grid;
+  int kg_per;
+  ExpertStrides es;
+  cudaError_t err;
+};
+
+Geometry geometry(int E, int n_tiles, int n_pc, int m_blocks, int kg, int kc, int M, int K,
+                  int dp, int ib, int n_clus, int n_arr, int C, int32_t* out, cudaStream_t s) {
+  Geometry g{};
+  const int z = kg_slices(kg, kc, n_tiles * n_pc * m_blocks * E, 4 * sm_count(), &g.kg_per);
+  if ((long long)z * E > 65535) {
+    g.err = cudaErrorInvalidValue;
+    return g;
+  }
+  g.grid = dim3(n_tiles * n_pc, m_blocks, z * E);
+  g.es = ExpertStrides{(long long)M * K, (long long)n_tiles * kg * dp * ib,
+                       (long long)n_tiles * kg, (long long)n_clus * n_arr * C,
+                       (long long)M * n_tiles * dp, z};
+  g.err = zero_if(z > 1, out, (size_t)E * M * n_tiles * dp, s);
+  return g;
+}
+
 template <int G, typename T, int BM>
 cudaError_t launch_dot(const int8_t* a, const uint8_t* idx, int ib, const int8_t* cl,
                        const void* table, int32_t* out, int M, int K, int n_tiles, int kg,
-                       int dp, int n_arr, int B_a, cudaStream_t s) {
+                       int dp, int n_clus, int n_arr, int B_a, int E, cudaStream_t s) {
   const int m_blocks = (M + BM - 1) / BM;
   const int n_pc = (dp + COLS - 1) / COLS;
-  int kg_per = 0;
-  const int z = kg_slices(kg, DOT_KC, n_tiles * n_pc * m_blocks, 4 * sm_count(), &kg_per);
-  const cudaError_t e = zero_if(z > 1, out, (size_t)M * n_tiles * dp, s);
-  if (e != cudaSuccess) return e;
+  const Geometry g =
+      geometry(E, n_tiles, n_pc, m_blocks, kg, DOT_KC, M, K, dp, ib, n_clus, n_arr, 1 << G, out, s);
+  if (g.err != cudaSuccess) return g.err;
   // 16-byte cp.async of the index rows needs every step's row, and every
-  // column tile's part of it, aligned
+  // column tile's part of it, aligned (an expert's indices start on a row)
   const int vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 && (dp * ib) % 16 == 0 &&
                   ((dp % COLS) * ib) % 16 == 0;
-  const dim3 grid(n_tiles * n_pc, m_blocks, z);
   const T* tab = static_cast<const T*>(table);
-  if (n_pc > 1)
-    tlmac_fused_dot_kernel<G, T, BM, true><<<grid, DOT_THREADS, 0, s>>>(
-        a, idx, ib, vec, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
-  else
-    tlmac_fused_dot_kernel<G, T, BM, false><<<grid, DOT_THREADS, 0, s>>>(
-        a, idx, ib, vec, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
+#define REPRO_LAUNCH(KERNEL, TILED)                                                     \
+  KERNEL<G, T, BM, TILED><<<g.grid, DOT_THREADS, 0, s>>>(a, idx, ib, vec, cl, tab, out, M, K, \
+                                                         kg, g.kg_per, dp, n_pc, n_arr, B_a, g.es)
+  if (E > 1) {
+    if (n_pc > 1)
+      REPRO_LAUNCH(tlmac_fused_expert_dot_kernel, true);
+    else
+      REPRO_LAUNCH(tlmac_fused_expert_dot_kernel, false);
+  } else if (n_pc > 1) {
+    REPRO_LAUNCH(tlmac_fused_dot_kernel, true);
+  } else {
+    REPRO_LAUNCH(tlmac_fused_dot_kernel, false);
+  }
+#undef REPRO_LAUNCH
   return cudaGetLastError();
 }
 
 template <int G, int WN>
 cudaError_t launch_mma(const int8_t* a, const uint8_t* idx, int ib, const int8_t* cl,
                        const void* table, int32_t* out, int M, int K, int n_tiles, int kg,
-                       int dp, int n_arr, int B_a, cudaStream_t s) {
+                       int dp, int n_clus, int n_arr, int B_a, int E, cudaStream_t s) {
   constexpr int BM = 128 / WN;
   const int m_blocks = (M + BM - 1) / BM;
   const int n_pc = (dp + 64 * WN - 1) / (64 * WN);
-  int kg_per = 0;
-  const int z =
-      kg_slices(kg, MMA_KB >> G, n_tiles * n_pc * m_blocks, 4 * sm_count(), &kg_per);
-  const cudaError_t e = zero_if(z > 1, out, (size_t)M * n_tiles * dp, s);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(n_tiles * n_pc, m_blocks, z);
+  const Geometry g = geometry(E, n_tiles, n_pc, m_blocks, kg, MMA_KB >> G, M, K, dp, ib, n_clus,
+                              n_arr, 1 << G, out, s);
+  if (g.err != cudaSuccess) return g.err;
   const int8_t* tab = static_cast<const int8_t*>(table);
+#define REPRO_LAUNCH(KERNEL, TILED)                                                      \
+  KERNEL<G, WN, TILED><<<g.grid, MMA_THREADS, 0, s>>>(a, idx, ib, cl, tab, out, M, K, kg, \
+                                                      g.kg_per, dp, n_pc, n_arr, B_a, g.es)
   // WN = 1 takes dp <= 64 only (dispatch), so it never tiles
-  if constexpr (WN > 1) {
-    if (n_pc > 1) {
-      tlmac_fused_mma_kernel<G, WN, true><<<grid, MMA_THREADS, 0, s>>>(
-          a, idx, ib, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
-      return cudaGetLastError();
-    }
+  const bool tiled = WN > 1 && n_pc > 1;
+  if (E > 1) {
+    if (tiled)
+      REPRO_LAUNCH(tlmac_fused_expert_mma_kernel, (WN > 1));
+    else
+      REPRO_LAUNCH(tlmac_fused_expert_mma_kernel, false);
+  } else if (tiled) {
+    REPRO_LAUNCH(tlmac_fused_mma_kernel, (WN > 1));
+  } else {
+    REPRO_LAUNCH(tlmac_fused_mma_kernel, false);
   }
-  tlmac_fused_mma_kernel<G, WN, false><<<grid, MMA_THREADS, 0, s>>>(
-      a, idx, ib, cl, tab, out, M, K, kg, kg_per, dp, n_pc, n_arr, B_a);
+#undef REPRO_LAUNCH
   return cudaGetLastError();
 }
 
 template <int G>
 cudaError_t dispatch(const int8_t* a, const uint8_t* idx, int ib, const int8_t* cl,
                      const void* table, int tb, int32_t* out, int M, int K, int n_tiles,
-                     int kg, int dp, int n_arr, int B_a, cudaStream_t s) {
-#define REPRO_ARGS a, idx, ib, cl, table, out, M, K, n_tiles, kg, dp, n_arr, B_a, s
+                     int kg, int dp, int n_clus, int n_arr, int B_a, int E, cudaStream_t s) {
+#define REPRO_ARGS a, idx, ib, cl, table, out, M, K, n_tiles, kg, dp, n_clus, n_arr, B_a, E, s
   if (tb == 2) return launch_dot<G, int16_t, 16>(REPRO_ARGS);
   if (M <= 4) return launch_dot<G, int8_t, 4>(REPRO_ARGS);
   if (M <= 8) return launch_dot<G, int8_t, 8>(REPRO_ARGS);
@@ -576,28 +686,35 @@ cudaError_t dispatch(const int8_t* a, const uint8_t* idx, int ib, const int8_t* 
 }  // namespace
 
 // idx_bytes: 1 = uint8 exec_idx, 2 = int16; table_bytes: 1 = int8 rows,
-// 2 = int16 rows.  Returns cudaGetLastError() after the launch
+// 2 = int16 rows.  E > 1 stacks E experts: a [E, M, K], exec_idx [E, n_tiles,
+// kg, dp], step_cluster [E, n_tiles, kg], table [E, n_clus, n_arr, 2^G] and
+// out [E, M, N], contiguous.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int tlmac_fused_launch(const void* a, const void* exec_idx, int idx_bytes,
                                   const void* step_cluster, const void* table,
                                   int table_bytes, void* out, int M, int K, int n_tiles,
-                                  int kg, int dp, int n_arr, int B_a, int G, void* stream) {
+                                  int kg, int dp, int n_clus, int n_arr, int B_a, int G, int E,
+                                  void* stream) {
   if (M < 1 || B_a < 1 || B_a > 8 || G < 1 || G > 6 || K != kg * G || kg < 1 || dp < 1 ||
       n_tiles < 1 || (long long)n_tiles * (dp + COLS - 1) > 2147483647LL ||
       (idx_bytes != 1 && idx_bytes != 2) || (table_bytes != 1 && table_bytes != 2) ||
-      (M + 15) / 16 > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+      (M + 15) / 16 > 65535 || reinterpret_cast<uintptr_t>(table) % 16 != 0 || E < 1 ||
+      E > 65535 || n_clus < 1)
     return (int)cudaErrorInvalidValue;
   const int8_t* a8 = static_cast<const int8_t*>(a);
   const uint8_t* ix = static_cast<const uint8_t*>(exec_idx);
   const int8_t* cl = static_cast<const int8_t*>(step_cluster);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_ARGS a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_clus, \
+                   n_arr, B_a, E, s
   switch (G) {
-    case 1: return (int)dispatch<1>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    case 2: return (int)dispatch<2>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    case 3: return (int)dispatch<3>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    case 4: return (int)dispatch<4>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    case 5: return (int)dispatch<5>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
-    default: return (int)dispatch<6>(a8, ix, idx_bytes, cl, table, table_bytes, o, M, K, n_tiles, kg, dp, n_arr, B_a, s);
+    case 1: return (int)dispatch<1>(REPRO_ARGS);
+    case 2: return (int)dispatch<2>(REPRO_ARGS);
+    case 3: return (int)dispatch<3>(REPRO_ARGS);
+    case 4: return (int)dispatch<4>(REPRO_ARGS);
+    case 5: return (int)dispatch<5>(REPRO_ARGS);
+    default: return (int)dispatch<6>(REPRO_ARGS);
   }
+#undef REPRO_ARGS
 }

@@ -121,6 +121,9 @@ def _check_args(q, k_pages, v_pages, block_table, lengths, k_scales,
     if q.dim() != 4:
         raise ValueError(f"q must be [B, KV, rep, hd], got {tuple(q.shape)}")
     B, KV, rep, hd = q.shape
+    if kv_dtype == "int4" and hd % 2:
+        raise ValueError(f"int4 pools pack two codes a byte: the head dim "
+                         f"must be even, got {hd}")
     hdc = hd // 2 if kv_dtype == "int4" else hd
     if (k_pages.dim() != 4 or k_pages.shape[2:] != (KV, hdc)
             or v_pages.shape != k_pages.shape):
@@ -145,6 +148,34 @@ def _check_args(q, k_pages, v_pages, block_table, lengths, k_scales,
         raise ValueError(f"lengths must be [{B}], got {tuple(lengths.shape)}")
 
 
+def check_kernel_operands(q, k_pages, v_pages, block_table, lengths,
+                          k_scales=None, v_scales=None, kv_dtype="fp"):
+    """What the kernel takes beyond the function's domain (``_check_args``):
+    a bf16 query, any head dim in 1..256 (multiples of 8 read 16/8/4-byte
+    pieces from 16-byte aligned rows, others byte by byte), int32 block
+    table and lengths, contiguous operands on one device.  Raises
+    ValueError otherwise."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the kernel takes a bf16 query, got {q.dtype}")
+    if not 1 <= q.shape[-1] <= 256:
+        raise ValueError(f"the kernel takes head dims 1..256, got "
+                         f"{q.shape[-1]}")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("block_table and lengths must be int32")
+    ops = [q, k_pages, v_pages, block_table, lengths]
+    if kv_dtype != "fp":
+        ops += [k_scales, v_scales]
+    for t in ops:
+        if not t.is_contiguous():
+            raise ValueError("flash_decode operands must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"operands on several devices: {t.device}")
+    if q.shape[-1] % 8 == 0:     # ragged head dims are read byte by byte
+        for t in (q, k_pages, v_pages):
+            if t.data_ptr() % 16:
+                raise ValueError("q and the pools must start 16-byte aligned")
+
+
 def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
                  window: Optional[int] = None, n_splits: int = 4,
                  k_scales=None, v_scales=None,
@@ -163,24 +194,8 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
         return combine_splits(*parts)
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes a bf16 query, got {q.dtype}")
-    if q.shape[-1] % 8 or not 8 <= q.shape[-1] <= 256:
-        raise ValueError(f"the kernel takes head dims 8..256 in steps of 8, "
-                         f"got {q.shape[-1]}")
-    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("block_table and lengths must be int32")
-    ops = [q, k_pages, v_pages, block_table, lengths]
-    if kv_dtype != "fp":
-        ops += [k_scales, v_scales]
-    for t in ops:
-        if not t.is_contiguous():
-            raise ValueError("flash_decode operands must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"operands on several devices: {t.device}")
-    for t in (q, k_pages, v_pages):
-        if t.data_ptr() % 16:
-            raise ValueError("q and the pools must start 16-byte aligned")
+    check_kernel_operands(q, k_pages, v_pages, block_table, lengths,
+                          k_scales, v_scales, kv_dtype)
     B, KV, rep, hd = q.shape
     P, MB = k_pages.shape[1], block_table.shape[1]
     S = max(1, int(n_splits))

@@ -60,7 +60,8 @@ def tlmac_matmul(a_codes, table, exec_idx, step_cluster, *, B_a: int,
     reads them in their stored dtypes (uint8/int16, int8) and shape
     ``[n_tiles, kg, D_p]``.  On the card both kernels read a table
     narrowed once by ``tlmac_fused.narrow_table`` (int8/int16 rows) and
-    refuse an int32 one; ``'pallas'`` (bit-plane pack + the lookup GEMM
+    refuse an int32 one; ``'fused'`` also takes an expert stack (a
+    leading E on every operand, int32 ``[E, M, N]`` from one launch); ``'pallas'`` (bit-plane pack + the lookup GEMM
     on packed codes) takes N_arr from ``table.shape[1]``, so the narrow
     table serves it unchanged; ``codes=`` passes planes packed once for
     several row GEMMs."""
@@ -70,7 +71,7 @@ def tlmac_matmul(a_codes, table, exec_idx, step_cluster, *, B_a: int,
     if impl == "fused":
         out = tlmac_gemm_fused(a_codes, exec_idx, step_cluster, table,
                                B_a=B_a, G=G)
-        if out.shape[1] != N:
+        if out.shape[-1] != N:
             raise ValueError(f"plan covers {out.shape[1]} outputs, not {N}")
         return out
     if impl == "pallas":

@@ -1,8 +1,8 @@
 """LM backbone of the serve path (port of the serve subset of
-``repro.models.lm`` for GQA ``attn`` and sliding-window ``attn_local``
-blocks): the paged forwards of ``serve.paged.PagedServeLoop`` and the
-dense-cache forwards (``prefill``, ``decode_step``) of the oracle loop
-``serve.loop.ServeLoop``.
+``repro.models.lm`` for GQA ``attn``, sliding-window ``attn_local`` and
+MoE ``attn_moe`` blocks): the paged forwards of
+``serve.paged.PagedServeLoop`` and the dense-cache forwards (``prefill``,
+``decode_step``) of the oracle loop ``serve.loop.ServeLoop``.
 
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
 loop over layers replaces ``_segment_scan_cached``.  Differences from
@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.quant import quantizers as Q
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
-from repro_torch.models import nn
+from repro_torch.models import moe, nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +47,22 @@ class Segment:
 
 def segments_for(cfg) -> List[Segment]:
     """The reference's segments for the families this package serves:
-    ``dense``/``vlm`` one segment of ``attn`` blocks; ``hybrid`` its
-    ``block_pattern`` repeated, the remainder a trailing partial segment
-    (only ``attn``/``attn_local`` blocks are ported: ``init_block``
-    refuses the others)."""
+    ``dense``/``vlm`` one segment of ``attn`` blocks; ``moe`` a segment of
+    ``moe_layer_start`` ``attn`` blocks, then one of ``attn_moe`` blocks;
+    ``hybrid`` its ``block_pattern`` repeated, the remainder a trailing
+    partial segment (only ``attn``/``attn_local`` blocks are ported:
+    ``init_block`` refuses the others).  Every block is GQA: a config of
+    another ``attn_kind`` (MLA) is refused here."""
+    if cfg.attn_kind != "gqa":
+        raise ValueError(f"attn_kind {cfg.attn_kind!r} is not ported (GQA "
+                         "blocks only)")
     L = cfg.n_layers
+    if cfg.family == "moe":
+        segs = []
+        if cfg.moe_layer_start:
+            segs.append(Segment(("attn",), cfg.moe_layer_start))
+        segs.append(Segment(("attn_moe",), L - cfg.moe_layer_start))
+        return segs
     if cfg.family == "hybrid":
         pat = cfg.block_pattern or ("rglru", "rglru", "attn_local")
         segs = [Segment(tuple(pat), L // len(pat))]
@@ -65,12 +76,14 @@ def segments_for(cfg) -> List[Segment]:
 
 
 # Block kinds whose serve cache lives in a paged pool.
-PAGED_KINDS = ("attn", "attn_local")
+PAGED_KINDS = ("attn", "attn_moe", "attn_local")
 
 
 def supports_paged(cfg) -> bool:
     """True when every block's serve cache can be paged (the paged serve
-    loop's admission precondition)."""
+    loop's admission precondition); False for MLA, as the reference."""
+    if cfg.attn_kind == "mla":
+        return False
     return all(kind in PAGED_KINDS
                for seg in segments_for(cfg) for kind in seg.pattern)
 
@@ -104,17 +117,23 @@ def ffn_apply(params, x, cfg, apply_fn):
 def init_block(gen, kind: str, cfg, device="cuda"):
     if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
-    return {
+    p = {
         "norm1": nn.init_rmsnorm(cfg.d_model, device),
         "attn": attn.init_gqa(gen, cfg, device),
         "norm2": nn.init_rmsnorm(cfg.d_model, device),
-        "ffn": init_ffn(gen, cfg, device),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe.init_moe(gen, cfg, device)
+    else:
+        p["ffn"] = init_ffn(gen, cfg, device)
+    return p
 
 
 def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                 decode: bool = False, paged_ctx=None):
-    """One ``attn``/``attn_local`` block; returns ``(x, cache)``.
+    """One ``attn``/``attn_local``/``attn_moe`` block; returns ``(x,
+    cache)`` (an ``attn_moe`` block's aux loss is dropped, as serve drops
+    it).
 
     ``paged_ctx`` routes attention through the layer's paged pool
     ``cache``: ``{'block_table', 'positions', 'n_writes'}`` for a verify
@@ -160,7 +179,11 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     s = x.float() + y
     x = s.to(x.dtype)
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
-    return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), cache
+    if kind == "attn_moe":
+        y, _ = moe.moe_apply(params["moe"], hf, cfg, apply_fn=apply_fn)
+    else:
+        y = ffn_apply(params["ffn"], hf, cfg, apply_fn)
+    return x + y, cache
 
 
 def _store_prefill(kind: str, cache, kv) -> None:

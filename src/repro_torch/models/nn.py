@@ -1,6 +1,6 @@
 """NN primitives of the serve path (port of the serve subset of
-``repro.models.nn``): serve linears (dense, int8 and TLMAC layouts),
-norms, embeddings, rotary.
+``repro.models.nn``): serve linears (dense, int8 and TLMAC layouts) and
+their expert-stacked form, norms, embeddings, rotary.
 
 Parameters travel as nested dicts of tensors, like the JAX pytrees;
 ``ParamTree`` holds such a tree as an ``nn.Module`` (float leaves are
@@ -99,7 +99,8 @@ def _pick_dp(N: int, want: int) -> int:
 
 
 def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
-                      use_bias: bool = False, device="cuda") -> dict:
+                      use_bias: bool = False, device="cuda",
+                      expert: int = 0) -> dict:
     """Serve-linear params of ``cfg.serve_impl``, drawn from ``gen``
     (which must live on ``device``):
 
@@ -109,17 +110,37 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
     - ``tlmac``: the plan's capacity shapes: int32 tables, uint8
       (N_arr <= 256) or int16 indices, int8 step clusters, and the
       table's narrow rows (``table_narrow``) that the lookup kernel
-      reads."""
+      reads.
+
+    ``expert > 0`` stacks E experts: every leaf gains a leading E (the
+    reference's expert-stacked linear).  Each leaf is allocated once in
+    its stored dtype and drawn expert by expert, so no draw holds a wider
+    copy of it (an int64 draw of one deepseek MoE layer's indices alone
+    would be 22.5 GB)."""
     impl = cfg.serve_impl
     kw = dict(generator=gen, device=device)
+    e = (expert,) if expert else ()
+
+    def draw(shape, dtype, fill):
+        """A leaf ``[*e, *shape]`` of ``dtype``, each expert's slice
+        filled by ``fill(slice)`` in turn."""
+        out = torch.empty((*e, *shape), dtype=dtype, device=device)
+        for part in (out.unbind(0) if expert else (out,)):
+            fill(part)
+        return out
+
+    ones = lambda *shape: torch.ones((*e, *shape), dtype=torch.float32,
+                                     device=device)
     if impl == "dense":     # drawn in bf16: no f32 copy at init
-        w = torch.randn((K, N), dtype=torch.bfloat16, **kw)
-        p = {"w": w.mul_(1.0 / math.sqrt(K))}
+        p = {"w": draw((K, N), torch.bfloat16,
+                       lambda t: t.normal_(generator=gen).mul_(
+                           1.0 / math.sqrt(K)))}
     elif impl == "int8":
         p = {
-            "w8": torch.randint(-127, 127, (K, N), dtype=torch.int8, **kw),
-            "w_step": torch.ones(N, dtype=torch.float32, device=device),
-            "a_step": torch.ones((), dtype=torch.float32, device=device),
+            "w8": draw((K, N), torch.int8,
+                       lambda t: t.random_(-127, 127, generator=gen)),
+            "w_step": ones(N),
+            "a_step": ones(),
         }
     elif impl == "tlmac":
         G, dp = cfg.tlmac_G, _pick_dp(N, cfg.tlmac_dp)
@@ -128,20 +149,22 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
         n_tiles, kg = N // dp, K // G
         idx_dtype = torch.uint8 if ps["N_arr"] <= 256 else torch.int16
         p = {
-            "table": torch.randint(-8, 8, ps["table"][0], dtype=torch.int32,
-                                   **kw),
-            "exec_idx": torch.randint(0, ps["N_arr"], (n_tiles, kg, dp),
-                                      dtype=idx_dtype, **kw),
-            "step_cluster": torch.randint(0, ps["N_clus"], (n_tiles, kg),
-                                          dtype=torch.int8, **kw),
-            "w_step": torch.ones(N, dtype=torch.float32, device=device),
-            "a_step": torch.ones((), dtype=torch.float32, device=device),
+            "table": draw(ps["table"][0], torch.int32,
+                          lambda t: t.random_(-8, 8, generator=gen)),
+            "exec_idx": draw((n_tiles, kg, dp), idx_dtype,
+                             lambda t: t.random_(0, ps["N_arr"],
+                                                 generator=gen)),
+            "step_cluster": draw((n_tiles, kg), torch.int8,
+                                 lambda t: t.random_(0, ps["N_clus"],
+                                                     generator=gen)),
+            "w_step": ones(N),
+            "a_step": ones(),
         }
         p["table_narrow"] = narrow_table(p["table"])
     else:
         raise ValueError(f"serve_impl {impl!r} not in dense | int8 | tlmac")
     if use_bias:
-        p["b"] = torch.zeros(N, dtype=torch.bfloat16, device=device)
+        p["b"] = torch.zeros((*e, N), dtype=torch.bfloat16, device=device)
     return p
 
 
@@ -251,6 +274,59 @@ def serve_linear_pair_apply(p1, p2, x, cfg):
 
 
 serve_linear_apply.pair_apply = serve_linear_pair_apply
+
+
+def serve_expert_linear_apply(params, xe, cfg):
+    """Serve-path expert linear: every leaf of ``params`` has a leading E;
+    ``xe [G, E, cap, K] -> [G, E, cap, N]``, each expert's ``G * cap`` rows
+    through its own linear (the reference's ``jax.vmap`` over experts):
+
+    - tlmac: each expert's codes on its own ``a_step``, then ONE launch of
+      the lookup kernel over the expert stack (kernel 1's expert axis),
+      dequantised as the dense path does, ``yi * (a_step * w_step)`` in
+      f32 to bf16 (the reference's fused N-tile GEMM rounds each finished
+      tile so);
+    - int8: each expert's exact int8 x int8 -> int32 product, dequantised
+      in f32 to bf16 (on the CPU one batched int32 product; refused on the
+      card, which has no one-launch expert-stacked int8 product: cuBLASLt
+      has no batched int8 GEMM, and a launch per expert is not taken);
+    - dense: the bf16 product summed in f32 (one batched matmul)."""
+    G, E, cap, K = xe.shape
+    x = xe.transpose(0, 1).reshape(E, G * cap, K)
+    impl = layout(params)
+    if impl == "tlmac":
+        a_step = params["a_step"].reshape(E, 1, 1)
+        aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
+                         0, 2**cfg.quant.a_bits - 1).to(
+            torch.int8).contiguous()
+        n_tiles, kg, dp = params["exec_idx"].shape[-3:]
+        table = params.get("table_narrow", params["table"])
+        yi = kops.tlmac_matmul(aq, table, params["exec_idx"],
+                               params["step_cluster"], B_a=cfg.quant.a_bits,
+                               G=cfg.tlmac_G, N=n_tiles * dp, impl="fused")
+        y = (yi.to(torch.float32)
+             * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
+    elif impl == "int8":
+        a_step = params["a_step"].reshape(E, 1, 1)
+        aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
+                         -127, 127).to(torch.int8)
+        if aq.device.type != "cpu":
+            raise NotImplementedError(
+                f"int8 expert-stacked linears have no one-launch product on "
+                f"{aq.device.type} (a launch per expert is not taken); serve "
+                f"a MoE config's experts in the tlmac or dense layout")
+        yi = torch.matmul(aq.to(torch.int32), params["w8"].to(torch.int32))
+        y = (yi.to(torch.float32)
+             * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
+    else:
+        w = params["w"]
+        xb = x.to(COMPUTE_DTYPE)
+        if xb.device.type == "cuda":
+            y = torch.matmul(xb, w)
+        else:     # XLA's CPU dot: f32 products and sums of bf16 operands
+            y = torch.matmul(xb.float(), w.float()).to(COMPUTE_DTYPE)
+    N = y.shape[-1]
+    return y.reshape(E, G, cap, N).transpose(0, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -114,8 +114,11 @@ __all__ = ["AdmissionError", "CancelledError", "DeadlineExceededError",
            "PoolExhaustedError", "QuotaExceededError", "PageManager",
            "PagedServeLoop"]
 
-# the kernels whose Python launch counters a captured graph records
-_COUNTED = {"tlmac_gemm_fused": _tf, "flash_decode": _fd}
+# the launch counters a captured graph records: name -> (module, counter);
+# kernel 1's expert-stack launches are also in its total
+_COUNTED = {"tlmac_gemm_fused": (_tf, "launches"),
+            "tlmac_gemm_fused_expert": (_tf, "expert_launches"),
+            "flash_decode": (_fd, "launches")}
 # one warm-up and capture stream per device, shared by every loop's
 # forwards: cuBLAS keeps a workspace for each stream it has run on, so a
 # stream per capture would hold one more workspace for every graph built
@@ -280,14 +283,14 @@ class FixedShapeForward:
         cur.wait_stream(side)
         torch.cuda.synchronize(dev)
         self.eager += 1
-        before = {k: m.launches for k, m in _COUNTED.items()}
+        before = {k: getattr(m, a) for k, (m, a) in _COUNTED.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=side):
             out = self.fn(*static)
         g = {"graph": graph, "static": static, "host": host, "out": out,
              "ready": torch.cuda.Event(),
-             "launches": {k: m.launches - before[k]
-                          for k, m in _COUNTED.items()}}
+             "launches": {k: getattr(m, a) - before[k]
+                          for k, (m, a) in _COUNTED.items()}}
         g["ready"].record(cur)
         self.graphs[key] = g
         return g

@@ -49,6 +49,13 @@ FAMILIES = {
         family="hybrid", block_pattern=("attn_local",), local_window=24,
         name="cq-window-local")),
 }
+# the oracle matrix's MoE family (deepseek's MLA swapped for GQA, which
+# pages); kept apart from FAMILIES: its paged outputs differ from the
+# dense oracle's through capacity drops, the reference's behaviour
+MOE_FAMILIES = {
+    "moe-gqa": ("deepseek-v3-671b", dict(attn_kind="gqa",
+                                         name="ds-moe-gqa")),
+}
 NEW_FAMILIES = ["minicpm-gqa", "command-r-gqa-r4", "internvl2-vlm",
                 "window-local"]
 LAYOUTS = ["tlmac", "int8", "dense", "mixed"]
@@ -63,7 +70,7 @@ torch.set_num_threads(1)
 
 
 def cfgs(family, impl="tlmac", kv="fp", **kw):
-    arch, over = FAMILIES[family]
+    arch, over = FAMILIES.get(family) or MOE_FAMILIES[family]
     over = dict(over, serve_impl=impl, serve_kv_dtype=kv, **kw)
     return (dataclasses.replace(jsmoke(arch), **over),
             dataclasses.replace(tsmoke(arch), **over))
@@ -81,6 +88,25 @@ def _calibrate_int8(tree):
         return {k: _calibrate_int8(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_calibrate_int8(v) for v in tree]
+    return tree
+
+
+TLMAC_A_STEP, TLMAC_W_STEP = 0.37, 0.05   # calibrated lookup-linear steps
+
+
+def calibrate_tlmac(tree):
+    """Give every lookup linear of a JAX param tree an ``a_step`` of
+    ``TLMAC_A_STEP`` and a ``w_step`` of ``TLMAC_W_STEP`` (the init's
+    steps of 1 keep every linear's output on integers, where a bf16
+    rounding of a product seldom moves the next quantiser's codes)."""
+    if isinstance(tree, dict):
+        if "table" in tree:
+            return dict(tree,
+                        a_step=jnp.full_like(tree["a_step"], TLMAC_A_STEP),
+                        w_step=jnp.full_like(tree["w_step"], TLMAC_W_STEP))
+        return {k: calibrate_tlmac(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [calibrate_tlmac(v) for v in tree]
     return tree
 
 
@@ -102,15 +128,19 @@ def jax_params(jcfg, layout):
     return _calibrate_int8(p)
 
 
-def model(family, layout="tlmac", kv="fp", **kw):
-    """(jcfg, tcfg, JAX params, port params), built once per key."""
-    key = (family, layout, kv, tuple(sorted(kw.items())))
+def model(family, layout="tlmac", kv="fp", steps="init", **kw):
+    """(jcfg, tcfg, JAX params, port params), built once per key;
+    ``steps='calibrated'`` gives the lookup linears ``calibrate_tlmac``'s
+    steps."""
+    key = (family, layout, kv, steps, tuple(sorted(kw.items())))
     if key not in _cache:
         impl = "tlmac" if layout == "mixed" else layout
         jcfg, tcfg = cfgs(family, impl, kv, **kw)
-        pkey = (family, layout, tuple(sorted(kw.items())))
+        pkey = (family, layout, steps, tuple(sorted(kw.items())))
         if pkey not in _cache:
             p = jax_params(jcfg, layout)
+            if steps == "calibrated":
+                p = calibrate_tlmac(p)
             _cache[pkey] = (p, convert.params_from_jax(
                 jax.tree.map(np.asarray, p), device="cpu"))
         _cache[key] = (jcfg, tcfg, *_cache[pkey])

@@ -9,6 +9,7 @@ so it also runs where only the port is installed:
 Every test needs a CUDA device and skips without one (the hand kernels
 have no CPU mode)."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -924,3 +925,139 @@ def test_window_decode_graph_reads_pages_past_the_window_on_card(cuda):
             dataclasses.replace(cfg, serve_paged_attn_impl=impl))[0].float()
     scale = out["lax"].abs().max()
     assert (out["lax"] - out["flash"]).abs().max() <= 2e-2 * scale
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's expert axis, kernel 2 at ragged head dims, the MoE family
+# ---------------------------------------------------------------------------
+
+
+def _expert_stack(gen, cuda, E, M, K, N, dp, n_arr, n_clus, G, B_a):
+    idx_t = torch.uint8 if n_arr <= 256 else torch.int16
+    a = torch.randint(0, 2**B_a, (E, M, K), generator=gen,
+                      device=cuda).to(torch.int8)
+    idx = torch.randint(0, n_arr, (E, N // dp, K // G, dp), generator=gen,
+                        device=cuda).to(idx_t)
+    cl = torch.randint(0, n_clus, (E, N // dp, K // G), generator=gen,
+                       device=cuda).to(torch.int8)
+    tab = tf.narrow_table(torch.randint(-8, 8, (E, n_clus, n_arr, 2**G),
+                                        generator=gen, device=cuda))
+    return a, idx, cl, tab
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 2, 4, 17, 70])
+@pytest.mark.parametrize("E,K,N,dp,n_arr,G", [
+    (8, 64, 32, 2, 128, 4),        # the moe-gqa smoke's expert wi/wg
+    (8, 32, 64, 4, 128, 4),        # ... and wo
+    (5, 96, 260, 130, 300, 3),     # int16 indices, two column tiles, G 3
+    (3, 4112, 256, 128, 64, 4),    # kg past one slice: split and summed
+])
+def test_fused_lookup_gemm_expert_axis_on_card(cuda, E, K, N, dp, n_arr, G,
+                                               M):
+    """One launch over E experts equals the plain version's loop and E
+    single launches, int32 for int32; the expert launch counts once."""
+    gen = torch.Generator(device=cuda).manual_seed(E * M + K)
+    a, idx, cl, tab = _expert_stack(gen, cuda, E, M, K, N, dp, n_arr, 3, G, 3)
+    n0, e0 = tf.launches, tf.expert_launches
+    got = tf.tlmac_gemm_fused(a, idx, cl, tab, B_a=3, G=G)
+    torch.cuda.synchronize()
+    assert (tf.launches, tf.expert_launches) == (n0 + 1, e0 + 1)
+    assert got.shape == (E, M, N)
+    assert torch.equal(got, tf.tlmac_gemm_fused_plain(a, idx, cl, tab,
+                                                      B_a=3, G=G))
+    for e in range(E):
+        assert torch.equal(got[e], tf.tlmac_gemm_fused(
+            a[e], idx[e], cl[e], tab[e], B_a=3, G=G)), e
+
+
+@pytest.mark.requires_cuda
+def test_int8_expert_linears_are_refused_on_card(cuda):
+    """The int8 layout's expert stack raises on the card (no one-launch
+    expert-stacked int8 product) and launches nothing."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import nn
+
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                              attn_kind="gqa", serve_impl="int8")
+    p = nn.init_serve_linear(torch.Generator(device=cuda).manual_seed(0), 64,
+                             32, cfg, device=cuda, expert=8)
+    xe = torch.ones((2, 8, 3, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="int8 expert-stacked"):
+        nn.serve_expert_linear_apply(p, xe, cfg)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [18, 36, 56, 100, 200])
+@pytest.mark.parametrize("kv", ["fp", "int8", "int4"])
+def test_flash_decode_at_ragged_head_dims_equals_plain(cuda, kv, hd):
+    """Head dims off the 8-element lane pieces (18, 36, 100) and on them
+    (56, 200), on every pool kind, GQA rep 4 and MHA, 1 and 4 splits:
+    within the kernel tolerance of the plain version."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged
+
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    B, KV, P, MB = 3, 2, 8, 12
+    n_pages = B * MB + 1
+    k, v = (torch.randn((n_pages, P, KV, hd), generator=gen, device=cuda)
+            for _ in range(2))
+    qs = paged.KVQuantSpec(kv)
+    if kv == "fp":
+        pools = dict(k_pages=k.bfloat16(), v_pages=v.bfloat16())
+    else:
+        (kc, ks), (vc, vs) = paged.quantise_kv(k, qs), paged.quantise_kv(v, qs)
+        pools = dict(k_pages=kc, v_pages=vc, k_scales=ks, v_scales=vs)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[:B * MB]
+          + 1).reshape(B, MB).to(torch.int32)
+    lengths = torch.tensor([77, 1, 96], dtype=torch.int32, device=cuda)
+    for rep, n_splits in ((4, 4), (1, 1)):
+        q = torch.randn((B, KV, rep, hd), generator=gen,
+                        device=cuda).bfloat16()
+        kw = dict(pools, n_splits=n_splits, kv_dtype=kv)
+        n0 = fd.launches
+        got = fd.flash_decode(q, block_table=bt, lengths=lengths, **kw)
+        want = fd.combine_splits(*fd.flash_decode_partials_plain(
+            q, block_table=bt, lengths=lengths, **kw))
+        torch.cuda.synchronize()
+        assert fd.launches == n0 + 1
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_moe_smoke_served_through_both_kernels_on_card(cuda):
+    """The moe-gqa smoke (deepseek's config with GQA) served with CUDA
+    graphs: every request finishes, one graph per forward, kernel 1's
+    expert axis launched three times per MoE layer per forward (recorded
+    at capture), and the card's decode logits within 3% of scale of the
+    CPU's on the same state."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.loop import Request
+    from repro_torch.serve.paged import PagedServeLoop
+
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                              attn_kind="gqa")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = copy.deepcopy(params).to(cuda)
+    loop = PagedServeLoop(on_card, cfg, batch_slots=2, s_max=48,
+                          page_size=8, chunk=8, device=cuda)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((6, 11, 3)):
+        loop.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n)
+                            .astype(np.int32), max_new_tokens=5))
+    assert len(loop.run()) == 3
+    assert loop.compiled_shapes() == {"chunk": 1, "decode": 1}
+    n_moe = cfg.n_layers - cfg.moe_layer_start
+    for f in loop.forwards.values():
+        assert f.graph_launches["tlmac_gemm_fused_expert"] == 3 * n_moe
+    spec_cpu = lm.init_caches(cfg, loop.spec, device="cpu")
+    bt = torch.arange(1, 13, dtype=torch.int32).reshape(2, 6)
+    pos = torch.tensor([9, 4], dtype=torch.int32)
+    cur = torch.tensor([[3], [7]], dtype=torch.int32)
+    want, _ = lm.decode_step_paged(params, spec_cpu, cur, pos, bt, cfg)
+    caches = lm.init_caches(cfg, loop.spec, device=cuda)
+    got, _ = lm.decode_step_paged(on_card, caches, cur.to(cuda),
+                                  pos.to(cuda), bt.to(cuda), cfg)
+    scale = want.float().abs().max()
+    assert (got.float().cpu() - want.float()).abs().max() <= 3e-2 * scale

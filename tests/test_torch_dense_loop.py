@@ -12,6 +12,8 @@ paged-vs-dense contract held inside the port.
   must be equal bit for bit, the logits under the vocab head's allowance
   (``_torch_families.HEAD_ULP_SHARE``), and the outputs and ``refills``
   equal.
+  The MoE family (``moe-gqa``) runs the same comparison in
+  ``test_torch_moe_loop.py``.
 - The matrix of ``tests/test_serve_oracle.py`` less MoE, in the port: the
   paged loop's greedy outputs equal each request run solo through the
   dense loop, with the prefix cache on and off, on fp and int8 pools

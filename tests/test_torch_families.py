@@ -57,12 +57,19 @@ def test_configs_match_reference(arch):
 
 
 def test_configs_refuse_what_is_not_ported():
+    """MLA configs build (plain data, as the reference's
+    ``replace(..., attn_kind='gqa')`` needs) and are refused where a block
+    would be built; they do not page, as in the reference."""
     base = tsmoke("codeqwen1.5-7b")
+    mla = dataclasses.replace(base, attn_kind="mla")
+    assert not tlm.supports_paged(mla)
     with pytest.raises(ValueError, match="attn_kind"):
-        dataclasses.replace(base, attn_kind="mla")
+        tlm.segments_for(mla)
+    with pytest.raises(ValueError, match="attn_kind"):
+        tlm.init_lm(mla, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="encoder"):
         dataclasses.replace(base, n_enc_layers=2)
-    for fam in ("moe", "ssm", "audio"):
+    for fam in ("ssm", "audio"):
         with pytest.raises(ValueError, match="not ported"):
             tlm.segments_for(dataclasses.replace(base, family=fam))
     rec = dataclasses.replace(base, family="hybrid")   # rglru pattern

@@ -302,6 +302,7 @@ FLASH_CASES = [  # (rep, hd, window, n_splits)
     (4, 16, 8, 1),
     (4, 16, None, 4),
     (1, 32, 5, 4),
+    (2, 18, 7, 3),      # a head dim off the kernel's 8-element pieces
 ]
 
 
@@ -354,6 +355,38 @@ def test_flash_decode_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="lengths"):
         tflash(*args[:4], torch.from_numpy(lens[:1]), kv_dtype="int8",
                k_scales=t["ks"], v_scales=t["vs"])
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8", "int4"])
+def test_flash_decode_kernel_takes_any_head_dim(kv):
+    """The kernel's operand checks (run before every launch) take every
+    head dim the reference's kernel takes, 1..256, ragged ones included,
+    and int4 pools at even head dims; the wrapper refuses an odd int4
+    head dim and anything past 256."""
+    from repro_torch.kernels.flash_decode import check_kernel_operands
+
+    rng = np.random.default_rng(0)
+    for hd in (1, 2, 8, 18, 36, 56, 100, 126, 200, 256):
+        if kv == "int4" and hd % 2:
+            continue
+        jqv, pools, bt, lens = _flash_inputs(rng, kv, 2, 2, 2, hd, 8, 2,
+                                             (3, 9))
+        t = {n: to_torch(np.asarray(x), "cpu") for n, x in pools.items()}
+        args = (to_torch(np.asarray(jqv), "cpu"), t["k"], t["v"],
+                torch.from_numpy(bt), torch.from_numpy(lens))
+        check_kernel_operands(*args, k_scales=t.get("ks"),
+                              v_scales=t.get("vs"), kv_dtype=kv)
+    with pytest.raises(ValueError, match="1..256"):
+        check_kernel_operands(torch.zeros((2, 2, 1, 264), dtype=torch.bfloat16),
+                              *args[1:], k_scales=t.get("ks"),
+                              v_scales=t.get("vs"), kv_dtype=kv)
+    if kv == "int4":
+        q = torch.zeros((2, 2, 1, 17), dtype=torch.bfloat16)
+        k = torch.zeros((5, 8, 2, 8), dtype=torch.int8)
+        sc = torch.ones((5, 8, 2), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="even"):
+            tflash(q, k, k, args[3], args[4], k_scales=sc, v_scales=sc,
+                   kv_dtype="int4")
 
 
 # ---------------------------------------------------------------------------
