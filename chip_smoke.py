@@ -14,7 +14,7 @@ them in turns in one call (parent, change, change, parent).
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
+2. build the six CUDA sources of ``src/repro_torch/csrc`` (one ``nvcc``
    each, started together) and print the build time;
 3. kernels 1-2 (fused lookup GEMM, flash-decode) against their plain
    PyTorch versions at the serve path's shapes (kernel 1 at M 1, 4, 16,
@@ -62,6 +62,16 @@ Phases, in order; any failure raises and exits non-zero:
    run), with the launch counters of kernels 1-2 and the graphs' replay
    counts reset before and read after the run (launches = eager
    launches + launches recorded at capture x replays);
+   then the same requests under ``'auto'`` (``phase_autotune``): the
+   loop's ``tune`` (kernel 1 against kernels 4 + 3 at each linear shape,
+   kernel 2 at 1, 2, 4 and 8 splits against the gathered reader), each
+   key's winner with its and the baseline's µs, every GEMM winner
+   int32-equal to ``'ref'``, both GEMM candidates by graph replay, then
+   the six requests served in turns under the fixed impls and under the
+   tuned ``'auto'`` (fixed, auto, auto, fixed): decode step on the host
+   clock and as the device span, prefill, tokens (this script's
+   autotune cache is emptied at its start and after every tuning, so
+   every other phase dispatches the miss defaults);
    then the serve features at the same width: 8 requests sharing a
    512-token system prompt, served with the cache off, under the
    defaults (prefix hits, skipped chunks, tokens equal to the cache-off
@@ -108,7 +118,11 @@ Phases, in order; any failure raises and exits non-zero:
    held against the gathered reader at the first step past it); and the
    int8 and mixed serve layouts on a 4-layer codeqwen-shaped stack (the
    int8 linears equal to their plain product, the mixed tree served with
-   kernel 1 on the attention linears only); then the MoE family
+   kernel 1 on the attention linears only); each served family but the
+   layouts also tuned on its own shapes (``phase_tune_family``: every
+   key's winner and the baseline's µs; command-r-35b's six requests
+   then served in turns under the fixed impls and the tuned ``'auto'``);
+   then the MoE family
    (``phase_moe``): deepseek-v3-671b's widths with GQA blocks (the
    reference's moe-gqa), cut to 11 of 61 layers (3 dense + 8 MoE), its
    ``plan_shapes`` reckoning printed, drawn on the card (init peak
@@ -123,10 +137,25 @@ Phases, in order; any failure raises and exits non-zero:
    MoE phase (route, dispatch einsums, experts, combine einsums, shared
    experts), with the step's device time split into kernel 1's expert
    stacks (by that range), its single linears, kernel 2 and the rest;
+   then moe-gqa in the int8 layout, cut to 3 dense + 2 MoE layers
+   (``phase_int8_experts``): one MoE layer's int8 expert stacks
+   int32-equal to their plain twin and to a per-expert ``_int_mm`` loop
+   at M 4 and 2, one stack timed against its byte bound, the twin and
+   the loop, four requests x 16 tokens served from CUDA graphs with the
+   int8 expert kernel's launches asserted (three a MoE layer a forward);
+   then deepseek-v3-671b (11 of 61 layers) and kimi-k2-1t-a32b (5 of
+   61) with their MLA attention (``phase_mla``), each with its
+   ``plan_shapes`` reckoning and init peak, kernel 1 int32-equal to its
+   plain version at the block's wq_a, wq_b, wkv_a and wo (M 4 and the
+   prefill's 1264 rows) and at one MoE layer's expert stacks (M 4),
+   four requests x 16 tokens
+   through the dense ``ServeLoop`` (MLA does not page), kernel 1's
+   launches asserted and no flash-decode;
 8. the port on the card against the port on the CPU (plain versions) on
    six smoke configs (the five dense families', minicpm's at head dim
    18, and the MoE smoke), every one read with kernel 2,
-   teacher-forced, logits within tolerance;
+   teacher-forced, logits within tolerance; and the two MLA smoke
+   configs through the dense ``ServeLoop``;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
    every conv as a lookup conv (kernels 4 + 3) and as one
    cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
@@ -134,9 +163,11 @@ Phases, in order; any failure raises and exits non-zero:
    kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
    the quickstart's shape equal to the dense integer GEMM.
 
-The line before the last is the kernel JSON (all six kernels, launches
-counted on the main paths: the serve main path for kernels 1-2, the paper
-path for kernels 3-6); the last line is the device JSON.  Needs one CUDA card; exits non-zero without
+The line before the last is the kernel JSON (all six ported kernels and
+the int8 expert kernel, launches counted on the main paths: the serve
+main path for kernels 1-2, the paper path for kernels 3-6, the int8
+moe-gqa path for the int8 expert kernel); the last line is the device
+JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
 
@@ -171,7 +202,10 @@ CHUNK = 64           # prefill chunk of the main path
 SEED = 0
 DEV = "cuda"         # every phase runs on the card
 SOURCES = ("tlmac_fused", "flash_decode", "bitplanes", "tlmac_gemm",
-           "tlmac_clustered")
+           "tlmac_clustered", "int8_experts")
+# the autotune cache of this run alone, made empty at the start: every
+# phase but phase_autotune resolves 'auto' to its miss defaults
+AUTOTUNE_CACHE = os.path.join(ROOT, "build", "autotune-smoke.json")
 
 
 T_START = time.perf_counter()
@@ -1528,8 +1562,9 @@ def phase_main(cfg, params, lens=PROMPT_LENS, max_new=MAX_NEW, setup=None,
     gc.collect()
     torch.cuda.empty_cache()
     return counts, dict(outputs={r.rid: r.output.tolist() for r in done},
-                        decode_ms=_median(dec), prefill_tok_s=prompt_tokens
-                        / prefill_s, wall=wall)
+                        decode_ms=_median(dec), span_ms=span,
+                        prefill_tok_s=prompt_tokens
+                        / prefill_s, wall=wall, forwards=forwards)
 
 
 # ---------------------------------------------------------------------------
@@ -1746,23 +1781,21 @@ def _capture_forwards(loop):
 
 
 def _reset_launches(loop):
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.serve.paged import _COUNTED
 
-    tf.launches = tf.expert_launches = fd.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)
     for f in loop.forwards.values():
         f.eager = f.replays = 0
 
 
 def _read_launches(loop):
     """Launches since ``_reset_launches``: eager ones plus the launches
-    recorded at capture x replays; and the forwards that ran."""
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import tlmac_fused as tf
+    recorded at capture x replays, of every kernel a loop's graph counts
+    (``serve.paged._COUNTED``); and the forwards that ran."""
+    from repro_torch.serve.paged import _COUNTED
 
-    counts = {"tlmac_gemm_fused": tf.launches,
-              "tlmac_gemm_fused_expert": tf.expert_launches,
-              "flash_decode": fd.launches}
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in _COUNTED.items()}
     for f in loop.forwards.values():
         for k, n in f.graph_launches.items():
             counts[k] += n * f.replays
@@ -2876,6 +2909,7 @@ def phase_families():
     cfg = get_config("command-r-35b")
     params = init_family(cfg)
     out["command-r-35b"] = phase_main(cfg, params)
+    phase_tune_family(cfg, params, main_run=out["command-r-35b"][1])
     phase("dense oracle at command-r-35b's width: paged 'lax' vs ServeLoop")
     phase_dense_oracle(cfg, params)
     del params
@@ -2885,6 +2919,7 @@ def phase_families():
         params = init_family(cfg)
         out[name] = phase_main(cfg, params, lens=MAIN_LENS,
                                max_new=FAMILY_MAX_NEW)
+        phase_tune_family(cfg, params)
         del params
     phase("sliding window 2048 at codeqwen1.5-7b's width (serve)")
     out["window"] = phase_window()
@@ -2912,6 +2947,7 @@ def phase_window():
                      s_max=WINDOW_S_MAX,
                      setup=lambda loop: _window_check(loop, cfg, checked))
     assert checked, "no decode step ran past the window"
+    phase_tune_family(cfg, params, s_max=WINDOW_S_MAX)
     return run
 
 
@@ -2958,6 +2994,20 @@ def phase_layouts():
         f"M 1, 4, 17, 64; one layer's seven at M=4: {t_layer:.4f} ms "
         f"(graph replay), byte bound {b_layer:.4f} ms "
         f"({b_layer / max(t_layer, 1e-9):.1%} of bound)")
+    # a ragged int8 linear: w8 zero-padded to multiples of 8 where made
+    K, N = 100, 36
+    lin = nn.init_serve_linear(gen, K, N, c8, device=DEV)
+    assert tuple(lin["w8"].shape) == (104, 40)
+    for M in (1, 4, 17, 64):
+        x = (torch.randn((M, K), generator=gen, device=DEV) * 2).bfloat16()
+        aq = torch.clamp(torch.round(x.float() / lin["a_step"]), -127, 127)
+        yi = torch.matmul(aq.double(), lin["w8"][:K, :N].double()).to(
+            torch.int32)
+        _equal(f"ragged int8 linear {K}->{N} M={M}",
+               nn.serve_linear_apply(lin, x, c8),
+               (yi.float() * (lin["a_step"] * lin["w_step"])).bfloat16())
+    log(f"  ragged int8 linear {K}->{N} (w8 padded to 104 x 40): equal to "
+        f"the plain int32 product at M 1, 4, 17, 64")
     ffn = p8.tree()["segments"][0]["b0"]["ffn"]
     pt = init_family(dataclasses.replace(base, name="codeqwen1.5-7b mixed"),
                      cut)
@@ -3009,18 +3059,33 @@ def _idx_bytes(cfg, K, N):
                                                   else 2), ps["N_arr"]
 
 
+def _attn_bytes(cfg):
+    """One attention block's serve bytes by ``plan_shapes``: GQA's q/k/v/o
+    indices, or MLA's wq_a, wq_b, wkv_a and wo indices plus the dense
+    bf16 ``wkv_b``."""
+    d = cfg.d_model
+    if cfg.attn_kind == "mla":
+        H, ql, kvl = cfg.n_heads, cfg.mla_q_lora, cfg.mla_kv_lora
+        nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+        return (_idx_bytes(cfg, d, ql)[0]
+                + _idx_bytes(cfg, ql, H * (nod + rod))[0]
+                + _idx_bytes(cfg, d, kvl + rod)[0]
+                + _idx_bytes(cfg, H * vd, d)[0] + kvl * H * (nod + vd) * 2)
+    qkvo = cfg.n_heads * cfg.kv_head_dim
+    kv = cfg.n_kv * cfg.kv_head_dim
+    return (_idx_bytes(cfg, d, qkvo)[0] + 2 * _idx_bytes(cfg, d, kv)[0]
+            + _idx_bytes(cfg, qkvo, d)[0])
+
+
 def moe_reckoning(cfg):
     """Print the index bytes of the model by ``plan_shapes``: one expert
     linear, a MoE layer (experts, attention, shared expert), a dense layer,
     the embedding and head, at 61 layers and at ``cfg.n_layers``."""
     d, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert
-    qkvo = cfg.n_heads * cfg.kv_head_dim
-    kv = cfg.n_kv * cfg.kv_head_dim
     wi, n_arr = _idx_bytes(cfg, d, F)
     wo, _ = _idx_bytes(cfg, F, d)
     experts = E * (2 * wi + wo)
-    attn = (_idx_bytes(cfg, d, qkvo)[0] + 2 * _idx_bytes(cfg, d, kv)[0]
-            + _idx_bytes(cfg, qkvo, d)[0])
+    attn = _attn_bytes(cfg)
     Fs = F * cfg.n_shared
     shared = 2 * _idx_bytes(cfg, d, Fs)[0] + _idx_bytes(cfg, Fs, d)[0]
     dense = attn + 2 * _idx_bytes(cfg, d, cfg.d_ff)[0] + _idx_bytes(
@@ -3033,13 +3098,39 @@ def moe_reckoning(cfg):
                 + (L - cfg.moe_layer_start) * moe_layer)
     G = 1e9
     log(f"  plan_shapes reckoning (N_arr {n_arr}, "
-        f"{'uint8' if n_arr <= 256 else 'int16'} indices): one expert "
+        f"{'uint8' if n_arr <= 256 else 'int16'} indices, "
+        f"{cfg.attn_kind} attention): one expert "
         f"linear {d}->{F} {wi / 1e6:.2f} MB; a MoE layer {moe_layer / G:.3f}"
         f" GB = {E} experts x 3 {experts / G:.3f} GB + attention "
         f"{attn / 1e6:.1f} MB + shared expert {shared / 1e6:.1f} MB; a dense "
         f"layer {dense / G:.3f} GB; embedding + head {emb / G:.3f} GB; "
         f"61 layers {total(61) / G:.1f} GB, {cfg.n_layers} layers "
         f"{total(cfg.n_layers) / G:.2f} GB (indices and bf16 embeddings)")
+
+
+def _single_linears_equal(lins, Ms, gen, B_a, G):
+    """Kernel 1 int32-equal to its plain version (``ref.tlmac_matmul_ref``
+    on the same codes) on each lookup linear of ``lins`` ({label: the
+    drawn params}, narrow tables as the serve path reads them) at each M
+    of ``Ms``.  The caller restores the launch counters."""
+    import torch
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import tlmac_fused as tf
+
+    for label, lin in lins.items():
+        idx, cl, tab = lin["exec_idx"], lin["step_cluster"], lin["table_narrow"]
+        nt, kg, dp = idx.shape
+        t0 = time.perf_counter()
+        for M in Ms:
+            aq = torch.randint(0, 2**B_a, (M, kg * G), dtype=torch.int8,
+                               generator=gen, device=DEV)
+            _equal(f"lookup GEMM {label} M={M}",
+                   tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G),
+                   kref.tlmac_matmul_ref(aq, tab, idx, cl, B_a, G, nt * dp))
+        log(f"  lookup GEMM {label} {kg * G}->{nt * dp} (dp {dp}, N_arr "
+            f"{tab.shape[-2]}, {idx.dtype}): equal int32 at M "
+            f"{', '.join(map(str, Ms))} ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_moe_kernels(cfg, params, B_a=3):
@@ -3064,19 +3155,9 @@ def phase_moe_kernels(cfg, params, B_a=3):
     n0, e0, f0 = tf.launches, tf.expert_launches, fd.launches
     blocks = {"dense layer": params.layers(0)[0]["b0"],
               "MoE layer": params.layers(1)[0]["b0"]}
-    for where, blk, name in MOE_SINGLE:
-        lin = blocks[where][blk][name]
-        idx, cl, tab = lin["exec_idx"], lin["step_cluster"], lin["table_narrow"]
-        nt, kg, dp = idx.shape
-        for M in MOE_LINEAR_MS:
-            aq = torch.randint(0, 2**B_a, (M, kg * G), dtype=torch.int8,
-                               generator=gen, device=DEV)
-            _equal(f"lookup GEMM {where} {blk}.{name} M={M}",
-                   tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G),
-                   tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G))
-        log(f"  lookup GEMM {where} {blk}.{name} {kg * G}->{nt * dp} (dp "
-            f"{dp}, N_arr {tab.shape[-2]}, {idx.dtype}): equal int32 at M "
-            f"{', '.join(map(str, MOE_LINEAR_MS))}")
+    _single_linears_equal(
+        {f"{where} {blk}.{name}": blocks[where][blk][name]
+         for where, blk, name in MOE_SINGLE}, MOE_LINEAR_MS, gen, B_a, G)
     worst = 0.0
     if DEV == "cuda":
         for kv in ("fp", "int8", "int4"):
@@ -3225,12 +3306,488 @@ def phase_moe():
     rows = phase_moe_kernels(cfg, params)
     counts, run = phase_main(cfg, params, lens=MAIN_LENS,
                              max_new=FAMILY_MAX_NEW)
-    _free()
+    phase_tune_family(cfg, params)
     if DEV == "cuda":
         run["glue"] = _moe_glue(cfg, params)
     del params
     _free()
     return dict(run, counts=counts, expert_rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# autotune: the main path under 'auto' after tuning
+# ---------------------------------------------------------------------------
+
+
+def _fresh_autotune_cache():
+    """Point the autotuner at this run's own cache file, emptied: until
+    ``phase_autotune`` records winners (and after it empties the file
+    again) every 'auto' resolves to its miss defaults, kernel 1 and
+    flash-decode at 4 splits."""
+    from repro_torch.kernels import autotune as at
+
+    os.environ[at.CACHE_ENV] = AUTOTUNE_CACHE
+    for path in (AUTOTUNE_CACHE, AUTOTUNE_CACHE + ".lock"):
+        if os.path.exists(path):
+            os.remove(path)
+    at.reset_cache()
+
+
+def _served_turn(params, cfg, main_run):
+    """The main path's six requests served from CUDA graphs by a fresh
+    loop under ``cfg``'s impls (forwards captured before the timed run):
+    decode step median on the host clock and as the device span, prefill
+    tok/s, requests whose tokens equal ``main_run``'s, and launches."""
+    import torch
+
+    loop = main_loop(params, cfg)
+    _capture_forwards(loop)              # capture outside the timed run
+    steps = _step_times(loop, ("_prefill_chunk", "_decode"))
+    reqs = _requests(cfg.vocab, PROMPT_LENS, MAX_NEW, SEED)
+    for r in reqs:
+        loop.submit(r)
+    _reset_launches(loop)
+    done = loop.run()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    counts, _ = _read_launches(loop)
+    assert len(done) == len(reqs)
+    for r in done:
+        assert len(r.output) == MAX_NEW
+        assert 0 <= int(r.output.min()) and int(r.output.max()) < cfg.vocab
+    loop.check_compiled()
+    out = dict(decode_ms=_median(steps["_decode"]["ms"]),
+               span_ms=_median(steps["_decode"]["span"]),
+               prefill_tok_s=sum(PROMPT_LENS)
+               / (sum(steps["_prefill_chunk"]["ms"]) / 1e3),
+               same=sum(r.output.tolist() == main_run["outputs"][r.rid]
+                        for r in done), counts=counts,
+               autotune=loop.metrics()["autotune"])
+    del loop
+    _free()
+    return out
+
+
+def phase_autotune(cfg, params, main_run, B_a=3):
+    """The main path under ``'auto'`` (the reference's default for the
+    serve linears and the paged decode reader), tuned first: the loop's
+    ``tune`` times kernel 1 against kernels 4 + 3 on every linear shape at
+    the chunk's and the decode step's rows, and kernel 2 at 1, 2, 4 and 8
+    splits against the gathered reader at the decode shape (every
+    candidate held to the oracle before it is timed); each key printed
+    with its winner, the winner's and the baseline's µs; every tuned GEMM
+    winner held int32-equal to ``'ref'`` again on fresh codes, and both
+    GEMM candidates timed by graph replay, as the captured forwards run
+    them.  Then the main path's six requests served in turns under the
+    fixed impls (kernel 1, flash-decode at 4 splits) and under the tuned
+    ``'auto'`` (fixed, auto, auto, fixed, a fresh loop each): decode step
+    on the host clock and as the device span, prefill tok/s, tokens equal
+    to ``phase_main``'s run (``main_run``).  The cache is emptied
+    after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.serve.paged import _tlmac_linears
+
+    G = cfg.tlmac_G
+    loop = main_loop(params, cfg)
+    t0 = time.perf_counter()
+    tuned = loop.tune()
+    secs = time.perf_counter() - t0
+    rows = (loop.chunk, loop.B)
+    del loop
+    _log_tuned(tuned, secs, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    checked = set()
+    for lin in _tlmac_linears(params.tree()):
+        n_tiles, kg, dp = lin["exec_idx"].shape
+        tab = lin["table_narrow"]
+        K, N = kg * G, n_tiles * dp
+        for M in rows:
+            key = at.shape_key(M, K, N, B_a=B_a, G=G, D_p=dp,
+                               R=int(np.prod(tab.shape[:-1])), device=DEV)
+            if key in checked:
+                continue
+            checked.add(key)
+            aq = torch.randint(0, 2**B_a, (M, K), dtype=torch.int8,
+                               generator=gen, device=DEV)
+            run = {impl: (lambda impl=impl: ops.dispatch_config(
+                {"impl": impl}, aq, tab, lin["exec_idx"], lin["step_cluster"],
+                B_a=B_a, G=G, N=N))
+                for impl in {"fused", "pallas", tuned[key]["impl"]}}
+            _equal(f"'auto' winner {tuned[key]} at {key}",
+                   run[tuned[key]["impl"]](),
+                   kref.tlmac_matmul_ref(aq, tab, lin["exec_idx"],
+                                         lin["step_cluster"], B_a, G, N))
+            if DEV == "cuda":      # as a captured forward runs them
+                ms = {k: graph_ms(run[k], iters=10, replays=3)
+                      for k in ("fused", "pallas")}
+                log(f"    M={M} {K}->{N} by graph replay: kernel 1 "
+                    f"{ms['fused'] * 1e3:.1f} us, kernels 4 + 3 (rowbase "
+                    f"rebuilt a call) {ms['pallas'] * 1e3:.1f} us")
+    log(f"  every tuned GEMM winner int32-equal to 'ref' on fresh codes "
+        f"({len(checked)} shapes)")
+    turns = _turns(cfg, params, main_run)
+    _fresh_autotune_cache()
+    return dict(tuned=tuned, turns=turns)
+
+
+def _turns(cfg, params, main_run):
+    """The main path's six requests under the fixed impls (kernel 1,
+    flash-decode at 4 splits) and under ``'auto'`` after tuning, in turns
+    (fixed, auto, auto, fixed, a fresh loop each), printed with the
+    means of each side."""
+    fixed = dataclasses.replace(cfg, serve_tlmac_impl="fused",
+                                serve_paged_attn_impl="flash")
+    turns = []
+    for kind in ("fixed", "auto", "auto", "fixed"):
+        r = _served_turn(params, fixed if kind == "fixed" else cfg, main_run)
+        turns.append((kind, r))
+        log(f"  {kind:5s}: decode step median {r['decode_ms']:.3f} ms, "
+            f"device span median {r['span_ms']:.3f} ms, prefill "
+            f"{r['prefill_tok_s']:.1f}"
+            f" tok/s; {r['same']} of {len(PROMPT_LENS)} requests' tokens "
+            f"equal to phase_main's; launches " + ", ".join(
+                f"{k} {v}" for k, v in r["counts"].items() if v))
+    by = {k: [r for kk, r in turns if kk == k] for k in ("fixed", "auto")}
+    assert by["fixed"][0]["counts"] == by["auto"][0]["counts"]
+    mean = lambda k, f: sum(r[f] for r in by[k]) / 2     # noqa: E731
+    log(f"  {cfg.name} in turns: decode step fixed "
+        f"{mean('fixed', 'decode_ms'):.3f} ms "
+        f"vs 'auto' {mean('auto', 'decode_ms'):.3f} ms (host clock), device "
+        f"span {mean('fixed', 'span_ms'):.3f} vs "
+        f"{mean('auto', 'span_ms'):.3f} ms; phase_main's "
+        f"{main_run['decode_ms']:.3f} ms (span {main_run['span_ms']:.3f})")
+    snap = by["auto"][-1]["autotune"]
+    log(f"  metrics()['autotune']: lookup hits {snap['lookup_hits']}, "
+        f"misses {snap['lookup_misses']}, {len(snap['tuned_keys'])} tuned "
+        f"keys")
+    return turns
+
+
+def _log_tuned(tuned, secs, cfg):
+    from repro_torch.kernels import autotune as at
+
+    entries = at._load()
+    log(f"  tuned {len(tuned)} keys in {secs:.1f} s (serve_tlmac_impl "
+        f"{cfg.serve_tlmac_impl!r}, serve_paged_attn_impl "
+        f"{cfg.serve_paged_attn_impl!r}; winner us, baseline us):")
+    for key, conf in tuned.items():
+        e = entries[key]
+        base = ", ".join(f"{k} {v:.1f}" for k, v in e["baseline_us"].items())
+        log(f"    {key}: {conf} {e['us']:.1f} us; baseline {base}")
+
+
+def phase_tune_family(cfg, params, main_run=None, **kw):
+    """The loop's ``tune`` on a family's own shapes (``kw`` to the loop):
+    each key's winner with its and the baseline's µs; with ``main_run``
+    (the family's run of the main path's requests) also ``_turns``; the
+    cache is emptied after, so later phases keep the miss defaults."""
+    loop = main_loop(params, cfg, **kw)
+    t0 = time.perf_counter()
+    tuned = loop.tune()
+    secs = time.perf_counter() - t0
+    del loop
+    _log_tuned(tuned, secs, cfg)
+    if main_run is not None:
+        _turns(cfg, params, main_run)
+    _fresh_autotune_cache()
+    _free()
+    return tuned
+
+
+# ---------------------------------------------------------------------------
+# the int8 layout's expert stacks: one launch of the int8 expert kernel
+# ---------------------------------------------------------------------------
+
+INT8_MOE_LAYERS = 5      # depth cut of int8 moe-gqa: the 3 dense + 2 MoE
+
+
+def phase_int8_experts(B_a=3):
+    """moe-gqa in the int8 serve layout (deepseek-v3's widths, GQA
+    blocks), cut to 3 dense + 2 MoE layers (an int8 MoE layer's experts
+    are 11.3 GB): one MoE layer's expert stacks wi, wg and wo (256
+    experts) held int32-equal, at M 4 (a decode step) and 2 (a chunk), to
+    the plain twin (each expert's f64 product) and to a per-expert
+    ``torch._int_mm`` loop; wi at M 4 timed (graph replay) against its
+    byte bound, its plain twin and the loop (the yardstick: no one
+    PyTorch call takes a batched int8 product); then four requests x 16
+    tokens served through ``PagedServeLoop`` from CUDA graphs, the kernel
+    launched once per expert stack (three a MoE layer) a forward,
+    asserted.  Returns the kernel's JSON row."""
+    import torch
+
+    from repro_torch.kernels import int8_experts as I8
+
+    cfg = dataclasses.replace(moe_config(INT8_MOE_LAYERS), serve_impl="int8",
+                              name="deepseek-v3-671b moe-gqa int8")
+    E, d, F = cfg.n_experts, cfg.d_model, cfg.d_expert
+    log(f"  reckoning: an int8 MoE layer's expert stacks {E} x 3 x {d} x "
+        f"{F} B = {3 * E * d * F / 1e9:.2f} GB")
+    params = init_family(cfg, cut=f"cut from 61: {cfg.moe_layer_start} "
+                                  f"dense + {INT8_MOE_LAYERS - cfg.moe_layer_start} MoE")
+    _calibrate_int8(params)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    layer = params.layers(1)[0]["b0"]["moe"]
+    n0 = I8.launches
+    row = None
+    for name in ("wi", "wg", "wo"):
+        w8 = layer[name]["w8"]
+        _, K, N = w8.shape
+        for M in MOE_MS:
+            aq = torch.randint(-127, 128, (E, M, K), dtype=torch.int8,
+                               generator=gen, device=DEV)
+            got = I8.int8_experts_matmul(aq, w8)
+            want = I8.int8_experts_matmul_plain(aq, w8)
+            _equal(f"int8 expert stack {name} [{E}] {K}->{N} M={M}", got,
+                   want)
+            if DEV == "cuda":
+                _equal(f"int8 expert stack {name} M={M} vs _int_mm loop",
+                       I8.int8_experts_loop(aq, w8), want)
+            del want
+            if DEV != "cuda" or name != "wi" or M != 4:
+                continue
+            ms = graph_ms(lambda: I8.int8_experts_matmul(aq, w8), iters=10,
+                          replays=3)
+            loop_ms = graph_ms(lambda: I8.int8_experts_loop(aq, w8), iters=2,
+                               replays=2)
+            plain_ms = cuda_ms(lambda: I8.int8_experts_matmul_plain(aq, w8),
+                               iters=2, warmup=1)
+            nbytes = E * (M * K + K * N + 4 * M * N)
+            t_b = nbytes / HBM_BYTES_S * 1e3      # int8 products: tensor peak
+            t_o = 2 * E * M * K * N / INT8_TC_OPS_S * 1e3
+            b = dict(bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o)
+            row = dict(name="int8_experts", route="cuda",
+                       source="src/repro_torch/csrc/int8_experts.cu",
+                       replaces="none: the reference's int8 expert stacks "
+                                "are a jax.vmap of dot_general "
+                                "(src/repro/models/nn.py:406)",
+                       shape=f"one MoE layer's wi [{E}] {K}->{N} at M={M}",
+                       max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b["bound_ms"], bound_by=_bound_by(b),
+                       library_ms=None, int_mm_loop_ms=loop_ms)
+            log(f"  int8 expert stack wi [{E}] {K}->{N} M={M}: kernel "
+                f"{ms:.4f} ms (one launch), bound {b['bound_ms']:.4f} ms "
+                f"({_bound_by(b)}, {b['bound_ms'] / ms:.1%} of bound), "
+                f"plain (per-expert f64) {plain_ms:.3f} ms, {E} _int_mm "
+                f"launches {loop_ms:.4f} ms")
+        log(f"  int8 expert stack {name} [{E}] {K}->{N}: equal int32 to the "
+            f"plain twin and the _int_mm loop at M "
+            f"{', '.join(map(str, MOE_MS))}")
+    I8.launches = n0                      # comparisons are not the path's
+    counts, run = phase_main(cfg, params, lens=MAIN_LENS,
+                             max_new=FAMILY_MAX_NEW)
+    forwards = run["forwards"]
+    stacks = 3 * (INT8_MOE_LAYERS - cfg.moe_layer_start)
+    if DEV == "cuda":
+        assert counts["int8_experts"] == stacks * forwards, (counts, stacks)
+    log(f"  int8 expert kernel launches {counts['int8_experts']} (= {stacks} "
+        f"stacks a forward x {forwards} forwards)")
+    del params, layer
+    _free()
+    if row is not None:
+        row["launches"] = counts["int8_experts"]
+    return row
+
+
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v3 and kimi-k2 with their own attention, dense ServeLoop
+# ---------------------------------------------------------------------------
+
+MLA_CUTS = {"deepseek-v3-671b": 11,   # the 3 dense + 8 MoE of 61, as moe-gqa
+            "kimi-k2-1t-a32b": 5}     # the 1 dense + 4 MoE of 61
+MLA_S_MAX = 1024
+MLA_LINEARS = ("wq_a", "wq_b", "wkv_a", "wo")   # kernel 1's in an MLA block
+# rows kernel 1 sees in the MLA run: a decode step of 4 slots, the prefill
+# of the four prompts left-padded to the longest
+MLA_LINEAR_MS = (4, len(MAIN_LENS) * max(MAIN_LENS))
+
+
+def _serve_dense(params, cfg, reqs):
+    """``reqs`` through the dense ``ServeLoop`` (four slots, latent caches
+    of ``MLA_S_MAX``), every prefill and decode step timed on the host
+    around a synchronised call.  Returns (done, prefill ms, decode ms)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.loop import ServeLoop
+
+    times = {"prefill": [], "decode_step": []}
+    real = {n: getattr(lm, n) for n in times}
+
+    def timed(name):
+        def wrapper(*a, **kw):
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[name](*a, **kw)
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            if not bool(torch.isfinite(out[0]).all()):
+                raise AssertionError(f"non-finite logits in {name}")
+            return out
+        return wrapper
+
+    loop = ServeLoop(params, cfg, batch_slots=4, s_max=MLA_S_MAX, device=DEV)
+    for r in reqs:
+        loop.submit(r)
+    try:
+        for n in times:
+            setattr(lm, n, timed(n))
+        done = loop.run()
+    finally:
+        for n, f in real.items():
+            setattr(lm, n, f)
+    return done, times["prefill"], times["decode_step"]
+
+
+def phase_mla(name: str):
+    """``name`` (deepseek-v3-671b or kimi-k2-1t-a32b) with its MLA blocks
+    at full width, cut in layers (``MLA_CUTS``; the ``plan_shapes``
+    reckoning printed at 61 and at the cut), drawn on the card (init peak
+    asserted), then the main path's four prompts x 16 tokens served
+    through the dense ``ServeLoop`` (MLA does not page, as in the
+    reference): prefill through ``mla_train``, decode through the absorbed
+    ``mla_decode`` on latent caches; kernel 1 launched once per lookup
+    linear (three expert stacks a MoE layer) a forward, asserted, and no
+    flash-decode.  Before the run, kernel 1 is held int32-equal to its
+    plain version at the block's own lookup linears (``MLA_LINEARS``, from
+    the drawn params) at the run's rows (``MLA_LINEAR_MS``), and at one
+    MoE layer's expert stacks at M 4.  Prints the decode step, prefill
+    tok/s, params, init and run peak and kernel 1's launches; returns
+    them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    L = MLA_CUTS[name]
+    cfg = dataclasses.replace(get_config(name), n_layers=L)
+    moe_reckoning(cfg)
+    params = init_family(cfg, cut=f"cut from 61: {cfg.moe_layer_start} "
+                                  f"dense + {L - cfg.moe_layer_start} MoE")
+    total = _tree_bytes(params)
+    B_a, G = cfg.quant.a_bits, cfg.tlmac_G
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    n0, e0 = tf.launches, tf.expert_launches
+    blk = params.layers(0)[0]["b0"]["attn"]
+    _single_linears_equal({f"MLA attn.{n}": blk[n] for n in MLA_LINEARS},
+                          MLA_LINEAR_MS, gen, B_a, G)
+    moe = params.layers(1)[0]["b0"]["moe"]
+    for n in ("wi", "wg", "wo"):
+        idx, cl, tab = (moe[n][k] for k in ("exec_idx", "step_cluster",
+                                            "table_narrow"))
+        E, nt, kg, dp = idx.shape
+        aq = torch.randint(0, 2**B_a, (E, 4, kg * G), dtype=torch.int8,
+                           generator=gen, device=DEV)
+        _equal(f"expert-stacked lookup GEMM {n} [{E}]",
+               tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G),
+               tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G))
+        log(f"  expert-stacked lookup GEMM moe.{n} [{E}] {kg * G}->"
+            f"{nt * dp} (dp {dp}): equal int32 at M 4")
+    del aq
+    tf.launches, tf.expert_launches = n0, e0   # comparisons are not the path's
+    reqs = _requests(cfg.vocab, MAIN_LENS, FAMILY_MAX_NEW, SEED)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tf.launches = tf.expert_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    done, pre, dec = _serve_dense(params, cfg, reqs)
+    wall = time.perf_counter() - t0
+    per_fwd, per_fwd_expert = _lookup_launches(params)
+    forwards = len(pre) + len(dec)
+    assert len(done) == len(reqs)
+    for r in done:
+        assert len(r.output) == FAMILY_MAX_NEW, (r.rid, len(r.output))
+        assert 0 <= int(r.output.min()) and int(r.output.max()) < cfg.vocab
+    if DEV == "cuda":
+        assert tf.launches == per_fwd * forwards, (tf.launches, per_fwd)
+        assert tf.expert_launches == per_fwd_expert * forwards
+        assert fd.launches == 0
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    prompt = len(reqs) * max(MAIN_LENS)      # left-padded to the longest
+    log(f"  {cfg.name} MLA served {len(done)} requests x {FAMILY_MAX_NEW} "
+        f"tokens through the dense ServeLoop in {wall:.2f} s: {len(pre)} "
+        f"prefill (4 x {max(MAIN_LENS)} left-padded), {len(dec)} decode "
+        f"steps; decode step median {_median(dec):.2f} ms (min "
+        f"{min(dec):.2f}, max {max(dec):.2f}; eager, host clock around a "
+        f"synchronised step); prefill {sum(MAIN_LENS) / (sum(pre) / 1e3):.1f}"
+        f" prompt tok/s ({prompt / (sum(pre) / 1e3):.1f} padded); params "
+        f"{total / 2**30:.3f} GiB, run peak {peak / 2**30:.3f} GiB; kernel "
+        f"1 launches {tf.launches} (= {per_fwd} a forward x {forwards}, "
+        f"{tf.expert_launches} expert stacks)")
+    out = dict(decode_ms=_median(dec), prefill_tok_s=sum(MAIN_LENS)
+               / (sum(pre) / 1e3), params_gib=total / 2**30,
+               run_peak_gib=peak / 2**30, launches=tf.launches)
+    tf.launches = tf.expert_launches = fd.launches = 0
+    del params, done
+    _free()
+    return out
+
+
+def phase_mla_reference(seed: int = SEED):
+    """The MLA smoke configs (deepseek-v3's and kimi-k2's) on the card
+    against the port on the CPU, through the dense ``ServeLoop``,
+    teacher-forced: logits within ``LOGIT_TOL`` of the scale."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.loop import ServeLoop
+
+    for name in MLA_CUTS:
+        cfg = smoke_config(name)
+        params = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+        reqs = lambda: _requests(cfg.vocab, (6, 11, 3, 9, 5), 6, seed)
+        rec = []
+        real = {n: getattr(lm, n) for n in ("prefill", "decode_step")}
+        try:
+            for n in real:
+                setattr(lm, n, (lambda f: lambda *a, **kw: rec.append(
+                    f(*a, **kw)) or rec[-1])(real[n]))
+            loop = ServeLoop(params, cfg, batch_slots=2, s_max=48,
+                             device="cpu")
+            for r in reqs():
+                loop.submit(r)
+            loop.run()
+            want = [lg.float() for lg, _ in rec]
+            it = iter(want)
+            worst = 0.0
+
+            def forced(f):
+                def wrapper(*a, **kw):
+                    nonlocal worst
+                    lg, c = f(*a, **kw)
+                    w = next(it)
+                    worst = max(worst, (lg.float().cpu() - w).abs().max()
+                                .item())
+                    return w.to(lg.dtype).to(DEV), c
+                return wrapper
+
+            for n in real:
+                setattr(lm, n, forced(real[n]))
+            loop = ServeLoop(params.to(DEV), cfg, batch_slots=2, s_max=48,
+                             device=DEV)
+            for r in reqs():
+                loop.submit(r)
+            loop.run()
+        finally:
+            for n, f in real.items():
+                setattr(lm, n, f)
+        scale = max(w.abs().max().item() for w in want)
+        if not worst <= LOGIT_TOL * scale:
+            raise AssertionError(f"{name} MLA smoke: card vs CPU logits "
+                                 f"differ by {worst} > {LOGIT_TOL} x {scale}")
+        log(f"  {name} MLA smoke: {len(want)} teacher-forced dense forwards, "
+            f"card vs CPU max |dlogit| {worst:.3e} (scale {scale:.3f}, "
+            f"tolerance {LOGIT_TOL} x scale)")
+
 
 
 # ---------------------------------------------------------------------------
@@ -3308,6 +3865,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls stay f32
     torch.backends.cudnn.allow_tf32 = False
+    _fresh_autotune_cache()
     log(gpu_line())
     t0 = time.perf_counter()
     sources = SOURCES[:2] if args.only == "k12" else SOURCES
@@ -3348,6 +3906,8 @@ def main() -> int:
         cfg, params = init_main_model()
         main_counts, main_run = phase_main(cfg, params)
         counts.update(main_counts)
+        phase("autotune: the main path under 'auto' after tuning")
+        phase_autotune(cfg, params, main_run)
         phase("serve features: shared prefix, pool pressure")
         phase_serve_features(cfg, params)
         phase("serve speculation: n-gram and replay drafters, verify graph")
@@ -3374,13 +3934,22 @@ def main() -> int:
             bound_ms=moe["expert_rows"].get(4, {}).get("bound_ms"),
             launches_moe_path=moe["counts"]["tlmac_gemm_fused_expert"],
             launches_moe_path_all=moe["counts"]["tlmac_gemm_fused"])
+        phase("int8 moe-gqa: expert stacks on the int8 expert kernel "
+              "(3 dense + 2 MoE of 61 layers)")
+        int8_row = phase_int8_experts()
+        for name, L in MLA_CUTS.items():
+            phase(f"{name} with MLA (dense ServeLoop, {L} of 61 layers)")
+            phase_mla(name)
         phase("card vs CPU on smoke configs")
         phase_reference()
+        phase_mla_reference()
         phase("paper path (ResNet-18 compile-and-execute)")
         counts.update(phase_paper_path(rcfg, rparams, plans))
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    if args.only == "all":
+        kernels.append(int8_row)
     log(json.dumps({"kernels": kernels}))
     if args.only != "all":
         return 0

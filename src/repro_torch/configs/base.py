@@ -23,10 +23,10 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None
     # --- attention ---
-    attn_kind: str = "gqa"       # gqa | mla; only 'gqa' blocks are built
-                                 # (models.lm refuses an MLA block)
+    attn_kind: str = "gqa"       # gqa | mla (deepseek-style latent
+                                 # attention: dense-cache ServeLoop only)
     local_window: int = 2048     # attn_local blocks' sliding window
-    # mla dims (deepseek-style latent attention), carried as plain data
+    # mla dims (models/attention.py::init_mla)
     mla_q_lora: int = 1536
     mla_kv_lora: int = 512
     mla_rope_dim: int = 64
@@ -57,10 +57,17 @@ class ArchConfig:
     serve_impl: str = "tlmac"    # serve linears: dense | int8 | tlmac
                                  # (apply dispatches on the params, so
                                  # mixed layouts serve too)
+    serve_tlmac_impl: str = "auto"  # tlmac serve linears' lookup GEMM:
+                                 # 'auto' = the autotune cache's winner
+                                 # (kernels/autotune.py; kernel 1 on a
+                                 # miss), 'fused' = kernel 1, 'pallas' =
+                                 # kernels 4 + 3, 'ref' = the plain oracle
     serve_kv_dtype: str = "fp"   # paged KV pool dtype: fp | int8 | int4
     serve_paged_attn_impl: str = "auto"  # paged decode attention reader:
-                                 # 'auto' / 'flash' = the flash-decode
-                                 # kernel, 'lax' = gather + masked softmax
+                                 # 'auto' = the autotune cache's winner
+                                 # (flash-decode at 4 splits on a miss),
+                                 # 'flash' = the flash-decode kernel at 4
+                                 # splits, 'lax' = gather + masked softmax
     serve_shared_act_quant: bool = True  # swiglu wi/wg share wi's a_step
     # --- paged serve loop: admission, paging, preemption (the
     # reference's names and defaults) ---
@@ -109,6 +116,7 @@ _ALIASES = {
     "command-r-35b": "command_r_35b",
     "internvl2-76b": "internvl2_76b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
 }
 
 

@@ -2,9 +2,10 @@
 (arXiv:2412.19437).
 
 61L d_model=7168 128H vocab=129280; expert dim 2048; first 3 layers
-dense FFN (18432).  This package builds GQA blocks only: the paged MoE
-path serves ``dataclasses.replace(CONFIG, attn_kind="gqa")`` (128 heads
-over 128 KV heads of dim 56), the reference's own pageable variant.
+dense FFN (18432).  MLA blocks serve through the dense-cache ``ServeLoop``
+(MLA caches are not paged, as in the reference); the paged MoE path
+serves ``dataclasses.replace(CONFIG, attn_kind="gqa")`` (128 heads over
+128 KV heads of dim 56), the reference's own pageable variant.
 """
 
 import dataclasses

@@ -15,10 +15,13 @@ forward computes, at half the memory.  Every other leaf is mirrored as
 it is: each serve linear's layout (TLMAC plans, ``w8``/``w_step``/
 ``a_step`` of int8, bf16 ``w`` of dense, mixed within one tree), a MoE
 layer's expert-stacked linears (leaves ``[L, E, ...]``) and a VLM
-config's ``front`` leaf.  Then every TLMAC serve linear gains one derived
-leaf, ``table_narrow`` (``kernels.tlmac_fused.narrow_table`` of its
-table, an expert stack's ``[L, E, n_clus, N_arr, 2^G]`` narrowed as one),
-which the lookup kernel reads.
+config's ``front`` leaf, an MLA block's dense ``wkv_b`` and norms.  Then
+every TLMAC serve linear gains one derived leaf, ``table_narrow``
+(``kernels.tlmac_fused.narrow_table`` of its table, an expert stack's
+``[L, E, n_clus, N_arr, 2^G]`` narrowed as one), which the lookup kernel
+reads, and every int8 linear's ``w8`` has K and N zero-padded to
+multiples of 8 (``models.nn.pad_int8_weight``: the card's int8 GEMM
+takes no other; ``w_step`` keeps the true N).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.tlmac_fused import narrow_table
-from repro_torch.models.nn import ParamTree
+from repro_torch.models.nn import ParamTree, pad_int8_weight
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -47,26 +50,30 @@ def _tree(x, device):
     return to_torch(x, device)
 
 
-def _add_narrow_tables(x):
+def _serve_leaves(x):
+    """Each serve linear's derived leaves, in place: ``table_narrow`` of a
+    TLMAC plan, the padded ``w8`` of an int8 linear."""
     if isinstance(x, dict):
         if "table" in x and "exec_idx" in x:
             x["table_narrow"] = narrow_table(x["table"])
+        if "w8" in x:
+            x["w8"] = pad_int8_weight(x["w8"]).contiguous()
         for v in x.values():
-            _add_narrow_tables(v)
+            _serve_leaves(v)
     elif isinstance(x, list):
         for v in x:
-            _add_narrow_tables(v)
+            _serve_leaves(v)
 
 
 def params_from_jax(tree, device="cuda") -> ParamTree:
     """JAX serve params (``lm.init_lm(..., purpose='serve')[0]`` as numpy)
     -> the port's ``ParamTree``, plus each serve linear's
-    ``table_narrow``."""
+    ``table_narrow`` and padded ``w8``."""
     p = _tree(tree, device)
     for name in ("embed", "head"):
         if name in p:
             p[name] = {"emb": p[name]["emb"].to(torch.bfloat16)}
-    _add_narrow_tables(p)
+    _serve_leaves(p)
     return ParamTree(p)
 
 
@@ -80,9 +87,10 @@ def pool_from_jax(tree, device="cuda"):
 def dense_caches_from_jax(tree, device="cuda"):
     """JAX dense caches (``lm.init_caches(cfg, B, S_max)[0]`` or a
     ``prefill``'s, as numpy: a list per segment of ``{'b0': {'k', 'v'}}``
-    with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32) -> the same
-    structure of tensors, as ``lm.init_caches(cfg, B=, S_max=)`` holds
-    them."""
+    with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32, or an MLA
+    model's ``{'b0': {'ckv', 'kr'}}`` latents ``[n_layers, B, S, kv_lora |
+    rope]`` bf16) -> the same structure of tensors, as
+    ``lm.init_caches(cfg, B=, S_max=)`` holds them."""
     return _tree(tree, device)
 
 

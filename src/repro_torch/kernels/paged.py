@@ -324,3 +324,63 @@ def _attend_lax(q, kv, block_table, positions, window: Optional[int],
 def pool_scales(kv: dict):
     """(k_scales, v_scales) of a pool dict, or (None, None) for fp."""
     return kv.get("ks"), kv.get("vs")
+
+
+def dispatch_attention(config, q, k_pages, v_pages, block_table, positions,
+                       *, window: Optional[int] = None, k_scales=None,
+                       v_scales=None, qspec: Optional[KVQuantSpec] = None):
+    """Run one paged-attention candidate config.  q ``[B, 1, H, hd]``;
+    returns ``[B, 1, H*hd]`` in q's dtype.  ``'lax'`` is the gather +
+    masked softmax reader, ``'flash'`` the flash-decode kernel (kernel 2)
+    at ``n_splits`` (4 by default); quantised pools pass their scale
+    sidecars, which every impl dequantises in its read loop."""
+    impl = config["impl"]
+    qspec = qspec or KVQuantSpec()
+    if impl == "lax":
+        kv = {"k": k_pages, "v": v_pages}
+        if qspec.quantised:
+            kv.update(ks=k_scales, vs=v_scales)
+        return _attend_lax(q, kv, block_table, positions, window, qspec)
+    if impl == "flash":
+        from repro_torch.kernels.flash_decode import flash_decode
+
+        B, _, H, hd = q.shape
+        KV = k_pages.shape[2]
+        out = flash_decode(
+            q.reshape(B, KV, H // KV, hd), k_pages, v_pages, block_table,
+            positions + 1, window=window,
+            n_splits=config.get("n_splits", 4), k_scales=k_scales,
+            v_scales=v_scales, kv_dtype=qspec.dtype)
+        return out.reshape(B, 1, H * hd).to(q.dtype)
+    raise ValueError(f"unknown paged attention impl {impl!r}")
+
+
+def paged_attention(q, k_pages, v_pages, block_table, positions, *,
+                    window: Optional[int] = None, impl: str = "auto",
+                    tune_on_miss: bool = False, k_scales=None, v_scales=None,
+                    qspec: Optional[KVQuantSpec] = None):
+    """Paged decode attention with autotuned dispatch.  ``impl='auto'``
+    resolves through the shape-keyed cache (``kernels/autotune.py``,
+    keyed with the kv dtype as well); a miss dispatches flash-decode at 4
+    splits, or tunes when ``tune_on_miss`` and no CUDA graph is being
+    captured (serving never sweeps inline)."""
+    from repro_torch.kernels import autotune
+
+    if impl != "auto":
+        config = {"impl": impl}
+    else:
+        B, _, H, hd = q.shape
+        key = autotune.attn_shape_key(
+            B, k_pages.shape[2], H // k_pages.shape[2], hd,
+            block_table.shape[1], k_pages.shape[1], window,
+            kv_dtype=(qspec or KVQuantSpec()).dtype, device=q.device)
+        config = autotune.lookup(key)
+        capturing = q.is_cuda and torch.cuda.is_current_stream_capturing()
+        if config is None and tune_on_miss and not capturing:
+            config = autotune.tune_attention(
+                q, k_pages, v_pages, block_table, positions, window=window,
+                k_scales=k_scales, v_scales=v_scales, qspec=qspec)
+        config = config or dict(autotune.ATTN_DEFAULT)
+    return dispatch_attention(config, q, k_pages, v_pages, block_table,
+                              positions, window=window, k_scales=k_scales,
+                              v_scales=v_scales, qspec=qspec)

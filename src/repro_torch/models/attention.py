@@ -1,4 +1,4 @@
-"""GQA attention of the serve path (port of the GQA subset of
+"""Attention of the serve path (port of the GQA and MLA serve subset of
 ``repro.models.attention``).
 
 Head layout: q ``[B, S, H, hd]``; kv ``[B, S, KV, hd]``.  Paged decode
@@ -12,17 +12,20 @@ visible from query ``iq`` when ``iq - window < ik <= iq``.
 
 The dense-cache path of the oracle loop (``gqa_train`` for a prefill,
 ``gqa_decode`` for a step, ``sdpa`` with its blocked ``_flash`` form) is
-plain torch, as the reference's is plain ``jnp``."""
+plain torch, as the reference's is plain ``jnp``; so is MLA
+(``init_mla``, ``mla_train``, ``mla_decode``), served on dense latent
+caches only, as the reference serves it."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import paged
-from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models import nn
 
 NEG_INF = -1e30
@@ -160,31 +163,25 @@ def gqa_decode_paged(params, x, cfg, pages, block_table, positions,
                      apply_fn=nn.serve_linear_apply, impl: str = "auto"):
     """Single-token decode against a paged pool (written in place).
     ``positions [B]`` int32 per-slot write positions.  ``impl`` picks the
-    reader: ``'auto'`` and ``'flash'`` run flash-decode in four splits
-    (with ``window``, each slot reads only its last ``window`` keys),
-    ``'lax'`` the gather + masked softmax reader (``paged._attend_lax``)."""
+    reader: ``'flash'`` runs flash-decode in four splits (with
+    ``window``, each slot reads only its last ``window`` keys), ``'lax'``
+    the gather + masked softmax reader (``paged._attend_lax``), and
+    ``'auto'`` the autotune cache's winner for the decode shape
+    (``paged.paged_attention``: a host-side read, flash at four splits on
+    a miss)."""
     if impl not in DECODE_IMPLS:
         raise ValueError(f"paged attention impl {impl!r} not in "
                          f"{DECODE_IMPLS}")
-    B = x.shape[0]
     qs = paged.qspec_for(cfg)
     q, k, v = _qkv(params, x, cfg, apply_fn)
     sin, cos = nn.rotary_embedding(positions[:, None], cfg.kv_head_dim)
     q = nn.apply_rotary(q, sin, cos)
     k = nn.apply_rotary(k, sin, cos)
     kv = paged.write_decode_kv(pages, k, v, block_table, positions, qs)
-    if impl == "lax":
-        out = paged._attend_lax(q, kv, block_table, positions, window, qs)
-        return apply_fn(params["wo"], out, cfg), kv
     ksc, vsc = paged.pool_scales(kv)
-    H, hd = cfg.n_heads, cfg.kv_head_dim
-    KV = cfg.n_kv
-    out = flash_decode(
-        q.reshape(B, KV, H // KV, hd), kv["k"], kv["v"], block_table,
-        positions + 1, window=window, n_splits=4,
-        k_scales=ksc, v_scales=vsc, kv_dtype=qs.dtype,
-    )
-    out = out.reshape(B, 1, H * hd).to(q.dtype)
+    out = paged.paged_attention(
+        q, kv["k"], kv["v"], block_table, positions, window=window,
+        impl=impl, k_scales=ksc, v_scales=vsc, qspec=qs)
     return apply_fn(params["wo"], out, cfg), kv
 
 
@@ -301,3 +298,118 @@ def gqa_decode(params, x, cfg, cache, pos: int,
     out = _sdpa(q, kc, vc, mask, cfg)
     H, hd = cfg.n_heads, cfg.kv_head_dim
     return apply_fn(params["wo"], out.reshape(B, 1, H * hd), cfg), (kc, vc)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3, kimi-k2), dense caches
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, device="cuda"):
+    """MLA serve params: ``wq_a`` d -> q_lora, ``q_norm``, ``wq_b`` q_lora
+    -> H (nope + rope), ``wkv_a`` d -> kv_lora + rope, ``kv_norm``,
+    ``wkv_b`` kv_lora -> H (nope + v) and ``wo`` H v -> d.  ``wkv_b`` stays
+    a dense bf16 linear whatever ``cfg.serve_impl``, as the reference
+    builds it: decode absorbs its raw matrix into the latent attention."""
+    d, H = cfg.d_model, cfg.n_heads
+    ql, kvl = cfg.mla_q_lora, cfg.mla_kv_lora
+    nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    lin = nn.init_serve_linear
+    cfg_dense = dataclasses.replace(cfg, serve_impl="dense")
+    return {
+        "wq_a": lin(gen, d, ql, cfg, device=device),
+        "q_norm": nn.init_rmsnorm(ql, device),
+        "wq_b": lin(gen, ql, H * (nod + rod), cfg, device=device),
+        "wkv_a": lin(gen, d, kvl + rod, cfg, device=device),
+        "kv_norm": nn.init_rmsnorm(kvl, device),
+        "wkv_b": lin(gen, kvl, H * (nod + vd), cfg_dense, device=device),
+        "wo": lin(gen, H * vd, d, cfg, device=device),
+    }
+
+
+def _mla_q(params, x, cfg, apply_fn):
+    """``(q_nope, q_rope)`` ``[B, S, H, nope | rope]`` before rotary."""
+    B, S, _ = x.shape
+    nod, rod = cfg.mla_nope_dim, cfg.mla_rope_dim
+    q = apply_fn(params["wq_b"],
+                 nn.rmsnorm_apply(params["q_norm"],
+                                  apply_fn(params["wq_a"], x, cfg)), cfg)
+    q = q.reshape(B, S, cfg.n_heads, nod + rod)
+    return q[..., :nod], q[..., nod:]
+
+
+def _mla_latent(params, x, cfg, apply_fn):
+    """``(c_kv [B, S, kv_lora] normed, k_rope [B, S, rope])``."""
+    kvl = cfg.mla_kv_lora
+    kv = apply_fn(params["wkv_a"], x, cfg)
+    return nn.rmsnorm_apply(params["kv_norm"], kv[..., :kvl]), kv[..., kvl:]
+
+
+def mla_train(params, x, cfg, apply_fn=nn.serve_linear_apply, **_):
+    """Full-sequence causal MLA from position 0 (the dense loop's
+    prefill): K/V expanded from the latents through ``wkv_b``, the rope
+    key shared by every head.  Returns ``(y, (c_kv [B, S, kv_lora], k_rope
+    [B, S, rope]))``: the compressed latents are the cache.  The MLA cache
+    is bf16 whatever ``serve_kv_dtype`` (the reference's), so the
+    ``window`` and ``kv_quant_rt`` keywords of ``gqa_train`` are taken
+    and ignored."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, x, cfg, apply_fn)
+    c_kv, k_rope = _mla_latent(params, x, cfg, apply_fn)
+    kvu = apply_fn(params["wkv_b"], c_kv, cfg).reshape(B, S, H, nod + vd)
+    k_nope, v = kvu[..., :nod], kvu[..., nod:]
+    sin, cos = nn.rotary_embedding(positions, rod)
+    q_rope = nn.apply_rotary(q_rope, sin, cos)
+    k_rope = nn.apply_rotary(k_rope[:, :, None, :], sin, cos)   # shared head
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, H, rod)], dim=-1)
+    out = sdpa(qf, kf, v, cfg, causal=True)              # KV == H (rep = 1)
+    return apply_fn(params["wo"], out, cfg), (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(params, x, cfg, cache, pos: int,
+               apply_fn=nn.serve_linear_apply):
+    """Absorbed-matmul MLA decode at the shared position ``pos`` (an int):
+    the step's latents go into the dense caches ``(ckv [B, S_max,
+    kv_lora], kr [B, S_max, rope])`` in place, and attention runs in the
+    latent space (``W_uk`` absorbed into the query, ``W_uv`` applied to
+    the attended latents), in f32 einsums as the reference's plain
+    ``jnp``: a step costs O(S * kv_lora), never the full K/V.  Returns
+    ``(y, (ckv, kr))``, the same tensors."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    kvl = cfg.mla_kv_lora
+    q_nope, q_rope = _mla_q(params, x, cfg, apply_fn)
+    c_new, kr_new = _mla_latent(params, x, cfg, apply_fn)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    sin, cos = nn.rotary_embedding(positions, rod)
+    q_rope = nn.apply_rotary(q_rope, sin, cos)
+    kr_new = nn.apply_rotary(kr_new[:, :, None, :], sin, cos)[:, :, 0, :]
+    c_cache, kr_cache = cache
+    c_cache[:, pos:pos + 1] = c_new.to(c_cache.dtype)
+    kr_cache[:, pos:pos + 1] = kr_new.to(kr_cache.dtype)
+    S_max = c_cache.shape[1]
+    w_kv_b = params["wkv_b"]["w"].reshape(kvl, H, nod + vd)
+    w_uk = w_kv_b[..., :nod].float()                     # [kvl, H, nod]
+    w_uv = w_kv_b[..., nod:].float()                     # [kvl, H, vd]
+    cf = c_cache.float()
+    q_eff = torch.einsum("bqhn,chn->bqhc", q_nope.float(), w_uk)
+    scores = (torch.einsum("bqhc,bsc->bhqs", q_eff, cf)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             kr_cache.float())) / _sqrt_f32(nod + rod)
+    mask = (torch.arange(S_max, device=x.device) <= pos)[None, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out_c = torch.einsum("bhqs,bsc->bqhc", w, cf)
+    out = torch.einsum("bqhc,chv->bqhv", out_c, w_uv)
+    y = apply_fn(params["wo"], out.reshape(B, 1, H * vd).to(x.dtype), cfg)
+    return y, (c_cache, kr_cache)
+
+
+def _sqrt_f32(dk: int) -> float:
+    """``jnp.sqrt(dk)`` of an int: the f32 square root."""
+    return float(np.float32(np.sqrt(np.float32(dk))))

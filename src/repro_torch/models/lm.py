@@ -1,8 +1,9 @@
 """LM backbone of the serve path (port of the serve subset of
-``repro.models.lm`` for GQA ``attn``, sliding-window ``attn_local`` and
-MoE ``attn_moe`` blocks): the paged forwards of
-``serve.paged.PagedServeLoop`` and the dense-cache forwards (``prefill``,
-``decode_step``) of the oracle loop ``serve.loop.ServeLoop``.
+``repro.models.lm`` for ``attn``, sliding-window ``attn_local`` and MoE
+``attn_moe`` blocks, with GQA or MLA attention): the paged forwards of
+``serve.paged.PagedServeLoop`` (GQA only) and the dense-cache forwards
+(``prefill``, ``decode_step``) of ``serve.loop.ServeLoop``, which serves
+MLA models on latent caches.
 
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
 loop over layers replaces ``_segment_scan_cached``.  Differences from
@@ -51,11 +52,10 @@ def segments_for(cfg) -> List[Segment]:
     ``moe_layer_start`` ``attn`` blocks, then one of ``attn_moe`` blocks;
     ``hybrid`` its ``block_pattern`` repeated, the remainder a trailing
     partial segment (only ``attn``/``attn_local`` blocks are ported:
-    ``init_block`` refuses the others).  Every block is GQA: a config of
-    another ``attn_kind`` (MLA) is refused here."""
-    if cfg.attn_kind != "gqa":
-        raise ValueError(f"attn_kind {cfg.attn_kind!r} is not ported (GQA "
-                         "blocks only)")
+    ``init_block`` refuses the others).  Attention is ``cfg.attn_kind``:
+    GQA or MLA."""
+    if cfg.attn_kind not in ("gqa", "mla"):
+        raise ValueError(f"attn_kind {cfg.attn_kind!r} not in gqa | mla")
     L = cfg.n_layers
     if cfg.family == "moe":
         segs = []
@@ -81,7 +81,10 @@ PAGED_KINDS = ("attn", "attn_moe", "attn_local")
 
 def supports_paged(cfg) -> bool:
     """True when every block's serve cache can be paged (the paged serve
-    loop's admission precondition); False for MLA, as the reference."""
+    loop's admission precondition).  False for MLA, as in the reference:
+    its cache is the compressed latents (``ckv``, ``kr``), which the
+    paged pools' per-head K/V layout and the flash-decode reader do not
+    hold, so MLA models serve through the dense-cache ``ServeLoop``."""
     if cfg.attn_kind == "mla":
         return False
     return all(kind in PAGED_KINDS
@@ -117,9 +120,10 @@ def ffn_apply(params, x, cfg, apply_fn):
 def init_block(gen, kind: str, cfg, device="cuda"):
     if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
+    init_attn = attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa
     p = {
         "norm1": nn.init_rmsnorm(cfg.d_model, device),
-        "attn": attn.init_gqa(gen, cfg, device),
+        "attn": init_attn(gen, cfg, device),
         "norm2": nn.init_rmsnorm(cfg.d_model, device),
     }
     if kind == "attn_moe":
@@ -141,11 +145,15 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     ``{'block_table', 'start'}`` for a prefill chunk.  Without it the
     dense cache ``{'k', 'v'}`` is read and written at the shared
     position ``pos`` (decode, ring buffer for ``attn_local``) or filled
-    by the prompt (prefill; ``cache`` None runs no store)."""
+    by the prompt (prefill; ``cache`` None runs no store).  An MLA block
+    reads and writes its latent cache ``{'ckv', 'kr'}`` the same way."""
     if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
     window = cfg.local_window if kind == "attn_local" else None
+    is_mla = cfg.attn_kind == "mla"
     h = nn.rmsnorm_apply(params["norm1"], x)
+    if paged_ctx is not None and is_mla:
+        raise ValueError("MLA caches are not paged (supports_paged)")
     if paged_ctx is not None:
         if "n_writes" in paged_ctx:
             y, cache = attn.gqa_verify_paged(
@@ -162,16 +170,20 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                 params["attn"], h, cfg, cache, paged_ctx["block_table"],
                 paged_ctx["start"], window=window, apply_fn=apply_fn)
     elif decode:
-        if kind == "attn_local":
+        if is_mla:
+            y, _ = attn.mla_decode(params["attn"], h, cfg,
+                                   (cache["ckv"], cache["kr"]), pos,
+                                   apply_fn=apply_fn)
+        elif kind == "attn_local":
             y = _local_decode(params["attn"], h, cfg, cache, pos, apply_fn)
         else:
             y, _ = attn.gqa_decode(params["attn"], h, cfg,
                                    (cache["k"], cache["v"]), pos,
                                    apply_fn=apply_fn)
     else:
-        y, kv = attn.gqa_train(params["attn"], h, cfg, window=window,
-                               apply_fn=apply_fn,
-                               kv_quant_rt=cache is not None)
+        fwd = attn.mla_train if is_mla else attn.gqa_train
+        y, kv = fwd(params["attn"], h, cfg, window=window, apply_fn=apply_fn,
+                    kv_quant_rt=cache is not None)
         if cache is not None:
             _store_prefill(kind, cache, kv)
     # XLA fuses the residual add into the norm after it: the norm reads
@@ -192,7 +204,14 @@ def _store_prefill(kind: str, cache, kv) -> None:
     the last ``W`` keys at ring indices ``0..`` (zeros after them when
     ``S < W``).  Under a quantised ``serve_kv_dtype`` the K/V arrive
     round-tripped already (``gqa_train``), so the store is a plain cast
-    into the f32 cache."""
+    into the f32 cache.  An MLA cache takes the latents ``(c_kv, k_rope)``
+    at positions ``[0, S)``."""
+    if "ckv" in cache:
+        ckv, kr = kv
+        S = ckv.shape[1]
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        return
     k, v = kv
     if kind == "attn_local":
         W = cache["k"].shape[1]
@@ -296,13 +315,19 @@ def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
     a ring of ``min(local_window, S_max)``.  bf16, or f32 under a
     quantised ``serve_kv_dtype``: the cache then holds round-tripped
     values, so the dense loop is the equal-quantisation oracle of the
-    paged path."""
+    paged path.  An MLA ``attn``/``attn_moe`` block caches its latents,
+    ``ckv [B, S_max, kv_lora]`` and ``kr [B, S_max, rope]``, in bf16
+    whatever ``serve_kv_dtype`` (the reference's)."""
     if kind not in PAGED_KINDS:
         raise ValueError(f"block kind {kind!r} is not ported")
+    lead = (n_layers,) if n_layers else ()
+    if cfg.attn_kind == "mla" and kind in ("attn", "attn_moe"):
+        mk = lambda w: torch.zeros((*lead, B, S_max, w),
+                                   dtype=torch.bfloat16, device=device)
+        return {"ckv": mk(cfg.mla_kv_lora), "kr": mk(cfg.mla_rope_dim)}
     S = min(cfg.local_window, S_max) if kind == "attn_local" else S_max
     dt = (torch.float32 if paged_kernels.qspec_for(cfg).quantised
           else torch.bfloat16)
-    lead = (n_layers,) if n_layers else ()
     shape = (*lead, B, S, cfg.n_kv, cfg.kv_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

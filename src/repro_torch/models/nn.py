@@ -8,14 +8,19 @@ frozen ``Parameter``s, integer plan arrays are buffers)."""
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.tlmac.compile import plan_shapes
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.int8_experts import int8_experts_matmul
 from repro_torch.kernels.tlmac_fused import narrow_table
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -105,7 +110,8 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
     (which must live on ``device``):
 
     - ``dense``: ``w`` bf16 ``[K, N]``, N(0, 1/K);
-    - ``int8``: ``w8`` int8 ``[K, N]`` in [-127, 126], ``w_step [N]`` and
+    - ``int8``: ``w8`` int8 ``[K, N]`` in [-127, 126] (zero-padded to
+      multiples of 8 by ``pad_int8_weight``), ``w_step [N]`` and
       ``a_step`` f32 ones;
     - ``tlmac``: the plan's capacity shapes: int32 tables, uint8
       (N_arr <= 256) or int16 indices, int8 step clusters, and the
@@ -137,8 +143,9 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
                            1.0 / math.sqrt(K)))}
     elif impl == "int8":
         p = {
-            "w8": draw((K, N), torch.int8,
-                       lambda t: t.random_(-127, 127, generator=gen)),
+            "w8": pad_int8_weight(draw((K, N), torch.int8,
+                                       lambda t: t.random_(-127, 127,
+                                                           generator=gen))),
             "w_step": ones(N),
             "a_step": ones(),
         }
@@ -176,20 +183,39 @@ def layout(params) -> str:
 
 
 INT_MM_MIN_M = 32   # torch._int_mm refuses M <= 16: zero rows pad M to 32
+INT8_ALIGN = 8      # torch._int_mm takes K and N in multiples of 8
+
+
+def pad_int8_weight(w8: torch.Tensor) -> torch.Tensor:
+    """``w8 [..., K, N]`` with K and N padded by zero rows and columns to
+    multiples of ``INT8_ALIGN``, once, where the params are made (the
+    reference's ``dot_general`` takes any K and N; the card's int8 GEMM
+    does not).  The int32 product is unchanged; the serve linear pads its
+    activations' K alike and cuts the output back to ``w_step``'s N."""
+    K, N = w8.shape[-2:]
+    pk, pn = -K % INT8_ALIGN, -N % INT8_ALIGN
+    if not (pk or pn):
+        return w8
+    return torch.nn.functional.pad(w8, (0, pn, 0, pk))
+
+
+def _int8_codes(x, a_step, Kp: int):
+    """Activations rounded half to even on ``a_step``, clipped to +-127,
+    as int8 codes with K padded by zero columns to the weight's ``Kp``."""
+    aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
+                     -127, 127).to(torch.int8)
+    K = aq.shape[-1]
+    return torch.nn.functional.pad(aq, (0, Kp - K)) if Kp != K else aq
 
 
 def int8_matmul(aq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """Exact int32 ``aq [M, K] @ w8 [K, N]`` of int8 operands.  On the
-    card one ``torch._int_mm`` (cuBLASLt int8 GEMM; K and N must be
-    multiples of 8, and zero rows pad M past 16); on the CPU an int32
-    product (no rounding anywhere)."""
+    card one ``torch._int_mm`` (cuBLASLt int8 GEMM: K and N come padded to
+    multiples of 8 by ``pad_int8_weight``, and zero rows pad M past 16);
+    on the CPU an int32 product (no rounding anywhere)."""
     if aq.device.type != "cuda":
         return torch.matmul(aq.to(torch.int32), w8.to(torch.int32))
     M, K = aq.shape
-    N = w8.shape[1]
-    if K % 8 or N % 8:
-        raise ValueError(f"int8 serve linear on the card needs K and N in "
-                         f"multiples of 8, got K={K}, N={N}")
     Mp = max(INT_MM_MIN_M, -(-M // 8) * 8)
     if Mp != M:
         a = torch.zeros((Mp, K), dtype=torch.int8, device=aq.device)
@@ -208,16 +234,19 @@ def _tlmac_quant_pack(a_step, x, cfg):
 
 
 def _tlmac_gemm(params, aq, lead, cfg):
-    """One fused lookup GEMM from quantised activations, dequantised to
-    bf16.  Reads ``table_narrow`` where the params carry it (made once
-    with them); a bare int32 ``table`` serves the CPU's plain version and
-    is refused by the kernel."""
+    """One lookup GEMM from quantised activations, dequantised to bf16,
+    through ``cfg.serve_tlmac_impl``: ``'auto'`` reads the autotune cache
+    (host side, so a CUDA graph capture may resolve it) and never tunes
+    inline; a miss takes kernel 1.  Reads ``table_narrow`` where the
+    params carry it (made once with them); a bare int32 ``table`` serves
+    the CPU's plain version and is refused by the kernels."""
     n_tiles, kg, dp = params["exec_idx"].shape
     N = n_tiles * dp
     table = params.get("table_narrow", params["table"])
     yi = kops.tlmac_matmul(aq, table, params["exec_idx"],
                            params["step_cluster"], B_a=cfg.quant.a_bits,
-                           G=cfg.tlmac_G, N=N, impl="fused")
+                           G=cfg.tlmac_G, N=N, impl=cfg.serve_tlmac_impl,
+                           tune_on_miss=False)
     y = (yi.to(torch.float32) * (params["a_step"] * params["w_step"])).to(
         COMPUTE_DTYPE)
     return y.reshape(*lead, N)
@@ -232,9 +261,11 @@ def serve_linear_apply(params, x, cfg, use_bias: bool = False):
       in f32); on the CPU the f32 product of the bf16 operands, which is
       XLA's CPU dot (a CPU bf16 GEMM orders its sums differently);
     - int8: activations rounded half to even on ``a_step``, clipped to
-      +-127, an exact int8 x int8 -> int32 product (``int8_matmul``),
-      then ``yi * (a_step * w_step)`` in f32, to bf16;
-    - tlmac: the fused lookup GEMM (kernel 1) on quantised codes."""
+      +-127, an exact int8 x int8 -> int32 product (``int8_matmul``, on
+      the padded weight, cut back to N), then ``yi * (a_step * w_step)``
+      in f32, to bf16;
+    - tlmac: the lookup GEMM on quantised codes, kernel 1 or the impl
+      ``cfg.serve_tlmac_impl`` names (``_tlmac_gemm``)."""
     impl = layout(params)
     if impl == "dense":
         w = params["w"]
@@ -244,13 +275,12 @@ def serve_linear_apply(params, x, cfg, use_bias: bool = False):
         else:     # XLA's CPU dot: f32 products and sums of bf16 operands
             y = torch.matmul(xb.float(), w.float()).to(COMPUTE_DTYPE)
     elif impl == "int8":
-        a_step = params["a_step"]
-        K = x.shape[-1]
-        aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
-                         -127, 127).to(torch.int8).reshape(-1, K)
-        yi = int8_matmul(aq, params["w8"])
+        a_step, w8 = params["a_step"], params["w8"]
+        aq = _int8_codes(x, a_step, w8.shape[0])
+        N = params["w_step"].shape[-1]
+        yi = int8_matmul(aq.reshape(-1, w8.shape[0]), w8)[:, :N]
         y = (yi.to(torch.float32) * (a_step * params["w_step"])).to(
-            COMPUTE_DTYPE).reshape(*x.shape[:-1], -1)
+            COMPUTE_DTYPE).reshape(*x.shape[:-1], N)
     else:
         aq = _tlmac_quant_pack(params["a_step"], x, cfg)
         y = _tlmac_gemm(params, aq, x.shape[:-1], cfg)
@@ -286,10 +316,10 @@ def serve_expert_linear_apply(params, xe, cfg):
       dequantised as the dense path does, ``yi * (a_step * w_step)`` in
       f32 to bf16 (the reference's fused N-tile GEMM rounds each finished
       tile so);
-    - int8: each expert's exact int8 x int8 -> int32 product, dequantised
-      in f32 to bf16 (on the CPU one batched int32 product; refused on the
-      card, which has no one-launch expert-stacked int8 product: cuBLASLt
-      has no batched int8 GEMM, and a launch per expert is not taken);
+    - int8: each expert's exact int8 x int8 -> int32 product from ONE
+      launch of the expert-stacked int8 kernel
+      (``kernels/int8_experts.py``; one batched int32 product on the
+      CPU), dequantised in f32 to bf16;
     - dense: the bf16 product summed in f32 (one batched matmul)."""
     G, E, cap, K = xe.shape
     x = xe.transpose(0, 1).reshape(E, G * cap, K)
@@ -307,15 +337,10 @@ def serve_expert_linear_apply(params, xe, cfg):
         y = (yi.to(torch.float32)
              * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
     elif impl == "int8":
-        a_step = params["a_step"].reshape(E, 1, 1)
-        aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
-                         -127, 127).to(torch.int8)
-        if aq.device.type != "cpu":
-            raise NotImplementedError(
-                f"int8 expert-stacked linears have no one-launch product on "
-                f"{aq.device.type} (a launch per expert is not taken); serve "
-                f"a MoE config's experts in the tlmac or dense layout")
-        yi = torch.matmul(aq.to(torch.int32), params["w8"].to(torch.int32))
+        a_step, w8 = params["a_step"].reshape(E, 1, 1), params["w8"]
+        aq = _int8_codes(x, a_step, w8.shape[-2])
+        N = params["w_step"].shape[-1]
+        yi = int8_experts_matmul(aq, w8)[..., :N]
         y = (yi.to(torch.float32)
              * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
     else:
@@ -363,19 +388,96 @@ def logits_apply(params, x, vocab: Optional[int] = None):
 
 def rotary_embedding(positions, dim: int, base: float = 10000.0):
     """Returns (sin, cos) ``[..., dim/2]`` in f32.  Every tensor is made
-    on the device (no host-to-device copy), so a CUDA graph can hold it."""
+    on the device (no host-to-device copy), so a CUDA graph can hold it.
+    On the CPU the frequencies and the sine and cosine are the C library's
+    ``powf``, ``sinf`` and ``cosf``, which XLA's CPU backend calls (it
+    folds the reference's ``1 / base**e`` into ``base**(-e)``); torch's
+    vectorised ``pow``, ``sin`` and ``cos`` differ from them by an ulp at
+    a few percent of rotary arguments.  On the card, torch's."""
+    if positions.device.type == "cpu":
+        return _libm_rotary(positions, dim, float(base))
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
-    inv = 1.0 / torch.pow(torch.full((), base, dtype=torch.float32,
-                                     device=positions.device), exps)
+    inv = torch.pow(torch.full((), base, dtype=torch.float32,
+                               device=positions.device), -exps)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.sin(ang), torch.cos(ang)
 
 
+@functools.lru_cache(maxsize=None)
+def _libm():
+    """The C library's f32 ``powf``, ``sinf`` and ``cosf``."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    fns = {}
+    for name, n_args in (("powf", 2), ("sinf", 1), ("cosf", 1)):
+        f = getattr(lib, name)
+        f.restype, f.argtypes = ctypes.c_float, [ctypes.c_float] * n_args
+        fns[name] = f
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_inv_freq(dim: int, base: float) -> torch.Tensor:
+    """``powf(base, -e)`` for the rotary exponents ``e = arange(0, dim, 2)
+    / dim`` (f32)."""
+    powf = _libm()["powf"]
+    exps = np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim)
+    return torch.tensor([powf(base, -float(e)) for e in exps],
+                        dtype=torch.float32)
+
+
+def libm_sincosf(ang: torch.Tensor):
+    """``(sinf(ang), cosf(ang))`` of a CPU f32 tensor, one C library call
+    an element."""
+    fns = _libm()
+    vals = ang.reshape(-1).tolist()
+    return tuple(torch.tensor([fns[n](v) for v in vals],
+                              dtype=torch.float32).reshape(ang.shape)
+                 for n in ("sinf", "cosf"))
+
+
+# (dim, base) -> [sin, cos, filled]: the rows of integer positions
+# computed so far (the C library is called once an element), grown by
+# doubling
+_ROTARY_ROWS: Dict[tuple, list] = {}
+
+
+def _libm_rotary(positions, dim: int, base: float):
+    inv = _libm_inv_freq(dim, base)
+    if positions.is_floating_point() or (
+            positions.numel() and int(positions.min()) < 0):
+        return libm_sincosf(positions.to(torch.float32)[..., None] * inv)
+    idx = positions.long()
+    need = int(idx.max()) + 1 if idx.numel() else 0
+    rows = _ROTARY_ROWS.get((dim, base))
+    if rows is None or rows[2].shape[0] < need:
+        P = 1 << max(need - 1, 255).bit_length()
+        grown = [torch.zeros(P, inv.numel(), dtype=torch.float32),
+                 torch.zeros(P, inv.numel(), dtype=torch.float32),
+                 torch.zeros(P, dtype=torch.bool)]
+        for new, old in zip(grown, rows or ()):
+            new[:old.shape[0]] = old
+        rows = _ROTARY_ROWS[(dim, base)] = grown
+    todo = torch.unique(idx)
+    todo = todo[~rows[2][todo]]
+    if todo.numel():
+        s, c = libm_sincosf(todo.to(torch.float32)[:, None] * inv)
+        rows[0][todo], rows[1][todo], rows[2][todo] = s, c, True
+    return rows[0][idx], rows[1][idx]
+
+
 def apply_rotary(x, sin, cos):
-    """x ``[..., S, H, hd]``; sin/cos ``[..., S, hd/2]`` broadcast over heads."""
+    """x ``[..., S, H, hd]``; sin/cos ``[..., S, hd/2]`` broadcast over
+    heads.  On the CPU as XLA's CPU backend computes it: ``x1 * c - x2 *
+    s`` contracted into ``fma(x1, c, -(x2 * s))`` (and ``fma(x2, c, x1 *
+    s)``), the fused product taken exactly in f64."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     s, c = sin[..., None, :], cos[..., None, :]
+    if x.device.type == "cpu":
+        c64 = c.double()
+        return torch.cat([(x1.double() * c64 - (x2 * s).double()).float(),
+                          (x2.double() * c64 + (x1 * s).double()).float()],
+                         dim=-1).to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 

@@ -53,6 +53,12 @@ reference's (``configs/base.py``):
   per-tenant swap-byte budgets and queue limits bound the rest.  A
   seeded ``FaultPlan`` injects pool exhaustion, swap refusals, torn host
   pages, admission stalls and cancels.
+- **Autotune** (``serve_tlmac_impl``, ``serve_paged_attn_impl``, both
+  ``'auto'`` by default, ``kernels/autotune.py``): the serve linears and
+  the decode reader dispatch the cache's winner for their shape, a
+  host-side read that a capture may do; a miss takes kernel 1 and
+  flash-decode at 4 splits.  ``tune`` fills the cache for this loop's
+  shapes before its graphs are captured; serving never tunes.
 - **Telemetry** (``serve_telemetry``, ``serve/telemetry.py``): the
   reference's lifecycle events per request, phase histograms
   (``phase.reserve_s``, ``phase.prefill_chunk_s``, ``phase.decode_s``,
@@ -93,8 +99,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import autotune
+from repro_torch.kernels import bitplanes as _bp
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import int8_experts as _i8
+from repro_torch.kernels import paged as paged_kernels
 from repro_torch.kernels import tlmac_fused as _tf
+from repro_torch.kernels import tlmac_gemm as _tg
 from repro_torch.kernels.paged import PageSpec, qspec_for, spec_for
 from repro_torch.models import lm
 from repro_torch.models.attention import DECODE_IMPLS
@@ -115,10 +126,14 @@ __all__ = ["AdmissionError", "CancelledError", "DeadlineExceededError",
            "PagedServeLoop"]
 
 # the launch counters a captured graph records: name -> (module, counter);
-# kernel 1's expert-stack launches are also in its total
+# kernel 1's expert-stack launches are also in its total; kernels 4 + 3
+# run where 'auto' picked 'pallas' for a serve linear
 _COUNTED = {"tlmac_gemm_fused": (_tf, "launches"),
             "tlmac_gemm_fused_expert": (_tf, "expert_launches"),
-            "flash_decode": (_fd, "launches")}
+            "flash_decode": (_fd, "launches"),
+            "pack_bitplanes": (_bp, "launches"),
+            "tlmac_gemm": (_tg, "launches"),
+            "int8_experts": (_i8, "launches")}
 # one warm-up and capture stream per device, shared by every loop's
 # forwards: cuBLAS keeps a workspace for each stream it has run on, so a
 # stream per capture would hold one more workspace for every graph built
@@ -130,6 +145,24 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
     if s is None:
         s = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
     return s
+
+
+def _tlmac_linears(tree):
+    """Every single (not expert-stacked) tlmac serve linear of a params
+    tree, one per stacked segment leaf, layer 0's view."""
+    if isinstance(tree, list):
+        for t in tree:
+            yield from _tlmac_linears(t)
+    elif isinstance(tree, dict):
+        if "exec_idx" in tree:
+            ex = tree["exec_idx"]
+            if ex.dim() == 4:          # [n_layers, n_tiles, kg, dp]
+                yield {k: v[0] for k, v in tree.items()}
+            elif ex.dim() == 3:
+                yield tree
+            return
+        for v in tree.values():
+            yield from _tlmac_linears(v)
 
 
 class PageManager:
@@ -482,6 +515,88 @@ class PagedServeLoop:
         if self.drafter is not None:
             self.forwards["verify"] = FixedShapeForward(
                 self._verify_fn, self.device, pool)
+
+    # -- autotune -----------------------------------------------------------
+
+    @torch.no_grad()
+    def tune(self, reps: int = 5) -> Dict[str, dict]:
+        """Tune, eagerly and on concrete tensors, every ``'auto'`` shape
+        this loop's forwards dispatch, before any graph is captured (a
+        capture only reads the cache).  The tlmac serve linears are tuned
+        at the chunk's, the decode step's and (with a drafter) the verify
+        window's rows, on seeded random activation codes and each shape's
+        first linear's plan; the paged decode reader, under
+        ``serve_paged_attn_impl='auto'``, on a seeded random pool with
+        every slot at ``s_max`` positions.  A shape already in the cache
+        is not tuned again.  Returns the config of every key."""
+        if any(f.graphs for f in self.forwards.values()):
+            raise RuntimeError("tune before the first forward: captured "
+                               "graphs keep the configs they resolved")
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out: Dict[str, dict] = {}
+        rows = {self.chunk, self.B}
+        if self.drafter is not None:
+            rows.add(self.B * (self.spec_k + 1))
+        if cfg.serve_tlmac_impl == "auto":
+            for lin in _tlmac_linears(self.params.tree()):
+                n_tiles, kg, dp = lin["exec_idx"].shape
+                K, N = kg * cfg.tlmac_G, n_tiles * dp
+                table = lin.get("table_narrow", lin["table"])
+                for M in sorted(rows):
+                    key = autotune.shape_key(
+                        M, K, N, B_a=cfg.quant.a_bits, G=cfg.tlmac_G, D_p=dp,
+                        R=int(np.prod(table.shape[:-1])), device=dev)
+                    if key in out:
+                        continue
+                    conf = autotune.lookup(key)
+                    if conf is None:
+                        a = torch.randint(0, 2**cfg.quant.a_bits, (M, K),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int8)
+                        conf = autotune.tune(
+                            a, table, lin["exec_idx"], lin["step_cluster"],
+                            B_a=cfg.quant.a_bits, G=cfg.tlmac_G, N=N,
+                            reps=reps)
+                    out[key] = conf
+        if cfg.serve_paged_attn_impl == "auto":
+            out.update(self._tune_attention(gen, reps))
+        return out
+
+    def _tune_attention(self, gen, reps: int):
+        cfg, dev, spec = self.cfg, self.device, self.spec
+        qs = qspec_for(cfg)
+        KV, hd, H = cfg.n_kv, cfg.kv_head_dim, cfg.n_heads
+        pool = paged_kernels.zero_kv_pool(spec, KV, hd, qs, device=dev)
+        n = spec.n_pages * spec.page_size
+        kv = torch.randn((2, n, KV, hd), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        pid = torch.arange(spec.n_pages, device=dev).repeat_interleave(
+            spec.page_size)
+        off = torch.arange(spec.page_size, device=dev).repeat(spec.n_pages)
+        paged_kernels._write_kv(pool, pid, off, kv[0], kv[1], qs)
+        bt = (1 + torch.arange(self.B * spec.max_blocks, dtype=torch.int32,
+                               device=dev) % (spec.n_pages - 1)).reshape(
+            self.B, spec.max_blocks)
+        positions = torch.full((self.B,), self.S_max - 1,
+                               dtype=torch.int32, device=dev)
+        q = torch.randn((self.B, 1, H, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        windows = {cfg.local_window if kind == "attn_local" else None
+                   for seg in lm.segments_for(cfg) for kind in seg.pattern}
+        out = {}
+        ksc, vsc = paged_kernels.pool_scales(pool)
+        for window in sorted(windows, key=lambda w: -1 if w is None else w):
+            key = autotune.attn_shape_key(
+                self.B, KV, H // KV, hd, spec.max_blocks, spec.page_size,
+                window, kv_dtype=qs.dtype, device=dev)
+            conf = autotune.lookup(key)
+            if conf is None:
+                conf = autotune.tune_attention(
+                    q, pool["k"], pool["v"], bt, positions, window=window,
+                    reps=reps, k_scales=ksc, v_scales=vsc, qspec=qs)
+            out[key] = conf
+        return out
 
     # -- the forwards --------------------------------------------------------
 
@@ -1455,8 +1570,8 @@ class PagedServeLoop:
     def metrics(self) -> dict:
         """One JSON-serialisable snapshot of every subsystem: pool,
         prefix cache, speculation, KV quantisation, scheduler, swap tier,
-        tenants and fault injection (the reference's ``autotune`` section
-        is not ported); the ``telemetry`` section (registry and tracer
+        tenants, fault injection and the autotuner's process-wide lookup
+        and tune counters; the ``telemetry`` section (registry and tracer
         depth) appears only with telemetry on."""
         qs = qspec_for(self.cfg)
         doc = {
@@ -1475,6 +1590,7 @@ class PagedServeLoop:
             "swap": self.swap_stats(),
             "tenants": self.tenant_stats(),
             "faults": self.faults.stats(),
+            "autotune": autotune.snapshot_stats(),
         }
         if self.tel.enabled:
             doc["telemetry"] = {

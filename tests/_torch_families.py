@@ -56,6 +56,12 @@ MOE_FAMILIES = {
     "moe-gqa": ("deepseek-v3-671b", dict(attn_kind="gqa",
                                          name="ds-moe-gqa")),
 }
+# the MLA families: deepseek-v3 and kimi-k2 with their own attention,
+# served on dense latent caches (MLA is not paged, as in the reference)
+MLA_FAMILIES = {
+    "deepseek-mla": ("deepseek-v3-671b", {}),
+    "kimi-mla": ("kimi-k2-1t-a32b", {}),
+}
 NEW_FAMILIES = ["minicpm-gqa", "command-r-gqa-r4", "internvl2-vlm",
                 "window-local"]
 LAYOUTS = ["tlmac", "int8", "dense", "mixed"]
@@ -70,7 +76,8 @@ torch.set_num_threads(1)
 
 
 def cfgs(family, impl="tlmac", kv="fp", **kw):
-    arch, over = FAMILIES.get(family) or MOE_FAMILIES[family]
+    arch, over = (FAMILIES.get(family) or MOE_FAMILIES.get(family)
+                  or MLA_FAMILIES[family])
     over = dict(over, serve_impl=impl, serve_kv_dtype=kv, **kw)
     return (dataclasses.replace(jsmoke(arch), **over),
             dataclasses.replace(tsmoke(arch), **over))

@@ -846,7 +846,9 @@ def test_flash_decode_at_the_families_shapes_equals_plain(cuda, kv, rep, hd,
 @pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
 def test_int8_layout_equals_the_cpu_product_on_card(cuda, M):
     """The int8 serve linear on the card (``torch._int_mm``, rows padded
-    past 16) against the same linear on the CPU (exact int32): equal."""
+    past 16) against the same linear on the CPU (exact int32): equal; a
+    ragged one (K 250, N 130: ``w8`` zero-padded to multiples of 8 where
+    the params are made) too."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import nn
 
@@ -864,8 +866,12 @@ def test_int8_layout_equals_the_cpu_product_on_card(cuda, M):
     got = nn.serve_linear_apply({k: t.to(cuda) for k, t in p.items()},
                                 x.to(cuda), cfg, use_bias=True)
     assert torch.equal(got.cpu(), want)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        nn.int8_matmul(aq[:, :250].to(cuda), p["w8"][:250].to(cuda))
+    pr = nn.init_serve_linear(gen, 250, 130, cfg, device="cpu")
+    assert tuple(pr["w8"].shape) == (256, 136)
+    xr = torch.randn((M, 250), generator=gen).bfloat16() * 3
+    got = nn.serve_linear_apply({k: t.to(cuda) for k, t in pr.items()},
+                                xr.to(cuda), cfg)
+    assert torch.equal(got.cpu(), nn.serve_linear_apply(pr, xr, cfg))
 
 
 @pytest.mark.requires_cuda
@@ -971,20 +977,118 @@ def test_fused_lookup_gemm_expert_axis_on_card(cuda, E, K, N, dp, n_arr, G,
             a[e], idx[e], cl[e], tab[e], B_a=3, G=G)), e
 
 
+# (E, M, K, N): the 16-byte path (N % 16, K % 4), ragged N, ragged K, a
+# K past the 2048-byte staging chunk, M past the 4-row block
+INT8_EXPERT_SHAPES = [(3, 4, 64, 256), (2, 5, 100, 36), (4, 9, 7, 300),
+                      (5, 3, 4100, 520), (2, 1, 33, 17), (8, 2, 256, 64)]
+
+
 @pytest.mark.requires_cuda
-def test_int8_expert_linears_are_refused_on_card(cuda):
-    """The int8 layout's expert stack raises on the card (no one-launch
-    expert-stacked int8 product) and launches nothing."""
+@pytest.mark.parametrize("E,M,K,N", INT8_EXPERT_SHAPES)
+def test_int8_experts_kernel_equals_twin_on_card(cuda, E, M, K, N):
+    """One launch of the expert-stacked int8 kernel equals its plain twin
+    (each expert's exact f64 product) int32 for int32, and the per-expert
+    ``torch._int_mm`` loop where K and N are multiples of 8."""
+    from repro_torch.kernels import int8_experts as I8
+
+    gen = torch.Generator(device=cuda).manual_seed(E * K + N)
+    a = torch.randint(-127, 128, (E, M, K), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (E, K, N), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    n0 = I8.launches
+    got = I8.int8_experts_matmul(a, w)
+    torch.cuda.synchronize()
+    assert I8.launches == n0 + 1 and got.shape == (E, M, N)
+    want = I8.int8_experts_matmul_plain(a, w)
+    assert torch.equal(got, want)
+    if K % 8 == 0 and N % 8 == 0:
+        assert torch.equal(I8.int8_experts_loop(a, w), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,N", [(64, 32), (100, 36)])
+def test_int8_expert_linears_run_one_launch_on_card(cuda, K, N):
+    """The int8 layout's expert stack runs through one launch of the int8
+    expert kernel on the card and equals the same params' CPU forward (the
+    plain batched int32 product) bit for bit."""
     from repro_torch.configs import smoke_config
+    from repro_torch.kernels import int8_experts as I8
     from repro_torch.models import nn
 
     cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"),
                               attn_kind="gqa", serve_impl="int8")
-    p = nn.init_serve_linear(torch.Generator(device=cuda).manual_seed(0), 64,
-                             32, cfg, device=cuda, expert=8)
-    xe = torch.ones((2, 8, 3, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="int8 expert-stacked"):
-        nn.serve_expert_linear_apply(p, xe, cfg)
+    p = nn.init_serve_linear(torch.Generator(device=cuda).manual_seed(0), K,
+                             N, cfg, device=cuda, expert=8)
+    p["a_step"].fill_(1 / 32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xe = torch.randn((2, 8, 3, K), generator=gen, device=cuda).bfloat16()
+    n0 = I8.launches
+    got = nn.serve_expert_linear_apply(p, xe, cfg)
+    torch.cuda.synchronize()
+    assert I8.launches == n0 + 1 and got.shape == (2, 8, 3, N)
+    want = nn.serve_expert_linear_apply(
+        {k: v.cpu() for k, v in p.items()}, xe.cpu(), cfg)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 4, 17, 64])
+def test_ragged_int8_linear_on_card(cuda, M):
+    """A K = 100, N = 36 int8 serve linear (``w8`` zero-padded to 104 x 40
+    where the params are made) on the card equals the plain int32
+    product of the unpadded weight."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import nn
+
+    cfg = dataclasses.replace(smoke_config("codeqwen1.5-7b"),
+                              serve_impl="int8")
+    K, N = 100, 36
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    p = nn.init_serve_linear(gen, K, N, cfg, device=cuda)
+    assert tuple(p["w8"].shape) == (104, 40)
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 2).bfloat16()
+    aq = torch.clamp(torch.round(x.float() / p["a_step"]), -127, 127)
+    yi = torch.matmul(aq.double(), p["w8"][:K, :N].double()).to(torch.int32)
+    want = (yi.float() * (p["a_step"] * p["w_step"])).bfloat16()
+    assert torch.equal(nn.serve_linear_apply(p, x, cfg), want)
+
+
+@pytest.mark.requires_cuda
+def test_auto_tuned_main_path_shape_equals_ref_on_card(cuda, tmp_path,
+                                                       monkeypatch):
+    """A codeqwen1.5-7b decode linear shape (M 4, 4096 -> 4096) tuned on
+    the card between kernel 1 and kernels 4 + 3: the winner is recorded
+    under a ``cuda`` key and ``'auto'`` then dispatches it, int32-equal
+    to ``'ref'``; a capture refuses to tune."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.models import nn
+
+    monkeypatch.setenv(at.CACHE_ENV, str(tmp_path / "at.json"))
+    at.reset_cache()
+    try:
+        cfg = get_config("codeqwen1.5-7b")
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        p = nn.init_serve_linear(gen, 4096, 4096, cfg, device=cuda)
+        a = torch.randint(0, 8, (4, 4096), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        args = (a, p["table_narrow"], p["exec_idx"], p["step_cluster"])
+        kw = dict(B_a=3, G=4, N=4096)
+        conf = at.tune(*args, **kw, reps=3)
+        assert conf["impl"] in ("fused", "pallas")
+        key = at.shape_key(4, 4096, 4096, B_a=3, G=4, D_p=128,
+                           R=int(np.prod(p["table_narrow"].shape[:-1])),
+                           device=cuda)
+        assert key.split("|")[1] == "cuda" and at.lookup(key) == conf
+        want = ops.tlmac_matmul(*args, **kw, impl="ref")
+        assert torch.equal(ops.tlmac_matmul(*args, **kw, impl="auto"), want)
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(graph):
+                at.tune(*args, **kw, reps=1)
+    finally:
+        at.reset_cache()
 
 
 @pytest.mark.requires_cuda

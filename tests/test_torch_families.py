@@ -57,16 +57,23 @@ def test_configs_match_reference(arch):
 
 
 def test_configs_refuse_what_is_not_ported():
-    """MLA configs build (plain data, as the reference's
-    ``replace(..., attn_kind='gqa')`` needs) and are refused where a block
-    would be built; they do not page, as in the reference."""
+    """MLA configs build MLA blocks in the reference's segments and do
+    not page, as in the reference; an unknown ``attn_kind`` is refused
+    where a block would be built."""
     base = tsmoke("codeqwen1.5-7b")
     mla = dataclasses.replace(base, attn_kind="mla")
     assert not tlm.supports_paged(mla)
+    assert [(s.pattern, s.n) for s in tlm.segments_for(mla)] == [
+        (s.pattern, s.n) for s in jlm.segments_for(
+            dataclasses.replace(jsmoke("codeqwen1.5-7b"), attn_kind="mla"))]
+    p = tlm.init_lm(mla, torch.Generator().manual_seed(0), device="cpu")
+    assert set(p.tree()["segments"][0]["b0"]["attn"]) == {
+        "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}
+    odd = dataclasses.replace(base, attn_kind="linear")
     with pytest.raises(ValueError, match="attn_kind"):
-        tlm.segments_for(mla)
+        tlm.segments_for(odd)
     with pytest.raises(ValueError, match="attn_kind"):
-        tlm.init_lm(mla, torch.Generator().manual_seed(0), device="cpu")
+        tlm.init_lm(odd, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="encoder"):
         dataclasses.replace(base, n_enc_layers=2)
     for fam in ("ssm", "audio"):

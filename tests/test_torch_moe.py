@@ -112,9 +112,12 @@ def test_deepseek_config_matches_reference():
         assert tlm.supports_paged(tg) and jlm.supports_paged(jg)
         assert not tlm.supports_paged(t) and not jlm.supports_paged(j)
     assert get_config(ARCH).kv_head_dim == 56
-    with pytest.raises(ValueError, match="attn_kind"):
-        tlm.init_lm(tsmoke(ARCH), torch.Generator().manual_seed(0),
-                    device="cpu")
+    # the MLA config itself builds MLA blocks, in the reference's segments
+    t = tsmoke(ARCH)
+    assert [(s.pattern, s.n) for s in tlm.segments_for(t)] == [
+        (s.pattern, s.n) for s in jlm.segments_for(jsmoke(ARCH))]
+    p = tlm.init_lm(t, torch.Generator().manual_seed(0), device="cpu")
+    assert "wkv_b" in p.tree()["segments"][1]["b0"]["attn"]
 
 
 def test_converted_moe_tree_matches_init_lm():
@@ -238,15 +241,16 @@ def test_serve_expert_linear_apply_bitexact_vs_jax(layout, K, N):
 
 
 def test_int8_expert_linears_are_refused_off_the_cpu():
-    """The int8 layout's expert stack has no one-launch product off the
-    CPU: a tensor elsewhere (``meta`` here, CUDA on the card) raises
-    rather than make a launch per expert."""
+    """Off the CPU the int8 layout's expert stack runs only on the card,
+    through one launch of the int8 expert kernel: a tensor elsewhere
+    (``meta`` here) is refused by the kernel's wrapper, never served by a
+    launch per expert."""
     _, tcfg = F.cfgs("moe-gqa", "int8")
     tp = tnn.init_serve_linear(torch.Generator().manual_seed(0), 64, 32,
                                tcfg, device="cpu", expert=8)
     tp = {k: v.to("meta") for k, v in tp.items()}
     xe = torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="int8 expert-stacked"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         tnn.serve_expert_linear_apply(tp, xe, tcfg)
 
 

@@ -10,10 +10,8 @@ two slots, pages and chunks of 8, s_max 48).
 - The dense ``ServeLoop``, teacher-forced against the JAX one as
   ``test_torch_dense_loop.py`` holds the dense families: inputs equal at
   every call, logits rows under the head's allowance, outputs and refills
-  equal; the caches bit-equal but for the rotary embedding's sin and cos,
-  which XLA and torch evaluate to different f32 ulps: at most
-  ``ROTARY_ULP_SHARE`` of the K cache's elements may be one bf16 ulp off
-  (seen: one element), V bit-equal.
+  equal, the caches bit-equal (the rotary's sin and cos are the C
+  library's on both sides: ``nn.libm_sincosf``).
 - The reference's paged-vs-dense outcome, mirrored: the MoE capacity
   depends on the routing group's length (a paged prefill routes chunks
   of 8 tokens, the dense oracle the whole prompt), so some requests'
@@ -38,15 +36,13 @@ from repro_torch.serve.loop import Request, ServeLoop
 from repro_torch.serve.paged import PagedServeLoop
 
 import _torch_families as F
-from test_torch_dense_loop import _run_jax_loop
+from test_torch_dense_loop import _caches_equal, _run_jax_loop
 
 LENGTHS = (6, 11, 3, 9, 5)          # tests/test_serve_oracle.py's workload
 MAX_NEW = (4, 6, 3, 5, 4)
 S_MAX = 48
 LOOP = dict(batch_slots=2, s_max=S_MAX, page_size=8, chunk=8,
             attn_impl="lax")
-
-ROTARY_ULP_SHARE = 1e-3
 
 _runs: dict = {}
 
@@ -146,22 +142,6 @@ def test_moe_paged_vs_dense_outcome_equals_the_reference():
         assert tdiff == jdiff and jdiff, (prefix_cache, jdiff)
 
 
-def _caches_close(tc, jc):
-    """V bit-equal; K within one bf16 ulp in at most ROTARY_ULP_SHARE of
-    its elements (the rotary's sin and cos)."""
-    jt = convert.dense_caches_from_jax(jax.tree.map(np.asarray, jc), "cpu")
-    for seg, jseg in zip(tc, jt):
-        for name, leaf in seg["b0"].items():
-            want = jseg["b0"][name]
-            assert leaf.dtype == want.dtype and leaf.shape == want.shape
-            d = F.bf16_ulps(leaf.float().numpy(), want.float().numpy())
-            if name == "v":
-                assert not d.any(), name
-            else:
-                assert d.max() <= 1, name
-                assert (d > 0).sum() <= ROTARY_ULP_SHARE * d.size, name
-
-
 def test_moe_dense_loop_teacher_forced_vs_jax(monkeypatch):
     from repro_torch.models import lm as tlm
 
@@ -177,7 +157,7 @@ def test_moe_dense_loop_teacher_forced_vs_jax(monkeypatch):
         lg, c = real_prefill(p, tokens, cfg, S_max=S_max)
         pairs.extend((f"prefill {b}", F.to_np(jl[b]), lg[b].float().numpy())
                      for b in range(lg.shape[0]))
-        _caches_close(c, jc)
+        assert _caches_equal(c, jc), "prefill caches"
         return convert.to_torch(jl, "cpu"), c
 
     def decode(p, c, tokens, pos, cfg):
@@ -187,7 +167,7 @@ def test_moe_dense_loop_teacher_forced_vs_jax(monkeypatch):
         lg, c = real_decode(p, c, tokens, pos, cfg)
         pairs.extend((f"decode {pos}.{b}", F.to_np(jl[b]),
                       lg[b].float().numpy()) for b in range(lg.shape[0]))
-        _caches_close(c, jc)
+        assert _caches_equal(c, jc), ("decode caches", pos)
         return convert.to_torch(jl, "cpu"), c
 
     monkeypatch.setattr(tlm, "prefill", prefill)

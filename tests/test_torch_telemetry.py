@@ -343,7 +343,9 @@ def test_metrics_agree_with_stats():
     loop.run()
     m = loop.metrics()
     assert set(m) == {"pool", "prefix_cache", "spec", "quant", "scheduler",
-                      "swap", "tenants", "faults", "telemetry"}
+                      "swap", "tenants", "faults", "autotune", "telemetry"}
+    assert set(m["autotune"]) == {"lookup_hits", "lookup_misses",
+                                  "tuned_keys"}
     assert m["swap"] == {"enabled": False} and m["faults"] == {
         "enabled": False}
     assert m["tenants"] == ttel.jsonable(loop.tenant_stats())
