@@ -5,6 +5,9 @@
     python3 chip_smoke.py --only kernels  # build + kernel phases only
     python3 chip_smoke.py --only k12      # kernels 1-2 timed at the main
                                           # path's shapes, one JSON line
+    python3 chip_smoke.py --only serve-families   # kernels 1-2 built, the
+                                          # recurrent and enc-dec families,
+                                          # mistral-large and their smokes
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -151,11 +154,29 @@ Phases, in order; any failure raises and exits non-zero:
    four requests x 16 tokens
    through the dense ``ServeLoop`` (MLA does not page), kernel 1's
    launches asserted and no flash-decode;
+   then the families that serve through the dense forwards, at full
+   width and depth (``phase_serve_families``), each with its
+   ``plan_shapes`` reckoning and init peak, kernel 1 int32-equal to its
+   plain version at every lookup linear shape of the model (M 4 and the
+   prefill's rows), and decode continuing prefill (prefill(S) + one
+   decode step against prefill(S + 1), within 2e-2): recurrentgemma-2b
+   (four prompts of 53/144/227/2100 tokens left-padded to 2100, so every
+   attn_local ring wraps, s_max 2304) and xlstm-350m (53/144/227/256,
+   left-padded to a multiple of the scan's 64) through the dense
+   ``ServeLoop``, 16 tokens each; seamless-m4t-medium through
+   ``lm.prefill(tokens, frames=...)`` (seeded frames [4, 512, 1024], four
+   16-token prompts) and 32 greedy decode steps; each run's decode step,
+   prefill rate, run peak, one decode step profiled, kernel 1's launches
+   asserted and no flash-decode; then mistral-large-123b at full width
+   and depth (59 GiB of params) on the main path's loop, four prompts x
+   16 tokens;
 8. the port on the card against the port on the CPU (plain versions) on
    six smoke configs (the five dense families', minicpm's at head dim
    18, and the MoE smoke), every one read with kernel 2,
-   teacher-forced, logits within tolerance; and the two MLA smoke
-   configs through the dense ``ServeLoop``;
+   teacher-forced, logits within tolerance; the two MLA smoke configs
+   through the dense ``ServeLoop``; xlstm's and recurrentgemma's smokes
+   through the dense ``ServeLoop`` and seamless's through prefill with
+   frames and decode steps;
 9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
    every conv as a lookup conv (kernels 4 + 3) and as one
    cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
@@ -166,8 +187,10 @@ Phases, in order; any failure raises and exits non-zero:
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
 main path for kernels 1-2, the paper path for kernels 3-6, the int8
-moe-gqa path for the int8 expert kernel); the last line is the device
-JSON.  Needs one CUDA card; exits non-zero without
+moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
+rows also carry ``launches_by_path``, each counted on one of the
+families' runs with the counters set to 0 just before it); the last
+line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
 
@@ -1333,8 +1356,11 @@ def _profiled(fn, a, kw):
     span = ev[0].elapsed_time(ev[1])
     by_name = {}
     for e in prof.key_averages():
-        # kernel events only: CPU ops carry their kernels' time as well
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        # kernel events only: CPU ops carry their kernels' time as well,
+        # and an eager forward's record_function ranges (repro_torch.*)
+        # appear on the device as spans over its kernels
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith("repro_torch."):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -3606,10 +3632,13 @@ MLA_LINEARS = ("wq_a", "wq_b", "wkv_a", "wo")   # kernel 1's in an MLA block
 MLA_LINEAR_MS = (4, len(MAIN_LENS) * max(MAIN_LENS))
 
 
-def _serve_dense(params, cfg, reqs):
-    """``reqs`` through the dense ``ServeLoop`` (four slots, latent caches
-    of ``MLA_S_MAX``), every prefill and decode step timed on the host
-    around a synchronised call.  Returns (done, prefill ms, decode ms)."""
+def _serve_dense(params, cfg, reqs, s_max=MLA_S_MAX, profiled=False):
+    """``reqs`` through the dense ``ServeLoop`` (four slots, caches of
+    ``s_max``), every prefill and decode step timed on the host around a
+    synchronised call.  With ``profiled``, decode step ``PROFILED_STEP``
+    runs under torch.profiler instead (``_profiled`` prints its device
+    time by kernel) and is kept out of the timings.  Returns (done,
+    prefill ms, decode ms)."""
     import torch
 
     from repro_torch.models import lm
@@ -3617,22 +3646,28 @@ def _serve_dense(params, cfg, reqs):
 
     times = {"prefill": [], "decode_step": []}
     real = {n: getattr(lm, n) for n in times}
+    calls = {n: 0 for n in times}
 
     def timed(name):
         def wrapper(*a, **kw):
-            if DEV == "cuda":
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = real[name](*a, **kw)
-            if DEV == "cuda":
-                torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t) * 1e3)
+            calls[name] += 1
+            if (profiled and DEV == "cuda" and name == "decode_step"
+                    and calls[name] == PROFILED_STEP + 1):
+                out = _profiled(real[name], a, kw)
+            else:
+                if DEV == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = real[name](*a, **kw)
+                if DEV == "cuda":
+                    torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
             if not bool(torch.isfinite(out[0]).all()):
                 raise AssertionError(f"non-finite logits in {name}")
             return out
         return wrapper
 
-    loop = ServeLoop(params, cfg, batch_slots=4, s_max=MLA_S_MAX, device=DEV)
+    loop = ServeLoop(params, cfg, batch_slots=4, s_max=s_max, device=DEV)
     for r in reqs:
         loop.submit(r)
     try:
@@ -3642,7 +3677,7 @@ def _serve_dense(params, cfg, reqs):
     finally:
         for n, f in real.items():
             setattr(lm, n, f)
-    return done, times["prefill"], times["decode_step"]
+    return done, times["prefill"], times["decode_step"], calls
 
 
 def phase_mla(name: str):
@@ -3697,7 +3732,7 @@ def phase_mla(name: str):
         torch.cuda.reset_peak_memory_stats()
     tf.launches = tf.expert_launches = fd.launches = 0
     t0 = time.perf_counter()
-    done, pre, dec = _serve_dense(params, cfg, reqs)
+    done, pre, dec, _ = _serve_dense(params, cfg, reqs)
     wall = time.perf_counter() - t0
     per_fwd, per_fwd_expert = _lookup_launches(params)
     forwards = len(pre) + len(dec)
@@ -3730,6 +3765,53 @@ def phase_mla(name: str):
     return out
 
 
+def _dense_loop_card_vs_cpu(params, cfg, seed):
+    """``params`` (on the CPU) served through the dense ``ServeLoop`` on
+    the CPU (five requests in two slots, s_max 48: refills), then the
+    same requests on the card teacher-forced with the CPU run's logits.
+    Returns (max |dlogit| of card against CPU, the CPU logits)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.loop import ServeLoop
+
+    reqs = lambda: _requests(cfg.vocab, (6, 11, 3, 9, 5), 6, seed)
+    rec = []
+    real = {n: getattr(lm, n) for n in ("prefill", "decode_step")}
+    worst = 0.0
+    try:
+        for n in real:
+            setattr(lm, n, (lambda f: lambda *a, **kw: rec.append(
+                f(*a, **kw)) or rec[-1])(real[n]))
+        loop = ServeLoop(params, cfg, batch_slots=2, s_max=48, device="cpu")
+        for r in reqs():
+            loop.submit(r)
+        loop.run()
+        want = [lg.float() for lg, _ in rec]
+        it = iter(want)
+
+        def forced(f):
+            def wrapper(*a, **kw):
+                nonlocal worst
+                lg, c = f(*a, **kw)
+                w = next(it)
+                worst = max(worst, (lg.float().cpu() - w).abs().max().item())
+                return w.to(lg.dtype).to(DEV), c
+            return wrapper
+
+        for n in real:
+            setattr(lm, n, forced(real[n]))
+        loop = ServeLoop(params.to(DEV), cfg, batch_slots=2, s_max=48,
+                         device=DEV)
+        for r in reqs():
+            loop.submit(r)
+        loop.run()
+    finally:
+        for n, f in real.items():
+            setattr(lm, n, f)
+    return worst, want
+
+
 def phase_mla_reference(seed: int = SEED):
     """The MLA smoke configs (deepseek-v3's and kimi-k2's) on the card
     against the port on the CPU, through the dense ``ServeLoop``,
@@ -3738,48 +3820,12 @@ def phase_mla_reference(seed: int = SEED):
 
     from repro_torch.configs import smoke_config
     from repro_torch.models import lm
-    from repro_torch.serve.loop import ServeLoop
 
     for name in MLA_CUTS:
         cfg = smoke_config(name)
         params = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
                             device="cpu")
-        reqs = lambda: _requests(cfg.vocab, (6, 11, 3, 9, 5), 6, seed)
-        rec = []
-        real = {n: getattr(lm, n) for n in ("prefill", "decode_step")}
-        try:
-            for n in real:
-                setattr(lm, n, (lambda f: lambda *a, **kw: rec.append(
-                    f(*a, **kw)) or rec[-1])(real[n]))
-            loop = ServeLoop(params, cfg, batch_slots=2, s_max=48,
-                             device="cpu")
-            for r in reqs():
-                loop.submit(r)
-            loop.run()
-            want = [lg.float() for lg, _ in rec]
-            it = iter(want)
-            worst = 0.0
-
-            def forced(f):
-                def wrapper(*a, **kw):
-                    nonlocal worst
-                    lg, c = f(*a, **kw)
-                    w = next(it)
-                    worst = max(worst, (lg.float().cpu() - w).abs().max()
-                                .item())
-                    return w.to(lg.dtype).to(DEV), c
-                return wrapper
-
-            for n in real:
-                setattr(lm, n, forced(real[n]))
-            loop = ServeLoop(params.to(DEV), cfg, batch_slots=2, s_max=48,
-                             device=DEV)
-            for r in reqs():
-                loop.submit(r)
-            loop.run()
-        finally:
-            for n, f in real.items():
-                setattr(lm, n, f)
+        worst, want = _dense_loop_card_vs_cpu(params, cfg, seed)
         scale = max(w.abs().max().item() for w in want)
         if not worst <= LOGIT_TOL * scale:
             raise AssertionError(f"{name} MLA smoke: card vs CPU logits "
@@ -3788,6 +3834,403 @@ def phase_mla_reference(seed: int = SEED):
             f"card vs CPU max |dlogit| {worst:.3e} (scale {scale:.3f}, "
             f"tolerance {LOGIT_TOL} x scale)")
 
+
+# ---------------------------------------------------------------------------
+# the recurrent and enc-dec families, mistral-large at full width
+# ---------------------------------------------------------------------------
+
+# family: (prompt lengths, s_max) of its dense ServeLoop run, 16 new tokens
+RECURRENT_RUNS = {
+    # left-padded to 2100: every slot's position passes the 2048 window,
+    # so the attn_local ring buffers wrap
+    "recurrentgemma-2b": ((53, 144, 227, 2100), 2304),
+    # left-padded to 256, a multiple of the xLSTM scan's chunk of 64, in
+    # four slots: no refill reaches a length the reference's scan refuses
+    "xlstm-350m": ((53, 144, 227, 256), 512),
+}
+ENC_FRAMES = 512         # seamless: seeded frames [4, 512, 1024]
+ENC_PROMPT = 16          # four target prompts of 16 tokens
+ENC_STEPS = 32           # greedy decode steps after the prefill
+CONT_S = {"recurrentgemma-2b": 63, "xlstm-350m": 63,
+          "seamless-m4t-medium": 16}
+CONT_TOL = 2e-2          # tests/test_models_smoke.py's rtol = atol
+
+
+def _block_linear_shapes(kind, cfg):
+    """The lookup linears ``(K, N)`` of one block of ``kind`` and the
+    element count of its f32 leaves (gates, convs, recurrences, norms)."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
+    attn = [(d, H * hd), (d, KV * hd), (d, KV * hd), (H * hd, d)]
+    ffn = ([(d, cfg.d_ff)] * (2 if cfg.act == "swiglu" else 1)
+           + [(cfg.d_ff, d)])
+    if kind == "mlstm":
+        i = 2 * d
+        return [(d, 2 * i), (i, i), (i, i), (i, i), (i, d)], (
+            cfg.conv_width * i + 2 * i * H + H + d)
+    if kind == "slstm":
+        return [(d, 4 * d), (d, d), (d, d)], 4 * H * (d // H) ** 2 + 5 * d
+    if kind == "rglru":
+        lru = cfg.lru_dim or d
+        return [(d, lru), (d, lru), (lru, d)] + ffn, (
+            cfg.conv_width * lru + 2 * lru * lru + lru + 2 * d)
+    extra = attn if kind == "dec_cross" else []
+    return attn + extra + ffn, (3 if kind == "dec_cross" else 2) * d
+
+
+def serve_reckoning(cfg):
+    """Print the serve params' bytes by ``plan_shapes`` before the model is
+    drawn: each lookup linear's index bytes, the f32 leaves and the bf16
+    embedding (and head); returns the total."""
+    from repro_torch.models import lm
+
+    segs = list(lm.segments_for(cfg))
+    if cfg.n_enc_layers:
+        segs.append(lm.Segment(("enc_attn",), cfg.n_enc_layers))
+    idx = f32 = n_lin = 0
+    n_arr = set()
+    for seg in segs:
+        for kind in seg.pattern:
+            shapes, n32 = _block_linear_shapes(kind, cfg)
+            for K, N in shapes:
+                b, na = _idx_bytes(cfg, K, N)
+                idx += seg.n * b
+                n_arr.add(na)
+            n_lin += seg.n * len(shapes)
+            f32 += seg.n * n32 * 4
+    emb = (1 + (not cfg.tie_embeddings)) * (
+        cfg.vocab + (-cfg.vocab) % 16) * cfg.d_model * 2
+    total = idx + f32 + emb
+    log(f"  plan_shapes reckoning of {cfg.name}: {n_lin} lookup linears, "
+        f"indices {idx / 2**30:.3f} GiB (N_arr {sorted(n_arr)}), f32 leaves "
+        f"{f32 / 2**30:.3f} GiB, embedding{'' if cfg.tie_embeddings else ' + head'}"
+        f" {emb / 2**30:.3f} GiB: {total / 2**30:.3f} GiB before tables and "
+        "steps")
+    return total
+
+
+def _linears_by_shape(params, cfg):
+    """One lookup linear of the drawn params per distinct ``(K, N)`` (the
+    first layer of every segment, and of the encoder): ``{label: params}``
+    as ``_single_linears_equal`` takes them."""
+    found = {}
+
+    def walk(tree, path):
+        if "table" in tree:
+            nt, kg, dp = tree["exec_idx"].shape
+            found.setdefault((kg * cfg.tlmac_G, nt * dp),
+                             (".".join(path), tree))
+            return
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+
+    stacks = [("segments", si) for si in range(len(params.segments))]
+    if cfg.n_enc_layers:
+        stacks.append(("encoder", 0))
+    for stack, si in stacks:
+        walk(params.layers(si, stack)[0], [f"{stack}[{si}]"])
+    return {label: lin for label, lin in found.values()}
+
+
+def _tables(tree) -> int:
+    """Lookup linears (TLMAC tables) in a param tree."""
+    if "table" in tree:
+        return 1
+    return sum(_tables(v) for v in tree.values() if isinstance(v, dict))
+
+
+def _continuation(params, cfg, frames=None):
+    """The reference's decode-continues-prefill check
+    (``tests/test_models_smoke.py``) on the card at full width: prefill(S)
+    then one decode step against prefill(S + 1), within ``CONT_TOL``
+    relative and absolute."""
+    import torch
+
+    from repro_torch.models import lm
+
+    S = CONT_S[cfg.name]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 61)
+    toks = torch.randint(0, cfg.vocab, (1, S + 1), generator=gen, device=DEV)
+    kw = {} if frames is None else {"frames": frames[:1]}
+    _, caches = lm.prefill(params, toks[:, :S], cfg, S_max=S + 8, **kw)
+    lb, _ = lm.decode_step(params, caches, toks[:, S:], S, cfg)
+    lf, _ = lm.prefill(params, toks, cfg, S_max=S + 8, **kw)
+    lb, lf = lb.float(), lf.float()
+    d = (lb - lf).abs()
+    if not bool((d <= CONT_TOL + CONT_TOL * lf.abs()).all()):
+        raise AssertionError(f"{cfg.name}: decode after prefill({S}) differs "
+                             f"from prefill({S + 1}) by {d.max().item()}")
+    log(f"  decode continues prefill: prefill({S}) + one decode step vs "
+        f"prefill({S + 1}): max |dlogit| {d.max().item():.3e} (logits max "
+        f"{lf.abs().max().item():.3f}; rtol = atol = {CONT_TOL}), equal "
+        f"argmax {bool(lb.argmax() == lf.argmax())}")
+
+
+def _family_kernel_checks(params, cfg, Ms, frames=None):
+    """Kernel 1 int32-equal to its plain version at every lookup linear
+    shape of the drawn model at the rows ``Ms``, then the continuation
+    check; the comparisons' launches are taken back out."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    n0, e0, f0 = tf.launches, tf.expert_launches, fd.launches
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 43)
+    _single_linears_equal(_linears_by_shape(params, cfg), Ms, gen,
+                          cfg.quant.a_bits, cfg.tlmac_G)
+    _continuation(params, cfg, frames)
+    tf.launches, tf.expert_launches, fd.launches = n0, e0, f0
+
+
+def phase_recurrent(name: str):
+    """``name`` (recurrentgemma-2b or xlstm-350m) at full width and depth:
+    its ``plan_shapes`` reckoning, drawn on the card (init peak asserted),
+    kernel 1 int32-equal to its plain version at every lookup linear
+    shape (M 4 and the prefill's rows), decode continuing prefill, then
+    four requests x 16 tokens through the dense ``ServeLoop``
+    (``RECURRENT_RUNS``; recurrent states, the attn_local ring buffer),
+    one decode step profiled; kernel 1 launched once per lookup linear a
+    forward (asserted), no flash-decode.  Returns the run's figures."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    cfg = get_config(name)
+    lens, s_max = RECURRENT_RUNS[name]
+    serve_reckoning(cfg)
+    params = init_family(cfg)
+    total = _tree_bytes(params)
+    _family_kernel_checks(params, cfg, (4, len(lens) * max(lens)))
+    reqs = _requests(cfg.vocab, lens, FAMILY_MAX_NEW, SEED)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tf.launches = tf.expert_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    done, pre, dec, calls = _serve_dense(params, cfg, reqs, s_max=s_max,
+                                         profiled=True)
+    wall = time.perf_counter() - t0
+    per_fwd, _ = _lookup_launches(params)
+    forwards = calls["prefill"] + calls["decode_step"]
+    assert len(done) == len(reqs)
+    for r in done:
+        assert len(r.output) == FAMILY_MAX_NEW, (r.rid, len(r.output))
+        assert 0 <= int(r.output.min()) and int(r.output.max()) < cfg.vocab
+    launches = tf.launches
+    if DEV == "cuda":
+        assert launches == per_fwd * forwards, (launches, per_fwd, forwards)
+        assert fd.launches == 0
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    padded = len(reqs) * max(lens)
+    tok_s = sum(lens) / (sum(pre) / 1e3)
+    log(f"  {cfg.name} served {len(done)} requests x {FAMILY_MAX_NEW} "
+        f"tokens through the dense ServeLoop (s_max {s_max}) in {wall:.2f} "
+        f"s: {calls['prefill']} prefill (4 x {max(lens)} left-padded), "
+        f"{calls['decode_step']} decode steps; decode step median "
+        f"{_median(dec):.2f} ms (min {min(dec):.2f}, max {max(dec):.2f}; "
+        f"eager, host clock around a synchronised step); prefill "
+        f"{tok_s:.1f} prompt tok/s ({padded / (sum(pre) / 1e3):.1f} padded; "
+        f"{sum(pre):.0f} ms); params {total / 2**30:.3f} GiB, run peak "
+        f"{peak / 2**30:.3f} GiB; kernel 1 {launches} launches (= {per_fwd} "
+        f"a forward x {forwards})")
+    out = dict(decode_ms=_median(dec), prefill_tok_s=tok_s,
+               params_gib=total / 2**30, run_peak_gib=peak / 2**30,
+               launches=launches, per_forward=per_fwd)
+    tf.launches = tf.expert_launches = fd.launches = 0
+    del params, done
+    _free()
+    return out
+
+
+def phase_encdec():
+    """seamless-m4t-medium at full width and depth (12 encoder + 12
+    decoder layers): reckoning, drawn on the card (init peak asserted),
+    kernel 1 int32-equal at every lookup linear shape (M 4, the decoder
+    prefill's 64 rows and the encoder's 2048), decode continuing prefill,
+    then seeded frames ``[4, 512, 1024]`` and four 16-token prompts
+    through ``lm.prefill(tokens, frames=...)`` (the encoder, then the
+    decoder with its cross K/V cached) and 32 greedy ``decode_step``s,
+    one profiled.  Kernel 1's launches are asserted: the encoder's
+    linears, the decoder's plus each ``xattn``'s ``wk``/``wv`` over the
+    encoder output at the prefill, the decoder's a step (``xattn``'s
+    ``wk``/``wv`` included: the reference computes and drops them).
+    Returns the run's figures."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.models import lm
+
+    cfg = get_config("seamless-m4t-medium")
+    serve_reckoning(cfg)
+    params = init_family(cfg)
+    total = _tree_bytes(params)
+    B = 4
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 71)
+    frames = torch.randn((B, ENC_FRAMES, 1024), generator=gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (B, ENC_PROMPT), generator=gen,
+                         device=DEV)
+    _family_kernel_checks(params, cfg, (4, B * ENC_PROMPT, B * ENC_FRAMES),
+                          frames)
+    enc_fwd = _tables(params.layers(0, "encoder")[0]) * cfg.n_enc_layers
+    dec_fwd, _ = _lookup_launches(params)
+    want_prefill = enc_fwd + dec_fwd + 2 * cfg.n_layers
+
+    def sync():
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tf.launches = tf.expert_launches = fd.launches = 0
+    sync()
+    t = time.perf_counter()
+    logits, caches = lm.prefill(params, toks, cfg,
+                                S_max=ENC_PROMPT + ENC_STEPS, frames=frames)
+    sync()
+    pre_ms = (time.perf_counter() - t) * 1e3
+    pre_launches = tf.launches
+    out_toks = [logits.argmax(-1)]
+    dec = []
+    for step in range(ENC_STEPS):
+        cur = out_toks[-1][:, None]
+        if step == PROFILED_STEP and DEV == "cuda":
+            logits, caches = _profiled(lm.decode_step, (
+                params, caches, cur, ENC_PROMPT + step, cfg), {})
+        else:
+            sync()
+            t = time.perf_counter()
+            logits, caches = lm.decode_step(params, caches, cur,
+                                            ENC_PROMPT + step, cfg)
+            sync()
+            dec.append((time.perf_counter() - t) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits in a seamless decode step")
+        out_toks.append(logits.argmax(-1))
+    gen_toks = torch.stack(out_toks[:ENC_STEPS], dim=1).cpu().numpy()
+    assert gen_toks.shape == (B, ENC_STEPS)
+    assert 0 <= int(gen_toks.min()) and int(gen_toks.max()) < cfg.vocab
+    dec_launches = tf.launches - pre_launches
+    if DEV == "cuda":
+        assert pre_launches == want_prefill, (pre_launches, want_prefill)
+        assert dec_launches == dec_fwd * ENC_STEPS, (dec_launches, dec_fwd)
+        assert fd.launches == 0
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    n_in = B * (ENC_FRAMES + ENC_PROMPT)
+    log(f"  {cfg.name}: prefill of {B} x {ENC_FRAMES} frames + {B} x "
+        f"{ENC_PROMPT} tokens (encoder, then the decoder with the cross K/V "
+        f"cached) {pre_ms:.1f} ms = {n_in / (pre_ms / 1e3):.1f} tok/s "
+        f"(frames + tokens), then {ENC_STEPS} greedy decode steps: median "
+        f"{_median(dec):.2f} ms (min {min(dec):.2f}, max {max(dec):.2f}; "
+        f"eager, host clock around a synchronised step); distinct tokens "
+        f"{len(np.unique(gen_toks))}; params {total / 2**30:.3f} GiB, run "
+        f"peak {peak / 2**30:.3f} GiB; kernel 1 {pre_launches} launches at "
+        f"the prefill (= encoder {enc_fwd} + decoder {dec_fwd} + cross K/V "
+        f"{2 * cfg.n_layers}), {dec_launches} at decode (= {dec_fwd} a step "
+        f"x {ENC_STEPS})")
+    out = dict(decode_ms=_median(dec), prefill_tok_s=n_in / (pre_ms / 1e3),
+               params_gib=total / 2**30, run_peak_gib=peak / 2**30,
+               launches=pre_launches + dec_launches, per_forward=dec_fwd)
+    tf.launches = tf.expert_launches = fd.launches = 0
+    del params, caches
+    _free()
+    return out
+
+
+def phase_mistral():
+    """mistral-large-123b at full width and depth (88 layers, 12288, 96
+    heads over 8, d_ff 28672): its ``plan_shapes`` reckoning, drawn on
+    the card (init peak = the params + at most one layer, asserted),
+    kernel 1 int32-equal to its plain version at its four linear shapes
+    (M 4 and a chunk's 64 rows) and kernel 2 within ``FLASH_TOL`` at its
+    decode shape (12 query heads over each of 8 KV heads, hd 128; fp and
+    int8 pools), then the main path (``PagedServeLoop``, both forwards as
+    CUDA graphs, launches asserted) over the families' four prompts x 16
+    tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tlmac_fused as tf
+
+    cfg = get_config("mistral-large-123b")
+    serve_reckoning(cfg)
+    params = init_family(cfg)
+    n0, e0, f0 = tf.launches, tf.expert_launches, fd.launches
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 81)
+    _single_linears_equal(_linears_by_shape(params, cfg), (4, CHUNK), gen,
+                          cfg.quant.a_bits, cfg.tlmac_G)
+    if DEV == "cuda":
+        for kv in ("fp", "int8"):
+            a = _flash_case(gen, kv, B=4, KV=cfg.n_kv,
+                            rep=cfg.n_heads // cfg.n_kv, hd=cfg.kv_head_dim,
+                            P=16, MB=64, lens=MAIN_LENS, window=None,
+                            n_splits=4)
+            err = (_flash_kernel(a) - _flash_plain(a)).abs().max().item()
+            if not err <= FLASH_TOL:
+                raise AssertionError(f"flash-decode {kv} at mistral's shape: "
+                                     f"max abs err {err} > {FLASH_TOL}")
+            log(f"  flash-decode {kv:4s} rep{cfg.n_heads // cfg.n_kv} hd"
+                f"{cfg.kv_head_dim} KV{cfg.n_kv} (mistral-large): max abs "
+                f"err {err:.3e}")
+            del a
+    tf.launches, tf.expert_launches, fd.launches = n0, e0, f0
+    counts, run = phase_main(cfg, params, lens=MAIN_LENS,
+                             max_new=FAMILY_MAX_NEW)
+    del params
+    _free()
+    return counts, run
+
+
+def phase_dense_reference(seed: int = SEED):
+    """The recurrent and enc-dec smoke configs on the card against the
+    port on the CPU, teacher-forced, logits within ``LOGIT_TOL`` of the
+    scale: xlstm-350m and recurrentgemma-2b through the dense
+    ``ServeLoop`` (five requests in two slots: refills), seamless through
+    ``lm.prefill(tokens, frames=...)`` and eight decode steps."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+
+    for name in ("xlstm-350m", "recurrentgemma-2b", "seamless-m4t-medium"):
+        cfg = smoke_config(name)
+        params = lm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+        if cfg.n_enc_layers:
+            g = torch.Generator().manual_seed(seed + 1)
+            frames = torch.randn((2, 12, 1024), generator=g)
+            toks = torch.randint(0, cfg.vocab, (2, 9), generator=g)
+            want, steps = [], []
+            lg, c = lm.prefill(params, toks, cfg, S_max=24, frames=frames)
+            want.append(lg.float())
+            for pos in range(9, 17):
+                steps.append(want[-1].argmax(-1)[:, None])
+                lg, c = lm.decode_step(params, c, steps[-1], pos, cfg)
+                want.append(lg.float())
+            gp = params.to(DEV)
+            lg, c = lm.prefill(gp, toks.to(DEV), cfg, S_max=24,
+                               frames=frames.to(DEV))
+            got = [lg.float().cpu()]
+            for pos, cur in zip(range(9, 17), steps):
+                lg, c = lm.decode_step(gp, c, cur.to(DEV), pos, cfg)
+                got.append(lg.float().cpu())
+            worst = max((g - w).abs().max().item() for g, w in zip(got, want))
+            n = len(want)
+        else:
+            worst, want = _dense_loop_card_vs_cpu(params, cfg, seed)
+            n = len(want)
+        scale = max(w.abs().max().item() for w in want)
+        if not worst <= LOGIT_TOL * scale:
+            raise AssertionError(f"{name} smoke: card vs CPU logits differ by "
+                                 f"{worst} > {LOGIT_TOL} x {scale}")
+        log(f"  {name} smoke: {n} teacher-forced dense forwards, card vs CPU "
+            f"max |dlogit| {worst:.3e} (scale {scale:.3f}, tolerance "
+            f"{LOGIT_TOL} x scale)")
 
 
 # ---------------------------------------------------------------------------
@@ -3850,9 +4293,48 @@ def phase_reference(seed: int = SEED):
             f"(scale {scale:.3f}, tolerance {LOGIT_TOL} x scale)")
 
 
+def phase_cli():
+    """The port's serving CLI as a user runs it (``python -m
+    repro_torch.launch.serve --arch xlstm-350m``: full-width xlstm-350m,
+    eight requests of 4-16 prompt tokens x 16 new tokens in four slots of
+    the dense ``ServeLoop``), every request finished with its tokens."""
+    from repro_torch.launch import serve as cli
+
+    t = time.perf_counter()
+    done = cli.main(["--arch", "xlstm-350m", "--device", DEV])
+    assert sorted(r.rid for r in done) == list(range(8)), len(done)
+    for r in done:
+        assert len(r.output) == 16, (r.rid, len(r.output))
+    log(f"  the CLI served {len(done)} requests x 16 tokens in "
+        f"{time.perf_counter() - t:.2f} s (init included)")
+
+
+def phase_serve_families():
+    """The recurrent families and the enc-dec family through the dense
+    forwards, then mistral-large-123b on the main path, each at full
+    width and depth and freed before the next.  Returns ({family: its
+    figures}, mistral's launch counts)."""
+    runs = {}
+    for name in RECURRENT_RUNS:
+        phase(f"{name} at full width and depth (dense ServeLoop)")
+        runs[name] = phase_recurrent(name)
+    phase("the serving CLI: repro_torch.launch.serve --arch xlstm-350m")
+    phase_cli()
+    phase("seamless-m4t-medium at full width and depth (enc-dec: prefill "
+          "with frames, then decode)")
+    runs["seamless-m4t-medium"] = phase_encdec()
+    phase("mistral-large-123b at full width and depth (serve)")
+    counts, run = phase_mistral()
+    runs["mistral-large-123b"] = dict(
+        decode_ms=run["decode_ms"], prefill_tok_s=run["prefill_tok_s"],
+        launches=counts["tlmac_gemm_fused"])
+    return runs, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("all", "kernels", "k12"),
+    ap.add_argument("--only", choices=("all", "kernels", "k12",
+                                       "serve-families"),
                     default="all")
     args = ap.parse_args()
 
@@ -3868,7 +4350,8 @@ def main() -> int:
     _fresh_autotune_cache()
     log(gpu_line())
     t0 = time.perf_counter()
-    sources = SOURCES[:2] if args.only == "k12" else SOURCES
+    sources = SOURCES[:2] if args.only in ("k12", "serve-families") \
+        else SOURCES
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
         f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
@@ -3876,6 +4359,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.only == "serve-families":
+        runs, _ = phase_serve_families()
+        phase("card vs CPU on the recurrent and enc-dec smoke configs")
+        phase_dense_reference()
+        log(json.dumps({"serve_families": runs}))
+        return 0
     phase("lookup GEMM vs plain (int32, must be equal)")
     gemm = phase_gemm(chunk=CHUNK, batch=4, verify=4 * (SPEC_K + 1))
     if args.only == "k12":
@@ -3940,9 +4429,16 @@ def main() -> int:
         for name, L in MLA_CUTS.items():
             phase(f"{name} with MLA (dense ServeLoop, {L} of 61 layers)")
             phase_mla(name)
+        runs, mistral_counts = phase_serve_families()
+        gemm["launches_by_path"] = dict(
+            {n: r["launches"] for n, r in runs.items()},
+            **{"mistral-large-123b": mistral_counts["tlmac_gemm_fused"]})
+        flash["launches_by_path"] = {
+            "mistral-large-123b": mistral_counts["flash_decode"]}
         phase("card vs CPU on smoke configs")
         phase_reference()
         phase_mla_reference()
+        phase_dense_reference()
         phase("paper path (ResNet-18 compile-and-execute)")
         counts.update(phase_paper_path(rcfg, rparams, plans))
     kernels = [gemm, flash, *lookup.values()]

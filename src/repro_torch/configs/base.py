@@ -14,7 +14,7 @@ from repro_torch.core.quant.quantizers import QuantConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | vlm | moe | hybrid (attn_local only)
+    family: str                  # dense | vlm | moe | ssm | hybrid | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,6 +25,7 @@ class ArchConfig:
     # --- attention ---
     attn_kind: str = "gqa"       # gqa | mla (deepseek-style latent
                                  # attention: dense-cache ServeLoop only)
+                                 # | none (ssm: no attention block)
     local_window: int = 2048     # attn_local blocks' sliding window
     # mla dims (models/attention.py::init_mla)
     mla_q_lora: int = 1536
@@ -39,11 +40,14 @@ class ArchConfig:
     d_expert: int = 0
     moe_layer_start: int = 0     # dense layers before MoE starts (DSv3: 3)
     capacity_factor: float = 1.25
-    # --- hybrid: the block pattern of a segment ('attn_local' only) ---
-    block_pattern: Tuple[str, ...] = ()
-    # --- enc-dec: not served by this package ---
+    # --- hybrid / ssm ---
+    block_pattern: Tuple[str, ...] = ()   # e.g. ('rglru','rglru','attn_local')
+    conv_width: int = 4          # causal depthwise conv of rglru / mLSTM
+    lru_dim: Optional[int] = None  # RG-LRU width (d_model when None)
+    # --- enc-dec: encoder layers before the dec_cross decoder ---
     n_enc_layers: int = 0
-    # --- vlm frontend stub: a 'front' leaf carried, never read ---
+    # --- frontend stubs: a vlm's 'front' leaf is carried, never read;
+    # an enc-dec model's projects the frames into its encoder ---
     frontend: str = "none"       # none | patch | frames
     frontend_len: int = 0        # prepended embedding positions
     act: str = "swiglu"
@@ -100,10 +104,6 @@ class ArchConfig:
     serve_trace_path: str = ""    # run() exports the Chrome trace here
                                   # (and a JSONL twin at path + 'l')
 
-    def __post_init__(self):
-        if self.n_enc_layers:
-            raise ValueError("encoder-decoder configs are not ported")
-
     @property
     def kv_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -117,6 +117,9 @@ _ALIASES = {
     "internvl2-76b": "internvl2_76b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-350m": "xlstm_350m",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 

@@ -14,8 +14,14 @@ them in f32: every use casts them to bf16 first (``embed_apply``,
 forward computes, at half the memory.  Every other leaf is mirrored as
 it is: each serve linear's layout (TLMAC plans, ``w8``/``w_step``/
 ``a_step`` of int8, bf16 ``w`` of dense, mixed within one tree), a MoE
-layer's expert-stacked linears (leaves ``[L, E, ...]``) and a VLM
-config's ``front`` leaf, an MLA block's dense ``wkv_b`` and norms.  Then
+layer's expert-stacked linears (leaves ``[L, E, ...]``), the ``front``
+leaf of a VLM or enc-dec config (the train-path linear's qdq leaves:
+``w``, ``w_step``, ``aq`` with its ``deltas`` and ``out_step``), an MLA
+block's dense ``wkv_b`` and norms, the recurrent blocks' f32 leaves
+(rglru ``conv.w``, ``wr.w``, ``wi.w``, ``lam.l``; mLSTM ``conv.w``,
+``wi.w``, ``wf.w``, ``wf.b``; sLSTM ``r.w``, ``bias.b``), and an enc-dec
+model's ``encoder`` segments, ``enc_norm`` and each decoder block's
+``xattn`` and ``norm3``.  Then
 every TLMAC serve linear gains one derived leaf, ``table_narrow``
 (``kernels.tlmac_fused.narrow_table`` of its table, an expert stack's
 ``[L, E, n_clus, N_arr, 2^G]`` narrowed as one), which the lookup kernel
@@ -87,10 +93,11 @@ def pool_from_jax(tree, device="cuda"):
 def dense_caches_from_jax(tree, device="cuda"):
     """JAX dense caches (``lm.init_caches(cfg, B, S_max)[0]`` or a
     ``prefill``'s, as numpy: a list per segment of ``{'b0': {'k', 'v'}}``
-    with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32, or an MLA
+    with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32, an MLA
     model's ``{'b0': {'ckv', 'kr'}}`` latents ``[n_layers, B, S, kv_lora |
-    rope]`` bf16) -> the same structure of tensors, as
-    ``lm.init_caches(cfg, B=, S_max=)`` holds them."""
+    rope]`` bf16, a ``dec_cross`` block's ``k``/``v`` and ``xk``/``xv``,
+    or a recurrent block's f32 state leaves) -> the same structure of
+    tensors, as ``lm.init_caches(cfg, B=, S_max=)`` holds them."""
     return _tree(tree, device)
 
 

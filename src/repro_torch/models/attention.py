@@ -11,8 +11,9 @@ entry point takes ``window`` (``attn_local`` blocks): key ``ik`` is
 visible from query ``iq`` when ``iq - window < ik <= iq``.
 
 The dense-cache path of the oracle loop (``gqa_train`` for a prefill,
-``gqa_decode`` for a step, ``sdpa`` with its blocked ``_flash`` form) is
-plain torch, as the reference's is plain ``jnp``; so is MLA
+``gqa_decode`` for a step, either one as cross-attention over an
+encoder's K/V with ``cross_kv``, ``sdpa`` with its blocked ``_flash``
+form) is plain torch, as the reference's is plain ``jnp``; so is MLA
 (``init_mla``, ``mla_train``, ``mla_decode``), served on dense latent
 caches only, as the reference serves it."""
 
@@ -249,14 +250,22 @@ def gqa_verify_paged(params, x, cfg, pages, block_table, positions, n_writes,
 
 
 def gqa_train(params, x, cfg, window: Optional[int] = None,
-              apply_fn=nn.serve_linear_apply, kv_quant_rt: bool = False):
+              apply_fn=nn.serve_linear_apply, kv_quant_rt: bool = False,
+              cross_kv=None):
     """Full-sequence causal attention from position 0 (the dense loop's
     prefill).  ``kv_quant_rt`` (a cache is being built) round-trips K/V
     through ``cfg.serve_kv_dtype`` before the attention, so the prefill
-    attends over exactly what its cache will hold.  Returns ``(y, (k,
-    v))``."""
+    attends over exactly what its cache will hold.  ``cross_kv=(k, v)``
+    (``[B, Se, KV, hd]``, an encoder's) makes it cross-attention: no
+    rotary, no mask, no round trip; the block's own ``wk``/``wv`` still
+    run and their output is dropped, as in the reference.  Returns ``(y,
+    (k, v))``."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg, apply_fn)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = sdpa(q, k, v, cfg, causal=False, window=window)
+        return apply_fn(params["wo"], out, cfg), (k, v)
     positions = torch.arange(S, device=x.device)[None, :]
     sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
     q = nn.apply_rotary(q, sin, cos)
@@ -272,14 +281,24 @@ def gqa_train(params, x, cfg, window: Optional[int] = None,
 
 def gqa_decode(params, x, cfg, cache, pos: int,
                window: Optional[int] = None,
-               apply_fn=nn.serve_linear_apply):
+               apply_fn=nn.serve_linear_apply, cross_kv=None):
     """Single-token decode against a dense cache ``(k, v)`` ``[B, S_max,
     KV, hd]`` at the shared position ``pos`` (an int): writes the step's
     K/V there in place (round-tripped through ``cfg.serve_kv_dtype``
     into an f32 cache when it is quantised), then attends over the
-    positions ``<= pos``.  Returns ``(y, (kc, vc))``, the same tensors."""
+    positions ``<= pos``.  Returns ``(y, (kc, vc))``, the same tensors.
+    ``cross_kv=(xk, xv)`` attends over every encoder position instead,
+    unrotated, and writes nothing (``cache`` is returned as given); the
+    step's ``wk``/``wv`` still run, as in the reference."""
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg, apply_fn)
+    H, hd = cfg.n_heads, cfg.kv_head_dim
+    if cross_kv is not None:
+        kc, vc = cross_kv
+        mask = torch.ones((1, kc.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, kc, vc, mask, cfg)
+        return apply_fn(params["wo"], out.reshape(B, 1, H * hd), cfg), cache
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
     q = nn.apply_rotary(q, sin, cos)
@@ -296,7 +315,6 @@ def gqa_decode(params, x, cfg, cache, pos: int,
     if window is not None:
         mask &= j > pos - window
     out = _sdpa(q, kc, vc, mask, cfg)
-    H, hd = cfg.n_heads, cfg.kv_head_dim
     return apply_fn(params["wo"], out.reshape(B, 1, H * hd), cfg), (kc, vc)
 
 

@@ -1,26 +1,41 @@
 """LM backbone of the serve path (port of the serve subset of
-``repro.models.lm`` for ``attn``, sliding-window ``attn_local`` and MoE
-``attn_moe`` blocks, with GQA or MLA attention): the paged forwards of
-``serve.paged.PagedServeLoop`` (GQA only) and the dense-cache forwards
-(``prefill``, ``decode_step``) of ``serve.loop.ServeLoop``, which serves
-MLA models on latent caches.
+``repro.models.lm``).  Block kinds, as in the reference:
+
+    attn        self-attention (GQA or MLA per ``cfg.attn_kind``) + FFN
+    attn_moe    self-attention + MoE FFN
+    attn_local  sliding-window attention + FFN
+    mlstm/slstm xLSTM blocks (the FFN folded inside, d_ff = 0)
+    rglru       RG-LRU temporal block + FFN
+    enc_attn    bidirectional encoder block
+    dec_cross   decoder block with cross-attention (enc-dec)
+
+The paged forwards of ``serve.paged.PagedServeLoop`` (``prefill_chunk``,
+``decode_step_paged``, ``verify_step_paged``) serve models whose every
+block is ``attn``/``attn_moe``/``attn_local`` with GQA
+(``supports_paged``); the dense-cache forwards (``prefill``,
+``decode_step``) of ``serve.loop.ServeLoop`` serve every family: MLA on
+latent caches, the recurrent kinds on their states, and an enc-dec model
+(``prefill(tokens, frames=...)`` runs ``encode`` first and caches the
+cross-attention K/V).
 
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
 loop over layers replaces ``_segment_scan_cached``.  Differences from
 JAX, on purpose:
 
 - the caches are updated IN PLACE (``prefill_chunk``,
-  ``decode_step_paged``, ``verify_step_paged``, ``decode_step``,
-  ``cache_copy_page`` and ``cache_swap_in`` write the caches they are
-  given and return the same objects), where JAX returns new arrays: the
-  serve loop's captured graphs hold the pools' addresses;
+  ``decode_step_paged``, ``verify_step_paged``, ``prefill``'s fresh
+  caches, ``decode_step``, ``cache_copy_page`` and ``cache_swap_in``
+  write the caches they are given and return the same objects; a
+  recurrent block copies its new state into its cache), where JAX
+  returns new arrays: the serve loop's captured graphs hold the pools'
+  addresses;
 - ``prefill_chunk`` takes ``start`` and ``last`` as 0-d int32 device
   tensors (Python ints are accepted too), so one captured CUDA graph of
   the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
   trace does in JAX; ``verify_step_paged`` takes ``positions`` and
   ``n_writes`` as device tensors for the same reason;
-- ``prefill`` takes the token tensor, not a batch dict: the serve loops
-  never pass a frontend's embeddings;
+- ``prefill`` takes the token tensor (and an enc-dec model's frames), not
+  a batch dict: the serve loops never pass a frontend's embeddings;
 - the ``jax.named_scope`` labels of the forwards are
   ``torch.profiler.record_function`` ranges (host ranges: inside a
   captured graph they are recorded at capture, not at replay).
@@ -37,7 +52,7 @@ import torch
 from repro_torch.core.quant import quantizers as Q
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, nn
+from repro_torch.models import moe, nn, rglru, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,21 +62,29 @@ class Segment:
 
 
 def segments_for(cfg) -> List[Segment]:
-    """The reference's segments for the families this package serves:
-    ``dense``/``vlm`` one segment of ``attn`` blocks; ``moe`` a segment of
-    ``moe_layer_start`` ``attn`` blocks, then one of ``attn_moe`` blocks;
+    """The reference's segments: ``dense``/``vlm`` one segment of ``attn``
+    blocks; ``moe`` a segment of ``moe_layer_start`` ``attn`` blocks, then
+    one of ``attn_moe`` blocks; ``ssm`` (xLSTM) the pattern of 7 ``mlstm``
+    and one ``slstm``, the remainder a trailing segment of ``mlstm``;
     ``hybrid`` its ``block_pattern`` repeated, the remainder a trailing
-    partial segment (only ``attn``/``attn_local`` blocks are ported:
-    ``init_block`` refuses the others).  Attention is ``cfg.attn_kind``:
-    GQA or MLA."""
-    if cfg.attn_kind not in ("gqa", "mla"):
-        raise ValueError(f"attn_kind {cfg.attn_kind!r} not in gqa | mla")
+    partial segment; ``audio`` (enc-dec) the decoder's ``dec_cross``
+    blocks (the encoder's ``enc_attn`` blocks are ``encode``'s).
+    Attention is ``cfg.attn_kind``: GQA or MLA (``none``: an xLSTM model
+    builds no attention block)."""
+    if cfg.attn_kind not in ("gqa", "mla", "none"):
+        raise ValueError(f"attn_kind {cfg.attn_kind!r} not in gqa | mla | "
+                         "none")
     L = cfg.n_layers
     if cfg.family == "moe":
         segs = []
         if cfg.moe_layer_start:
             segs.append(Segment(("attn",), cfg.moe_layer_start))
         segs.append(Segment(("attn_moe",), L - cfg.moe_layer_start))
+        return segs
+    if cfg.family == "ssm":
+        segs = [Segment(("mlstm",) * 7 + ("slstm",), L // 8)]
+        if L % 8:
+            segs.append(Segment(("mlstm",) * (L % 8), 1))
         return segs
     if cfg.family == "hybrid":
         pat = cfg.block_pattern or ("rglru", "rglru", "attn_local")
@@ -70,8 +93,11 @@ def segments_for(cfg) -> List[Segment]:
         if rem:
             segs.append(Segment(tuple(pat[:rem]), 1))
         return segs
+    if cfg.family == "audio":
+        return [Segment(("dec_cross",), L)]
     if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"family {cfg.family!r} is not ported")
+        raise ValueError(f"family {cfg.family!r} not in dense | vlm | moe | "
+                         "ssm | hybrid | audio")
     return [Segment(("attn",), L)]
 
 
@@ -84,8 +110,10 @@ def supports_paged(cfg) -> bool:
     loop's admission precondition).  False for MLA, as in the reference:
     its cache is the compressed latents (``ckv``, ``kr``), which the
     paged pools' per-head K/V layout and the flash-decode reader do not
-    hold, so MLA models serve through the dense-cache ``ServeLoop``."""
-    if cfg.attn_kind == "mla":
+    hold, so MLA models serve through the dense-cache ``ServeLoop``; nor
+    for the recurrent kinds (an O(1) state, nothing to page) and enc-dec
+    models (their cross caches stay dense)."""
+    if cfg.attn_kind == "mla" or cfg.n_enc_layers:
         return False
     return all(kind in PAGED_KINDS
                for seg in segments_for(cfg) for kind in seg.pattern)
@@ -101,8 +129,9 @@ def init_ffn(gen, cfg, device="cuda"):
 
 
 def ffn_apply(params, x, cfg, apply_fn):
-    """The gated product reaches ``wo`` in f32: XLA fuses it into
-    ``wo``'s activation quantiser and drops its rounding to bf16."""
+    """The gated product, or the gelu's last product, reaches ``wo`` in
+    f32: XLA fuses it into ``wo``'s activation quantiser and drops its
+    rounding to bf16."""
     pair_apply = getattr(apply_fn, "pair_apply", None)
     if (pair_apply is not None and cfg.serve_shared_act_quant
             and "wg" in params):
@@ -113,31 +142,59 @@ def ffn_apply(params, x, cfg, apply_fn):
         if "wg" in params:
             h = h.float() * nn.silu(apply_fn(params["wg"], x, cfg))
         else:
-            h = torch.nn.functional.gelu(h)
+            h = nn.gelu(h, f32_out=True)
     return apply_fn(params["wo"], h, cfg)
 
 
+ATTN_KINDS = ("attn", "attn_moe", "attn_local", "enc_attn", "dec_cross")
+
+
 def init_block(gen, kind: str, cfg, device="cuda"):
-    if kind not in PAGED_KINDS:
-        raise ValueError(f"block kind {kind!r} is not ported")
-    init_attn = attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa
-    p = {
-        "norm1": nn.init_rmsnorm(cfg.d_model, device),
-        "attn": init_attn(gen, cfg, device),
-        "norm2": nn.init_rmsnorm(cfg.d_model, device),
-    }
-    if kind == "attn_moe":
-        p["moe"] = moe.init_moe(gen, cfg, device)
-    else:
+    """One block's serve params, the reference's leaves for each kind."""
+    p = {"norm1": nn.init_rmsnorm(cfg.d_model, device)}
+    if kind in ATTN_KINDS:
+        init_attn = attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa
+        p["attn"] = init_attn(gen, cfg, device)
+        p["norm2"] = nn.init_rmsnorm(cfg.d_model, device)
+        if kind == "attn_moe":
+            p["moe"] = moe.init_moe(gen, cfg, device)
+        else:
+            p["ffn"] = init_ffn(gen, cfg, device)
+        if kind == "dec_cross":
+            p["xattn"] = attn.init_gqa(gen, cfg, device)
+            p["norm3"] = nn.init_rmsnorm(cfg.d_model, device)
+    elif kind == "mlstm":
+        p["cell"] = xlstm.init_mlstm(gen, cfg, device)
+    elif kind == "slstm":
+        p["cell"] = xlstm.init_slstm(gen, cfg, device)
+    elif kind == "rglru":
+        p["cell"] = rglru.init_rglru_block(gen, cfg, device)
+        p["norm2"] = nn.init_rmsnorm(cfg.d_model, device)
         p["ffn"] = init_ffn(gen, cfg, device)
+    else:
+        raise ValueError(f"block kind {kind!r}")
     return p
 
 
+def _write_state(cache, state) -> None:
+    """A recurrent block's new state into its cache views, in place."""
+    if cache is not None:
+        for name, v in state.items():
+            cache[name].copy_(v)
+
+
+def _residual(x, y):
+    """``x + y`` of the stream (bf16) and its f32 sum: XLA fuses the
+    residual add into the norm after it, which reads the add's f32 sum
+    unrounded, while the stream keeps its bf16 sum."""
+    s = x.float() + y
+    return s.to(x.dtype), s
+
+
 def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
-                decode: bool = False, paged_ctx=None):
-    """One ``attn``/``attn_local``/``attn_moe`` block; returns ``(x,
-    cache)`` (an ``attn_moe`` block's aux loss is dropped, as serve drops
-    it).
+                decode: bool = False, paged_ctx=None, enc_out=None):
+    """One block; returns ``(x, cache)`` (an ``attn_moe`` block's aux loss
+    is dropped, as serve drops it).
 
     ``paged_ctx`` routes attention through the layer's paged pool
     ``cache``: ``{'block_table', 'positions', 'n_writes'}`` for a verify
@@ -146,14 +203,33 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     dense cache ``{'k', 'v'}`` is read and written at the shared
     position ``pos`` (decode, ring buffer for ``attn_local``) or filled
     by the prompt (prefill; ``cache`` None runs no store).  An MLA block
-    reads and writes its latent cache ``{'ckv', 'kr'}`` the same way."""
-    if kind not in PAGED_KINDS:
-        raise ValueError(f"block kind {kind!r} is not ported")
+    reads and writes its latent cache ``{'ckv', 'kr'}`` the same way; a
+    ``dec_cross`` block also attends over ``enc_out`` (prefill, its K/V
+    stored as ``xk``/``xv``) or the cached ``xk``/``xv`` (decode); an
+    ``enc_attn`` block attends bidirectionally and caches nothing.  A
+    recurrent block (``mlstm``, ``slstm``, ``rglru``) starts from the
+    state in ``cache`` (zeros: a prefill) and writes its final state
+    back into it."""
+    h = nn.rmsnorm_apply(params["norm1"], x)
+    if kind in ("mlstm", "slstm"):
+        fn = xlstm.mlstm_apply if kind == "mlstm" else xlstm.slstm_apply
+        y, state = fn(params["cell"], h, cfg, state=cache, apply_fn=apply_fn)
+        _write_state(cache, state)
+        return x + y, cache
+    if kind == "rglru":
+        y, state = rglru.rglru_block_apply(params["cell"], h, cfg,
+                                           state=cache, apply_fn=apply_fn)
+        _write_state(cache, state)
+        x, s = _residual(x, y)
+        hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+        return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), cache
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"block kind {kind!r}")
     window = cfg.local_window if kind == "attn_local" else None
     is_mla = cfg.attn_kind == "mla"
-    h = nn.rmsnorm_apply(params["norm1"], x)
-    if paged_ctx is not None and is_mla:
-        raise ValueError("MLA caches are not paged (supports_paged)")
+    if paged_ctx is not None and (is_mla or kind not in PAGED_KINDS):
+        raise ValueError(f"block kind {kind!r} (attn_kind "
+                         f"{cfg.attn_kind!r}) is not paged (supports_paged)")
     if paged_ctx is not None:
         if "n_writes" in paged_ctx:
             y, cache = attn.gqa_verify_paged(
@@ -181,21 +257,60 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                                    (cache["k"], cache["v"]), pos,
                                    apply_fn=apply_fn)
     else:
-        fwd = attn.mla_train if is_mla else attn.gqa_train
-        y, kv = fwd(params["attn"], h, cfg, window=window, apply_fn=apply_fn,
-                    kv_quant_rt=cache is not None)
+        if kind == "enc_attn":
+            y, kv = _bidir_attn(params["attn"], h, cfg, apply_fn)
+        else:
+            fwd = attn.mla_train if is_mla else attn.gqa_train
+            y, kv = fwd(params["attn"], h, cfg, window=window,
+                        apply_fn=apply_fn, kv_quant_rt=cache is not None)
         if cache is not None:
             _store_prefill(kind, cache, kv)
-    # XLA fuses the residual add into the norm after it: the norm reads
-    # the add's f32 sum, unrounded, while the stream keeps its bf16 sum
-    s = x.float() + y
-    x = s.to(x.dtype)
+    x, s = _residual(x, y)
+    if kind == "dec_cross":
+        h2 = nn.rmsnorm_apply(params["norm3"], s, dtype=x.dtype)
+        if decode:
+            y2, _ = attn.gqa_decode(params["xattn"], h2, cfg, None, pos,
+                                    apply_fn=apply_fn,
+                                    cross_kv=(cache["xk"], cache["xv"]))
+        else:
+            xk, xv = _cross_kv(params["xattn"], enc_out, cfg, apply_fn)
+            y2, _ = attn.gqa_train(params["xattn"], h2, cfg,
+                                   apply_fn=apply_fn, cross_kv=(xk, xv))
+            if cache is not None:
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+        x, s = _residual(x, y2)
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
     if kind == "attn_moe":
         y, _ = moe.moe_apply(params["moe"], hf, cfg, apply_fn=apply_fn)
     else:
         y = ffn_apply(params["ffn"], hf, cfg, apply_fn)
     return x + y, cache
+
+
+def _bidir_attn(params, h, cfg, apply_fn):
+    """The encoder's bidirectional self-attention: rotary at positions
+    ``0..S-1``, every key visible (the direct masked softmax, as the
+    reference).  Returns ``(y, (k, v))``."""
+    B, S, _ = h.shape
+    q, k, v = attn._qkv(params, h, cfg, apply_fn)
+    positions = torch.arange(S, device=h.device)[None, :]
+    sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
+    q = nn.apply_rotary(q, sin, cos)
+    k = nn.apply_rotary(k, sin, cos)
+    mask = torch.ones((S, S), dtype=torch.bool, device=h.device)
+    out = attn._sdpa(q, k, v, mask, cfg)
+    return apply_fn(params["wo"], out.reshape(B, S, -1), cfg), (k, v)
+
+
+def _cross_kv(params, enc_out, cfg, apply_fn):
+    """The cross-attention K/V ``[B, Se, KV, hd]`` of the encoder's
+    output, through the ``xattn`` block's ``wk``/``wv``."""
+    B, Se, _ = enc_out.shape
+    KV, hd = cfg.n_kv, cfg.kv_head_dim
+    k = apply_fn(params["wk"], enc_out, cfg, use_bias=cfg.qkv_bias)
+    v = apply_fn(params["wv"], enc_out, cfg, use_bias=cfg.qkv_bias)
+    return k.reshape(B, Se, KV, hd), v.reshape(B, Se, KV, hd)
 
 
 def _store_prefill(kind: str, cache, kv) -> None:
@@ -250,7 +365,9 @@ def _local_decode(params, h, cfg, cache, pos: int, apply_fn):
 def init_front(gen, cfg, device="cuda") -> dict:
     """The frontend stub's projection, as the reference's train-path
     linear (``linear_impl='qdq'``): ``w [d_front, d_model]`` f32, its LSQ
-    step and N2UQ activation params.  The serve forwards never read it."""
+    step and N2UQ activation params.  A VLM's is carried and never read;
+    an enc-dec model's ``encode`` runs it (``nn.linear_apply``) on the
+    frames."""
     d_front = 1024 if cfg.frontend == "frames" else 1152
     w = torch.randn((d_front, cfg.d_model), generator=gen,
                     dtype=torch.float32, device=device) / math.sqrt(d_front)
@@ -292,9 +409,10 @@ def init_segment(gen, seg: Segment, cfg, device="cuda") -> dict:
 def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
             device="cuda") -> nn.ParamTree:
     """Serve params with random serve linears (``cfg.serve_impl``) drawn
-    from ``gen`` (a generator on ``device``), and the frontend stub's
-    ``front`` leaf where ``cfg.frontend`` is set.  Returns a
-    ``ParamTree``."""
+    from ``gen`` (a generator on ``device``), the frontend stub's
+    ``front`` leaf where ``cfg.frontend`` is set, and an enc-dec model's
+    ``encoder`` (one stacked segment of ``enc_attn`` blocks) and
+    ``enc_norm``.  Returns a ``ParamTree``."""
     if purpose != "serve":
         raise ValueError("only the serve path is ported")
     p = {"embed": nn.init_embedding(gen, cfg.vocab, cfg.d_model, device)}
@@ -303,13 +421,21 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
     if cfg.frontend != "none":
         p["front"] = init_front(gen, cfg, device)
     p["final_norm"] = nn.init_rmsnorm(cfg.d_model, device)
+    if cfg.n_enc_layers:
+        p["encoder"] = [init_segment(gen, _encoder_segment(cfg), cfg,
+                                     device)]
+        p["enc_norm"] = nn.init_rmsnorm(cfg.d_model, device)
     p["segments"] = [init_segment(gen, seg, cfg, device)
                      for seg in segments_for(cfg)]
     return nn.ParamTree(p)
 
 
+def _encoder_segment(cfg) -> Segment:
+    return Segment(("enc_attn",), cfg.n_enc_layers)
+
+
 def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
-               device="cuda") -> dict:
+               device="cuda", enc_len: int = 0) -> dict:
     """Dense decode cache of one block kind (stacked ``[n_layers, ...]``
     when ``n_layers > 0``): ``attn`` ``[B, S_max, KV, hd]``, ``attn_local``
     a ring of ``min(local_window, S_max)``.  bf16, or f32 under a
@@ -317,10 +443,32 @@ def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
     values, so the dense loop is the equal-quantisation oracle of the
     paged path.  An MLA ``attn``/``attn_moe`` block caches its latents,
     ``ckv [B, S_max, kv_lora]`` and ``kr [B, S_max, rope]``, in bf16
-    whatever ``serve_kv_dtype`` (the reference's)."""
-    if kind not in PAGED_KINDS:
-        raise ValueError(f"block kind {kind!r} is not ported")
+    whatever ``serve_kv_dtype`` (the reference's).  A ``dec_cross`` block
+    caches bf16 ``k``/``v`` of ``S_max`` and the encoder's ``xk``/``xv``
+    of ``enc_len``; a recurrent block its f32 state (``mlstm``: ``C``,
+    ``n``, ``m``, ``conv``; ``slstm``: ``c``, ``n``, ``h``, ``m``;
+    ``rglru``: ``h``, ``conv``)."""
     lead = (n_layers,) if n_layers else ()
+    if kind == "mlstm":
+        inner = 2 * cfg.d_model
+        return xlstm.mlstm_zero_state(B, cfg.n_heads, inner // cfg.n_heads,
+                                      cfg.conv_width, device=device,
+                                      lead=lead)
+    if kind == "slstm":
+        return xlstm.slstm_zero_state(B, cfg.d_model, device=device,
+                                      lead=lead)
+    if kind == "rglru":
+        return rglru.rglru_zero_state(B, cfg.lru_dim or cfg.d_model,
+                                      cfg.conv_width, device=device,
+                                      lead=lead)
+    if kind == "dec_cross":
+        mk = lambda S: torch.zeros(
+            (*lead, B, S, cfg.n_kv, cfg.kv_head_dim), dtype=torch.bfloat16,
+            device=device)
+        return {"k": mk(S_max), "v": mk(S_max), "xk": mk(enc_len),
+                "xv": mk(enc_len)}
+    if kind not in PAGED_KINDS:
+        raise ValueError(f"block kind {kind!r} has no cache")
     if cfg.attn_kind == "mla" and kind in ("attn", "attn_moe"):
         mk = lambda w: torch.zeros((*lead, B, S_max, w),
                                    dtype=torch.bfloat16, device=device)
@@ -334,13 +482,15 @@ def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
 
 
 def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
-                device="cuda", B: int = 0, S_max: int = 0):
+                device="cuda", B: int = 0, S_max: int = 0, enc_len: int = 0):
     """Stacked caches per segment, ``[{'b0': {...}}]``.  With ``paged``
     (a ``PageSpec``), paged pools ``{'k', 'v'[, 'ks', 'vs']}`` with leaves
     ``[n_layers, n_pages, P, KV, hd]``; without, the dense caches of
-    ``zero_cache`` for ``B`` slots of ``S_max`` positions."""
+    ``zero_cache`` for ``B`` slots of ``S_max`` positions (and an
+    encoder output of ``enc_len``)."""
     if paged is None:
-        return [{f"b{bi}": zero_cache(kind, cfg, B, S_max, seg.n, device)
+        return [{f"b{bi}": zero_cache(kind, cfg, B, S_max, seg.n, device,
+                                      enc_len)
                  for bi, kind in enumerate(seg.pattern)}
                 for seg in segments_for(cfg)]
     if not supports_paged(cfg):
@@ -355,10 +505,12 @@ def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
 
 
 def _run_layers(params, caches, x, cfg, decode: bool, paged_ctx=None,
-                pos=None):
+                pos=None, enc_out=None, stack: str = "segments"):
     apply_fn = nn.serve_linear_apply
-    for si, seg in enumerate(segments_for(cfg)):
-        for i, lp in enumerate(params.layers(si)):
+    segs = ([_encoder_segment(cfg)] if stack == "encoder"
+            else segments_for(cfg))
+    for si, seg in enumerate(segs):
+        for i, lp in enumerate(params.layers(si, stack)):
             for bi, kind in enumerate(seg.pattern):
                 cache = None
                 if caches is not None:
@@ -366,7 +518,7 @@ def _run_layers(params, caches, x, cfg, decode: bool, paged_ctx=None,
                              for name, leaf in caches[si][f"b{bi}"].items()}
                 x, _ = apply_block(kind, lp[f"b{bi}"], x, cfg, apply_fn,
                                    cache=cache, pos=pos, decode=decode,
-                                   paged_ctx=paged_ctx)
+                                   paged_ctx=paged_ctx, enc_out=enc_out)
     return x
 
 
@@ -380,17 +532,41 @@ def _logits(params, x, cfg):
 
 
 @torch.no_grad()
-def prefill(params, tokens, cfg, S_max: Optional[int] = None):
+def encode(params, frames, cfg):
+    """The encoder of an enc-dec model: frames ``[B, Se, d_front]``
+    through the ``front`` projection (the train-path linear, as the
+    reference applies it when serving too), the ``enc_attn`` blocks (no
+    caches) and ``enc_norm``.  Returns ``[B, Se, d_model]`` bf16."""
+    with torch.profiler.record_function("repro_torch.lm.encode"):
+        x = nn.linear_apply(params.front.tree(), frames, cfg)
+        x = _run_layers(params, None, x, cfg, decode=False, stack="encoder")
+        return nn.rmsnorm_apply(params.enc_norm.tree(), x)
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg, S_max: Optional[int] = None, frames=None):
     """Dense-cache prefill of the oracle loop: tokens ``[B, S]`` from
     position 0 (left-padded by the loop).  Returns ``(logits [B,
     vocab], caches)``, fresh dense caches of ``S_max`` (default ``S``)
-    positions holding the prompt's K/V."""
+    positions holding the prompt's K/V (a recurrent block's final
+    state).  An enc-dec config needs ``frames [B, Se, d_front]``: they
+    are encoded first and each ``dec_cross`` block caches their
+    cross-attention K/V."""
     with torch.profiler.record_function("repro_torch.lm.prefill"):
         B, S = tokens.shape
         dev = params.embed.emb.device
-        caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S)
+        enc_out = None
+        if cfg.n_enc_layers:
+            if frames is None:
+                raise KeyError("frames: an encoder-decoder config needs "
+                               "frames [B, Se, d_front] to prefill")
+            enc_out = encode(params, frames, cfg)
+        caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S,
+                             enc_len=0 if enc_out is None
+                             else enc_out.shape[1])
         x = nn.embed_apply(params.embed.tree(), tokens)
-        x = _run_layers(params, caches, x, cfg, decode=False)
+        x = _run_layers(params, caches, x, cfg, decode=False,
+                        enc_out=enc_out)
         logits = _logits(params, x[:, -1:], cfg)
     return logits[:, 0, : cfg.vocab], caches
 

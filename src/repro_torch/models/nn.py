@@ -1,6 +1,7 @@
 """NN primitives of the serve path (port of the serve subset of
 ``repro.models.nn``): serve linears (dense, int8 and TLMAC layouts) and
-their expert-stacked form, norms, embeddings, rotary.
+their expert-stacked form, the train-path linear's forward (an enc-dec
+model's frontend projection), norms, embeddings, rotary, activations.
 
 Parameters travel as nested dicts of tensors, like the JAX pytrees;
 ``ParamTree`` holds such a tree as an ``nn.Module`` (float leaves are
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.quant import quantizers as Q
 from repro_torch.core.tlmac.compile import plan_shapes
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.int8_experts import int8_experts_matmul
@@ -63,14 +65,15 @@ class ParamTree(nn.Module):
                 out[k] = v
         return out
 
-    def layers(self, si: int):
-        """Per-layer views of stacked segment ``si`` (``segments[si]``)."""
-        views = self._views.get(si)
+    def layers(self, si: int, stack: str = "segments"):
+        """Per-layer views of stacked segment ``si`` of ``stack``
+        (``segments``, or an enc-dec model's ``encoder``)."""
+        views = self._views.get((stack, si))
         if views is None:
-            seg = self.segments[si].tree()
+            seg = getattr(self, stack)[si].tree()
             n = _leading(seg)
             views = [tree_index(seg, i) for i in range(n)]
-            self._views[si] = views
+            self._views[(stack, si)] = views
         return views
 
     def _apply(self, fn, *args, **kwargs):
@@ -101,6 +104,41 @@ def _pick_dp(N: int, want: int) -> int:
             if best is None:
                 best = dp
     return best or min(want, N)
+
+
+def _bf16_matmul(x, w):
+    """``x @ w`` of bf16 operands to bf16: one bf16 ``torch.matmul`` on the
+    card (cuBLAS accumulates in f32); on the CPU the f32 product of the
+    bf16 operands, which is XLA's CPU dot (a CPU bf16 GEMM orders its sums
+    differently)."""
+    if x.device.type == "cuda":
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(COMPUTE_DTYPE)
+
+
+def linear_apply(params, x, cfg, use_bias: bool = False):
+    """The reference's train-path linear, forward only: with ``aq`` in the
+    params (``linear_impl='qdq'``), the N2UQ activation quantiser and the
+    LSQ weight quantiser (``core.quant.quantizers``) fake-quantise both
+    operands, then a bf16 product; else the bf16 product of ``x`` and
+    ``w``.  The serve path reaches it through an enc-dec model's ``front``
+    projection (``models.lm.encode``).  The quantisers' gradients belong
+    to training and are not ported."""
+    w = params["w"]
+    if "aq" in params:
+        xq = Q.n2uq_act_quant(x.to(torch.float32), params["aq"],
+                              cfg.quant.a_bits)
+        wq = Q.lsq_quant(w.reshape(-1, w.shape[-1]), params["w_step"],
+                         cfg.quant.w_bits).reshape(w.shape)
+        x_, w_ = xq.to(COMPUTE_DTYPE), wq.to(COMPUTE_DTYPE)
+    else:
+        x_, w_ = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
+    if w.dim() != 2:
+        raise ValueError("expert-stacked train linears are not ported")
+    y = _bf16_matmul(x_, w_)
+    if use_bias:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
@@ -226,11 +264,14 @@ def int8_matmul(aq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 def _tlmac_quant_pack(a_step, x, cfg):
     """Quantise activations to B_a-bit codes ``[M, K]`` int8 (round half
-    to even, as ``jnp.round``).  The kernel packs bit-planes itself."""
+    to even, as ``jnp.round``), contiguous as the kernel takes them (the
+    codes keep ``x``'s strides, which a sliced or einsum-made ``x`` may
+    not have in row-major order).  The kernel packs bit-planes itself."""
     B_a = cfg.quant.a_bits
     K = x.shape[-1]
     return torch.clamp(torch.round(x.to(torch.float32) / a_step),
-                       0, 2**B_a - 1).to(torch.int8).reshape(-1, K)
+                       0, 2**B_a - 1).to(torch.int8).reshape(-1, K
+                                                             ).contiguous()
 
 
 def _tlmac_gemm(params, aq, lead, cfg):
@@ -268,12 +309,7 @@ def serve_linear_apply(params, x, cfg, use_bias: bool = False):
       ``cfg.serve_tlmac_impl`` names (``_tlmac_gemm``)."""
     impl = layout(params)
     if impl == "dense":
-        w = params["w"]
-        xb = x.to(COMPUTE_DTYPE)
-        if xb.device.type == "cuda":
-            y = torch.matmul(xb, w)
-        else:     # XLA's CPU dot: f32 products and sums of bf16 operands
-            y = torch.matmul(xb.float(), w.float()).to(COMPUTE_DTYPE)
+        y = _bf16_matmul(x.to(COMPUTE_DTYPE), params["w"])
     elif impl == "int8":
         a_step, w8 = params["a_step"], params["w8"]
         aq = _int8_codes(x, a_step, w8.shape[0])
@@ -344,12 +380,7 @@ def serve_expert_linear_apply(params, xe, cfg):
         y = (yi.to(torch.float32)
              * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
     else:
-        w = params["w"]
-        xb = x.to(COMPUTE_DTYPE)
-        if xb.device.type == "cuda":
-            y = torch.matmul(xb, w)
-        else:     # XLA's CPU dot: f32 products and sums of bf16 operands
-            y = torch.matmul(xb.float(), w.float()).to(COMPUTE_DTYPE)
+        y = _bf16_matmul(x.to(COMPUTE_DTYPE), params["w"])
     N = y.shape[-1]
     return y.reshape(E, G, cap, N).transpose(0, 1)
 
@@ -490,8 +521,41 @@ def silu(x):
     return x * torch.reciprocal(torch.exp(-x) + 1)
 
 
+_F32_TINY = torch.finfo(torch.float32).tiny
+_GELU_C = math.sqrt(2 / math.pi)
+_GELU_K = 0.044715
+
+
+def gelu(x, f32_out: bool = False):
+    """``jax.nn.gelu`` (``approximate=True``: the tanh form) as XLA's CPU
+    backend computes it: every op in f32, its result flushed to zero when
+    subnormal (XLA runs with flush-to-zero) and rounded to ``x``'s dtype,
+    ``x ** 3`` as ``(x * x) * x`` with a rounding between, the constants
+    ``sqrt(2 / pi)`` and ``0.044715`` rounded to that dtype first.  torch's
+    ``gelu`` (erf, or tanh rounded once) differs from it in bf16 on about
+    43% of inputs; this form equals ``jax.jit(jax.nn.gelu)`` on every
+    finite bf16 input.  ``f32_out`` returns the last product ``x * cdf``
+    in f32, unrounded: XLA fuses it into the next linear's activation
+    quantiser (``models.lm.ffn_apply``)."""
+    dt = x.dtype
+
+    def r(v):
+        v = torch.where(v.abs() < _F32_TINY, v * 0, v)
+        return v.to(dt).to(torch.float32)
+
+    c, k = (torch.tensor(v, dtype=torch.float32).to(dt).item()
+            for v in (_GELU_C, _GELU_K))
+    xf = r(x.to(torch.float32))
+    x3 = r(r(xf * xf) * xf)
+    t = r(torch.tanh(r(c * r(xf + r(k * x3)))))
+    y = xf * r(0.5 * r(1 + t))
+    if f32_out:
+        return y
+    return r(y).to(dt)
+
+
 def act_fn(kind: str):
-    return {"gelu": nn.functional.gelu, "silu": silu,
+    return {"gelu": gelu, "silu": silu,
             "relu": nn.functional.relu}["silu" if kind == "swiglu" else kind]
 
 

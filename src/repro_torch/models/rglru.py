@@ -1,0 +1,135 @@
+"""RecurrentGemma / Griffin recurrent block (arXiv:2402.19427) of the
+serve path, the port of ``repro.models.rglru``:
+
+    x -> [linear -> causal conv1d(4) -> RG-LRU] * silu(linear gate) -> out
+
+RG-LRU:
+    r_t = sigmoid(W_r x_t),  i_t = sigmoid(W_i x_t)
+    log a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+A prefill runs the linear recurrence as ``associative_scan``, which
+combines elements in the order of ``jax.lax.associative_scan`` (log2(S)
+vectorised levels); a sequential loop would round differently.  Decode
+is the one-step cell.  The gates are f32 products of plain weights, as
+in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant.quantizers import _softplus
+from repro_torch.models import nn
+from repro_torch.models.xlstm import _conv_step, _winit
+
+_C = 8.0
+
+
+def init_rglru_block(gen, cfg, device="cuda"):
+    """The reference's leaves: serve linears ``win``/``wgate`` d -> lru and
+    ``wout`` lru -> d; f32 ``conv.w [W, lru]``, ``wr.w``/``wi.w [lru,
+    lru]`` and ``lam.l [lru]``, Lambda drawn so that a^(1/r) lies in
+    [0.9, 0.999]."""
+    d = cfg.d_model
+    lru = cfg.lru_dim or d
+    lin = nn.init_serve_linear
+    lam = torch.empty(lru, dtype=torch.float32, device=device).uniform_(
+        0.9, 0.999, generator=gen)
+    return {
+        "win": lin(gen, d, lru, cfg, device=device),
+        "wgate": lin(gen, d, lru, cfg, device=device),
+        "conv": {"w": _winit(gen, (cfg.conv_width, lru), 0.1, device)},
+        "wr": {"w": _winit(gen, (lru, lru), 0.02, device)},
+        "wi": {"w": _winit(gen, (lru, lru), 0.02, device)},
+        "lam": {"l": torch.log(torch.exp(-torch.log(lam) / _C) - 1.0)},
+        "wout": lin(gen, lru, d, cfg, device=device),
+    }
+
+
+def rglru_zero_state(B, lru, conv_width=4, device="cuda",
+                     dtype=torch.float32, lead=()):
+    """``h [B, lru]`` and ``conv``, the last ``conv_width - 1`` pre-conv
+    inputs ``[B, W-1, lru]`` (zeros: the causal left padding)."""
+    return {"h": torch.zeros((*lead, B, lru), dtype=dtype, device=device),
+            "conv": torch.zeros((*lead, B, conv_width - 1, lru),
+                                dtype=dtype, device=device)}
+
+
+def _gates(params, u):
+    """u ``[B, S, lru]`` (after the conv) -> ``(log_a, bx)`` in f32."""
+    uf = u.to(torch.float32)
+    r = torch.sigmoid(uf @ params["wr"]["w"])
+    i = torch.sigmoid(uf @ params["wi"]["w"])
+    log_a = -_C * _softplus(params["lam"]["l"]) * r
+    a2 = torch.exp(2.0 * log_a)
+    bx = torch.sqrt(torch.clamp(1.0 - a2, min=1e-9)) * (i * uf)
+    return log_a, bx
+
+
+def _comb(l, r):
+    """(a, b) o (a', b') = (a a', a' b + b') in log space for a."""
+    return l[0] + r[0], torch.exp(r[0]) * l[1] + r[1]
+
+
+def associative_scan(fn, elems, dim: int):
+    """``jax.lax.associative_scan(fn, elems, axis=dim)`` over a tuple of
+    tensors, in its order of combination: combine adjacent pairs, scan
+    those recursively, then combine the scanned odd prefixes with the
+    even elements, and interleave."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(e, start, stop=None, step=1):
+        idx = [slice(None)] * e.dim()
+        idx[dim] = slice(start, stop, step)
+        return e[tuple(idx)]
+
+    reduced = fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                 tuple(sl(e, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, -1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    out = []
+    for a, b in zip(even, odd):
+        shape = list(a.shape)
+        shape[dim] = a.shape[dim] + b.shape[dim]
+        y = a.new_empty(shape)
+        sl(y, 0, None, 2).copy_(a)
+        sl(y, 1, None, 2).copy_(b)
+        out.append(y)
+    return tuple(out)
+
+
+def rglru_block_apply(params, x, cfg, state=None,
+                      apply_fn=nn.serve_linear_apply):
+    """x ``[B, S, d]`` -> ``(y, state)``; S == 1 is a decode step."""
+    B, S, d = x.shape
+    u_in = apply_fn(params["win"], x, cfg).to(torch.float32)
+    if state is None:
+        state = rglru_zero_state(B, u_in.shape[-1], cfg.conv_width,
+                                 device=x.device)
+    h0 = state["h"]
+    u, new_conv = _conv_step(state["conv"], u_in, params["conv"]["w"], S,
+                             cfg.conv_width)
+    log_a, bx = _gates(params, u)
+    if S == 1:
+        h = torch.exp(log_a[:, 0]) * h0 + bx[:, 0]
+        hs = h[:, None, :]
+    else:
+        # the initial state enters the first step
+        bx = torch.cat([bx[:, :1] + torch.exp(log_a[:, :1]) * h0[:, None],
+                        bx[:, 1:]], dim=1)
+        _, hs = associative_scan(_comb, (log_a, bx), dim=1)
+        h = hs[:, -1]
+    g = nn.silu(apply_fn(params["wgate"], x, cfg))
+    # the gated product reaches wout's quantiser in f32, unrounded, as XLA
+    # fuses it (models.lm.ffn_apply)
+    y = apply_fn(params["wout"], hs.to(x.dtype).float() * g, cfg)
+    return y, {"h": h, "conv": new_conv}

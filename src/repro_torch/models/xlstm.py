@@ -1,0 +1,239 @@
+"""xLSTM blocks (arXiv:2405.04517) of the serve path, the port of
+``repro.models.xlstm``: mLSTM (matrix memory) and sLSTM (scalar memory
+with state mixing), assembled 7:1 by ``models.lm.segments_for``.
+
+mLSTM cell (stabilised exponential gating):
+    m_t = max(f~_t + m_{t-1}, i~_t)
+    f'  = exp(f~ + m_{t-1} - m_t),  i' = exp(i~ - m_t)
+    C_t = f' C_{t-1} + i' v_t k_t^T          [B, H, hd, hd]
+    n_t = f' n_{t-1} + i' k_t
+    h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))
+
+Both cells are one-step functions run by ``chunked_scan`` over the
+sequence (prefill) or once (decode).  Forward only: the reference's
+``jax.checkpoint`` of each chunk is a training memory device and has no
+meaning here, so ``chunked_scan`` is a loop over time that keeps the
+reference's refusal of a length past one chunk that is not a multiple
+of it.  The serve linears are ``apply_fn``'s (lookup GEMMs under
+TLMAC); the gate projections ``wi``/``wf`` and the sLSTM recurrence are
+f32 products of plain weights, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant.quantizers import _softplus
+from repro_torch.models import nn
+
+
+def _depthwise_causal_conv(x, w):
+    """x ``[B, S, C]``, w ``[W, C]`` -> the causal depthwise conv (zeros
+    before the first position)."""
+    W, S = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out
+
+
+CHUNK = 64    # the reference's scan chunk: a longer scan must be a multiple
+
+
+def chunked_scan(cell, state, xs, length: int):
+    """``cell(state, x_t) -> (state, y_t)`` over the leading time axis of
+    every tensor of the tuple ``xs``; returns ``(state, ys)`` with ``ys``
+    stacked ``[length, ...]``.  Like the reference, a length past
+    ``CHUNK`` that is not a multiple of it raises ``AssertionError``."""
+    if length > CHUNK:
+        assert length % CHUNK == 0, (length, CHUNK)
+    ys = []
+    for t in range(length):
+        state, y = cell(state, tuple(a[t] for a in xs) if isinstance(
+            xs, tuple) else xs[t])
+        ys.append(y)
+    return state, torch.stack(ys)
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``, softplus as
+    ``logaddexp(x, 0)``."""
+    return -_softplus(-x)
+
+
+def _winit(gen, shape, scale: float, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * scale
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen, cfg, device="cuda"):
+    """The reference's mLSTM leaves: serve linears ``up`` d -> 4d, ``wq``,
+    ``wk``, ``wv`` 2d -> 2d and ``down`` 2d -> d; f32 ``conv.w [W, 2d]``,
+    gate weights ``wi.w``/``wf.w [2d, H]`` and ``wf.b`` (3.0)."""
+    d, H = cfg.d_model, cfg.n_heads
+    inner = 2 * d
+    lin = nn.init_serve_linear
+    return {
+        "up": lin(gen, d, 2 * inner, cfg, device=device),
+        "conv": {"w": _winit(gen, (cfg.conv_width, inner), 0.1, device)},
+        "wq": lin(gen, inner, inner, cfg, device=device),
+        "wk": lin(gen, inner, inner, cfg, device=device),
+        "wv": lin(gen, inner, inner, cfg, device=device),
+        "wi": {"w": _winit(gen, (inner, H), 0.02, device)},
+        "wf": {"w": _winit(gen, (inner, H), 0.02, device),
+               "b": torch.full((H,), 3.0, dtype=torch.float32,
+                               device=device)},
+        "down": lin(gen, inner, d, cfg, device=device),
+    }
+
+
+def mlstm_zero_state(B, H, hd, conv_width=4, device="cuda",
+                     dtype=torch.float32, lead=()):
+    """``C [B, H, hd, hd]``, ``n [B, H, hd]``, ``m [B, H]`` (-1e30) and
+    ``conv``, the last ``conv_width - 1`` pre-conv inputs ``[B, W-1, H
+    hd]``; ``lead`` prepends a layer axis."""
+    z = lambda *s: torch.zeros((*lead, *s), dtype=dtype, device=device)
+    return {"C": z(B, H, hd, hd), "n": z(B, H, hd),
+            "m": torch.full((*lead, B, H), -1e30, dtype=dtype,
+                            device=device),
+            "conv": z(B, conv_width - 1, H * hd)}
+
+
+def _mlstm_cell(state, qkvif):
+    q, k, v, it, ft = qkvif           # q/k/v [B, H, hd]; it/ft [B, H]
+    C, n, m = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(ft + m, it)
+    fp = torch.exp(ft + m - m_new)
+    ip = torch.exp(it - m_new)
+    C = fp[..., None, None] * C + ip[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n = fp[..., None] * n + ip[..., None] * k
+    num = torch.einsum("bhij,bhj->bhi", C, q)
+    den = torch.maximum(torch.einsum("bhj,bhj->bh", n, q).abs(),
+                        torch.exp(-m_new))
+    return {"C": C, "n": n, "m": m_new}, num / den[..., None]
+
+
+def _conv_step(state_conv, x32, w, S: int, conv_width: int):
+    """The depthwise conv of ``x32 [B, S, C]`` after the carried tail
+    ``state_conv [B, W-1, C]`` (decode: one position), and the new tail."""
+    prev = state_conv.to(torch.float32)
+    window = torch.cat([prev, x32], dim=1)
+    if S == 1:
+        c = torch.einsum("bwl,wl->bl", window, w)[:, None, :]
+    else:
+        c = _depthwise_causal_conv(x32, w)
+    return c, window[:, -(conv_width - 1):]
+
+
+def mlstm_apply(params, x, cfg, state=None, apply_fn=nn.serve_linear_apply):
+    """x ``[B, S, d]`` -> ``(y, final_state)``; S == 1 is a decode step."""
+    B, S, d = x.shape
+    inner = 2 * d
+    H = cfg.n_heads
+    hd = inner // H
+    u = apply_fn(params["up"], x, cfg)
+    xi, z = u[..., :inner], u[..., inner:]
+    if state is None:
+        state = mlstm_zero_state(B, H, hd, cfg.conv_width, device=x.device)
+    c, new_conv = _conv_step(state["conv"], xi.to(torch.float32),
+                             params["conv"]["w"], S, cfg.conv_width)
+    c = nn.silu(c).to(x.dtype)
+    q = apply_fn(params["wq"], c, cfg).reshape(B, S, H, hd)
+    k = apply_fn(params["wk"], c, cfg).reshape(B, S, H, hd) / _sqrt_f32(hd)
+    v = apply_fn(params["wv"], xi, cfg).reshape(B, S, H, hd)
+    c32 = c.to(torch.float32)
+    it = torch.einsum("bsk,kh->bsh", c32, params["wi"]["w"])
+    ft = torch.einsum("bsk,kh->bsh", c32, params["wf"]["w"])
+    ft = log_sigmoid(ft + params["wf"]["b"])
+    xs = (q.transpose(0, 1).to(torch.float32),
+          k.transpose(0, 1).to(torch.float32),
+          v.transpose(0, 1).to(torch.float32),
+          it.transpose(0, 1), ft.transpose(0, 1))
+    cell_state = {n: state[n] for n in ("C", "n", "m")}
+    cell_state, hs = chunked_scan(_mlstm_cell, cell_state, xs, S)
+    h = hs.transpose(0, 1).reshape(B, S, inner).to(x.dtype)
+    # the gated product reaches down's quantiser in f32, unrounded, as
+    # XLA fuses it (models.lm.ffn_apply)
+    y = apply_fn(params["down"], h.float() * nn.silu(z), cfg)
+    return y, dict(cell_state, conv=new_conv)
+
+
+def _sqrt_f32(n: int) -> float:
+    """``jnp.sqrt(n)`` of an int: the f32 square root."""
+    return float(torch.tensor(float(n), dtype=torch.float32).sqrt())
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen, cfg, device="cuda"):
+    """The reference's sLSTM leaves: serve linears ``wx`` d -> 4d (the z,
+    i, f, o pre-activations), ``down`` and ``up_gate`` d -> d; f32
+    block-diagonal recurrences ``r.w [4, H, hd, hd]`` and ``bias.b [4d]``
+    (0 for z, i, f; 3.0 for o)."""
+    d, H = cfg.d_model, cfg.n_heads
+    hd = d // H
+    lin = nn.init_serve_linear
+    bias = torch.zeros(4 * d, dtype=torch.float32, device=device)
+    bias[3 * d:] = 3.0
+    return {
+        "wx": lin(gen, d, 4 * d, cfg, device=device),
+        "r": {"w": _winit(gen, (4, H, hd, hd), 0.05, device)},
+        "bias": {"b": bias},
+        "down": lin(gen, d, d, cfg, device=device),
+        "up_gate": lin(gen, d, d, cfg, device=device),
+    }
+
+
+def slstm_zero_state(B, d, device="cuda", dtype=torch.float32, lead=()):
+    """``c``, ``h``, ``m`` zeros and ``n`` ones, each ``[B, d]``."""
+    z = lambda: torch.zeros((*lead, B, d), dtype=dtype, device=device)
+    return {"c": z(), "n": torch.ones((*lead, B, d), dtype=dtype,
+                                      device=device),
+            "h": z(), "m": z()}
+
+
+def _slstm_cell(params, state, x4, H: int):
+    """x4 ``[B, 4d]`` pre-activations from the input; state mixing by the
+    recurrent matrices ``r``."""
+    B, d4 = x4.shape
+    d = d4 // 4
+    hprev = state["h"].reshape(B, H, d // H)
+    rec = torch.einsum("bhi,ghij->gbhj", hprev, params["r"]["w"]).reshape(
+        4, B, d)
+    pre = (x4.reshape(B, 4, d).transpose(0, 1) + rec
+           + params["bias"]["b"].reshape(4, d)[:, None, :])
+    z, i, f, o = pre.unbind(0)
+    z = torch.tanh(z)
+    o = torch.sigmoid(o)
+    logf = log_sigmoid(f)
+    m_new = torch.maximum(logf + state["m"], i)
+    ip = torch.exp(i - m_new)
+    fp = torch.exp(logf + state["m"] - m_new)
+    c = fp * state["c"] + ip * z
+    n = fp * state["n"] + ip
+    h = o * c / torch.clamp(n, min=1.0)
+    return {"c": c, "n": n, "h": h, "m": m_new}, h
+
+
+def slstm_apply(params, x, cfg, state=None, apply_fn=nn.serve_linear_apply):
+    """x ``[B, S, d]`` -> ``(y, final_state)``; S == 1 is a decode step."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    x4 = apply_fn(params["wx"], x, cfg).to(torch.float32)
+    if state is None:
+        state = slstm_zero_state(B, d, device=x.device)
+    state, hs = chunked_scan(lambda st, xt: _slstm_cell(params, st, xt, H),
+                             state, x4.transpose(0, 1), S)
+    h = hs.transpose(0, 1).to(x.dtype)
+    g = nn.silu(apply_fn(params["up_gate"], x, cfg))
+    return apply_fn(params["down"], h.float() * g, cfg), state  # f32, fused

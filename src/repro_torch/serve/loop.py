@@ -10,6 +10,13 @@ when its prompt fits the current shared length ``L``, is prefilled alone
 left-padded to ``L`` and its caches copied into the freed slot, so the
 next decode step advances it with the running slots.  The loop runs
 eagerly (no CUDA graphs: it is an oracle), on the params' device.
+
+It serves every decoder-only family: the dense and MoE families, MLA on
+latent caches, and the recurrent families (xLSTM, RG-LRU hybrids) on
+their states, whose leaves ``_write_slot`` copies like any cache leaf.
+As in the reference, left padding runs through a recurrent state
+unmasked, and a refill's prefill at a length past 64 that is not a
+multiple of 64 raises in the xLSTM scan (``models.xlstm.chunked_scan``).
 """
 
 from __future__ import annotations
@@ -59,6 +66,12 @@ class ServeLoop:
         if have.type != want.type or want.index not in (None, have.index):
             raise ValueError(f"params live on {have}, loop device is {want}")
         lm.segments_for(cfg)          # raises for families not ported
+        if cfg.n_enc_layers:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder config cannot be served by "
+                "ServeLoop, whose prefill passes no frames (the reference's "
+                "cannot either); serve it through lm.prefill(tokens, "
+                "frames=...) and lm.decode_step")
         self.device = have
         self.params, self.cfg = params, cfg
         self.B, self.S_max = batch_slots, s_max

@@ -62,6 +62,18 @@ MLA_FAMILIES = {
     "deepseek-mla": ("deepseek-v3-671b", {}),
     "kimi-mla": ("kimi-k2-1t-a32b", {}),
 }
+# the recurrent families, served through the dense ServeLoop (their
+# states do not page, as in the reference); XLA's f32 transcendentals
+# (exp, tanh, log_sigmoid, sigmoid) differ from torch's in the last ulp,
+# so these are held within tolerances, not bit for bit
+RECURRENT_FAMILIES = {
+    "xlstm": ("xlstm-350m", {}),
+    "recurrentgemma": ("recurrentgemma-2b", {}),
+}
+# the enc-dec family (lm.prefill(tokens, frames=...) and decode_step)
+ENCDEC_FAMILIES = {
+    "seamless": ("seamless-m4t-medium", {}),
+}
 NEW_FAMILIES = ["minicpm-gqa", "command-r-gqa-r4", "internvl2-vlm",
                 "window-local"]
 LAYOUTS = ["tlmac", "int8", "dense", "mixed"]
@@ -77,7 +89,9 @@ torch.set_num_threads(1)
 
 def cfgs(family, impl="tlmac", kv="fp", **kw):
     arch, over = (FAMILIES.get(family) or MOE_FAMILIES.get(family)
-                  or MLA_FAMILIES[family])
+                  or MLA_FAMILIES.get(family)
+                  or RECURRENT_FAMILIES.get(family)
+                  or ENCDEC_FAMILIES[family])
     over = dict(over, serve_impl=impl, serve_kv_dtype=kv, **kw)
     return (dataclasses.replace(jsmoke(arch), **over),
             dataclasses.replace(tsmoke(arch), **over))

@@ -207,16 +207,43 @@ def _run_jax_loop(jcfg, params, monkeypatch):
     return log, done, loop.refills
 
 
+# the recurrent families' loop: every JAX row whose top-2 margin clears
+# RECURRENT_MARGIN x its max |logit| must have the port's argmax; layer 0's
+# first block state within RECURRENT_STATE_TOL x its max |leaf| of JAX's
+# (deeper states drift once a float ulp moves a 3-bit activation code)
+RECURRENT_MARGIN = 3e-2
+RECURRENT_STATE_TOL = 1e-4
+
+
+def _first_state_close(tc, jc):
+    jt = convert.dense_caches_from_jax(jax.tree.map(np.asarray, jc), "cpu")
+    for name, leaf in tc[0]["b0"].items():
+        want = jt[0]["b0"][name]
+        assert leaf.dtype == want.dtype and leaf.shape == want.shape, name
+        d = (leaf[0].double() - want[0].double()).abs().max().item()
+        scale = max(want[0].abs().max().item(), 1.0)
+        if not d <= RECURRENT_STATE_TOL * scale:
+            return False
+    return all(bool(torch.isfinite(leaf).all()) for seg in tc
+               for pool in seg.values() for leaf in pool.values())
+
+
 @pytest.mark.parametrize("family,kv", [("codeqwen-gqa", "fp"),
                                        ("window-local", "int8"),
                                        ("minicpm-gqa", "fp"),
-                                       ("command-r-gqa-r4", "int8")])
+                                       ("command-r-gqa-r4", "int8"),
+                                       ("xlstm", "fp"),
+                                       ("recurrentgemma", "fp")])
 def test_dense_loop_teacher_forced_vs_jax(family, kv, monkeypatch):
+    """The recurrent families (xLSTM, RG-LRU with a local window) are held
+    within tolerances: XLA's f32 exp, tanh and sigmoid are not torch's."""
     jcfg, tcfg, params, tp = F.model(family, kv=kv)
     log, jdone, jrefills = _run_jax_loop(jcfg, params, monkeypatch)
     it = iter(log)
     pairs = []
     real_prefill, real_decode = tlm.prefill, tlm.decode_step
+    recurrent = family in F.RECURRENT_FAMILIES
+    caches_match = _first_state_close if recurrent else _caches_equal
 
     def prefill(p, tokens, cfg, S_max=None):
         kind, jt, jl, jc = next(it)
@@ -224,7 +251,7 @@ def test_dense_loop_teacher_forced_vs_jax(family, kv, monkeypatch):
         lg, c = real_prefill(p, tokens, cfg, S_max=S_max)
         pairs.extend((f"prefill {b}", F.to_np(jl[b]), lg[b].float().numpy())
                      for b in range(lg.shape[0]))
-        assert _caches_equal(c, jc), "prefill caches"
+        assert caches_match(c, jc), "prefill caches"
         return convert.to_torch(jl, "cpu"), c
 
     def decode(p, c, tokens, pos, cfg):
@@ -234,7 +261,7 @@ def test_dense_loop_teacher_forced_vs_jax(family, kv, monkeypatch):
         lg, c = real_decode(p, c, tokens, pos, cfg)
         pairs.extend((f"decode {pos}.{b}", F.to_np(jl[b]),
                       lg[b].float().numpy()) for b in range(lg.shape[0]))
-        assert _caches_equal(c, jc), ("decode caches", pos)
+        assert caches_match(c, jc), ("decode caches", pos)
         return convert.to_torch(jl, "cpu"), c
 
     monkeypatch.setattr(tlm, "prefill", prefill)
@@ -245,6 +272,15 @@ def test_dense_loop_teacher_forced_vs_jax(family, kv, monkeypatch):
     done = {r.rid: r.output.tolist() for r in loop.run()}
     assert next(it, None) is None                 # every call replayed
     assert done == jdone and loop.refills == jrefills >= 2
+    if recurrent:
+        clear = 0
+        for name, want, got in pairs:
+            top2 = np.sort(want)[-2:]
+            if top2[1] - top2[0] > RECURRENT_MARGIN * np.abs(want).max():
+                clear += 1
+                assert got.argmax() == want.argmax(), name
+        assert clear >= len(pairs) // 2, (clear, len(pairs))
+        return
     bad, exact = F.rows_match(pairs)
     assert not bad, bad
     assert exact >= len(pairs) - 2, (exact, len(pairs))

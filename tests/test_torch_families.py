@@ -36,13 +36,14 @@ from repro_torch.models import lm as tlm
 
 import _torch_families as F
 
-ARCHS = ["minicpm-2b", "command-r-35b", "internvl2-76b"]
+ARCHS = ["minicpm-2b", "command-r-35b", "internvl2-76b", "recurrentgemma-2b",
+         "xlstm-350m", "seamless-m4t-medium"]
 READ_FIELDS = ["name", "family", "n_layers", "d_model", "n_heads", "n_kv",
                "d_ff", "vocab", "head_dim", "act", "tie_embeddings",
                "qkv_bias", "tlmac_G", "tlmac_dp", "tlmac_narr_cap",
                "serve_impl", "serve_kv_dtype", "serve_shared_act_quant",
                "attn_kind", "local_window", "block_pattern", "n_enc_layers",
-               "frontend", "frontend_len"]
+               "frontend", "frontend_len", "conv_width", "lru_dim"]
 WINDOW = dict(local_window=8)
 
 
@@ -59,13 +60,17 @@ def test_configs_match_reference(arch):
 def test_configs_refuse_what_is_not_ported():
     """MLA configs build MLA blocks in the reference's segments and do
     not page, as in the reference; an unknown ``attn_kind`` is refused
-    where a block would be built."""
+    where a block would be built.  Nothing else is refused any more: the
+    ``ssm``, ``audio`` and ``hybrid`` (RG-LRU) families and encoder
+    layers give the reference's segments and ``supports_paged`` and
+    build their params."""
     base = tsmoke("codeqwen1.5-7b")
+    jbase = jsmoke("codeqwen1.5-7b")
     mla = dataclasses.replace(base, attn_kind="mla")
     assert not tlm.supports_paged(mla)
     assert [(s.pattern, s.n) for s in tlm.segments_for(mla)] == [
         (s.pattern, s.n) for s in jlm.segments_for(
-            dataclasses.replace(jsmoke("codeqwen1.5-7b"), attn_kind="mla"))]
+            dataclasses.replace(jbase, attn_kind="mla"))]
     p = tlm.init_lm(mla, torch.Generator().manual_seed(0), device="cpu")
     assert set(p.tree()["segments"][0]["b0"]["attn"]) == {
         "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}
@@ -74,16 +79,21 @@ def test_configs_refuse_what_is_not_ported():
         tlm.segments_for(odd)
     with pytest.raises(ValueError, match="attn_kind"):
         tlm.init_lm(odd, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="encoder"):
-        dataclasses.replace(base, n_enc_layers=2)
-    for fam in ("ssm", "audio"):
-        with pytest.raises(ValueError, match="not ported"):
-            tlm.segments_for(dataclasses.replace(base, family=fam))
-    rec = dataclasses.replace(base, family="hybrid")   # rglru pattern
-    assert not tlm.supports_paged(rec) and not jlm.supports_paged(
-        dataclasses.replace(jsmoke("codeqwen1.5-7b"), family="hybrid"))
-    with pytest.raises(ValueError, match="not ported"):
-        tlm.init_lm(rec, torch.Generator().manual_seed(0), device="cpu")
+    cases = [dict(family="ssm", attn_kind="none"), dict(family="audio"),
+             dict(family="hybrid"), dict(n_enc_layers=2, family="audio",
+                                         frontend="frames")]
+    for over in cases:
+        for L in (5, 8, 11):
+            t = dataclasses.replace(base, n_layers=L, **over)
+            j = dataclasses.replace(jbase, n_layers=L, **over)
+            assert [(s.pattern, s.n) for s in tlm.segments_for(t)] == [
+                (s.pattern, s.n) for s in jlm.segments_for(j)], (over, L)
+            assert tlm.supports_paged(t) == jlm.supports_paged(j), over
+    for over in cases:
+        t = dataclasses.replace(base, n_layers=11, **over)
+        tree = tlm.init_lm(t, torch.Generator().manual_seed(0),
+                           device="cpu").tree()
+        assert ("encoder" in tree) == bool(t.n_enc_layers), over
 
 
 @pytest.mark.parametrize("family", sorted(F.FAMILIES))
