@@ -8,6 +8,9 @@
     python3 chip_smoke.py --only serve-families   # kernels 1-2 built, the
                                           # recurrent and enc-dec families,
                                           # mistral-large and their smokes
+    python3 chip_smoke.py --only train    # kernels 1, 4 and 3 built, the
+                                          # training stack (phase 8), one
+                                          # JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -170,27 +173,45 @@ Phases, in order; any failure raises and exits non-zero:
    asserted and no flash-decode; then mistral-large-123b at full width
    and depth (59 GiB of params) on the main path's loop, four prompts x
    16 tokens;
-8. the port on the card against the port on the CPU (plain versions) on
+8. the training stack (``phase_train``): (a) one ``make_train_step`` on
+   codeqwen1.5-7b's smoke (quantisers calibrated) on the card against
+   the same step on the CPU (loss, gradient norm, lr within stated
+   tolerances), and the loss falling on a fixed batch on the card; (b)
+   minicpm-2b at full width and depth through the train CLI
+   (``launch.train.main``: 6 steps, batch 4 x 1024, WSD), its memory
+   reckoning beside the params, init and run peaks, every step's loss,
+   lr and gradient norm (finite), the median step and tokens a second,
+   and the last step profiled (device busy share, largest kernels); (c)
+   the trained layer 0 ``ffn.wi`` compiled (G 4, d_p 128,
+   ``verify_plan``) and run on kernel 1 at M 4 and 64, int32-equal to
+   its plain version and to the integer product of its codes; (d)
+   preempt and resume on minicpm-2b's smoke, the resumed losses within
+   1e-5 of the uninterrupted run's; (e) full-width ResNet-18, 10 QAT SGD
+   steps at batch 32, then the trained ``block0.conv1`` and
+   ``block7.conv2`` compiled and run as lookup convs (kernels 4 then 3),
+   int32-equal to the integer conv of their codes;
+9. the port on the card against the port on the CPU (plain versions) on
    six smoke configs (the five dense families', minicpm's at head dim
    18, and the MoE smoke), every one read with kernel 2,
    teacher-forced, logits within tolerance; the two MLA smoke configs
    through the dense ``ServeLoop``; xlstm's and recurrentgemma's smokes
    through the dense ``ServeLoop`` and seamless's through prefill with
    frames and decode steps;
-9. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
-   every conv as a lookup conv (kernels 4 + 3) and as one
-   cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
-   convs), each equal to the integer conv, with the launch counters of
-   kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
-   the quickstart's shape equal to the dense integer GEMM.
+10. the paper path: ResNet-18's forward on 32 seeded 56x56 images, then
+    every conv as a lookup conv (kernels 4 + 3) and as one
+    cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
+    convs), each equal to the integer conv, with the launch counters of
+    kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
+    the quickstart's shape equal to the dense integer GEMM.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
 main path for kernels 1-2, the paper path for kernels 3-6, the int8
 moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
 rows also carry ``launches_by_path``, each counted on one of the
-families' runs with the counters set to 0 just before it); the last
-line is the device JSON.  Needs one CUDA card; exits non-zero without
+families' runs with the counters set to 0 just before it, kernel 1's
+and kernels 3-4's also the trained weights' launches in phase 8); the
+last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
 
@@ -226,6 +247,7 @@ SEED = 0
 DEV = "cuda"         # every phase runs on the card
 SOURCES = ("tlmac_fused", "flash_decode", "bitplanes", "tlmac_gemm",
            "tlmac_clustered", "int8_experts")
+TRAIN_SOURCES = ("tlmac_fused", "bitplanes", "tlmac_gemm")   # --only train
 # the autotune cache of this run alone, made empty at the start: every
 # phase but phase_autotune resolves 'auto' to its miss defaults
 AUTOTUNE_CACHE = os.path.join(ROOT, "build", "autotune-smoke.json")
@@ -4309,6 +4331,461 @@ def phase_cli():
         f"{time.perf_counter() - t:.2f} s (init included)")
 
 
+# ---------------------------------------------------------------------------
+# the training stack: QAT of a dense decoder and of ResNet-18, the trained
+# weights compiled back onto the lookup kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 1024, 4
+TRAIN_PROFILED_STEP = TRAIN_STEPS - 1   # profiled; left out of the median
+TRAIN_LOSS_RTOL = 1e-2        # card vs CPU: bf16 GEMMs summed in other
+TRAIN_GNORM_RTOL = 5e-2       # orders; a flipped 3-bit code moves a sum
+CAL_DELTAS, CAL_OUT_STEP = -2.0, 0.1   # tests/test_torch_train.py's
+TRAINED_LINEAR_MS = (4, 64)
+PREEMPT_STEPS, PREEMPT_AT, PREEMPT_EVERY = 8, 5, 3
+PREEMPT_TOL = 1e-5            # tests/test_substrates.py:178
+RESNET_QAT_STEPS, RESNET_QAT_LR, RESNET_QAT_BATCH = 10, 0.05, 32
+TRAINED_CONVS = ("block0.conv1", "block7.conv2")
+
+
+def _calibrated(params):
+    """Every N2UQ activation quantiser of ``params`` at ``CAL_DELTAS`` and
+    ``CAL_OUT_STEP`` (thresholds over 0.06-0.83: at the init's 0.39-5.0
+    nearly every activation sits below the first one and only the
+    embeddings learn)."""
+    import torch
+
+    with torch.no_grad():
+        for mod in params.modules():
+            if hasattr(mod, "deltas"):
+                mod.deltas.fill_(CAL_DELTAS)
+                mod.out_step.fill_(CAL_OUT_STEP)
+    return params
+
+
+def train_reckoning(cfg, B: int, S: int) -> dict:
+    """Bytes of the train step, from the shapes: f32 params, their
+    gradients and the two AdamW moments (16 bytes a param); the logits in
+    bf16 and in f32; one layer's attention tiles under recompute (the
+    blocked softmax keeps its masked scores and probabilities for each
+    512 x 1024 tile)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.nn import padded_vocab
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.kv_head_dim
+    per_layer = (d * hd * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * hd * d
+                 + 3 * d * f)
+    Vp = padded_vocab(cfg.vocab)
+    emb = Vp * d * (1 if cfg.tie_embeddings else 2)
+    n = cfg.n_layers * per_layer + emb
+    tiles = -(-S // A.FLASH_QB) * B * cfg.n_heads * A.FLASH_QB * min(
+        S, A.FLASH_KB) * 4 * 2
+    r = dict(params=n, state_gb=16 * n / 1e9,
+             logits_bf16_gb=B * S * Vp * 2 / 1e9,
+             logits_f32_gb=B * S * Vp * 4 / 1e9, tiles_gb=tiles / 1e9)
+    log(f"  reckoning {cfg.name} train, batch {B} x {S}: "
+        f"{per_layer / 1e6:.2f} M params a layer x {cfg.n_layers} + "
+        f"{emb / 1e6:.1f} M embedding = {n / 1e9:.3f} B params; f32 params, "
+        f"grads, m and v {r['state_gb']:.1f} GB; logits {r['logits_bf16_gb']:.2f}"
+        f" GB bf16, {r['logits_f32_gb']:.2f} GB f32; one layer's attention "
+        f"tiles {r['tiles_gb']:.2f} GB: expect a peak of 55-65 GB")
+    return r
+
+
+def _profiled_train_step(fn, args):
+    """One train step under torch.profiler: wall, device busy (kernels'
+    self time), the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn(*args)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name, n_kernels = {}, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            n_kernels += e.count
+    busy = sum(by_name.values())
+    top = sorted(((v, k) for k, v in by_name.items()), reverse=True)[:6]
+    return out, dict(wall_ms=wall, busy_ms=busy, kernels=n_kernels,
+                     top=[(round(v, 3), k[:80]) for v, k in top])
+
+
+def phase_train_card_vs_cpu(seed: int = SEED):
+    """(a) One ``make_train_step`` on codeqwen1.5-7b's smoke from the same
+    seeded params (quantisers calibrated) and batch, on the card and on
+    the CPU: loss, gradient norm and lr within the stated tolerances.
+    Then the reference's "loss falls on a fixed batch" on the card: eight
+    steps at lr 1e-2 lower the loss by 0.1."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import trainer as T
+
+    cfg = smoke_config("codeqwen1.5-7b")
+    tc = T.TrainConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    cpu = _calibrated(lm.init_lm(cfg, torch.Generator().manual_seed(seed),
+                                 purpose="train", device="cpu"))
+    card = copy.deepcopy(cpu).to(DEV)
+    batch = SyntheticLMData(cfg.vocab, 32, 4, seed=seed).batch(0)
+    got = {}
+    for where, params in (("cpu", cpu), (DEV, card)):
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        _, _, m = T.make_train_step(cfg, tc)(
+            params, adamw_init(params, tc.adamw), b, 1)
+        got[where] = {k: float(v) for k, v in m.items()}
+    c, g = got["cpu"], got[DEV]
+    for k, tol in (("loss", TRAIN_LOSS_RTOL), ("gnorm", TRAIN_GNORM_RTOL),
+                   ("lr", 1e-6)):
+        if not abs(g[k] - c[k]) <= tol * abs(c[k]):
+            raise AssertionError(f"train step card vs CPU: {k} {g[k]} vs "
+                                 f"{c[k]} (rtol {tol})")
+    log(f"  make_train_step, {cfg.name} smoke, batch 4 x 32: card loss "
+        f"{g['loss']:.6f} |g| {g['gnorm']:.6f} lr {g['lr']:.3e}; CPU loss "
+        f"{c['loss']:.6f} |g| {c['gnorm']:.6f} (rtol {TRAIN_LOSS_RTOL} / "
+        f"{TRAIN_GNORM_RTOL})")
+    params = lm.init_lm(cfg, torch.Generator(device=DEV).manual_seed(seed),
+                        purpose="train", device=DEV)
+    tc = T.TrainConfig(lr=1e-2, total_steps=10, warmup_steps=1)
+    step, opt = T.make_train_step(cfg, tc), adamw_init(params, tc.adamw)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    b = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen,
+                                 device=DEV, dtype=torch.int32)}
+    losses = [float(step(params, opt, b, i)[2]["loss"]) for i in range(8)]
+    if not losses[-1] < losses[0] - 0.1:
+        raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+    log(f"  loss on a fixed batch, 8 steps at lr 1e-2 on the card: "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return dict(card=g, cpu=c, fixed_batch=[losses[0], losses[-1]])
+
+
+def phase_train_minicpm(gpu: str):
+    """(b) minicpm-2b at full width and depth through the train CLI (six
+    steps, batch 4 x 1024, WSD): params, init and run peaks beside the
+    reckoning, every step's loss, lr and gradient norm (finite), the
+    median step after the first (the profiled last step left out) and
+    tokens a second, the busy share of the profiled step.  Returns (its
+    figures, layer 0's trained ``ffn.wi`` {'w', 'w_step'} on the CPU)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    from repro_torch.train import trainer as T
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    reck = train_reckoning(cfg, B, S)
+    marks = {}
+
+    class Loop(T.TrainLoop):
+        """The CLI's loop, with the init's peak read and the last step
+        profiled."""
+
+        def init(self, seed=0):
+            _free()
+            cuda = DEV == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = super().init(seed)
+            if cuda:
+                torch.cuda.synchronize()
+            marks["init_s"] = time.perf_counter() - t
+            marks["init_peak"] = torch.cuda.max_memory_allocated() if cuda \
+                else 0
+            marks["params"] = sum(p.numel() for p in out[0].parameters())
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            step_fn = self.step_fn
+
+            def stepped(*a):
+                if a[3] != TRAIN_PROFILED_STEP:
+                    return step_fn(*a)
+                out, marks["profile"] = _profiled_train_step(step_fn, a)
+                return out
+
+            self.step_fn = stepped
+            return out
+
+    cli.TrainLoop = Loop
+    t0 = time.perf_counter()
+    try:
+        loop, params = cli.main([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(S), "--batch", str(B), "--device", DEV])
+    finally:
+        cli.TrainLoop = T.TrainLoop
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    log_ = loop.metrics_log
+    for m in log_:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])):
+            raise AssertionError(f"step {m['step']}: loss {m['loss']} "
+                                 f"|g| {m['gnorm']}")
+    if len(log_) != TRAIN_STEPS:
+        raise AssertionError(f"{len(log_)} steps logged, want {TRAIN_STEPS}")
+    steady = [m["wall_s"] for m in log_[1:] if m["step"] !=
+              TRAIN_PROFILED_STEP]
+    med = sorted(steady)[len(steady) // 2]
+    prof = marks.get("profile", {})
+    fig = dict(params=marks["params"], params_gib=marks["params"] * 4 / 2**30,
+               init_s=marks["init_s"], init_peak_gib=marks["init_peak"] / 2**30,
+               run_peak_gib=run_peak / 2**30, reckoned_state_gb=reck["state_gb"],
+               steps=[dict(step=m["step"], loss=m["loss"], lr=m["lr"],
+                           gnorm=m["gnorm"], ms=m["wall_s"] * 1e3)
+                      for m in log_],
+               first_step_ms=log_[0]["wall_s"] * 1e3, median_step_ms=med * 1e3,
+               tok_s=B * S / med, wall_s=wall,
+               busy_share=(prof["busy_ms"] / prof["wall_ms"]) if prof else None,
+               profile=prof)
+    log(f"  {gpu}: {cfg.name} train, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, batch {B} x {S}: {marks['params'] / 1e9:.3f} B "
+        f"params, {fig['params_gib']:.3f} GiB f32; init {marks['init_s']:.1f}"
+        f" s, init peak {fig['init_peak_gib']:.3f} GiB; run peak "
+        f"{fig['run_peak_gib']:.3f} GiB ({run_peak / 1e9:.2f} GB; reckoned "
+        f"55-65 GB)")
+    for m in fig["steps"]:
+        log(f"    step {m['step']}: loss {m['loss']:.4f} lr {m['lr']:.3e} "
+            f"|g| {m['gnorm']:.4f} {m['ms']:.1f} ms")
+    log(f"  {gpu}: first step {fig['first_step_ms']:.1f} ms; median of "
+        f"steps 1-{TRAIN_PROFILED_STEP - 1} {fig['median_step_ms']:.1f} ms, "
+        f"{fig['tok_s']:.1f} tokens/s")
+    if prof:
+        log(f"  {gpu}: profiled step {TRAIN_PROFILED_STEP}: wall "
+            f"{prof['wall_ms']:.1f} ms (under the profiler), device busy "
+            f"{prof['busy_ms']:.1f} ms ({fig['busy_share']:.1%}), "
+            f"{prof['kernels']} kernel launches")
+        for v, k in prof["top"]:
+            log(f"    {v:9.3f} ms  {k}")
+    wi = params.segments[0].b0.ffn.wi
+    trained = {"w": wi.w[0].detach().float().cpu().numpy(),
+               "w_step": wi.w_step[0].detach().float().cpu().numpy()}
+    del loop, params
+    _free()
+    return fig, trained
+
+
+def phase_trained_linear(trained, gpu: str):
+    """(c) The trained ``ffn.wi`` of layer 0 deployed: its codes
+    ``clip(round(w / w_step), -4, 3)`` (``examples/train_lm_tlmac.py``)
+    compiled (G 4, d_p 128, ``verify_plan``), then kernel 1 at M 4 and 64
+    on seeded 3-bit activation codes, int32-equal to its plain version
+    and to ``dense_int_matmul`` of the trained codes.  Returns (figures,
+    kernel 1's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tlmac.api import TLMACLinear
+    from repro_torch.core.tlmac.compile import compile_layer, verify_plan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tlmac_fused as tf
+
+    codes = np.clip(np.round(trained["w"] / trained["w_step"]), -4, 3
+                    ).astype(np.int32)
+    K, N = codes.shape
+    t = time.perf_counter()
+    plan = compile_layer(codes, B_w=3, B_a=3, G=4, d_p=128, anneal_iters=3000)
+    secs = time.perf_counter() - t
+    if not verify_plan(plan):
+        raise AssertionError("verify_plan fails on the trained ffn.wi")
+    lin = TLMACLinear(plan=plan, w_step=torch.as_tensor(trained["w_step"]),
+                      a_step=torch.ones((), device=DEV), a_bits=3, N=N)
+    sp = lin.as_serve_params()
+    sp_cpu = {k: v.cpu() for k, v in sp.items()}
+    w = torch.as_tensor(codes, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    n0 = tf.launches
+    for M in TRAINED_LINEAR_MS:
+        aq = torch.randint(0, 8, (M, K), generator=gen, dtype=torch.int8,
+                           device=DEV)
+        got = ops.tlmac_matmul(aq, sp["table_narrow"], sp["exec_idx"],
+                               sp["step_cluster"], B_a=3, G=4, N=N,
+                               impl="fused")
+        plain = ops.tlmac_matmul(aq.cpu(), sp_cpu["table"],
+                                 sp_cpu["exec_idx"], sp_cpu["step_cluster"],
+                                 B_a=3, G=4, N=N, impl="fused")
+        _equal(f"trained ffn.wi M={M}: kernel 1 vs plain", got.cpu(), plain)
+        _equal(f"trained ffn.wi M={M}: kernel 1 vs dense_int_matmul", got,
+               ops.dense_int_matmul(aq, w))
+    launches = tf.launches - n0
+    if DEV == "cuda" and launches != len(TRAINED_LINEAR_MS):
+        raise AssertionError(f"kernel 1 launched {launches} times")
+    log(f"  {gpu}: trained {TRAIN_ARCH} layer 0 ffn.wi {K}->{N}: codes "
+        f"{np.bincount(codes.ravel() + 4, minlength=8).tolist()} (-4..3), "
+        f"compiled in {secs:.1f} s (host): N_uwg {plan.N_uwg}, N_arr "
+        f"{plan.N_arr}, verify_plan holds; kernel 1 at M "
+        f"{'/'.join(map(str, TRAINED_LINEAR_MS))} == plain == "
+        f"dense_int_matmul of the trained codes ({launches} launches)")
+    return dict(compile_s=secs, N_uwg=plan.N_uwg, N_arr=plan.N_arr,
+                launches=launches), launches
+
+
+def phase_train_preempt(seed: int = SEED):
+    """(d) ``FaultTolerantRunner`` on minicpm-2b's smoke on the card,
+    checkpoints under a temporary directory, preempted once: the resumed
+    run's losses within ``PREEMPT_TOL`` of the uninterrupted run's (the
+    embedding's backward accumulates with atomics on the card)."""
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train import trainer as T
+    from repro_torch.train.ft import FaultTolerantRunner, PreemptionSchedule
+
+    cfg = smoke_config(TRAIN_ARCH)
+    tc = T.TrainConfig(lr=1e-3, total_steps=PREEMPT_STEPS, warmup_steps=2)
+    data = SyntheticLMData(cfg.vocab, 64, 4, seed=seed)
+    a = T.TrainLoop(cfg, tc, data, device=DEV)
+    pa, oa = a.init(seed)
+    a.run(pa, oa, num_steps=PREEMPT_STEPS)
+    ref = [m["loss"] for m in a.metrics_log]
+    with tempfile.TemporaryDirectory() as d:
+        b = T.TrainLoop(cfg, tc, data, ckpt_interval=PREEMPT_EVERY,
+                        device=DEV)
+        runner = FaultTolerantRunner(b, d)
+        runner.run(PREEMPT_STEPS, seed=seed,
+                   step_hook=PreemptionSchedule([PREEMPT_AT]))
+    got = {m["step"]: m["loss"] for m in b.metrics_log}
+    worst = max(abs(got[s] - ref[s]) for s in range(PREEMPT_STEPS))
+    if runner.restarts != 1 or not worst <= PREEMPT_TOL:
+        raise AssertionError(f"preempt/resume: {runner.restarts} restarts, "
+                             f"max |dloss| {worst}")
+    resumed = PREEMPT_AT // PREEMPT_EVERY * PREEMPT_EVERY
+    log(f"  {cfg.name} smoke, {PREEMPT_STEPS} steps, preempted at step "
+        f"{PREEMPT_AT}, resumed from step {resumed}: max |dloss| vs the "
+        f"uninterrupted run {worst:.3e} (tolerance {PREEMPT_TOL})")
+    return dict(restarts=runner.restarts, max_dloss=worst)
+
+
+def phase_resnet_qat(gpu: str):
+    """(e) Full-width ResNet-18 (``configs/resnet18.CONFIG``), batch 32 of
+    ``in_hw`` images, 10 QAT SGD steps at lr 0.05 on ``qat_loss``
+    (``examples/compile_resnet.py``), finite losses; then the trained
+    ``block0.conv1`` and ``block7.conv2`` compiled and run as lookup
+    convs (kernel 4, then kernel 3's three row GEMMs), int32-equal to
+    the integer conv of the trained codes at the maps these convs see.
+    Returns (figures, launch counts)."""
+    import torch
+
+    from repro_torch.configs.resnet18 import CONFIG as cfg
+    from repro_torch.core.tlmac.compile import compile_layer, verify_plan
+    from repro_torch.kernels import bitplanes as bp
+    from repro_torch.kernels import tlmac_gemm as tg
+    from repro_torch.models import resnet as R
+    from repro_torch.optim.adamw import tree_leaves
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    params = R.init_resnet(cfg, gen, device=DEV)
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    x = torch.randn((RESNET_QAT_BATCH, cfg.in_hw, cfg.in_hw, 3),
+                    generator=gen, device=DEV)
+    labels = torch.randint(0, cfg.num_classes, (RESNET_QAT_BATCH,),
+                           generator=gen, device=DEV)
+    losses, ms = [], []
+    for _ in range(RESNET_QAT_STEPS):
+        t = time.perf_counter()
+        loss = R.qat_loss(params, x, labels, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for p, g in zip(leaves, grads):
+                p.sub_(RESNET_QAT_LR * g)
+        losses.append(float(loss.detach()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ResNet QAT losses {losses}")
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    log(f"  {gpu}: ResNet-18 QAT ({cfg.w_bits}-bit, width {cfg.width}, "
+        f"{cfg.num_classes} classes), batch {RESNET_QAT_BATCH} x "
+        f"{cfg.in_hw}x{cfg.in_hw}, {RESNET_QAT_STEPS} SGD steps at lr "
+        f"{RESNET_QAT_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{ms[0]:.1f} ms first, {med:.2f} ms median after")
+    strides = R.block_strides(cfg)
+    hw, convs = cfg.in_hw, {}
+    for bi, s in enumerate(strides):          # the map each conv reads
+        convs[f"block{bi}.conv1"] = (hw, s)
+        hw = -(-hw // s)
+        convs[f"block{bi}.conv2"] = (hw, 1)
+    n0 = {"pack_bitplanes": bp.launches, "tlmac_gemm": tg.launches}
+    fig = dict(losses=losses, first_step_ms=ms[0], median_step_ms=med)
+    for name in TRAINED_CONVS:
+        bi, cname = int(name.split(".")[0][5:]), name.split(".")[1]
+        codes = R.quantize_conv_weights(params["blocks"][bi][cname], cfg)
+        t = time.perf_counter()
+        plan = compile_layer(codes, B_w=cfg.w_bits, B_a=cfg.a_bits,
+                             d_p=min(64, codes.shape[0]), anneal_iters=2000,
+                             seed=bi)
+        secs = time.perf_counter() - t
+        if not verify_plan(plan):
+            raise AssertionError(f"verify_plan fails on trained {name}")
+        hw_in, stride = convs[name]
+        a = _conv_inputs((RESNET_QAT_BATCH, hw_in, hw_in, codes.shape[1]),
+                         200 + bi, cfg.a_bits)
+        out = R.tlmac_conv_forward(plan, a, cfg.quant, stride)
+        _equal(f"trained {name} lookup conv vs integer conv", out,
+               int_conv(a, torch.as_tensor(codes, device=DEV), stride))
+        fig[name] = dict(compile_s=secs, N_uwg=plan.N_uwg, N_arr=plan.N_arr,
+                         shape=[RESNET_QAT_BATCH, hw_in, hw_in,
+                                int(codes.shape[1])], stride=stride)
+        log(f"  trained {name} {tuple(codes.shape)}: compiled in {secs:.2f} "
+            f"s (host), N_uwg {plan.N_uwg}, N_arr {plan.N_arr}; lookup conv "
+            f"on [{RESNET_QAT_BATCH}, {hw_in}, {hw_in}, {codes.shape[1]}] "
+            f"stride {stride} == integer conv of the trained codes")
+    counts = {"pack_bitplanes": bp.launches - n0["pack_bitplanes"],
+              "tlmac_gemm": tg.launches - n0["tlmac_gemm"]}
+    want = {"pack_bitplanes": len(TRAINED_CONVS),
+            "tlmac_gemm": 3 * len(TRAINED_CONVS)}
+    if DEV == "cuda" and counts != want:
+        raise AssertionError(f"trained convs: launches {counts}, want {want}")
+    del params, leaves
+    _free()
+    return fig, counts
+
+
+def phase_train():
+    """The training stack, (a)-(e); returns its figures and the launches
+    of the deployed trained weights ({kernel name: {path: n}})."""
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    phase("train (a): one train step, card vs CPU; loss on a fixed batch")
+    out = {"card_vs_cpu": phase_train_card_vs_cpu()}
+    phase(f"train (b): {TRAIN_ARCH} at full width and depth through the "
+          "train CLI")
+    out[TRAIN_ARCH], trained = phase_train_minicpm(gpu)
+    phase("train (c): the trained ffn.wi compiled and run on kernel 1")
+    out["trained_linear"], k1 = phase_trained_linear(trained, gpu)
+    phase("train (d): preempt and resume on the card")
+    out["preempt"] = phase_train_preempt()
+    phase("train (e): ResNet-18 QAT, trained convs on kernels 4 + 3")
+    out["resnet18"], conv_counts = phase_resnet_qat(gpu)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  the train phase took {out['seconds']:.1f} s")
+    launches = {"tlmac_gemm_fused": {f"{TRAIN_ARCH} trained ffn.wi": k1},
+                "pack_bitplanes": {"resnet18 trained convs":
+                                   conv_counts["pack_bitplanes"]},
+                "tlmac_gemm": {"resnet18 trained convs":
+                               conv_counts["tlmac_gemm"]}}
+    return out, launches
+
+
 def phase_serve_families():
     """The recurrent families and the enc-dec family through the dense
     forwards, then mistral-large-123b on the main path, each at full
@@ -4334,8 +4811,14 @@ def phase_serve_families():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
-                                       "serve-families"),
-                    default="all")
+                                       "serve-families", "train"),
+                    default="all",
+                    help="all (default); kernels (build + kernel phases); "
+                         "k12 (kernels 1-2 timed, one JSON line); "
+                         "serve-families (kernels 1-2 built, the dense-"
+                         "forward families); train (kernels 1, 4 and 3 "
+                         "built, the training stack (a)-(e), one JSON "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -4350,8 +4833,8 @@ def main() -> int:
     _fresh_autotune_cache()
     log(gpu_line())
     t0 = time.perf_counter()
-    sources = SOURCES[:2] if args.only in ("k12", "serve-families") \
-        else SOURCES
+    sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
+               "train": TRAIN_SOURCES}.get(args.only, SOURCES)
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
         f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
@@ -4359,6 +4842,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.only == "train":
+        train, _ = phase_train()
+        log(json.dumps({"train": train}))
+        return 0
     if args.only == "serve-families":
         runs, _ = phase_serve_families()
         phase("card vs CPU on the recurrent and enc-dec smoke configs")
@@ -4435,6 +4922,10 @@ def main() -> int:
             **{"mistral-large-123b": mistral_counts["tlmac_gemm_fused"]})
         flash["launches_by_path"] = {
             "mistral-large-123b": mistral_counts["flash_decode"]}
+        train, train_launches = phase_train()
+        gemm["launches_by_path"].update(train_launches["tlmac_gemm_fused"])
+        for name in ("pack_bitplanes", "tlmac_gemm"):
+            lookup[name]["launches_by_path"] = train_launches[name]
         phase("card vs CPU on smoke configs")
         phase_reference()
         phase_mla_reference()

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of the TLMAC system (see ``src/repro`` for the JAX
 reference every module here is held against): the paged TLMAC serve
-path and the paper's compile-and-execute flow (compiler, quantisers,
-``TLMACLinear``, ResNet-18 lookup convs).
+path, the paper's compile-and-execute flow (compiler, quantisers,
+``TLMACLinear``, ResNet-18 lookup convs), and QAT training of the dense
+decoders and ResNet-18 (``optim``, ``train``, ``data``, ``checkpoint``,
+``launch.train``).
 
 Module names mirror the JAX package: ``repro.models.lm`` has its
 counterpart in ``repro_torch.models.lm`` and so on.  The package imports

@@ -1,5 +1,5 @@
 """Architecture configuration: the subset of ``repro.configs.base`` that
-the serve path reads.  ``QuantConfig`` lives in
+the serve and train paths read.  ``QuantConfig`` lives in
 ``repro_torch.core.quant.quantizers``, as in the reference."""
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ class ArchConfig:
     tlmac_G: int = 4
     tlmac_dp: int = 128
     tlmac_narr_cap: int = 4096   # LUT-pool capacity budget for plan shapes
+    linear_impl: str = "qdq"     # train linears: dense (bf16) | qdq (N2UQ
+                                 # activations + LSQ weights, fake-quant)
     serve_impl: str = "tlmac"    # serve linears: dense | int8 | tlmac
                                  # (apply dispatches on the params, so
                                  # mixed layouts serve too)
@@ -103,6 +105,11 @@ class ArchConfig:
     serve_telemetry: bool = False  # lifecycle tracer + phase histograms
     serve_trace_path: str = ""    # run() exports the Chrome trace here
                                   # (and a JSONL twin at path + 'l')
+    # --- training (train/trainer.py, launch/train.py) ---
+    remat: str = "layer"         # none | layer (recompute each layer in
+                                 # the backward: torch.utils.checkpoint)
+    opt_state_dtype: str = "f32"  # AdamW moments: f32 | bf16 | int8
+    train_accum: int = 1         # gradient-accumulation microbatches
 
     @property
     def kv_head_dim(self) -> int:

@@ -17,9 +17,11 @@ CONFIG = ArchConfig(
     head_dim=128,
     d_ff=22528,
     vocab=256000,
+    train_accum=4,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=2, d_model=128, n_heads=8, n_kv=2, head_dim=16,
+    CONFIG, train_accum=1,
+    n_layers=2, d_model=128, n_heads=8, n_kv=2, head_dim=16,
     d_ff=256, vocab=512,
 )

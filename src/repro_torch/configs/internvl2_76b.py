@@ -22,9 +22,11 @@ CONFIG = ArchConfig(
     vocab=128256,
     frontend="patch",
     frontend_len=256,
+    train_accum=4,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=2, d_model=128, n_heads=8, n_kv=2, head_dim=16,
+    CONFIG, train_accum=1,
+    n_layers=2, d_model=128, n_heads=8, n_kv=2, head_dim=16,
     d_ff=256, vocab=512, frontend_len=8,
 )

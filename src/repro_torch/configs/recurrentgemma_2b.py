@@ -24,9 +24,11 @@ CONFIG = ArchConfig(
     block_pattern=("rglru", "rglru", "attn_local"),
     local_window=2048,
     lru_dim=2560,
+    train_accum=4,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=5, d_model=64, n_heads=2, n_kv=1, head_dim=32,
+    CONFIG, train_accum=1,
+    n_layers=5, d_model=64, n_heads=2, n_kv=1, head_dim=32,
     d_ff=128, vocab=256, lru_dim=64, local_window=32,
 )

@@ -20,8 +20,10 @@ CONFIG = ArchConfig(
     d_ff=0,
     vocab=50304,
     attn_kind="none",
+    train_accum=8,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=8, d_model=64, n_heads=2, vocab=256,
+    CONFIG, train_accum=1,
+    n_layers=8, d_model=64, n_heads=2, vocab=256,
 )

@@ -1,6 +1,7 @@
-"""Convert the JAX package's params (serve LMs, ResNet), paged pools and
-dense caches into the port's tensors.  Compiled TLMAC plans are numpy on both sides
-and need no conversion.
+"""Convert the JAX package's params (serve and train LMs, ResNet), AdamW
+state, paged pools and dense caches into the port's tensors, and the
+port's trees back into numpy (``to_numpy``).  Compiled TLMAC plans are
+numpy on both sides and need no conversion.
 
 Inputs are the JAX pytrees already turned into nested dicts and lists of
 numpy arrays (``jax.tree.map(np.asarray, tree)``): this module imports
@@ -28,6 +29,10 @@ every TLMAC serve linear gains one derived leaf, ``table_narrow``
 reads, and every int8 linear's ``w8`` has K and N zero-padded to
 multiples of 8 (``models.nn.pad_int8_weight``: the card's int8 GEMM
 takes no other; ``w_step`` keeps the true N).
+
+``train_params_from_jax`` keeps every leaf as it is, ``embed``/``head``
+in f32 too (training updates the f32 masters), as a trainable
+``ParamTree``.
 """
 
 from __future__ import annotations
@@ -81,6 +86,37 @@ def params_from_jax(tree, device="cuda") -> ParamTree:
             p[name] = {"emb": p[name]["emb"].to(torch.bfloat16)}
     _serve_leaves(p)
     return ParamTree(p)
+
+
+def train_params_from_jax(tree, device="cuda") -> ParamTree:
+    """JAX train params (``lm.init_lm(key, cfg)[0]`` as numpy) -> the
+    port's trainable ``ParamTree``, every leaf as it is."""
+    return ParamTree(_tree(tree, device), trainable=True)
+
+
+def adamw_state_from_jax(state, device="cuda"):
+    """JAX AdamW state (``optim.adamw_init``/``adamw_update``'s ``{'m',
+    'v', 'step'}`` as numpy: f32 or bf16 moments, int8 moments as ``{'q',
+    'scale'}`` dicts, a 0-d int32 step) -> the same structure of
+    tensors."""
+    return _tree(state, device)
+
+
+def to_numpy(tree):
+    """The port's tree (a ``ParamTree``, nested dicts and lists of
+    tensors) -> the same structure of numpy arrays, bits unchanged; bf16
+    leaves come back as ``uint16`` views (numpy has no bf16:
+    ``.view(ml_dtypes.bfloat16)`` makes JAX's leaf)."""
+    if isinstance(tree, ParamTree):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def pool_from_jax(tree, device="cuda"):

@@ -1,12 +1,21 @@
-"""Quantisers, inference subset (port of ``repro.core.quant.quantizers``).
+"""Quantisers used by TLMAC (port of ``repro.core.quant.quantizers``).
 
-Forward passes only: LSQ fake-quant, the N2UQ activation quantiser and
-the PTQ entry points that produce the integer codes the TLMAC compiler
-consumes.  The reference's custom VJPs (G-STE, LSQ gradient scale) are
-training and are not ported yet.
+- ``uniform_quantize``/``uniform_dequantize``: symmetric uniform affine.
+- ``lsq_*``: Learned Step-size Quantisation, learnable step with the
+  canonical gradient scale ``1/sqrt(numel*qmax)``.
+- ``n2uq_*``: Nonuniform-to-Uniform Quantisation, learnable input
+  thresholds, uniform output levels, G-STE backward.
+- ``binary_quant``: BNN sign/scale baseline.
+- ``quantize_weights_int`` / ``quantize_acts_int``: PTQ entry points that
+  produce the integer codes the TLMAC compiler consumes.
 
 Every function computes in the same float32 operations, in the same
 order, as the reference, so codes agree bit for bit on the same inputs.
+Gradients are the reference's: straight-through estimators are written
+``x + (f(x) - x).detach()`` (JAX's ``stop_gradient`` form), the N2UQ
+count is a ``torch.autograd.Function`` whose backward is the reference's
+custom VJP, and clipping splits the gradient in half at a bound, as
+``jnp.clip`` does (``torch.clamp`` passes all of it).
 """
 
 from __future__ import annotations
@@ -47,6 +56,46 @@ def _f32(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``, whose
+    gradient is halved where ``x`` equals a bound (JAX's and torch's
+    elementwise max and min split ties; ``torch.clamp`` does not)."""
+    lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+# ---------------------------------------------------------------------------
+# Uniform symmetric quantisation + STE
+# ---------------------------------------------------------------------------
+
+
+def _round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round with straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def uniform_quantize(x: torch.Tensor, scale, qmin: int,
+                     qmax: int) -> torch.Tensor:
+    """Real -> integer codes (differentiable via STE)."""
+    return _clip(_round_ste(x / scale), qmin, qmax)
+
+
+def uniform_dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    return q * scale
+
+
+def fake_quant_weight(w: torch.Tensor, scale, cfg: QuantConfig):
+    """Quantise-dequantise weights (QAT forward)."""
+    return uniform_dequantize(
+        uniform_quantize(w, scale, cfg.w_qmin, cfg.w_qmax), scale)
+
+
+def fake_quant_act(a: torch.Tensor, scale, cfg: QuantConfig):
+    return uniform_dequantize(uniform_quantize(a, scale, 0, cfg.a_qmax),
+                              scale)
+
+
 # ---------------------------------------------------------------------------
 # LSQ / LSQ+  (learned step size)
 # ---------------------------------------------------------------------------
@@ -65,21 +114,25 @@ def lsq_init(w: torch.Tensor, bits: int, per_channel: bool,
     return torch.clamp(s, min=1e-9)
 
 
+def _grad_scale(x: torch.Tensor, scale) -> torch.Tensor:
+    """Scale the gradient flowing into x without changing the value."""
+    return x * scale + (x * (1.0 - scale)).detach()
+
+
 def lsq_quant(x: torch.Tensor, step: torch.Tensor, bits: int,
               signed: bool = True, dequant: bool = True) -> torch.Tensor:
-    """LSQ fake-quant (or codes if ``dequant=False``), forward only."""
+    """LSQ fake-quant (or codes if ``dequant=False``).  The step's
+    gradient is scaled by ``1/sqrt(numel*qmax)``."""
     if signed:
         qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
     else:
         qmin, qmax = 0, 2**bits - 1
     x = _f32(x)
     step = _f32(step, x)
-    # the reference's gradient-scaled step s*g + stop_gradient(s*(1-g)):
-    # its value is formed with the same two roundings here
     g = (_f32(1.0) / torch.sqrt(_f32(float(x.numel()) * max(qmax, 1)))).to(
         x.device)
-    s = step * g + step * (1.0 - g)
-    q = torch.clamp(torch.round(x / s), qmin, qmax)
+    s = _grad_scale(step, g)
+    q = _clip(_round_ste(x / s), qmin, qmax)
     return q * s if dequant else q
 
 
@@ -110,20 +163,86 @@ def _thresholds_from_deltas(deltas: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(pos, dim=0) - 0.5 * pos[0]
 
 
-def _n2uq_count(x, thresholds, out_step):
-    """q = out_step * #(x > T_i)  (uniform output levels), forward only."""
-    q = (x[..., None] > thresholds).to(x.dtype).sum(dim=-1)
-    return q * out_step
+def _count(x, thresholds):
+    """``#(x > T_i)`` in ``x``'s dtype (a sum of 0/1, exact in any order)."""
+    return (x[..., None] > thresholds).sum(dim=-1, dtype=x.dtype)
+
+
+class _N2UQCount(torch.autograd.Function):
+    """``q = out_step * #(x > T_i)`` (uniform output levels), with the
+    reference's G-STE backward (``_n2uq_count_bwd``):
+
+    - ``dx``: the gradient inside ``(T_0, T_last)`` times the average
+      slope ``out_step / avg_delta``, zero outside;
+    - ``dthr``: moving ``T_i`` down raises ``q`` by ``out_step`` for ``x``
+      in a band around ``T_i`` (a triangular surrogate of width
+      ``avg_delta``), one threshold at a time, so no ``[..., n_thresh]``
+      float tensor is made;
+    - ``dstep``: ``sum(ct * count)``."""
+
+    @staticmethod
+    def forward(ctx, x, thresholds, out_step, bits):
+        ctx.save_for_backward(x, thresholds, out_step)
+        ctx.bits = bits
+        return _count(x, thresholds) * out_step
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, thresholds, out_step = ctx.saved_tensors
+        n_levels = 2**ctx.bits - 1
+        lo, hi = thresholds[0], thresholds[-1]
+        avg_delta = (hi - lo) / max(n_levels - 1, 1)
+        band = torch.clamp(avg_delta, min=1e-6)
+        slope = out_step / band
+        inside = ((x > lo) & (x < hi)).to(x.dtype)
+        dx = ct * inside * slope
+        contrib = -ct * out_step / band
+        dthr = torch.stack([
+            torch.sum(contrib * torch.clamp(
+                1.0 - torch.abs(x - thresholds[i]) / band, 0.0, 1.0))
+            for i in range(n_levels)])
+        dstep = torch.sum(ct * _count(x, thresholds))
+        return dx, dthr, dstep.reshape(out_step.shape), None
+
+
+def _n2uq_count(x, thresholds, out_step, bits):
+    return _N2UQCount.apply(x, thresholds, out_step, bits)
 
 
 def n2uq_act_quant(x: torch.Tensor, params: dict, bits: int,
                    dequant: bool = True) -> torch.Tensor:
     """N2UQ activation quantiser. Returns dequantised values or int codes."""
     thresholds = _thresholds_from_deltas(params["deltas"])
-    y = _n2uq_count(x, thresholds, params["out_step"])
+    y = _n2uq_count(x, thresholds, params["out_step"], bits)
     if dequant:
         return y
     return torch.round(y / params["out_step"]).to(torch.int32)
+
+
+def n2uq_weight_init(w: torch.Tensor, bits: int,
+                     per_channel: bool = True) -> dict:
+    return {"step": lsq_init(w, bits, per_channel, signed=True)}
+
+
+def n2uq_weight_quant(w: torch.Tensor, params: dict, bits: int,
+                      dequant: bool = True) -> torch.Tensor:
+    """N2UQ weight path = LSQ-style symmetric uniform on weights."""
+    return lsq_quant(w, params["step"], bits, signed=True, dequant=dequant)
+
+
+# ---------------------------------------------------------------------------
+# Binary (BNN) baseline
+# ---------------------------------------------------------------------------
+
+
+def binary_quant(w: torch.Tensor, dequant: bool = True) -> torch.Tensor:
+    """sign(w) with per-channel |w| mean scale (XNOR-Net style), the sign
+    straight-through."""
+    red = tuple(range(w.dim() - 1)) if w.dim() >= 2 else ()
+    alpha = w.abs().mean(dim=red) if red else w.abs().mean()
+    sign = torch.where(w >= 0, 1.0, -1.0).to(w.dtype)
+    sign = w + (sign - w).detach()
+    return sign * alpha if dequant else sign
 
 
 # ---------------------------------------------------------------------------

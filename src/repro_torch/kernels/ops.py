@@ -45,6 +45,12 @@ def dense_int_matmul(a_codes: torch.Tensor,
     return _ref.dense_int_matmul_ref(a_codes, w_codes)
 
 
+def bitserial_matmul(a_codes: torch.Tensor, w_codes: torch.Tensor,
+                     B_a: int) -> torch.Tensor:
+    """Ablation: Eq. 3 serialisation without the lookup (see ref.py)."""
+    return _ref.bitserial_matmul_ref(a_codes, w_codes, B_a)
+
+
 def pack_bitplanes(a_codes: torch.Tensor, B_a: int, G: int,
                    impl: str = "ref") -> torch.Tensor:
     """Per-plane group codes int8 ``[B_a, M, K/G]``: ``'pallas'`` is the

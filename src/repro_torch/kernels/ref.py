@@ -17,6 +17,23 @@ def dense_int_matmul_ref(a_codes: torch.Tensor,
                         w_codes.to(torch.float64)).to(torch.int32)
 
 
+def bitserial_matmul_ref(a_codes: torch.Tensor, w_codes: torch.Tensor,
+                         B_a: int) -> torch.Tensor:
+    """Paper Eq. 3 WITHOUT the lookup: bit-serial binary x int matmuls,
+    ``out = sum_b 2^b (a_bits_b @ W)`` in int32 (each plane's product in
+    float64, exact, as ``dense_int_matmul_ref``).  The ablation point
+    between the dense integer GEMM and TLMAC: the same serialisation, no
+    weight-group reuse."""
+    a = a_codes.to(torch.int32)
+    w = w_codes.to(torch.float64)
+    out = torch.zeros((a_codes.shape[0], w_codes.shape[-1]),
+                      dtype=torch.int32, device=a_codes.device)
+    for b in range(B_a):
+        bits = ((a >> b) & 1).to(torch.float64)
+        out = out + (torch.matmul(bits, w).to(torch.int32) << b)
+    return out
+
+
 def pack_bitplanes_ref(a_codes: torch.Tensor, B_a: int, G: int) -> torch.Tensor:
     """Activation codes [M, K] -> per-bit-plane group codes [B_a, M, K/G].
 

@@ -15,7 +15,9 @@ The dense-cache path of the oracle loop (``gqa_train`` for a prefill,
 encoder's K/V with ``cross_kv``, ``sdpa`` with its blocked ``_flash``
 form) is plain torch, as the reference's is plain ``jnp``; so is MLA
 (``init_mla``, ``mla_train``, ``mla_decode``), served on dense latent
-caches only, as the reference serves it."""
+caches only, as the reference serves it.  The train forward runs
+``gqa_train`` with ``apply_fn=nn.linear_apply`` under autograd: these
+functions make no in-place update of a tensor the graph reads."""
 
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ from repro_torch.models import nn
 NEG_INF = -1e30
 
 
-def init_gqa(gen, cfg, device="cuda"):
+def init_gqa(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
+    """wq/wk/wv/wo of ``linear_init``: the serve linears, or the train
+    path's ``nn.init_linear``."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
-    lin = nn.init_serve_linear
+    lin = linear_init
     return {
         "wq": lin(gen, d, H * hd, cfg, use_bias=cfg.qkv_bias, device=device),
         "wk": lin(gen, d, KV * hd, cfg, use_bias=cfg.qkv_bias, device=device),

@@ -1,5 +1,6 @@
-"""LM backbone of the serve path (port of the serve subset of
-``repro.models.lm``).  Block kinds, as in the reference:
+"""LM backbone (port of ``repro.models.lm``): the serve forwards of every
+family, and the training forward of the dense GQA decoder.  Block kinds,
+as in the reference:
 
     attn        self-attention (GQA or MLA per ``cfg.attn_kind``) + FFN
     attn_moe    self-attention + MoE FFN
@@ -18,9 +19,17 @@ latent caches, the recurrent kinds on their states, and an enc-dec model
 (``prefill(tokens, frames=...)`` runs ``encode`` first and caches the
 cross-attention K/V).
 
+The training forward (``forward``: next-token loss and logits, under
+autograd) covers segments of ``attn`` blocks with GQA attention, the
+dense decoders (codeqwen, minicpm, mistral, command-r, internvl2's
+backbone); every other block kind, MLA, enc-dec and a frontend's
+embeddings raise ``NotImplementedError`` (a later slice of the port).
+Its linears are the train path's (``nn.linear_apply``, fake-quant QAT);
+``cfg.remat == 'layer'`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
-loop over layers replaces ``_segment_scan_cached``.  Differences from
-JAX, on purpose:
+loop over layers replaces the scans.  Differences from JAX, on purpose:
 
 - the caches are updated IN PLACE (``prefill_chunk``,
   ``decode_step_paged``, ``verify_step_paged``, ``prefill``'s fresh
@@ -44,12 +53,11 @@ JAX, on purpose:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.core.quant import quantizers as Q
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, nn, rglru, xlstm
@@ -119,12 +127,12 @@ def supports_paged(cfg) -> bool:
                for seg in segments_for(cfg) for kind in seg.pattern)
 
 
-def init_ffn(gen, cfg, device="cuda"):
+def init_ffn(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     d, f = cfg.d_model, cfg.d_ff
-    p = {"wi": nn.init_serve_linear(gen, d, f, cfg, device=device)}
+    p = {"wi": linear_init(gen, d, f, cfg, device=device)}
     if cfg.act == "swiglu":
-        p["wg"] = nn.init_serve_linear(gen, d, f, cfg, device=device)
-    p["wo"] = nn.init_serve_linear(gen, f, d, cfg, device=device)
+        p["wg"] = linear_init(gen, d, f, cfg, device=device)
+    p["wo"] = linear_init(gen, f, d, cfg, device=device)
     return p
 
 
@@ -149,17 +157,22 @@ def ffn_apply(params, x, cfg, apply_fn):
 ATTN_KINDS = ("attn", "attn_moe", "attn_local", "enc_attn", "dec_cross")
 
 
-def init_block(gen, kind: str, cfg, device="cuda"):
-    """One block's serve params, the reference's leaves for each kind."""
+def init_block(gen, kind: str, cfg, device="cuda",
+               linear_init=nn.init_serve_linear):
+    """One block's params, the reference's leaves for each kind: serve
+    linears, or with ``linear_init=nn.init_linear`` the train path's (an
+    ``attn`` block with GQA attention only, see ``check_trainable``)."""
     p = {"norm1": nn.init_rmsnorm(cfg.d_model, device)}
     if kind in ATTN_KINDS:
-        init_attn = attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa
-        p["attn"] = init_attn(gen, cfg, device)
+        if cfg.attn_kind == "mla":
+            p["attn"] = attn.init_mla(gen, cfg, device)
+        else:
+            p["attn"] = attn.init_gqa(gen, cfg, device, linear_init)
         p["norm2"] = nn.init_rmsnorm(cfg.d_model, device)
         if kind == "attn_moe":
             p["moe"] = moe.init_moe(gen, cfg, device)
         else:
-            p["ffn"] = init_ffn(gen, cfg, device)
+            p["ffn"] = init_ffn(gen, cfg, device, linear_init)
         if kind == "dec_cross":
             p["xattn"] = attn.init_gqa(gen, cfg, device)
             p["norm3"] = nn.init_rmsnorm(cfg.d_model, device)
@@ -363,17 +376,13 @@ def _local_decode(params, h, cfg, cache, pos: int, apply_fn):
 
 
 def init_front(gen, cfg, device="cuda") -> dict:
-    """The frontend stub's projection, as the reference's train-path
-    linear (``linear_impl='qdq'``): ``w [d_front, d_model]`` f32, its LSQ
-    step and N2UQ activation params.  A VLM's is carried and never read;
-    an enc-dec model's ``encode`` runs it (``nn.linear_apply``) on the
-    frames."""
+    """The frontend stub's projection, the reference's train-path linear
+    (``nn.init_linear``: ``w [d_front, d_model]`` f32 and, under
+    ``linear_impl='qdq'``, its LSQ step and N2UQ activation params).  A
+    VLM's is carried and never read when serving; an enc-dec model's
+    ``encode`` runs it (``nn.linear_apply``) on the frames."""
     d_front = 1024 if cfg.frontend == "frames" else 1152
-    w = torch.randn((d_front, cfg.d_model), generator=gen,
-                    dtype=torch.float32, device=device) / math.sqrt(d_front)
-    return {"w": w,
-            "w_step": Q.lsq_init(w, cfg.quant.w_bits, per_channel=True),
-            "aq": Q.n2uq_act_init(cfg.quant.a_bits, device=device)}
+    return nn.init_linear(gen, d_front, cfg.d_model, cfg, device=device)
 
 
 def _fill(dst, src, i: int) -> None:
@@ -390,14 +399,15 @@ def _empty_stack(tree, n: int):
             for k, v in tree.items()}
 
 
-def init_segment(gen, seg: Segment, cfg, device="cuda") -> dict:
+def init_segment(gen, seg: Segment, cfg, device="cuda",
+                 linear_init=nn.init_serve_linear) -> dict:
     """One segment's params stacked ``[seg.n, ...]``: every leaf is
     allocated once and filled layer by layer, each layer drawn from
     ``gen`` in order and freed once copied, so the peak is the stacked
     params plus one layer."""
     out = None
     for i in range(seg.n):
-        layer = {f"b{bi}": init_block(gen, kind, cfg, device)
+        layer = {f"b{bi}": init_block(gen, kind, cfg, device, linear_init)
                  for bi, kind in enumerate(seg.pattern)}
         if out is None:
             out = _empty_stack(layer, seg.n)
@@ -406,18 +416,52 @@ def init_segment(gen, seg: Segment, cfg, device="cuda") -> dict:
     return out
 
 
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` unless the train forward covers
+    ``cfg``: every block an ``attn`` block with GQA attention."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the enc-dec train forward (the reference's "
+            "_segment_scan_encdec) is a later slice of the port")
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: the train forward of attn_kind "
+            f"{cfg.attn_kind!r} (MLA, or attention-free recurrent blocks) "
+            "is a later slice of the port")
+    for seg in segments_for(cfg):
+        for kind in seg.pattern:
+            if kind != "attn":
+                raise NotImplementedError(
+                    f"{cfg.name}: the train forward of {kind!r} blocks "
+                    "(attn_local, attn_moe with its expert-stacked linears "
+                    "and aux loss, the recurrent kinds) is a later slice of "
+                    "the port")
+
+
 def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
             device="cuda") -> nn.ParamTree:
-    """Serve params with random serve linears (``cfg.serve_impl``) drawn
-    from ``gen`` (a generator on ``device``), the frontend stub's
-    ``front`` leaf where ``cfg.frontend`` is set, and an enc-dec model's
-    ``encoder`` (one stacked segment of ``enc_attn`` blocks) and
-    ``enc_norm``.  Returns a ``ParamTree``."""
-    if purpose != "serve":
-        raise ValueError("only the serve path is ported")
-    p = {"embed": nn.init_embedding(gen, cfg.vocab, cfg.d_model, device)}
+    """Params drawn from ``gen`` (a generator on ``device``).  ``purpose``:
+
+    - ``'serve'``: random serve linears (``cfg.serve_impl``), bf16
+      embeddings, the frontend stub's ``front`` leaf where
+      ``cfg.frontend`` is set, and an enc-dec model's ``encoder`` (one
+      stacked segment of ``enc_attn`` blocks) and ``enc_norm``;
+    - ``'train'``: the train path's linears (``nn.init_linear``, f32
+      masters), f32 embeddings; models ``check_trainable`` accepts.
+
+    Returns a ``ParamTree`` (trainable float leaves for ``'train'``)."""
+    if purpose not in ("serve", "train"):
+        raise ValueError(f"purpose {purpose!r} not in serve | train")
+    train = purpose == "train"
+    if train:
+        check_trainable(cfg)
+    linear_init = nn.init_linear if train else nn.init_serve_linear
+    emb_dtype = torch.float32 if train else torch.bfloat16
+    p = {"embed": nn.init_embedding(gen, cfg.vocab, cfg.d_model, device,
+                                    emb_dtype)}
     if not cfg.tie_embeddings:
-        p["head"] = nn.init_embedding(gen, cfg.vocab, cfg.d_model, device)
+        p["head"] = nn.init_embedding(gen, cfg.vocab, cfg.d_model, device,
+                                      emb_dtype)
     if cfg.frontend != "none":
         p["front"] = init_front(gen, cfg, device)
     p["final_norm"] = nn.init_rmsnorm(cfg.d_model, device)
@@ -425,9 +469,9 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
         p["encoder"] = [init_segment(gen, _encoder_segment(cfg), cfg,
                                      device)]
         p["enc_norm"] = nn.init_rmsnorm(cfg.d_model, device)
-    p["segments"] = [init_segment(gen, seg, cfg, device)
+    p["segments"] = [init_segment(gen, seg, cfg, device, linear_init)
                      for seg in segments_for(cfg)]
-    return nn.ParamTree(p)
+    return nn.ParamTree(p, trainable=train)
 
 
 def _encoder_segment(cfg) -> Segment:
@@ -529,6 +573,86 @@ def _head(params):
 def _logits(params, x, cfg):
     x = nn.rmsnorm_apply(params.final_norm.tree(), x)
     return nn.logits_apply(_head(params), x, vocab=cfg.vocab)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _tree(params) -> dict:
+    return params.tree() if isinstance(params, nn.ParamTree) else params
+
+
+def _unstack(stacked, n: int) -> List[dict]:
+    """The ``n`` per-layer trees of a stacked segment, indexed inside the
+    autograd graph (one ``unbind`` a leaf), so each stacked leaf's
+    gradient collects every layer's."""
+    views = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+        for i in range(n):
+            views[i][k] = parts[i]
+    return views
+
+
+def _segment_scan(seg: Segment, params_stacked, x, cfg, apply_fn,
+                  remat: bool):
+    """The layers of one segment over the whole sequence (no caches),
+    each layer recomputed in the backward under ``remat``.  Returns ``(x,
+    aux)``: the summed aux loss, zero for ``attn`` blocks."""
+
+    def body(xx, layer):
+        for bi, kind in enumerate(seg.pattern):
+            xx, _ = apply_block(kind, layer[f"b{bi}"], xx, cfg, apply_fn)
+        return xx
+
+    for layer in _unstack(params_stacked, seg.n):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                body, x, layer, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x = body(x, layer)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def next_token_loss(logits, tokens):
+    """Mean cross-entropy of next-token prediction: f32 logsumexp with the
+    max held constant, padded vocab rows (-1e30) contributing nothing."""
+    lg = logits[:, :-1].to(torch.float32)
+    tg = tokens[:, 1:].long()
+    true = lg.gather(-1, tg[..., None])[..., 0]
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    return (lse - true).mean()
+
+
+def forward(params, batch, cfg):
+    """Training forward and next-token CE loss (the reference's
+    ``forward``, purpose 'train'): ``batch`` ``{'tokens' [B, S]}`` on the
+    params' device.  Returns ``(loss, logits [B, S, vocab] bf16)``, loss
+    plus 0.01 x the summed aux loss.  ``params``: a ``ParamTree`` or its
+    nested dict of tensors."""
+    check_trainable(cfg)
+    extra = set(batch) - {"tokens"}
+    if extra:
+        raise NotImplementedError(
+            f"batch keys {sorted(extra)}: a frontend's embeddings in the "
+            "train forward (a VLM's 'front', enc-dec 'frames') are a later "
+            "slice of the port")
+    p = _tree(params)
+    tokens = batch["tokens"]
+    x = nn.embed_apply(p["embed"], tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg, sp in zip(segments_for(cfg), p["segments"]):
+        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply,
+                               cfg.remat == "layer")
+        aux_total = aux_total + aux
+    x = nn.rmsnorm_apply(p["final_norm"], x)
+    logits = nn.logits_apply(p.get("head", p["embed"]), x, vocab=cfg.vocab)
+    loss = next_token_loss(logits, tokens)
+    return loss + 0.01 * aux_total, logits[..., : cfg.vocab]
 
 
 @torch.no_grad()

@@ -1,11 +1,12 @@
-"""NN primitives of the serve path (port of the serve subset of
-``repro.models.nn``): serve linears (dense, int8 and TLMAC layouts) and
-their expert-stacked form, the train-path linear's forward (an enc-dec
-model's frontend projection), norms, embeddings, rotary, activations.
+"""NN primitives (port of ``repro.models.nn``): the train-path linear
+(dense bf16 or fake-quant QAT, with gradients), serve linears (dense,
+int8 and TLMAC layouts) and their expert-stacked form, norms,
+embeddings, rotary, activations.
 
 Parameters travel as nested dicts of tensors, like the JAX pytrees;
 ``ParamTree`` holds such a tree as an ``nn.Module`` (float leaves are
-frozen ``Parameter``s, integer plan arrays are buffers)."""
+``Parameter``s, frozen for serving and trainable for training; integer
+plan arrays are buffers)."""
 
 from __future__ import annotations
 
@@ -33,20 +34,26 @@ class ParamTree(nn.Module):
     """A nested dict (and list) of tensors held as a module.  ``tree()``
     returns the nested dict of tensors; ``layers(si)`` returns the
     per-layer views of stacked segment ``si``, cached until the module
-    moves."""
+    moves (serving only: the views are made outside any graph).  With
+    ``trainable`` the float leaves require gradients; a train forward
+    indexes the stacked leaves inside its graph (``models.lm.forward``),
+    so each stacked leaf's gradient collects all its layers."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, trainable: bool = False):
         super().__init__()
+        self.trainable = trainable
         self._kinds = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
                 self._kinds[k] = "tree"
             elif isinstance(v, (list, tuple)):
-                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+                self.add_module(k, nn.ModuleList(ParamTree(x, trainable)
+                                                 for x in v))
                 self._kinds[k] = "list"
             elif torch.is_floating_point(v):
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=trainable))
                 self._kinds[k] = "leaf"
             else:
                 self.register_buffer(k, v)
@@ -116,14 +123,40 @@ def _bf16_matmul(x, w):
     return torch.matmul(x.float(), w.float()).to(COMPUTE_DTYPE)
 
 
+def _winit(gen, shape, device) -> torch.Tensor:
+    """N(0, 1) f32 over the square root of the fan-in (``shape[-2]``)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return w / math.sqrt(shape[-2])
+
+
+def init_linear(gen: torch.Generator, K: int, N: int, cfg,
+                use_bias: bool = False, device="cuda",
+                expert: int = 0) -> dict:
+    """Train-path linear (the reference's ``init_linear``): ``w [K, N]``
+    f32 (``[E, K, N]`` with ``expert=E``), a zero bias ``[N]`` (``[E, N]``)
+    with ``use_bias``, and under ``linear_impl='qdq'`` the LSQ step
+    ``w_step [N]`` (per output channel over every expert) and the N2UQ
+    activation params ``aq``."""
+    shape = (expert, K, N) if expert else (K, N)
+    p = {"w": _winit(gen, shape, device)}
+    if use_bias:
+        p["b"] = torch.zeros(shape[:-2] + (N,), dtype=torch.float32,
+                             device=device)
+    if cfg.linear_impl == "qdq":
+        p["w_step"] = Q.lsq_init(p["w"].reshape(-1, N), cfg.quant.w_bits,
+                                 per_channel=True)
+        p["aq"] = Q.n2uq_act_init(cfg.quant.a_bits, device=device)
+    return p
+
+
 def linear_apply(params, x, cfg, use_bias: bool = False):
-    """The reference's train-path linear, forward only: with ``aq`` in the
-    params (``linear_impl='qdq'``), the N2UQ activation quantiser and the
-    LSQ weight quantiser (``core.quant.quantizers``) fake-quantise both
-    operands, then a bf16 product; else the bf16 product of ``x`` and
-    ``w``.  The serve path reaches it through an enc-dec model's ``front``
-    projection (``models.lm.encode``).  The quantisers' gradients belong
-    to training and are not ported."""
+    """The reference's train-path linear, with gradients: with ``aq`` in
+    the params (``linear_impl='qdq'``), the N2UQ activation quantiser and
+    the LSQ weight quantiser (``core.quant.quantizers``) fake-quantise
+    both operands, then a bf16 product; else the bf16 product of ``x``
+    and ``w``.  Expert weights ``[E, K, N]`` take ``x [..., E, cap, K]``
+    to ``[..., E, cap, N]``.  The serve path also reaches it through an
+    enc-dec model's ``front`` projection (``models.lm.encode``)."""
     w = params["w"]
     if "aq" in params:
         xq = Q.n2uq_act_quant(x.to(torch.float32), params["aq"],
@@ -133,9 +166,7 @@ def linear_apply(params, x, cfg, use_bias: bool = False):
         x_, w_ = xq.to(COMPUTE_DTYPE), wq.to(COMPUTE_DTYPE)
     else:
         x_, w_ = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
-    if w.dim() != 2:
-        raise ValueError("expert-stacked train linears are not ported")
-    y = _bf16_matmul(x_, w_)
+    y = _bf16_matmul(x_, w_)     # [..., E, cap, K] @ [E, K, N] broadcasts
     if use_bias:
         y = y + params["b"].to(y.dtype)
     return y
@@ -559,15 +590,32 @@ def act_fn(kind: str):
             "relu": nn.functional.relu}["silu" if kind == "swiglu" else kind]
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda"):
-    """Embedding drawn N(0, 0.02^2) in bf16, the dtype every use casts it
-    to; drawn there directly, so no f32 copy is ever held (a 256000 x
-    8192 f32 draw alone would be 8.4 GB)."""
+def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda",
+                   dtype=torch.bfloat16):
+    """Embedding drawn N(0, 0.02^2).  Serving draws it in bf16, the dtype
+    every use casts it to, so no f32 copy is ever held (a 256000 x 8192
+    f32 draw alone would be 8.4 GB); training keeps the f32 master
+    (``dtype=torch.float32``), as the reference does."""
     emb = torch.randn((padded_vocab(vocab), d), generator=gen,
-                      dtype=torch.bfloat16, device=device)
+                      dtype=dtype, device=device)
     return {"emb": emb.mul_(0.02)}
 
 
 def init_rmsnorm(d: int, device="cuda"):
     return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def init_layernorm(d: int, device="cuda"):
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params, x, eps: float = 1e-5):
+    """LayerNorm in f32 (variance with ddof 0, as ``jnp.var``), to
+    ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
 

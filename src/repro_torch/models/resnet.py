@@ -1,5 +1,6 @@
-"""ResNet-18 with N2UQ quantisation, the paper's own model (§6.1), inference
-only (port of ``repro.models.resnet``).
+"""ResNet-18 with N2UQ quantisation, the paper's own model (§6.1) (port of
+``repro.models.resnet``): the QAT forward (gradients through the ported
+quantisers) and its loss, and the lookup path.
 
 Basic blocks' 3x3 convolutions run quantised and compile to TLMAC;
 batch-norm, quantisation functions and skip connections stay float (the
@@ -126,7 +127,7 @@ def _bn(params, x):
 
 
 def _qconv_apply(params, x, cfg, stride=1):
-    """Fake-quant conv: N2UQ activations + LSQ weights (forward)."""
+    """Fake-quant (QAT) conv: N2UQ activations + LSQ weights."""
     xq = Q.n2uq_act_quant(x, params["aq"], cfg.a_bits)
     wq = Q.lsq_quant(
         params["w"].reshape(-1), params["w_step"], cfg.w_bits
@@ -135,8 +136,8 @@ def _qconv_apply(params, x, cfg, stride=1):
 
 
 def forward(params, x, cfg: ResNetConfig):
-    """x [B, H, W, 3] -> logits [B, classes]; the reference's forward
-    (inference: no gradients are taken)."""
+    """x [B, H, W, 3] -> logits [B, classes]; the reference's QAT forward,
+    differentiable in every param leaf that requires a gradient."""
     h = F.relu(_bn_free(_conv(x, params["stem"]["w"], 1)))
     for blk, stride in zip(params["blocks"], block_strides(cfg)):
         ident = h
@@ -149,6 +150,15 @@ def forward(params, x, cfg: ResNetConfig):
         h = F.relu(y + ident)
     h = h.mean(dim=(1, 2))
     return h @ params["fc"]["w"] + params["fc"]["b"]
+
+
+def qat_loss(params, x, labels, cfg: ResNetConfig):
+    """Mean cross-entropy of ``forward``'s logits against int ``labels
+    [B]`` (``examples/compile_resnet.py``'s loss: log-softmax times the
+    one-hot labels)."""
+    logits = forward(params, x, cfg)
+    oh = F.one_hot(labels.long(), cfg.num_classes).to(logits.dtype)
+    return -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * oh, -1))
 
 
 def _bn_free(x):

@@ -1,0 +1,161 @@
+"""AdamW with a configurable state dtype: f32, bf16 or int8 block-quant
+(port of ``repro.optim.adamw``).
+
+Functions over a tree of tensors (nested dicts and lists, or a
+``ParamTree``), leaf at a time as the reference, updating params and
+state in place under ``torch.no_grad()`` (the reference returns new
+arrays and donates the old).  Leaves are visited in the reference's
+order (sorted dict keys), so the global norm sums in its order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.optim.lowbit import q8_compatible, q8_decode, q8_encode
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_dtype: str = "f32"   # f32 | bf16 | int8
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree in the reference's order (``jax.tree.leaves``:
+    dict keys sorted, lists in order).  An int8 state's ``{'q', 'scale'}``
+    dict is one node like any other dict."""
+    if hasattr(tree, "tree"):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a nested dict/list (or ``ParamTree``),
+    the structure kept."""
+    if hasattr(tree, "tree"):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _param_nodes(params, state_tree):
+    """``(param, state node)`` pairs: the state node of a param is a tensor
+    or, for an int8 moment, its ``{'q', 'scale'}`` dict."""
+    if hasattr(params, "tree"):
+        params = params.tree()
+    if isinstance(params, dict):
+        return [x for k in sorted(params)
+                for x in _param_nodes(params[k], state_tree[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for p, s in zip(params, state_tree)
+                for x in _param_nodes(p, s)]
+    return [(params, state_tree)]
+
+
+def _enc(x, dtype: str, sqrt_domain: bool = False):
+    if dtype == "bf16":
+        return x.to(torch.bfloat16)
+    if dtype == "int8":
+        if not q8_compatible(x):
+            return x      # small or odd tensors stay f32
+        # v is stored in the sqrt domain: block-quantising raw v underflows
+        # small entries to 0 and m/sqrt(v) explodes
+        return q8_encode(torch.sqrt(x) if sqrt_domain else x)
+    return x
+
+
+def _dec(x, dtype: str, shape, sqrt_domain: bool = False):
+    if dtype == "bf16":
+        return x.to(torch.float32)
+    if dtype == "int8" and isinstance(x, dict):
+        y = q8_decode(x, shape)
+        return torch.square(y) if sqrt_domain else y
+    return x
+
+
+def _store(node, value) -> None:
+    """Write an encoded moment into its state node in place."""
+    if isinstance(node, dict):
+        node["q"].copy_(value["q"])
+        node["scale"].copy_(value["scale"])
+    else:
+        node.copy_(value)
+
+
+@torch.no_grad()
+def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> dict:
+    """``{'m', 'v', 'step'}``: zero moments in ``cfg.state_dtype`` in the
+    params' structure, a 0-d int32 step on the params' device."""
+    zeros = lambda p, sq: _enc(torch.zeros_like(p, dtype=torch.float32),
+                               cfg.state_dtype, sq)
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else "cpu"
+    return {"m": tree_map(lambda p: zeros(p, False), params),
+            "v": tree_map(lambda p: zeros(p, True), params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))``, in
+    place; the norm is the sqrt of the f32 sum of the leaves' sums of
+    squares, summed leaf by leaf in the reference's order.  Returns
+    ``(grads, norm)``."""
+    total = 0
+    for g in tree_leaves(grads):
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    gn = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, gn
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, lr, cfg: AdamWConfig = AdamWConfig()):
+    """One AdamW step, in place: moments ``m = b1 m + (1-b1) g`` and ``v =
+    b2 v + (1-b2) g^2`` (f32 math, stored in ``cfg.state_dtype``; v in the
+    sqrt domain under int8), bias-corrected update ``mh / (sqrt(vh) +
+    eps)`` (clipped to +-5 under int8), decoupled weight decay on leaves
+    of two or more dims, ``p -= lr * upd``.  ``lr`` is a float or a 0-d
+    tensor.  Returns ``(params, state)``."""
+    state["step"].add_(1)
+    step = state["step"].to(torch.float32)
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                      device=step.device), step)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                      device=step.device), step)
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    m_nodes = _param_nodes(params, state["m"])
+    v_nodes = _param_nodes(params, state["v"])
+    for (p, m_node), (_, v_node), g in zip(m_nodes, v_nodes,
+                                          tree_leaves(grads)):
+        g = g.to(torch.float32)
+        m = _dec(m_node, cfg.state_dtype, p.shape)
+        v = _dec(v_node, cfg.state_dtype, p.shape, True)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        upd = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        if cfg.state_dtype == "int8":
+            # quantisation noise can still inflate m/sqrt(v)
+            upd = torch.clamp(upd, -5.0, 5.0)
+        if p.dim() >= 2:      # decoupled weight decay on matrices only
+            upd = upd + cfg.weight_decay * p.to(torch.float32)
+        p.copy_(p.to(torch.float32) - lr * upd)
+        _store(m_node, _enc(m, cfg.state_dtype))
+        _store(v_node, _enc(v, cfg.state_dtype, True))
+    return params, state

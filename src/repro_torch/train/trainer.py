@@ -1,0 +1,143 @@
+"""Training step and loop (port of ``repro.train.trainer``).
+
+``make_train_step`` builds the step: gradient accumulation over
+``accum_steps`` microbatches, optional int8 gradient compression,
+global-norm clipping, AdamW with the configured state dtype, and the
+schedule.  It runs eagerly: params and optimizer state are updated in
+place (the reference's jit donates them; buffer donation is an XLA hint
+with no counterpart here).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     clip_by_global_norm, tree_leaves,
+                                     tree_map)
+from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
+from repro_torch.train.compress import compress_grads
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    total_steps: int = 1000
+    warmup_steps: int = 20
+    schedule: str = "cosine"      # cosine | wsd
+    clip_norm: float = 1.0
+    accum_steps: int = 1
+    compress: bool = False        # int8 grad compression
+    adamw: AdamWConfig = AdamWConfig()
+
+
+def schedule_fn(tc: TrainConfig):
+    if tc.schedule == "wsd":
+        return lambda s: wsd_schedule(s, tc.lr, tc.total_steps,
+                                      tc.warmup_steps)
+    if tc.schedule != "cosine":
+        raise ValueError(f"schedule {tc.schedule!r} not in cosine | wsd")
+    return lambda s: cosine_schedule(s, tc.lr, tc.total_steps,
+                                     tc.warmup_steps)
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+    order = {id(t): next(it) for t in tree_leaves(tree)}
+    return tree_map(lambda t: order[id(t)], tree)
+
+
+def make_train_step(cfg, tc: TrainConfig,
+                    forward_fn: Optional[Callable] = None):
+    """Returns ``train_step(params, opt_state, batch, step, gen=None) ->
+    (params, opt_state, metrics)``: ``batch`` a dict of tensors on the
+    params' device (split into ``accum_steps`` microbatches along its
+    first dim), ``step`` the int step the schedule reads, ``gen`` the
+    generator of the compression's uniforms.  ``metrics``: ``loss``,
+    ``gnorm`` (before clipping) and ``lr``, 0-d tensors."""
+    fwd = forward_fn or (lambda p, b: lm.forward(p, b, cfg)[0])
+    sched = schedule_fn(tc)
+
+    def loss_and_grads(params, batch):
+        leaves = tree_leaves(params)
+        loss = fwd(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), _unflatten(params, grads)
+
+    def train_step(params, opt_state, batch, step,
+                   gen: Optional[torch.Generator] = None):
+        if tc.accum_steps > 1:
+            mbs = [{k: v.reshape(tc.accum_steps, -1, *v.shape[1:])[i]
+                    for k, v in batch.items()}
+                   for i in range(tc.accum_steps)]
+            gsum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32)
+            for mb in mbs:
+                loss, g = loss_and_grads(params, mb)
+                for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
+                    a.add_(b)
+                lsum = lsum.to(loss.device) + loss
+            loss = lsum / tc.accum_steps
+            grads = tree_map(lambda g: g / tc.accum_steps, gsum)
+        else:
+            loss, grads = loss_and_grads(params, batch)
+        if tc.compress:
+            grads, _ = compress_grads(grads, gen)
+        grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+        lr = sched(step)
+        adamw_update(params, grads, opt_state, lr, tc.adamw)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    return train_step
+
+
+COMPRESS_SEED = 1234   # the compression generator of step s: seed + s
+
+
+class TrainLoop:
+    """Host-side loop: data, the step, checkpointing, metrics.  Params and
+    state live on ``device``; each step's batch is copied there."""
+
+    def __init__(self, cfg, tc: TrainConfig, data, ckpt_dir=None,
+                 ckpt_interval=50, forward_fn=None, device="cuda"):
+        self.cfg, self.tc, self.data = cfg, tc, data
+        self.ckpt_dir, self.ckpt_interval = ckpt_dir, ckpt_interval
+        self.device = torch.device(device)
+        self.step_fn = make_train_step(cfg, tc, forward_fn=forward_fn)
+        self.metrics_log = []
+
+    def init(self, seed=0):
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = lm.init_lm(self.cfg, gen, purpose="train",
+                            device=self.device)
+        return params, adamw_init(params, self.tc.adamw)
+
+    def run(self, params, opt_state, start_step=0, num_steps=100,
+            step_hook=None):
+        from repro_torch.checkpoint import save_checkpoint
+
+        for step in range(start_step, start_step + num_steps):
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in self.data.batch(step).items()}
+            gen = torch.Generator(device=self.device).manual_seed(
+                COMPRESS_SEED + step)
+            t0 = time.perf_counter()
+            params, opt_state, m = self.step_fn(params, opt_state, batch,
+                                                step, gen)
+            m = {k: float(v) for k, v in m.items()}   # waits for the step
+            m["step"] = step
+            m["wall_s"] = time.perf_counter() - t0
+            self.metrics_log.append(m)
+            if step_hook:
+                step_hook(step, params, opt_state, m)
+            if self.ckpt_dir and (step + 1) % self.ckpt_interval == 0:
+                save_checkpoint(self.ckpt_dir, step + 1,
+                                {"params": params, "opt": opt_state},
+                                metadata={"loss": m["loss"]})
+        return params, opt_state

@@ -153,6 +153,24 @@ def test_onehot_form_equals_both_lookup_refs(G_, B_a, dp, kg, n_arr, idx_dtype,
     assert w.dtype == narrow.dtype and w.shape == (kg * 2**G_, N)
 
 
+def test_bitserial_ablation_bitexact_vs_jax():
+    """Eq. 3 without the lookup: equal to the reference's and to the
+    dense integer GEMM."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 8, size=(9, 24)).astype(np.int32)
+    w = rng.integers(-4, 4, size=(24, 32)).astype(np.int32)
+    out = tops.bitserial_matmul(torch.from_numpy(a), torch.from_numpy(w),
+                                B_a=3)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(
+        jops.bitserial_matmul(jnp.asarray(a), jnp.asarray(w), B_a=3)))
+    assert torch.equal(out, tops.dense_int_matmul(torch.from_numpy(a),
+                                                  torch.from_numpy(w)))
+
+
 def test_pack_bitplanes_bitexact_vs_jax():
     rng = np.random.default_rng(0)
     a = rng.integers(0, 8, (5, 24)).astype(np.int8)
