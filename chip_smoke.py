@@ -9,7 +9,8 @@
                                           # recurrent and enc-dec families,
                                           # mistral-large and their smokes
     python3 chip_smoke.py --only train    # kernels 1, 4 and 3 built, the
-                                          # training stack (phase 8), one
+                                          # training stack (phase 8,
+                                          # (a)-(g)), one
                                           # JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
@@ -189,7 +190,18 @@ Phases, in order; any failure raises and exits non-zero:
    1e-5 of the uninterrupted run's; (e) full-width ResNet-18, 10 QAT SGD
    steps at batch 32, then the trained ``block0.conv1`` and
    ``block7.conv2`` compiled and run as lookup convs (kernels 4 then 3),
-   int32-equal to the integer conv of their codes;
+   int32-equal to the integer conv of their codes; (f) one
+   ``make_train_step`` on the card against the same step on the CPU for
+   each other family's smoke (recurrentgemma-2b at window 8, xlstm-350m,
+   seamless-m4t-medium with frames, deepseek-v3-671b with MLA + MoE and
+   int8 moments, moe-gqa, kimi-k2-1t-a32b, internvl2-76b with ``front``);
+   (g) recurrentgemma-2b (batch 2 x 1024, the last of 4 steps profiled),
+   xlstm-350m (4 x 256: four of the scan's 64-step chunks),
+   seamless-m4t-medium (4 x 1024 tokens, 512 frames) and
+   deepseek-v3-671b cut to its 3 dense MLA layers (of 61; int8 moments,
+   4 x 1024) at full width through the train CLI, each with its memory
+   reckoning, init and run peaks, first and median step, tokens a
+   second and finite losses, each freed before the next;
 9. the port on the card against the port on the CPU (plain versions) on
    six smoke configs (the five dense families', minicpm's at head dim
    18, and the MoE smoke), every one read with kernel 2,
@@ -4347,6 +4359,26 @@ PREEMPT_STEPS, PREEMPT_AT, PREEMPT_EVERY = 8, 5, 3
 PREEMPT_TOL = 1e-5            # tests/test_substrates.py:178
 RESNET_QAT_STEPS, RESNET_QAT_LR, RESNET_QAT_BATCH = 10, 0.05, 32
 TRAINED_CONVS = ("block0.conv1", "block7.conv2")
+# (f): each other family's smoke, card vs CPU (recurrentgemma at window 8,
+# so the window bites at S 32; deepseek with the full config's int8
+# moments, its dense FFN 256 wide so that some moments are int8 blocks)
+TRAIN_SMOKES = (
+    ("recurrentgemma-2b", dict(local_window=8)),
+    ("xlstm-350m", {}),
+    ("seamless-m4t-medium", {}),
+    ("deepseek-v3-671b", dict(opt_state_dtype="int8", d_ff=256)),
+    ("deepseek-v3-671b", dict(attn_kind="gqa", name="moe-gqa")),
+    ("kimi-k2-1t-a32b", {}),
+    ("internvl2-76b", {}),
+)
+# (g): (arch, batch, seq_len, steps, profiled step, layers kept); widths
+# are never cut
+TRAIN_FULL = (
+    ("recurrentgemma-2b", 2, 1024, 4, 3, None),
+    ("xlstm-350m", 4, 256, 2, None, None),       # ~33 s a step, host bound
+    ("seamless-m4t-medium", 4, 1024, 3, None, None),
+    ("deepseek-v3-671b", 4, 1024, 3, None, 3),     # its 3 dense MLA layers
+)
 
 
 def _calibrated(params):
@@ -4364,33 +4396,73 @@ def _calibrated(params):
     return params
 
 
-def train_reckoning(cfg, B: int, S: int) -> dict:
-    """Bytes of the train step, from the shapes: f32 params, their
-    gradients and the two AdamW moments (16 bytes a param); the logits in
-    bf16 and in f32; one layer's attention tiles under recompute (the
-    blocked softmax keeps its masked scores and probabilities for each
-    512 x 1024 tile)."""
-    from repro_torch.models import attention as A
-    from repro_torch.models.nn import padded_vocab
+def train_reckoning(cfg, B: int, S: int, enc_len: int = 0,
+                    front_len: int = 0) -> dict:
+    """Bytes of the train step, from the port's own train init drawn on
+    the meta device (no memory): f32 params and gradients; the AdamW
+    moments (f32, or under ``opt_state_dtype='int8'`` int8 blocks with an
+    f32 scale a 256 where the last dim allows, ``optim.lowbit``); the
+    per-layer gradients of the largest stacked segment, held until its
+    ``unbind`` backward stacks them; and the logits of ``B x S`` rows over
+    the padded vocab, in bf16 and three f32 copies (the loss's cast, its
+    exp, their gradient); one layer's attention score tiles under
+    recompute (the blocked softmax's ``512 x 1024`` f32 tiles of every
+    head: scores, probabilities and their two gradients); and an mLSTM's
+    matrix memory ``[B, H, hd, hd]`` f32 about four times a step over one
+    64-step chunk of the scan under recompute.  ``enc_len`` and
+    ``front_len`` are printed only: the encoder's and the frontend's
+    activations are small."""
+    import torch
 
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.kv_head_dim
-    per_layer = (d * hd * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * hd * d
-                 + 3 * d * f)
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm, xlstm
+    from repro_torch.models.nn import padded_vocab
+    from repro_torch.optim.lowbit import q8_compatible
+
+    with torch.device("meta"):
+        params = lm.init_lm(cfg, None, purpose="train", device="meta")
+    leaves = list(params.parameters())
+    n = sum(p.numel() for p in leaves)
+    int8 = cfg.opt_state_dtype == "int8"
+    mom = sum(2 * (p.numel() + 4 * p.numel() // 256)
+              if int8 and q8_compatible(p) else 8 * p.numel()
+              for p in leaves)
+    seg = max(sum(p.numel() for p in sp.parameters())
+              for sp in params.segments) * 4
     Vp = padded_vocab(cfg.vocab)
-    emb = Vp * d * (1 if cfg.tie_embeddings else 2)
-    n = cfg.n_layers * per_layer + emb
-    tiles = -(-S // A.FLASH_QB) * B * cfg.n_heads * A.FLASH_QB * min(
-        S, A.FLASH_KB) * 4 * 2
-    r = dict(params=n, state_gb=16 * n / 1e9,
-             logits_bf16_gb=B * S * Vp * 2 / 1e9,
-             logits_f32_gb=B * S * Vp * 4 / 1e9, tiles_gb=tiles / 1e9)
-    log(f"  reckoning {cfg.name} train, batch {B} x {S}: "
-        f"{per_layer / 1e6:.2f} M params a layer x {cfg.n_layers} + "
-        f"{emb / 1e6:.1f} M embedding = {n / 1e9:.3f} B params; f32 params, "
-        f"grads, m and v {r['state_gb']:.1f} GB; logits {r['logits_bf16_gb']:.2f}"
-        f" GB bf16, {r['logits_f32_gb']:.2f} GB f32; one layer's attention "
-        f"tiles {r['tiles_gb']:.2f} GB: expect a peak of 55-65 GB")
+    logits = B * S * Vp * (2 + 3 * 4)
+    scan = tiles = 0
+    if cfg.family == "ssm":
+        hd = 2 * cfg.d_model // cfg.n_heads
+        scan = min(S, xlstm.CHUNK) * B * cfg.n_heads * hd * hd * 4 * 4
+    else:
+        qb = min(S, A.FLASH_QB)
+        tiles = -(-S // qb) * B * cfg.n_heads * qb * min(S, A.FLASH_KB) * 16
+    state = 8 * n + mom
+    r = dict(params=n, state_gb=state / 1e9, segment_grads_gb=seg / 1e9,
+             logits_gb=logits / 1e9, tiles_gb=tiles / 1e9,
+             scan_gb=scan / 1e9,
+             peak_gb=(state + seg + logits + tiles + scan) / 1e9)
+    extra = (f", {enc_len} frames" if enc_len else "") + (
+        f", {front_len} front rows" if front_len else "")
+    log(f"  reckoning {cfg.name} train ({cfg.n_layers} layers), batch {B} x "
+        f"{S}{extra}: {n / 1e9:.3f} B params; f32 params and grads + "
+        f"{'int8' if int8 else 'f32'} moments {r['state_gb']:.1f} GB; the "
+        f"largest segment's per-layer grads {r['segment_grads_gb']:.1f} GB; "
+        f"logits {r['logits_gb']:.1f} GB"
+        + (f"; one layer's attention tiles {r['tiles_gb']:.1f} GB"
+           if tiles else "")
+        + (f"; one scan chunk {r['scan_gb']:.1f} GB" if scan else "")
+        + "; reckoned peak at most "
+        f"{r['peak_gb']:.1f} GB of {_card_gb():.1f} GB")
     return r
+
+
+def _card_gb() -> float:
+    import torch
+
+    return (torch.cuda.get_device_properties(0).total_memory / 1e9
+            if DEV == "cuda" else 0.0)
 
 
 def _profiled_train_step(fn, args):
@@ -4423,28 +4495,30 @@ def _profiled_train_step(fn, args):
                      top=[(round(v, 3), k[:80]) for v, k in top])
 
 
-def phase_train_card_vs_cpu(seed: int = SEED):
-    """(a) One ``make_train_step`` on codeqwen1.5-7b's smoke from the same
-    seeded params (quantisers calibrated) and batch, on the card and on
-    the CPU: loss, gradient norm and lr within the stated tolerances.
-    Then the reference's "loss falls on a fixed batch" on the card: eight
-    steps at lr 1e-2 lower the loss by 0.1."""
+def train_step_card_vs_cpu(cfg, seed: int = SEED) -> dict:
+    """One ``make_train_step`` on a smoke ``cfg`` from the same seeded
+    params (quantisers calibrated) and batch (4 x 32; frames of 16 for an
+    enc-dec config, a VLM's ``front``), on the card and on the CPU, with
+    ``cfg``'s AdamW state dtype: loss, gradient norm and lr within the
+    stated tolerances.  Returns ``{'card': metrics, 'cpu': metrics}``."""
     import copy
 
     import torch
 
-    from repro_torch.configs import smoke_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models import lm
-    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train import trainer as T
 
-    cfg = smoke_config("codeqwen1.5-7b")
-    tc = T.TrainConfig(lr=1e-3, total_steps=10, warmup_steps=2)
+    tc = T.TrainConfig(lr=1e-3, total_steps=10, warmup_steps=2,
+                       adamw=AdamWConfig(state_dtype=cfg.opt_state_dtype))
     cpu = _calibrated(lm.init_lm(cfg, torch.Generator().manual_seed(seed),
                                  purpose="train", device="cpu"))
     card = copy.deepcopy(cpu).to(DEV)
-    batch = SyntheticLMData(cfg.vocab, 32, 4, seed=seed).batch(0)
+    batch = SyntheticLMData(
+        cfg.vocab, 32, 4, seed=seed,
+        enc_len=16 if cfg.family == "audio" else 0, frontend=cfg.frontend,
+        frontend_len=cfg.frontend_len).batch(0)
     got = {}
     for where, params in (("cpu", cpu), (DEV, card)):
         b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
@@ -4455,12 +4529,33 @@ def phase_train_card_vs_cpu(seed: int = SEED):
     for k, tol in (("loss", TRAIN_LOSS_RTOL), ("gnorm", TRAIN_GNORM_RTOL),
                    ("lr", 1e-6)):
         if not abs(g[k] - c[k]) <= tol * abs(c[k]):
-            raise AssertionError(f"train step card vs CPU: {k} {g[k]} vs "
-                                 f"{c[k]} (rtol {tol})")
-    log(f"  make_train_step, {cfg.name} smoke, batch 4 x 32: card loss "
+            raise AssertionError(f"{cfg.name} train step card vs CPU: {k} "
+                                 f"{g[k]} vs {c[k]} (rtol {tol})")
+    log(f"  make_train_step, {cfg.name} smoke ({', '.join(sorted(batch))}; "
+        f"{cfg.opt_state_dtype} moments), batch 4 x 32: card loss "
         f"{g['loss']:.6f} |g| {g['gnorm']:.6f} lr {g['lr']:.3e}; CPU loss "
-        f"{c['loss']:.6f} |g| {c['gnorm']:.6f} (rtol {TRAIN_LOSS_RTOL} / "
-        f"{TRAIN_GNORM_RTOL})")
+        f"{c['loss']:.6f} |g| {c['gnorm']:.6f} (rel "
+        f"{abs(g['loss'] - c['loss']) / abs(c['loss']):.1e} / "
+        f"{abs(g['gnorm'] - c['gnorm']) / abs(c['gnorm']):.1e}; rtol "
+        f"{TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL})")
+    del cpu, card
+    _free()
+    return dict(card=g, cpu=c)
+
+
+def phase_train_card_vs_cpu(seed: int = SEED):
+    """(a) ``train_step_card_vs_cpu`` on codeqwen1.5-7b's smoke.  Then the
+    reference's "loss falls on a fixed batch" on the card: eight steps at
+    lr 1e-2 lower the loss by 0.1."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import trainer as T
+
+    cfg = smoke_config("codeqwen1.5-7b")
+    out = train_step_card_vs_cpu(cfg, seed)
     params = lm.init_lm(cfg, torch.Generator(device=DEV).manual_seed(seed),
                         purpose="train", device=DEV)
     tc = T.TrainConfig(lr=1e-2, total_steps=10, warmup_steps=1)
@@ -4473,29 +4568,34 @@ def phase_train_card_vs_cpu(seed: int = SEED):
         raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
     log(f"  loss on a fixed batch, 8 steps at lr 1e-2 on the card: "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    return dict(card=g, cpu=c, fixed_batch=[losses[0], losses[-1]])
+    return dict(out, fixed_batch=[losses[0], losses[-1]])
 
 
-def phase_train_minicpm(gpu: str):
-    """(b) minicpm-2b at full width and depth through the train CLI (six
-    steps, batch 4 x 1024, WSD): params, init and run peaks beside the
-    reckoning, every step's loss, lr and gradient norm (finite), the
-    median step after the first (the profiled last step left out) and
-    tokens a second, the busy share of the profiled step.  Returns (its
-    figures, layer 0's trained ``ffn.wi`` {'w', 'w_step'} on the CPU)."""
+def train_cli_run(arch: str, B: int, S: int, steps: int, gpu: str,
+                  profiled=None, cfg=None):
+    """One model at full width through the train CLI
+    (``launch.train.main``, ``steps`` steps of batch ``B x S`` on the
+    card): its memory reckoning, then params, init and run peaks beside
+    it, every step's loss, lr and gradient norm (finite), the first step
+    and the median of the later ones (the profiled step left out) and
+    tokens a second; step ``profiled`` (if any) under the profiler
+    (device busy share, largest kernels).  ``cfg`` replaces the arch's
+    config (a cut in layers).  Returns (its figures, the trained params);
+    the caller frees them."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train as cli
     from repro_torch.train import trainer as T
 
-    cfg = get_config(TRAIN_ARCH)
-    B, S = TRAIN_BATCH, TRAIN_SEQ
-    reck = train_reckoning(cfg, B, S)
+    cfg = cfg or get_config(arch)
+    enc_len = S // 2 if cfg.family == "audio" else 0
+    front_len = cfg.frontend_len if cfg.frontend == "patch" else 0
+    reck = train_reckoning(cfg, B, S, enc_len, front_len)
     marks = {}
 
     class Loop(T.TrainLoop):
-        """The CLI's loop, with the init's peak read and the last step
+        """The CLI's loop, with the init's peak read and one step
         profiled."""
 
         def init(self, seed=0):
@@ -4516,7 +4616,7 @@ def phase_train_minicpm(gpu: str):
             step_fn = self.step_fn
 
             def stepped(*a):
-                if a[3] != TRAIN_PROFILED_STEP:
+                if a[3] != profiled:
                     return step_fn(*a)
                 out, marks["profile"] = _profiled_train_step(step_fn, a)
                 return out
@@ -4525,13 +4625,15 @@ def phase_train_minicpm(gpu: str):
             return out
 
     cli.TrainLoop = Loop
+    get = cli.get_config
+    cli.get_config = lambda name: cfg
     t0 = time.perf_counter()
     try:
         loop, params = cli.main([
-            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
-            str(S), "--batch", str(B), "--device", DEV])
+            "--arch", arch, "--steps", str(steps), "--seq-len", str(S),
+            "--batch", str(B), "--device", DEV])
     finally:
-        cli.TrainLoop = T.TrainLoop
+        cli.TrainLoop, cli.get_config = T.TrainLoop, get
     if DEV == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4539,49 +4641,97 @@ def phase_train_minicpm(gpu: str):
     log_ = loop.metrics_log
     for m in log_:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])):
-            raise AssertionError(f"step {m['step']}: loss {m['loss']} "
+            raise AssertionError(f"{arch} step {m['step']}: loss {m['loss']} "
                                  f"|g| {m['gnorm']}")
-    if len(log_) != TRAIN_STEPS:
-        raise AssertionError(f"{len(log_)} steps logged, want {TRAIN_STEPS}")
-    steady = [m["wall_s"] for m in log_[1:] if m["step"] !=
-              TRAIN_PROFILED_STEP]
+    if len(log_) != steps:
+        raise AssertionError(f"{len(log_)} steps logged, want {steps}")
+    steady = [m["wall_s"] for m in log_[1:] if m["step"] != profiled]
     med = sorted(steady)[len(steady) // 2]
     prof = marks.get("profile", {})
-    fig = dict(params=marks["params"], params_gib=marks["params"] * 4 / 2**30,
+    tokens = B * (S + enc_len + front_len)
+    fig = dict(layers=cfg.n_layers, batch=[B, S], enc_len=enc_len,
+               params=marks["params"], params_gib=marks["params"] * 4 / 2**30,
                init_s=marks["init_s"], init_peak_gib=marks["init_peak"] / 2**30,
-               run_peak_gib=run_peak / 2**30, reckoned_state_gb=reck["state_gb"],
+               run_peak_gib=run_peak / 2**30, reckoning=reck,
                steps=[dict(step=m["step"], loss=m["loss"], lr=m["lr"],
                            gnorm=m["gnorm"], ms=m["wall_s"] * 1e3)
                       for m in log_],
                first_step_ms=log_[0]["wall_s"] * 1e3, median_step_ms=med * 1e3,
-               tok_s=B * S / med, wall_s=wall,
+               tok_s=B * S / med, all_tok_s=tokens / med, wall_s=wall,
                busy_share=(prof["busy_ms"] / prof["wall_ms"]) if prof else None,
                profile=prof)
+    if DEV == "cuda" and run_peak > torch.cuda.get_device_properties(
+            0).total_memory:
+        raise AssertionError(f"{arch}: run peak {run_peak} over the card")
     log(f"  {gpu}: {cfg.name} train, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, batch {B} x {S}: {marks['params'] / 1e9:.3f} B "
-        f"params, {fig['params_gib']:.3f} GiB f32; init {marks['init_s']:.1f}"
-        f" s, init peak {fig['init_peak_gib']:.3f} GiB; run peak "
-        f"{fig['run_peak_gib']:.3f} GiB ({run_peak / 1e9:.2f} GB; reckoned "
-        f"55-65 GB)")
+        f"{cfg.d_model}, batch {B} x {S}"
+        + (f" + {enc_len} frames" if enc_len else "")
+        + f": {marks['params'] / 1e9:.3f} B params, {fig['params_gib']:.3f} "
+        f"GiB f32; init {marks['init_s']:.1f} s, init peak "
+        f"{fig['init_peak_gib']:.3f} GiB; run peak {fig['run_peak_gib']:.3f} "
+        f"GiB ({run_peak / 1e9:.2f} GB; reckoned at most "
+        f"{reck['peak_gb']:.1f} GB)")
     for m in fig["steps"]:
         log(f"    step {m['step']}: loss {m['loss']:.4f} lr {m['lr']:.3e} "
             f"|g| {m['gnorm']:.4f} {m['ms']:.1f} ms")
-    log(f"  {gpu}: first step {fig['first_step_ms']:.1f} ms; median of "
-        f"steps 1-{TRAIN_PROFILED_STEP - 1} {fig['median_step_ms']:.1f} ms, "
-        f"{fig['tok_s']:.1f} tokens/s")
+    log(f"  {gpu}: first step {fig['first_step_ms']:.1f} ms; median of the "
+        f"later steps {fig['median_step_ms']:.1f} ms, {fig['tok_s']:.1f} "
+        f"tokens/s" + (f" ({fig['all_tok_s']:.1f} with the frames)"
+                       if enc_len else ""))
     if prof:
-        log(f"  {gpu}: profiled step {TRAIN_PROFILED_STEP}: wall "
-            f"{prof['wall_ms']:.1f} ms (under the profiler), device busy "
-            f"{prof['busy_ms']:.1f} ms ({fig['busy_share']:.1%}), "
-            f"{prof['kernels']} kernel launches")
+        log(f"  {gpu}: profiled step {profiled}: wall {prof['wall_ms']:.1f} "
+            f"ms (under the profiler), device busy {prof['busy_ms']:.1f} ms "
+            f"({fig['busy_share']:.1%}), {prof['kernels']} kernel launches")
         for v, k in prof["top"]:
             log(f"    {v:9.3f} ms  {k}")
+    return fig, params
+
+
+def phase_train_minicpm(gpu: str):
+    """(b) minicpm-2b at full width and depth through the train CLI (six
+    steps, batch 4 x 1024, WSD), the last step profiled.  Returns (its
+    figures, layer 0's trained ``ffn.wi`` {'w', 'w_step'} on the CPU)."""
+    fig, params = train_cli_run(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_STEPS, gpu,
+                                profiled=TRAIN_PROFILED_STEP)
     wi = params.segments[0].b0.ffn.wi
     trained = {"w": wi.w[0].detach().float().cpu().numpy(),
                "w_step": wi.w_step[0].detach().float().cpu().numpy()}
-    del loop, params
+    del params
     _free()
     return fig, trained
+
+
+def phase_train_families_card_vs_cpu(seed: int = SEED):
+    """(f) ``train_step_card_vs_cpu`` on each of ``TRAIN_SMOKES``."""
+    from repro_torch.configs import smoke_config
+
+    out = {}
+    for arch, over in TRAIN_SMOKES:
+        cfg = dataclasses.replace(smoke_config(arch), **over)
+        out[cfg.name] = train_step_card_vs_cpu(cfg, seed)
+    return out
+
+
+def phase_train_families(gpu: str):
+    """(g) ``TRAIN_FULL`` at full width through the train CLI, each freed
+    before the next (deepseek-v3-671b cut to its dense MLA layers: one of
+    its MoE layers alone holds at least 113 GB of train state)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, B, S, steps, profiled, layers in TRAIN_FULL:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        phase(f"train (g): {arch} at full width "
+              f"({cfg.n_layers} of {get_config(arch).n_layers} layers), "
+              f"batch {B} x {S}")
+        out[arch], params = train_cli_run(arch, B, S, steps, gpu,
+                                          profiled=profiled, cfg=cfg)
+        del params
+        _free()
+    return out
 
 
 def phase_trained_linear(trained, gpu: str):
@@ -4761,7 +4911,7 @@ def phase_resnet_qat(gpu: str):
 
 
 def phase_train():
-    """The training stack, (a)-(e); returns its figures and the launches
+    """The training stack, (a)-(g); returns its figures and the launches
     of the deployed trained weights ({kernel name: {path: n}})."""
     gpu = gpu_line() if DEV == "cuda" else "cpu"
     t0 = time.perf_counter()
@@ -4776,6 +4926,9 @@ def phase_train():
     out["preempt"] = phase_train_preempt()
     phase("train (e): ResNet-18 QAT, trained convs on kernels 4 + 3")
     out["resnet18"], conv_counts = phase_resnet_qat(gpu)
+    phase("train (f): every other family's smoke step, card vs CPU")
+    out["families_card_vs_cpu"] = phase_train_families_card_vs_cpu()
+    out["families"] = phase_train_families(gpu)
     out["seconds"] = time.perf_counter() - t0
     log(f"  the train phase took {out['seconds']:.1f} s")
     launches = {"tlmac_gemm_fused": {f"{TRAIN_ARCH} trained ffn.wi": k1},
@@ -4817,7 +4970,7 @@ def main() -> int:
                          "k12 (kernels 1-2 timed, one JSON line); "
                          "serve-families (kernels 1-2 built, the dense-"
                          "forward families); train (kernels 1, 4 and 3 "
-                         "built, the training stack (a)-(e), one JSON "
+                         "built, the training stack (a)-(g), one JSON "
                          "line)")
     args = ap.parse_args()
 

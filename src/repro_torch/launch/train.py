@@ -6,10 +6,11 @@
     python -m repro_torch.launch.train --arch minicpm-2b --smoke \\
         --device cpu --steps 20 --ckpt-dir /tmp/ckpt --preempt-at 7
 
-QAT of the dense GQA decoders (``lm.check_trainable``) from params drawn
-from a seeded ``torch.Generator`` on the device, on the synthetic
-Zipf-ish stream of ``data.pipeline``.  minicpm-2b trains on its own WSD
-schedule.  ``--preempt-at`` with ``--ckpt-dir`` simulates preemptions;
+QAT of every architecture the reference lists (dense, VLM with its
+``front`` embeddings, MoE with MLA or GQA, xLSTM, RG-LRU hybrid, enc-dec
+with ``frames`` of ``seq_len // 2``) from params drawn from a seeded
+``torch.Generator`` on the device, on the synthetic Zipf-ish stream of
+``data.pipeline``.  minicpm-2b trains on its own WSD schedule.  ``--preempt-at`` with ``--ckpt-dir`` simulates preemptions;
 the runner restarts from the latest checkpoint (``train/ft.py``).
 """
 

@@ -16,8 +16,10 @@ encoder's K/V with ``cross_kv``, ``sdpa`` with its blocked ``_flash``
 form) is plain torch, as the reference's is plain ``jnp``; so is MLA
 (``init_mla``, ``mla_train``, ``mla_decode``), served on dense latent
 caches only, as the reference serves it.  The train forward runs
-``gqa_train`` with ``apply_fn=nn.linear_apply`` under autograd: these
-functions make no in-place update of a tensor the graph reads."""
+``gqa_train`` (windowed for ``attn_local``, cross-attention for
+``dec_cross``) and ``mla_train`` with ``apply_fn=nn.linear_apply`` under
+autograd: these functions make no in-place update of a tensor the graph
+reads."""
 
 from __future__ import annotations
 
@@ -327,16 +329,18 @@ def gqa_decode(params, x, cfg, cache, pos: int,
 # ---------------------------------------------------------------------------
 
 
-def init_mla(gen, cfg, device="cuda"):
-    """MLA serve params: ``wq_a`` d -> q_lora, ``q_norm``, ``wq_b`` q_lora
+def init_mla(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
+    """MLA params of ``linear_init`` (serve linears, or the train path's
+    ``nn.init_linear``): ``wq_a`` d -> q_lora, ``q_norm``, ``wq_b`` q_lora
     -> H (nope + rope), ``wkv_a`` d -> kv_lora + rope, ``kv_norm``,
-    ``wkv_b`` kv_lora -> H (nope + v) and ``wo`` H v -> d.  ``wkv_b`` stays
-    a dense bf16 linear whatever ``cfg.serve_impl``, as the reference
-    builds it: decode absorbs its raw matrix into the latent attention."""
+    ``wkv_b`` kv_lora -> H (nope + v) and ``wo`` H v -> d.  ``wkv_b`` is
+    drawn under ``serve_impl='dense'``: a dense bf16 serve linear whatever
+    ``cfg.serve_impl``, as the reference builds it (decode absorbs its raw
+    matrix into the latent attention)."""
     d, H = cfg.d_model, cfg.n_heads
     ql, kvl = cfg.mla_q_lora, cfg.mla_kv_lora
     nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
-    lin = nn.init_serve_linear
+    lin = linear_init
     cfg_dense = dataclasses.replace(cfg, serve_impl="dense")
     return {
         "wq_a": lin(gen, d, ql, cfg, device=device),

@@ -1,6 +1,5 @@
 """LM backbone (port of ``repro.models.lm``): the serve forwards of every
-family, and the training forward of the dense GQA decoder.  Block kinds,
-as in the reference:
+family, and their training forward.  Block kinds, as in the reference:
 
     attn        self-attention (GQA or MLA per ``cfg.attn_kind``) + FFN
     attn_moe    self-attention + MoE FFN
@@ -20,12 +19,13 @@ latent caches, the recurrent kinds on their states, and an enc-dec model
 cross-attention K/V).
 
 The training forward (``forward``: next-token loss and logits, under
-autograd) covers segments of ``attn`` blocks with GQA attention, the
-dense decoders (codeqwen, minicpm, mistral, command-r, internvl2's
-backbone); every other block kind, MLA, enc-dec and a frontend's
-embeddings raise ``NotImplementedError`` (a later slice of the port).
-Its linears are the train path's (``nn.linear_apply``, fake-quant QAT);
-``cfg.remat == 'layer'`` recomputes each layer in the backward
+autograd) covers every family the reference trains: each block kind,
+GQA and MLA attention, the MoE FFN with its load-balance aux loss
+(``0.01 x`` the sum over layers joins the loss), an enc-dec model's
+encoder (``batch['frames']``) and a VLM's frontend embeddings
+(``batch['front']``, prepended to the tokens).  Its linears are the
+train path's (``nn.linear_apply``, fake-quant QAT); ``cfg.remat ==
+'layer'`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 Params stay stacked ``[n_layers, ...]`` per segment as in JAX; a Python
@@ -76,7 +76,9 @@ def segments_for(cfg) -> List[Segment]:
     and one ``slstm``, the remainder a trailing segment of ``mlstm``;
     ``hybrid`` its ``block_pattern`` repeated, the remainder a trailing
     partial segment; ``audio`` (enc-dec) the decoder's ``dec_cross``
-    blocks (the encoder's ``enc_attn`` blocks are ``encode``'s).
+    blocks (the encoder's ``enc_attn`` blocks are ``encode``'s).  A MoE
+    config cut to its dense layers (``n_layers <= moe_layer_start``) has
+    no ``attn_moe`` segment: a segment of no layers holds no params.
     Attention is ``cfg.attn_kind``: GQA or MLA (``none``: an xLSTM model
     builds no attention block)."""
     if cfg.attn_kind not in ("gqa", "mla", "none"):
@@ -86,8 +88,9 @@ def segments_for(cfg) -> List[Segment]:
     if cfg.family == "moe":
         segs = []
         if cfg.moe_layer_start:
-            segs.append(Segment(("attn",), cfg.moe_layer_start))
-        segs.append(Segment(("attn_moe",), L - cfg.moe_layer_start))
+            segs.append(Segment(("attn",), min(cfg.moe_layer_start, L)))
+        if L > cfg.moe_layer_start:
+            segs.append(Segment(("attn_moe",), L - cfg.moe_layer_start))
         return segs
     if cfg.family == "ssm":
         segs = [Segment(("mlstm",) * 7 + ("slstm",), L // 8)]
@@ -160,30 +163,28 @@ ATTN_KINDS = ("attn", "attn_moe", "attn_local", "enc_attn", "dec_cross")
 def init_block(gen, kind: str, cfg, device="cuda",
                linear_init=nn.init_serve_linear):
     """One block's params, the reference's leaves for each kind: serve
-    linears, or with ``linear_init=nn.init_linear`` the train path's (an
-    ``attn`` block with GQA attention only, see ``check_trainable``)."""
+    linears, or with ``linear_init=nn.init_linear`` the train path's
+    (expert-stacked for a MoE FFN)."""
     p = {"norm1": nn.init_rmsnorm(cfg.d_model, device)}
     if kind in ATTN_KINDS:
-        if cfg.attn_kind == "mla":
-            p["attn"] = attn.init_mla(gen, cfg, device)
-        else:
-            p["attn"] = attn.init_gqa(gen, cfg, device, linear_init)
+        init_attn = attn.init_mla if cfg.attn_kind == "mla" else attn.init_gqa
+        p["attn"] = init_attn(gen, cfg, device, linear_init)
         p["norm2"] = nn.init_rmsnorm(cfg.d_model, device)
         if kind == "attn_moe":
-            p["moe"] = moe.init_moe(gen, cfg, device)
+            p["moe"] = moe.init_moe(gen, cfg, device, linear_init)
         else:
             p["ffn"] = init_ffn(gen, cfg, device, linear_init)
         if kind == "dec_cross":
-            p["xattn"] = attn.init_gqa(gen, cfg, device)
+            p["xattn"] = attn.init_gqa(gen, cfg, device, linear_init)
             p["norm3"] = nn.init_rmsnorm(cfg.d_model, device)
     elif kind == "mlstm":
-        p["cell"] = xlstm.init_mlstm(gen, cfg, device)
+        p["cell"] = xlstm.init_mlstm(gen, cfg, device, linear_init)
     elif kind == "slstm":
-        p["cell"] = xlstm.init_slstm(gen, cfg, device)
+        p["cell"] = xlstm.init_slstm(gen, cfg, device, linear_init)
     elif kind == "rglru":
-        p["cell"] = rglru.init_rglru_block(gen, cfg, device)
+        p["cell"] = rglru.init_rglru_block(gen, cfg, device, linear_init)
         p["norm2"] = nn.init_rmsnorm(cfg.d_model, device)
-        p["ffn"] = init_ffn(gen, cfg, device)
+        p["ffn"] = init_ffn(gen, cfg, device, linear_init)
     else:
         raise ValueError(f"block kind {kind!r}")
     return p
@@ -205,9 +206,20 @@ def _residual(x, y):
 
 
 def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
-                decode: bool = False, paged_ctx=None, enc_out=None):
-    """One block; returns ``(x, cache)`` (an ``attn_moe`` block's aux loss
-    is dropped, as serve drops it).
+                decode: bool = False, paged_ctx=None, enc_out=None,
+                x32=None):
+    """One block; returns ``(x, cache, aux, last)``: ``aux`` an
+    ``attn_moe`` block's load-balance loss (a 0-d f32 tensor; serve drops
+    it), 0.0 for every other kind; ``last`` the operands ``(x, y)`` of an
+    attention or ``rglru`` block's last residual add (None for the xLSTM
+    kinds).
+
+    ``x32`` (the train forward's layer bodies): the f32 sum of the
+    previous block's ``last``.  Inside one layer of a pattern of several
+    blocks, XLA fuses that add into an attention block's first norm,
+    which reads the sum unrounded (found by the hybrid patterns'
+    bit-equality: ``rglru`` or ``attn_local`` followed by ``attn_local``);
+    an ``rglru`` block's norm reads the rounded ``x``.
 
     ``paged_ctx`` routes attention through the layer's paged pool
     ``cache``: ``{'block_table', 'positions', 'n_writes'}`` for a verify
@@ -223,19 +235,21 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     recurrent block (``mlstm``, ``slstm``, ``rglru``) starts from the
     state in ``cache`` (zeros: a prefill) and writes its final state
     back into it."""
-    h = nn.rmsnorm_apply(params["norm1"], x)
+    h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
+                         dtype=x.dtype)
     if kind in ("mlstm", "slstm"):
         fn = xlstm.mlstm_apply if kind == "mlstm" else xlstm.slstm_apply
         y, state = fn(params["cell"], h, cfg, state=cache, apply_fn=apply_fn)
         _write_state(cache, state)
-        return x + y, cache
+        return x + y, cache, 0.0, None
     if kind == "rglru":
         y, state = rglru.rglru_block_apply(params["cell"], h, cfg,
                                            state=cache, apply_fn=apply_fn)
         _write_state(cache, state)
         x, s = _residual(x, y)
         hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
-        return x + ffn_apply(params["ffn"], hf, cfg, apply_fn), cache
+        y = ffn_apply(params["ffn"], hf, cfg, apply_fn)
+        return x + y, cache, 0.0, (x, y)
     if kind not in ATTN_KINDS:
         raise ValueError(f"block kind {kind!r}")
     window = cfg.local_window if kind == "attn_local" else None
@@ -294,11 +308,12 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                 cache["xv"].copy_(xv)
         x, s = _residual(x, y2)
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+    aux = 0.0
     if kind == "attn_moe":
-        y, _ = moe.moe_apply(params["moe"], hf, cfg, apply_fn=apply_fn)
+        y, aux = moe.moe_apply(params["moe"], hf, cfg, apply_fn=apply_fn)
     else:
         y = ffn_apply(params["ffn"], hf, cfg, apply_fn)
-    return x + y, cache
+    return x + y, cache, aux, (x, y)
 
 
 def _bidir_attn(params, h, cfg, apply_fn):
@@ -379,8 +394,9 @@ def init_front(gen, cfg, device="cuda") -> dict:
     """The frontend stub's projection, the reference's train-path linear
     (``nn.init_linear``: ``w [d_front, d_model]`` f32 and, under
     ``linear_impl='qdq'``, its LSQ step and N2UQ activation params).  A
-    VLM's is carried and never read when serving; an enc-dec model's
-    ``encode`` runs it (``nn.linear_apply``) on the frames."""
+    VLM's is carried and never read when serving (the train forward
+    projects a batch's ``front`` with it); an enc-dec model's encoder
+    runs it (``nn.linear_apply``) on the frames."""
     d_front = 1024 if cfg.frontend == "frames" else 1152
     return nn.init_linear(gen, d_front, cfg.d_model, cfg, device=device)
 
@@ -416,28 +432,6 @@ def init_segment(gen, seg: Segment, cfg, device="cuda",
     return out
 
 
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` unless the train forward covers
-    ``cfg``: every block an ``attn`` block with GQA attention."""
-    if cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec train forward (the reference's "
-            "_segment_scan_encdec) is a later slice of the port")
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: the train forward of attn_kind "
-            f"{cfg.attn_kind!r} (MLA, or attention-free recurrent blocks) "
-            "is a later slice of the port")
-    for seg in segments_for(cfg):
-        for kind in seg.pattern:
-            if kind != "attn":
-                raise NotImplementedError(
-                    f"{cfg.name}: the train forward of {kind!r} blocks "
-                    "(attn_local, attn_moe with its expert-stacked linears "
-                    "and aux loss, the recurrent kinds) is a later slice of "
-                    "the port")
-
-
 def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
             device="cuda") -> nn.ParamTree:
     """Params drawn from ``gen`` (a generator on ``device``).  ``purpose``:
@@ -447,14 +441,13 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
       ``cfg.frontend`` is set, and an enc-dec model's ``encoder`` (one
       stacked segment of ``enc_attn`` blocks) and ``enc_norm``;
     - ``'train'``: the train path's linears (``nn.init_linear``, f32
-      masters), f32 embeddings; models ``check_trainable`` accepts.
+      masters; expert-stacked in a MoE FFN), f32 embeddings, and the
+      same ``front``, ``encoder`` and ``enc_norm`` leaves.
 
     Returns a ``ParamTree`` (trainable float leaves for ``'train'``)."""
     if purpose not in ("serve", "train"):
         raise ValueError(f"purpose {purpose!r} not in serve | train")
     train = purpose == "train"
-    if train:
-        check_trainable(cfg)
     linear_init = nn.init_linear if train else nn.init_serve_linear
     emb_dtype = torch.float32 if train else torch.bfloat16
     p = {"embed": nn.init_embedding(gen, cfg.vocab, cfg.d_model, device,
@@ -467,7 +460,7 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
     p["final_norm"] = nn.init_rmsnorm(cfg.d_model, device)
     if cfg.n_enc_layers:
         p["encoder"] = [init_segment(gen, _encoder_segment(cfg), cfg,
-                                     device)]
+                                     device, linear_init)]
         p["enc_norm"] = nn.init_rmsnorm(cfg.d_model, device)
     p["segments"] = [init_segment(gen, seg, cfg, device, linear_init)
                      for seg in segments_for(cfg)]
@@ -560,9 +553,9 @@ def _run_layers(params, caches, x, cfg, decode: bool, paged_ctx=None,
                 if caches is not None:
                     cache = {name: leaf[i]
                              for name, leaf in caches[si][f"b{bi}"].items()}
-                x, _ = apply_block(kind, lp[f"b{bi}"], x, cfg, apply_fn,
-                                   cache=cache, pos=pos, decode=decode,
-                                   paged_ctx=paged_ctx, enc_out=enc_out)
+                x = apply_block(kind, lp[f"b{bi}"], x, cfg, apply_fn,
+                                cache=cache, pos=pos, decode=decode,
+                                paged_ctx=paged_ctx, enc_out=enc_out)[0]
     return x
 
 
@@ -597,24 +590,35 @@ def _unstack(stacked, n: int) -> List[dict]:
 
 
 def _segment_scan(seg: Segment, params_stacked, x, cfg, apply_fn,
-                  remat: bool):
+                  remat: bool, enc_out=None):
     """The layers of one segment over the whole sequence (no caches),
-    each layer recomputed in the backward under ``remat``.  Returns ``(x,
-    aux)``: the summed aux loss, zero for ``attn`` blocks."""
+    each layer recomputed in the backward under ``remat``.  ``enc_out``
+    (an enc-dec decoder's) reaches every ``dec_cross`` block as an input
+    of the checkpointed layer, so each block's cross K/V backward reaches
+    the encoder.  Returns ``(x, aux)``: the aux losses summed over the
+    layers in order (0.0 when no block has one)."""
 
-    def body(xx, layer):
+    def body(xx, layer, enc):
+        aux, last = 0.0, None
         for bi, kind in enumerate(seg.pattern):
-            xx, _ = apply_block(kind, layer[f"b{bi}"], xx, cfg, apply_fn)
-        return xx
+            x32 = None
+            if last is not None and kind in ATTN_KINDS:
+                x32 = last[0].float() + last[1]
+            xx, _, al, last = apply_block(kind, layer[f"b{bi}"], xx, cfg,
+                                          apply_fn, enc_out=enc, x32=x32)
+            aux = aux + al
+        return xx, aux
 
+    aux_total = 0.0
     for layer in _unstack(params_stacked, seg.n):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                body, x, layer, use_reentrant=False,
+            x, aux = torch.utils.checkpoint.checkpoint(
+                body, x, layer, enc_out, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            x = body(x, layer)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = body(x, layer, enc_out)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def next_token_loss(logits, tokens):
@@ -628,28 +632,47 @@ def next_token_loss(logits, tokens):
     return (lse - true).mean()
 
 
+def _encode_train(p: dict, frames, cfg):
+    """The encoder under autograd (the reference's ``encode``, purpose
+    'train'): the ``front`` projection of ``frames [B, Se, d_front]``, the
+    ``enc_attn`` segment (recomputed per layer under ``cfg.remat``) and
+    ``enc_norm``."""
+    x = nn.linear_apply(p["front"], frames, cfg)
+    x, _ = _segment_scan(_encoder_segment(cfg), p["encoder"][0], x, cfg,
+                         nn.linear_apply, cfg.remat == "layer")
+    return nn.rmsnorm_apply(p["enc_norm"], x)
+
+
 def forward(params, batch, cfg):
     """Training forward and next-token CE loss (the reference's
     ``forward``, purpose 'train'): ``batch`` ``{'tokens' [B, S]}`` on the
-    params' device.  Returns ``(loss, logits [B, S, vocab] bf16)``, loss
-    plus 0.01 x the summed aux loss.  ``params``: a ``ParamTree`` or its
-    nested dict of tensors."""
-    check_trainable(cfg)
-    extra = set(batch) - {"tokens"}
-    if extra:
-        raise NotImplementedError(
-            f"batch keys {sorted(extra)}: a frontend's embeddings in the "
-            "train forward (a VLM's 'front', enc-dec 'frames') are a later "
-            "slice of the port")
+    params' device, with ``'frames' [B, Se, d_front]`` for an enc-dec
+    config (encoded, then cross-attended by every decoder block) and,
+    optionally, a VLM's ``'front' [B, F, d_front]`` (projected and
+    prepended to the token embeddings; the logits are the tokens' rows).
+    Returns ``(loss, logits [B, S, vocab] bf16)``, loss plus 0.01 x the
+    summed aux loss.  ``params``: a ``ParamTree`` or its nested dict of
+    tensors."""
     p = _tree(params)
     tokens = batch["tokens"]
+    remat = cfg.remat == "layer"
     x = nn.embed_apply(p["embed"], tokens)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = _encode_train(p, batch["frames"], cfg)
+    front = (cfg.frontend != "none" and "front" in batch
+             and not cfg.n_enc_layers)
+    if front:
+        fx = nn.linear_apply(p["front"], batch["front"], cfg)
+        x = torch.cat([fx.to(x.dtype), x], dim=1)
+    aux_total = 0.0
     for seg, sp in zip(segments_for(cfg), p["segments"]):
-        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply,
-                               cfg.remat == "layer")
+        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat,
+                               enc_out)
         aux_total = aux_total + aux
     x = nn.rmsnorm_apply(p["final_norm"], x)
+    if front:
+        x = x[:, -tokens.shape[1]:]
     logits = nn.logits_apply(p.get("head", p["embed"]), x, vocab=cfg.vocab)
     loss = next_token_loss(logits, tokens)
     return loss + 0.01 * aux_total, logits[..., : cfg.vocab]

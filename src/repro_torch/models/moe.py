@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN of the serve path (port of ``repro.models.moe``):
-top-k routing, grouped capacity dispatch, shared experts.
+"""Mixture-of-Experts FFN (port of ``repro.models.moe``): top-k routing,
+grouped capacity dispatch, shared experts, the load-balance aux loss.
 
 Tokens are routed per group (a sequence, or a slice of one): the router
 runs in f32, the top ``k`` experts' probabilities are renormalised into
@@ -13,8 +13,12 @@ of ``chunk`` rows, padding rows routed like the others) drops differently
 from a dense prefill of the whole prompt: the reference's behaviour,
 mirrored.
 
-The expert linears run through ``nn.serve_expert_linear_apply``: one
-launch of the lookup kernel over each expert-stacked linear.
+Serving, the expert linears run through ``nn.serve_expert_linear_apply``:
+one launch of the lookup kernel over each expert-stacked linear.
+Training (``apply_fn=nn.linear_apply``), they run through the same
+``apply_fn`` on ``xe [G, E, cap, D]`` (the train linear's expert-stacked
+``w [E, K, N]``), and the router's softmax holds its max constant in
+the backward, as ``jax.nn.softmax`` does.
 
 Ties: ``jax.lax.top_k`` takes the lower expert index first; ``torch.topk``
 promises no order among equal values, so the top k come from a stable
@@ -30,13 +34,15 @@ from repro_torch.models import nn
 MAX_GROUP_TOKENS = 4096
 
 
-def init_moe(gen, cfg, device="cuda"):
+def init_moe(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     """Router ``w [d, E]`` f32 N(0, 0.02^2); expert-stacked ``wi``/``wg``
     ``[E] d -> d_expert`` and ``wo`` ``[E] d_expert -> d``; with
     ``n_shared`` the shared experts' ``shared_wi``/``shared_wg``/
-    ``shared_wo`` of width ``d_expert * n_shared``."""
+    ``shared_wo`` of width ``d_expert * n_shared``.  The linears are
+    ``linear_init``'s: serve linears, or the train path's
+    ``nn.init_linear``."""
     d, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert
-    lin = nn.init_serve_linear
+    lin = linear_init
     w = torch.randn((d, E), generator=gen, dtype=torch.float32,
                     device=device).mul_(0.02)
     p = {"router": {"w": w},
@@ -52,10 +58,15 @@ def init_moe(gen, cfg, device="cuda"):
 
 
 def moe_apply(params, x, cfg, apply_fn=nn.serve_linear_apply,
-              expert_apply_fn=nn.serve_expert_linear_apply):
+              expert_apply_fn=None):
     """x ``[B, S, D]`` -> ``(y [B, S, D], aux_loss)``.  Each sequence is a
     routing group; one longer than ``MAX_GROUP_TOKENS`` is cut into groups
-    of that many tokens."""
+    of that many tokens.  ``expert_apply_fn`` defaults to
+    ``nn.serve_expert_linear_apply`` under the serve linear and to
+    ``apply_fn`` otherwise (the reference's rule)."""
+    if expert_apply_fn is None:
+        expert_apply_fn = (nn.serve_expert_linear_apply
+                           if apply_fn is nn.serve_linear_apply else apply_fn)
     B, S, D = x.shape
     if S > MAX_GROUP_TOKENS:
         if S % MAX_GROUP_TOKENS:
@@ -95,7 +106,7 @@ def route(router_w, x, cfg):
     E, k = cfg.n_experts, cfg.top_k
     cap = max(int(cfg.capacity_factor * t * k / E), 1)
     logits = torch.einsum("gtd,de->gte", x.to(torch.float32), router_w)
-    u = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    u = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = u / u.sum(dim=-1, keepdim=True)
     gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = gates[..., :k], eidx[..., :k]
@@ -122,11 +133,15 @@ def _moe_grouped(params, x, cfg, apply_fn, expert_apply_fn):
         disp = _dot("gtke,gtkc->gtec", oh_eb, oh_c)          # [G, t, E, cap]
         xe = _dot("gtec,gtd->gecd", disp, x.to(bf))          # [G, E, cap, D]
     with _span("experts"):
-        # XLA rounds the experts' gated product to bf16 before wo's
-        # quantiser (read in the compiled HLO), where it feeds the shared
-        # experts' and the dense FFN's product to wo in f32
-        h = expert_apply_fn(params["wi"], xe, cfg) * nn.silu(
-            expert_apply_fn(params["wg"], xe, cfg))
+        # serving, XLA rounds the experts' gated product to bf16 before
+        # wo's quantiser (read in the compiled HLO), where it feeds the
+        # shared experts' and the dense FFN's product to wo in f32; the
+        # train linear's quantiser reads the experts' product in f32 too
+        # (found by the train forward's bit-equality)
+        hi = expert_apply_fn(params["wi"], xe, cfg)
+        if expert_apply_fn is nn.linear_apply:
+            hi = hi.float()
+        h = hi * nn.silu(expert_apply_fn(params["wg"], xe, cfg))
         ye = expert_apply_fn(params["wo"], h, cfg)           # [G, E, cap, D]
     with _span("combine"):
         comb = _dot("gtke,gtkc->gtec", oh_eb * gates.to(bf)[..., None], oh_c)

@@ -439,8 +439,11 @@ def embed_apply(params, tokens):
 
 
 def logits_apply(params, x, vocab: Optional[int] = None):
-    """Logits in bf16; padded vocab rows masked to -1e30."""
-    lg = torch.matmul(x.to(COMPUTE_DTYPE), params["emb"].to(COMPUTE_DTYPE).T)
+    """Logits in bf16; padded vocab rows masked to -1e30.  On the CPU the
+    product is XLA's CPU dot (``_bf16_matmul``: f32 over the bf16
+    operands, rounded once): torch's CPU bf16 GEMM differs from it by an
+    ulp in a few logits, more often on a sliced ``x``."""
+    lg = _bf16_matmul(x.to(COMPUTE_DTYPE), params["emb"].to(COMPUTE_DTYPE).T)
     if vocab is not None and lg.shape[-1] != vocab:
         iota = torch.arange(lg.shape[-1], device=lg.device)
         lg = torch.where(iota < vocab, lg,

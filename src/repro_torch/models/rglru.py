@@ -12,7 +12,9 @@ A prefill runs the linear recurrence as ``associative_scan``, which
 combines elements in the order of ``jax.lax.associative_scan`` (log2(S)
 vectorised levels); a sequential loop would round differently.  Decode
 is the one-step cell.  The gates are f32 products of plain weights, as
-in the reference.
+in the reference.  The train forward runs the same functions under
+autograd (``apply_fn=nn.linear_apply``): the scan's interleave writes
+only into tensors it makes.
 """
 
 from __future__ import annotations
@@ -26,14 +28,16 @@ from repro_torch.models.xlstm import _conv_step, _winit
 _C = 8.0
 
 
-def init_rglru_block(gen, cfg, device="cuda"):
-    """The reference's leaves: serve linears ``win``/``wgate`` d -> lru and
+def init_rglru_block(gen, cfg, device="cuda",
+                     linear_init=nn.init_serve_linear):
+    """The reference's leaves: ``linear_init``'s linears (serve, or the
+    train path's ``nn.init_linear``) ``win``/``wgate`` d -> lru and
     ``wout`` lru -> d; f32 ``conv.w [W, lru]``, ``wr.w``/``wi.w [lru,
     lru]`` and ``lam.l [lru]``, Lambda drawn so that a^(1/r) lies in
     [0.9, 0.999]."""
     d = cfg.d_model
     lru = cfg.lru_dim or d
-    lin = nn.init_serve_linear
+    lin = linear_init
     lam = torch.empty(lru, dtype=torch.float32, device=device).uniform_(
         0.9, 0.999, generator=gen)
     return {
@@ -63,7 +67,9 @@ def _gates(params, u):
     i = torch.sigmoid(uf @ params["wi"]["w"])
     log_a = -_C * _softplus(params["lam"]["l"]) * r
     a2 = torch.exp(2.0 * log_a)
-    bx = torch.sqrt(torch.clamp(1.0 - a2, min=1e-9)) * (i * uf)
+    # jnp.maximum (a tie splits the gradient), not torch.clamp
+    bx = torch.sqrt(torch.maximum(1.0 - a2, a2.new_full((), 1e-9))) * (
+        i * uf)
     return log_a, bx
 
 

@@ -10,18 +10,22 @@ mLSTM cell (stabilised exponential gating):
     h_t = (C_t q_t) / max(|n_t . q_t|, exp(-m_t))
 
 Both cells are one-step functions run by ``chunked_scan`` over the
-sequence (prefill) or once (decode).  Forward only: the reference's
-``jax.checkpoint`` of each chunk is a training memory device and has no
-meaning here, so ``chunked_scan`` is a loop over time that keeps the
-reference's refusal of a length past one chunk that is not a multiple
-of it.  The serve linears are ``apply_fn``'s (lookup GEMMs under
-TLMAC); the gate projections ``wi``/``wf`` and the sLSTM recurrence are
-f32 products of plain weights, as in the reference.
+sequence (prefill, the train forward) or once (decode).  ``chunked_scan``
+is a loop over time; under autograd a sequence longer than one chunk
+runs chunk by chunk, each chunk recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
+chunk), so the backward holds the state at chunk boundaries and one
+chunk's steps, not every step's ``[B, H, hd, hd]`` matrix memory.  The
+linears are ``apply_fn``'s (lookup GEMMs serving under TLMAC, the
+train linear under QAT); the gate projections ``wi``/``wf`` and the
+sLSTM recurrence are f32 products of plain weights, as in the
+reference.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.quant.quantizers import _softplus
 from repro_torch.models import nn
@@ -41,19 +45,38 @@ def _depthwise_causal_conv(x, w):
 CHUNK = 64    # the reference's scan chunk: a longer scan must be a multiple
 
 
-def chunked_scan(cell, state, xs, length: int):
-    """``cell(state, x_t) -> (state, y_t)`` over the leading time axis of
-    every tensor of the tuple ``xs``; returns ``(state, ys)`` with ``ys``
-    stacked ``[length, ...]``.  Like the reference, a length past
-    ``CHUNK`` that is not a multiple of it raises ``AssertionError``."""
-    if length > CHUNK:
-        assert length % CHUNK == 0, (length, CHUNK)
+def _scan(cell, state, xs):
+    """``cell`` over every step of ``xs`` (a tensor or a tuple of them,
+    time leading): ``(state, ys stacked)``."""
     ys = []
-    for t in range(length):
+    for t in range((xs[0] if isinstance(xs, tuple) else xs).shape[0]):
         state, y = cell(state, tuple(a[t] for a in xs) if isinstance(
             xs, tuple) else xs[t])
         ys.append(y)
     return state, torch.stack(ys)
+
+
+def chunked_scan(cell, state, xs, length: int):
+    """``cell(state, x_t) -> (state, y_t)`` over the leading time axis of
+    every tensor of the tuple ``xs``; returns ``(state, ys)`` with ``ys``
+    stacked ``[length, ...]``.  Like the reference, a length past
+    ``CHUNK`` that is not a multiple of it raises ``AssertionError``.
+    With gradients on and ``length > CHUNK``, each chunk of ``CHUNK``
+    steps is checkpointed (non-reentrant: recomputed in the backward);
+    the values are the plain loop's, bit for bit."""
+    if length > CHUNK:
+        assert length % CHUNK == 0, (length, CHUNK)
+    if length <= CHUNK or not torch.is_grad_enabled():
+        return _scan(cell, state, xs)
+    ys = []
+    for t0 in range(0, length, CHUNK):
+        chunk = (tuple(a[t0:t0 + CHUNK] for a in xs) if isinstance(xs, tuple)
+                 else xs[t0:t0 + CHUNK])
+        state, y = torch.utils.checkpoint.checkpoint(
+            _scan, cell, state, chunk, use_reentrant=False,
+            preserve_rng_state=False)
+        ys.append(y)
+    return state, torch.cat(ys)
 
 
 def log_sigmoid(x):
@@ -72,13 +95,14 @@ def _winit(gen, shape, scale: float, device):
 # ---------------------------------------------------------------------------
 
 
-def init_mlstm(gen, cfg, device="cuda"):
-    """The reference's mLSTM leaves: serve linears ``up`` d -> 4d, ``wq``,
-    ``wk``, ``wv`` 2d -> 2d and ``down`` 2d -> d; f32 ``conv.w [W, 2d]``,
-    gate weights ``wi.w``/``wf.w [2d, H]`` and ``wf.b`` (3.0)."""
+def init_mlstm(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
+    """The reference's mLSTM leaves: ``linear_init``'s linears (serve, or
+    the train path's ``nn.init_linear``) ``up`` d -> 4d, ``wq``, ``wk``,
+    ``wv`` 2d -> 2d and ``down`` 2d -> d; f32 ``conv.w [W, 2d]``, gate
+    weights ``wi.w``/``wf.w [2d, H]`` and ``wf.b`` (3.0)."""
     d, H = cfg.d_model, cfg.n_heads
     inner = 2 * d
-    lin = nn.init_serve_linear
+    lin = linear_init
     return {
         "up": lin(gen, d, 2 * inner, cfg, device=device),
         "conv": {"w": _winit(gen, (cfg.conv_width, inner), 0.1, device)},
@@ -175,14 +199,14 @@ def _sqrt_f32(n: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def init_slstm(gen, cfg, device="cuda"):
-    """The reference's sLSTM leaves: serve linears ``wx`` d -> 4d (the z,
-    i, f, o pre-activations), ``down`` and ``up_gate`` d -> d; f32
-    block-diagonal recurrences ``r.w [4, H, hd, hd]`` and ``bias.b [4d]``
-    (0 for z, i, f; 3.0 for o)."""
+def init_slstm(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
+    """The reference's sLSTM leaves: ``linear_init``'s linears ``wx`` d ->
+    4d (the z, i, f, o pre-activations), ``down`` and ``up_gate`` d -> d;
+    f32 block-diagonal recurrences ``r.w [4, H, hd, hd]`` and ``bias.b
+    [4d]`` (0 for z, i, f; 3.0 for o)."""
     d, H = cfg.d_model, cfg.n_heads
     hd = d // H
-    lin = nn.init_serve_linear
+    lin = linear_init
     bias = torch.zeros(4 * d, dtype=torch.float32, device=device)
     bias[3 * d:] = 3.0
     return {
@@ -221,7 +245,9 @@ def _slstm_cell(params, state, x4, H: int):
     fp = torch.exp(logf + state["m"] - m_new)
     c = fp * state["c"] + ip * z
     n = fp * state["n"] + ip
-    h = o * c / torch.clamp(n, min=1.0)
+    # jnp.maximum: a tie (n == 1, e.g. after fp underflows) splits the
+    # gradient in half, where torch.clamp would pass all of it
+    h = o * c / torch.maximum(n, n.new_ones(()))
     return {"c": c, "n": n, "h": h, "m": m_new}, h
 
 

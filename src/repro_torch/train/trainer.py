@@ -64,9 +64,13 @@ def make_train_step(cfg, tc: TrainConfig,
     sched = schedule_fn(tc)
 
     def loss_and_grads(params, batch):
+        # a leaf the forward does not read (a VLM's ``front`` on a
+        # tokens-only batch) gets zeros, as ``jax.grad`` gives it
         leaves = tree_leaves(params)
         loss = fwd(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), _unflatten(params, grads)
 
     def train_step(params, opt_state, batch, step,

@@ -8,10 +8,8 @@ pipeline; preempt-and-resume and the train CLI in the port; ResNet-18's
 QAT loss and gradients.
 
 Params come from the reference's ``init_lm`` with every N2UQ activation
-quantiser calibrated (``CAL_DELTAS``, ``CAL_OUT_STEP``: thresholds over
-0.06-0.83): at the init's thresholds (0.39-5.0) nearly every activation
-is below the first one, so every gradient but the embeddings' is zero
-on both sides and the comparison would show nothing.
+quantiser calibrated (``_torch_train.calibrate``).  The other families'
+train forwards are ``test_torch_train_*.py``'s.
 
 What holds (measured on these inputs): the loss and the logits are
 bit-equal to JAX's (the forward copies XLA's fused roundings, which its
@@ -28,7 +26,6 @@ import torch
 
 from repro.checkpoint import restore_checkpoint as jrestore
 from repro.checkpoint import save_checkpoint as jsave
-from repro.configs import smoke_config as jsmoke
 from repro.configs.resnet18 import SMOKE as JR_SMOKE
 from repro.data.pipeline import SyntheticLMData as JData
 from repro.models import lm as jlm
@@ -50,63 +47,14 @@ from repro_torch.train import compress as TC
 from repro_torch.train import trainer as TT
 from repro_torch.train.ft import FaultTolerantRunner, PreemptionSchedule
 
-import _torch_families  # noqa: F401  (one torch thread per worker)
-
-CAL_DELTAS, CAL_OUT_STEP = -2.0, 0.1
-# gradients: direction and max error relative to the leaf's largest
-# entry (bf16 backward products summed in other orders)
-GRAD_COS, GRAD_REL = 0.9999, 2e-2
-LOSS_RTOL = 1e-6        # the mean over tokens, summed in another order
-B, S = 2, 16
-
-
-def _calibrate(tree):
-    if isinstance(tree, dict):
-        if "deltas" in tree:
-            return {"deltas": np.full_like(tree["deltas"], CAL_DELTAS),
-                    "out_step": np.full_like(tree["out_step"], CAL_OUT_STEP)}
-        return {k: _calibrate(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_calibrate(v) for v in tree]
-    return tree
-
-
-_MODELS = {}
-
-
-def _model(arch, **over):
-    """``(jcfg, tcfg, numpy params)``: the reference's train init,
-    calibrated."""
-    key = (arch, tuple(sorted(over.items())))
-    if key not in _MODELS:
-        jcfg = dataclasses.replace(jsmoke(arch), **over)
-        tcfg = dataclasses.replace(tsmoke(arch), **over)
-        # jitted: the eager init dispatches its draws op by op
-        p = jax.jit(lambda k: jlm.init_lm(k, jcfg)[0])(jax.random.PRNGKey(0))
-        _MODELS[key] = (jcfg, tcfg, _calibrate(jax.tree.map(np.asarray, p)))
-    return _MODELS[key]
-
-
-def _tokens(vocab, seed=1, b=B, s=S):
-    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
-        np.int32)
-
-
-def _hold_grad(path, want, got):
-    want, got = np.asarray(want, np.float64), np.asarray(got, np.float64)
-    assert want.shape == got.shape, path
-    scale = np.abs(want).max()
-    if scale == 0:
-        assert np.abs(got).max() == 0, path
-        return
-    cos = (want * got).sum() / np.sqrt((want ** 2).sum() * (got ** 2).sum())
-    err = np.abs(want - got).max() / scale
-    assert cos > GRAD_COS and err < GRAD_REL, (path, cos, err)
-
-
-def _port_grads(params, loss):
-    leaves = TA.tree_leaves(params)
-    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+from _torch_train import B, CAL_DELTAS, CAL_OUT_STEP, GRAD_COS, GRAD_REL, \
+    LOSS_RTOL, S  # noqa: F401  (shared with the other train tests)
+from _torch_train import calibrate as _calibrate
+from _torch_train import hold_grad as _hold_grad
+from _torch_train import hold_update as _hold_update
+from _torch_train import model as _model
+from _torch_train import port_grads as _port_grads
+from _torch_train import tokens as _tokens
 
 
 @pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "minicpm-2b"])
@@ -142,26 +90,6 @@ def test_forward_loss_logits_and_grads_match_jax(arch):
     assert torch.equal(runs["none"][1], logits)
     for a, b in zip(runs["none"][2], grads):
         np.testing.assert_array_equal(a, b)
-
-
-UPDATE_AGREE = 0.995
-
-
-def _hold_update(p0, want, got):
-    """The step's update ``p1 - p0``.  AdamW's first update is about ``lr
-    * sign(g)``, so where a gradient is at the level of its rounding error
-    (the key bias's is zero up to rounding: softmax ignores a constant
-    per query) the two signs may differ; held by the share of elements
-    whose updates agree within 1% of their leaf's largest, over all
-    leaves."""
-    n = agree = 0
-    for a0, a1, b1 in zip(jax.tree.leaves(p0), jax.tree.leaves(want),
-                          TA.tree_leaves(got)):
-        dw = np.asarray(a1, np.float64) - a0
-        dt = b1.detach().numpy().astype(np.float64) - a0
-        agree += int((np.abs(dw - dt) <= 1e-2 * np.abs(dw).max()).sum())
-        n += dw.size
-    assert agree >= UPDATE_AGREE * n, agree / n
 
 
 LOOP_KW = dict(lr=1e-3, total_steps=4, warmup_steps=1, schedule="wsd")
@@ -409,34 +337,6 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
                         "--ckpt-dir", str(tmp_path), "--ckpt-interval", "1",
                         "--preempt-at", "2"])
     assert "finished with 1 restarts" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("arch,over", [
-    ("deepseek-v3-671b", {}), ("deepseek-v3-671b", {"attn_kind": "gqa"}),
-    ("xlstm-350m", {}), ("recurrentgemma-2b", {}),
-    ("seamless-m4t-medium", {}),
-    ("codeqwen1.5-7b", {"family": "hybrid", "block_pattern": ("attn_local",)}),
-])
-def test_later_slices_raise(arch, over):
-    """Block kinds past this slice raise ``NotImplementedError``, at init
-    and in the forward; so does a frontend's batch key."""
-    cfg = dataclasses.replace(tsmoke(arch), **over)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlm.init_lm(cfg, torch.Generator().manual_seed(0), purpose="train",
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlm.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    cfg)
-
-
-def test_vlm_front_batch_raises():
-    cfg = tsmoke("internvl2-76b")
-    params = tlm.init_lm(cfg, torch.Generator().manual_seed(0),
-                         purpose="train", device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "front": torch.zeros((1, cfg.frontend_len, 1152))}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tlm.forward(params, batch, cfg)
 
 
 def test_resnet_qat_loss_and_grads_match_jax():
