@@ -12,6 +12,9 @@
                                           # training stack (phase 8,
                                           # (a)-(g)), one
                                           # JSON line
+    python3 chip_smoke.py --only parallel # no kernel built: the parallel
+                                          # layer and the dry run (phase
+                                          # 11), one JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -214,7 +217,22 @@ Phases, in order; any failure raises and exits non-zero:
     cluster-scheduled launch (kernels 4 + 6, and 5 on the single-tile
     convs), each equal to the integer conv, with the launch counters of
     kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
-    the quickstart's shape equal to the dense integer GEMM.
+    the quickstart's shape equal to the dense integer GEMM;
+11. the parallel layer (``phase_parallel``; no kernel: its products are
+    ``torch.matmul`` in f32, as the reference's are ``jnp.dot``): one
+    NCCL rank spawned per visible card (world size printed: 1 on one
+    card, where a ring hop is the identity and no overlap can show),
+    ``ring_ag_matmul`` and ``ring_rs_matmul`` at codeqwen1.5-7b's
+    ``ffn.wi`` widths (x [4096, 4096], w [4096, 13440], f32) held
+    against one ``torch.matmul``, ``pipeline_apply`` with a ``tanh(x @
+    w)`` stage at d 4096 over 8 microbatches of 512 held against the
+    stages applied in turn, each within its printed tolerance, the
+    collectives each issued, and their times beside ``all_gather`` +
+    matmul (matmul + ``reduce_scatter``; the sequential stages); then
+    the port's dry run (``python -m repro_torch.launch.dryrun --all
+    --mesh both``, no JAX on the machine) over every cell and both
+    meshes, each cell's per-device argument bytes printed against the
+    card's 80 GB.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -4961,17 +4979,208 @@ def phase_serve_families():
     return runs, counts
 
 
+PAR_SHAPES = dict(
+    M=4096, K=4096, N=13440,       # codeqwen1.5-7b's ffn.wi: x [M, K], w [K, N]
+    D=4096, MB=512, N_MB=8)        # pipeline: stage width, rows, microbatches
+PAR_TOL = 1e-4      # f32 products over K=4096 of |y| ~ 1: other sum orders
+CARD_GB = 80e9      # one H100's device memory (data sheet)
+
+
+def _host_ms(fn, iters: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _parallel_rank(rank: int, world: int, tmp: str, dev_type: str,
+                   shapes: dict) -> None:
+    """One rank of the parallel phase: the rings and the pipeline held
+    against their plain versions, then timed beside them; rank 0 writes
+    the figures to ``tmp/rank0.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.parallel.overlap import ring_ag_matmul, ring_rs_matmul
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        M, K, N = shapes["M"], shapes["K"], shapes["N"]
+        m, k = M // world, K // world
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((M, K), generator=g, device=dev)
+        w = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+        ref = torch.matmul(x, w)
+        xb, wb = x[rank * m:(rank + 1) * m], w[rank * k:(rank + 1) * k]
+        out = {"world": world}
+        with record_collectives() as st:
+            y = ring_ag_matmul(xb, w)
+        out["ring_ag"] = dict(max_abs_err=(y - ref).abs().max().item(),
+                              collectives=dataclasses.asdict(st))
+        with record_collectives() as st:
+            y = ring_rs_matmul(x, wb)
+        out["ring_rs"] = dict(
+            max_abs_err=(y - ref[rank * m:(rank + 1) * m]).abs().max().item(),
+            collectives=dataclasses.asdict(st))
+        D = shapes["D"]
+        gp = torch.Generator(device=dev).manual_seed(SEED + 1)
+        ws = [torch.randn((D, D), generator=gp, device=dev) / math.sqrt(D)
+              for _ in range(world)]
+        xs = torch.randn((shapes["N_MB"], shapes["MB"], D), generator=gp,
+                         device=dev)
+        stage = lambda p, v: torch.tanh(torch.matmul(v, p))
+
+        def sequential():
+            h = xs
+            for p in ws:
+                h = stage(p, h)
+            return h
+
+        with record_collectives() as st:
+            y = pipeline_apply(stage, ws[rank], xs)
+        out["pipeline"] = dict(
+            max_abs_err=(y - sequential()).abs().max().item(),
+            slots=world + shapes["N_MB"] - 1,
+            collectives=dataclasses.asdict(st))
+        del y, ref
+        # the plain versions the rings replace, timed beside them
+        gathered = torch.empty_like(x)
+        rs_out = torch.empty((m, N), device=dev)
+        xk = x[:, rank * k:(rank + 1) * k].contiguous()
+
+        def ag_plain():
+            dist.all_gather_into_tensor(gathered, xb.contiguous())
+            return torch.matmul(gathered, w)
+
+        def rs_plain():
+            dist.reduce_scatter_tensor(rs_out, torch.matmul(xk, wb))
+            return rs_out
+
+        # CUDA events on the card; the host clock in a CPU rehearsal
+        timed = cuda_ms if dev_type == "cuda" else _host_ms
+        out["ring_ag"]["ms"] = timed(lambda: ring_ag_matmul(xb, w), 10)
+        out["ring_ag"]["all_gather_matmul_ms"] = timed(ag_plain, 10)
+        out["ring_rs"]["ms"] = timed(lambda: ring_rs_matmul(x, wb), 10)
+        out["ring_rs"]["matmul_reduce_scatter_ms"] = timed(rs_plain, 10)
+        out["pipeline"]["ms"] = timed(
+            lambda: pipeline_apply(stage, ws[rank], xs), 5)
+        out["pipeline"]["sequential_ms"] = timed(sequential, 5)
+        # one f32 product x @ w at the non-tensor-core rate
+        out["ring_ag"]["f32_bound_ms"] = 2 * M * K * N / NONTENSOR_OPS_S * 1e3
+        if rank == 0:
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(world: int = 0, shapes: dict = PAR_SHAPES,
+                   dry_run_args=("--all", "--mesh", "both")) -> dict:
+    """Phase 11: the rings and the pipeline on one spawned rank per card
+    (NCCL), then the port's dry run over every cell.  Returns the
+    figures."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = world or torch.cuda.device_count()
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        "rank per visible card" + (" (a ring hop is the identity, so no "
+                                   "overlap can show)" if world == 1 else ""))
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_parallel_rank, args=(world, tmp, DEV, shapes),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            out = json.load(f)
+    sh = shapes
+    for name, ref, plain, what in (
+            ("ring_ag", "one torch.matmul", "all_gather_matmul_ms",
+             "all_gather + matmul"),
+            ("ring_rs", "one torch.matmul", "matmul_reduce_scatter_ms",
+             "matmul + reduce_scatter"),
+            ("pipeline", "the stages in turn", "sequential_ms",
+             "the stages in turn")):
+        r = out[name]
+        hops = {k: v for k, v in r["collectives"]["count_by_kind"].items()
+                if v}
+        log(f"  {name}: max |err| {r['max_abs_err']:.3e} vs {ref} (tol "
+            f"{PAR_TOL:g}); {r['ms']:.4f} ms vs {what} {r[plain]:.4f} ms "
+            f"[{gpu}]; collectives {hops}")
+        assert r["max_abs_err"] <= PAR_TOL, (name, r["max_abs_err"])
+        assert r["collectives"]["count_by_kind"]["all-gather"] == 0
+    log(f"  shapes: x [{sh['M']}, {sh['K']}], w [{sh['K']}, {sh['N']}] f32 "
+        f"(f32 bound of x @ w {out['ring_ag']['f32_bound_ms']:.3f} ms at "
+        f"{NONTENSOR_OPS_S / 1e12:g} TFLOP/s); pipeline d {sh['D']}, "
+        f"{sh['N_MB']} microbatches of {sh['MB']}, {out['pipeline']['slots']} "
+        "slots")
+    out["dry_run"] = phase_dry_run(dry_run_args)
+    return out
+
+
+def phase_dry_run(dry_run_args) -> dict:
+    """The port's dry run (a subprocess, as a user runs it) over every cell
+    and both production meshes; prints each cell's per-device argument
+    bytes against the card's memory and holds every cell ``ok``."""
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *dry_run_args,
+         "--out", out_dir],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        timeout=900, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"the dry run exited {proc.returncode}")
+    cells, skipped = {}, 0
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            res = json.load(f)
+        assert res["ok"], (name, res.get("error"))
+        if "skipped" in res:
+            skipped += 1
+            continue
+        mem = res["memory_analysis"]
+        arg, port = mem["argument_size_in_bytes"], mem[
+            "port_argument_size_in_bytes"]
+        cells[f"{res['arch']} {res['shape']} {res['mesh']}"] = arg
+        log(f"  dry run {res['arch']} {res['shape']} {res['mesh']}: "
+            f"{arg / 1e9:.3f} GB a device ({100 * arg / CARD_GB:.1f}% of "
+            f"{CARD_GB / 1e9:g} GB; the port's own leaves {port / 1e9:.3f} "
+            f"GB), roofline bound by {res['analytic']['bottleneck']}")
+    log(f"  dry run: {len(cells)} cells ok, {skipped} skipped by design, in "
+        f"{secs:.1f} s (no JAX imported)")
+    return dict(cells=len(cells), skipped=skipped, seconds=secs,
+                max_gb=max(cells.values()) / 1e9)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
-                                       "serve-families", "train"),
+                                       "serve-families", "train",
+                                       "parallel"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
                          "serve-families (kernels 1-2 built, the dense-"
                          "forward families); train (kernels 1, 4 and 3 "
                          "built, the training stack (a)-(g), one JSON "
-                         "line)")
+                         "line); parallel (no kernel built: the rings, "
+                         "the pipeline and the dry run, one JSON line)")
     args = ap.parse_args()
 
     import torch
@@ -4985,6 +5194,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     _fresh_autotune_cache()
     log(gpu_line())
+    if args.only == "parallel":
+        phase("parallel layer: rings, pipeline, dry run")
+        log(json.dumps({"parallel": phase_parallel()}))
+        return 0
     t0 = time.perf_counter()
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
                "train": TRAIN_SOURCES}.get(args.only, SOURCES)
@@ -5085,6 +5298,8 @@ def main() -> int:
         phase_dense_reference()
         phase("paper path (ResNet-18 compile-and-execute)")
         counts.update(phase_paper_path(rcfg, rparams, plans))
+        phase("parallel layer: rings, pipeline, dry run")
+        phase_parallel()
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

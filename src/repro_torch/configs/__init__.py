@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (ArchConfig, QuantConfig, get_config,
+from repro_torch.configs.base import (SHAPES, ArchConfig, QuantConfig,
+                                     ShapeConfig, get_config, list_archs,
                                      smoke_config)
 
-__all__ = ["ArchConfig", "QuantConfig", "get_config", "smoke_config"]
+__all__ = ["ArchConfig", "QuantConfig", "SHAPES", "ShapeConfig",
+           "get_config", "list_archs", "smoke_config"]

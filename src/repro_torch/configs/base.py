@@ -1,5 +1,7 @@
-"""Architecture configuration: the subset of ``repro.configs.base`` that
-the serve and train paths read.  ``QuantConfig`` lives in
+"""Architecture and shape configuration (port of ``repro.configs.base``):
+the fields the serve, train and parallel paths read, the four assigned
+LM shapes (``SHAPES``) of the dry run, and the analytic parameter counts
+of ``launch/analytic.py``.  ``QuantConfig`` lives in
 ``repro_torch.core.quant.quantizers``, as in the reference."""
 
 from __future__ import annotations
@@ -9,6 +11,23 @@ import importlib
 from typing import Optional, Tuple
 
 from repro_torch.core.quant.quantizers import QuantConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode' | 'long-decode'
+
+
+# The four assigned LM shapes (the reference's, for the dry run).
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "long-decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,10 +129,92 @@ class ArchConfig:
                                  # the backward: torch.utils.checkpoint)
     opt_state_dtype: str = "f32"  # AdamW moments: f32 | bf16 | int8
     train_accum: int = 1         # gradient-accumulation microbatches
+    # --- parallelism (parallel/sharding.py, launch/dryrun.py) ---
+    fsdp: bool = False           # shard params over ('pod', 'data') too
+    pure_fsdp: bool = False      # no TP: params over ('data', 'model'),
+                                 # the batch data-parallel over the same
+    # --- capability flags ---
+    supports_long: bool = False  # sub-quadratic path for long_500k
 
     @property
     def kv_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the 6ND model FLOPs), the
+        reference's formula."""
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        hd = self.kv_head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":  # xlstm
+            return emb + L * _xlstm_layer_params(self)
+        att = _attn_params(self)
+        if self.n_experts:
+            moe_ff = 3 * d * self.d_expert * (self.n_experts + self.n_shared)
+            router = d * self.n_experts
+            dense_ff = 3 * d * (self.d_ff or self.d_expert)
+            n_moe = L - self.moe_layer_start
+            ff = self.moe_layer_start * dense_ff + n_moe * (moe_ff + router)
+            return emb + L * att + ff
+        if self.family == "hybrid":
+            n_attn = sum(1 for b in self.block_pattern if b == "attn")
+            pat_len = max(len(self.block_pattern), 1)
+            n_attn_layers = L * n_attn // pat_len
+            n_rec = L - n_attn_layers
+            rec = _rglru_layer_params(self)
+            return (emb + n_attn_layers * att + n_rec * rec
+                    + L * 3 * d * self.d_ff)
+        ff = 3 * d * self.d_ff if self.act == "swiglu" else 2 * d * self.d_ff
+        enc = self.n_enc_layers * (att + ff + 2 * d * hd * self.n_heads)
+        return emb + L * (att + ff) + enc
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        att = _attn_params(self)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        act_ff = 3 * d * self.d_expert * (self.top_k + self.n_shared)
+        dense_ff = 3 * d * (self.d_ff or self.d_expert)
+        n_moe = L - self.moe_layer_start
+        ff = (self.moe_layer_start * dense_ff
+              + n_moe * (act_ff + d * self.n_experts))
+        return emb + L * att + ff
+
+
+def _attn_params(cfg: ArchConfig) -> int:
+    d, hd = cfg.d_model, cfg.kv_head_dim
+    if cfg.attn_kind == "mla":
+        q = d * cfg.mla_q_lora + cfg.mla_q_lora * cfg.n_heads * (
+            cfg.mla_nope_dim + cfg.mla_rope_dim)
+        kv = d * (cfg.mla_kv_lora + cfg.mla_rope_dim) + cfg.mla_kv_lora * (
+            cfg.n_heads * (cfg.mla_nope_dim + cfg.mla_v_dim))
+        o = cfg.n_heads * cfg.mla_v_dim * d
+        return q + kv + o
+    return d * hd * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * hd * d
+
+
+def _xlstm_layer_params(cfg: ArchConfig) -> int:
+    # mLSTM block: up-proj 2x, q/k/v over the 2d inner width, gates,
+    # down-proj (the reference's count)
+    d = cfg.d_model
+    inner = 2 * d
+    return 2 * d * inner + 3 * inner * inner + 2 * inner + inner * d
+
+
+def _rglru_layer_params(cfg: ArchConfig) -> int:
+    d = cfg.d_model
+    lru = cfg.lru_dim or d
+    return 2 * d * lru + lru * cfg.conv_width + 2 * lru + lru * d
+
+
+# The reference's registry order (``repro.configs.base._REGISTRY``)
+_REGISTRY = [
+    "xlstm_350m", "codeqwen15_7b", "minicpm_2b", "mistral_large_123b",
+    "command_r_35b", "recurrentgemma_2b", "kimi_k2_1t", "deepseek_v3_671b",
+    "seamless_m4t_medium", "internvl2_76b", "resnet18",
+]
 
 
 _ALIASES = {
@@ -128,6 +229,10 @@ _ALIASES = {
     "xlstm-350m": "xlstm_350m",
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
+
+
+def list_archs():
+    return list(_REGISTRY)
 
 
 def _module(name: str):

@@ -17,8 +17,10 @@ CONFIG = ArchConfig(
     d_ff=13440,
     vocab=92416,
     qkv_bias=True,
+    fsdp=True,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv=4, d_ff=128, vocab=256,
+    CONFIG, fsdp=False,
+    n_layers=2, d_model=64, n_heads=4, n_kv=4, d_ff=128, vocab=256,
 )

@@ -18,8 +18,11 @@ CONFIG = ArchConfig(
     d_ff=5760,
     vocab=122753,
     tie_embeddings=True,
+    fsdp=True,
+    pure_fsdp=True,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, n_layers=2, d_model=72, n_heads=4, n_kv=4, d_ff=160, vocab=257,
+    CONFIG, fsdp=False, pure_fsdp=False,
+    n_layers=2, d_model=72, n_heads=4, n_kv=4, d_ff=160, vocab=257,
 )

@@ -19,10 +19,11 @@ CONFIG = ArchConfig(
     d_ff=28672,
     vocab=32768,
     train_accum=8,
+    fsdp=True,
 )
 
 SMOKE = dataclasses.replace(
-    CONFIG, train_accum=1,
+    CONFIG, fsdp=False, train_accum=1,
     n_layers=2, d_model=128, n_heads=8, n_kv=2, head_dim=16,
     d_ff=256, vocab=256,
 )

@@ -25,6 +25,7 @@ CONFIG = ArchConfig(
     local_window=2048,
     lru_dim=2560,
     train_accum=4,
+    supports_long=True,
 )
 
 SMOKE = dataclasses.replace(

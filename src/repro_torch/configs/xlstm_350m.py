@@ -21,6 +21,7 @@ CONFIG = ArchConfig(
     vocab=50304,
     attn_kind="none",
     train_accum=8,
+    supports_long=True,
 )
 
 SMOKE = dataclasses.replace(

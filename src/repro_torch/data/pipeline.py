@@ -8,9 +8,8 @@ are bit-equal to the reference's).
 - Sharded generation: each data-parallel shard makes only its slice.
 - Token streams are Zipf-ish (more realistic logits and loss than
   uniform).
-
-The reference's ``batch_specs`` (abstract shapes for its dry run) waits
-for the parallel/launch slice.
+- ``batch_specs``: the abstract global batch of the dry run (meta
+  tensors with the reference's shapes and dtypes).
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -56,3 +56,24 @@ class SyntheticLMData:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def batch_specs(cfg, shape) -> dict:
+    """Meta-tensor stand-ins for a global batch (the dry run's; the
+    reference's ``jax.ShapeDtypeStruct``s): an audio model splits the
+    sequence in half between target tokens and frames ``[B, S/2, 1024]``,
+    a model with a frontend prepends ``frontend_len`` patch embeddings
+    ``[B, F, 1152]``."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda *s, dtype: torch.empty(s, dtype=dtype, device="meta")
+    out = {}
+    if cfg.family == "audio":
+        S_tok = S // 2
+        out["tokens"] = meta(B, S_tok, dtype=torch.int32)
+        out["frames"] = meta(B, S - S_tok, 1024, dtype=torch.float32)
+    elif cfg.frontend != "none":
+        out["tokens"] = meta(B, S - cfg.frontend_len, dtype=torch.int32)
+        out["front"] = meta(B, cfg.frontend_len, 1152, dtype=torch.float32)
+    else:
+        out["tokens"] = meta(B, S, dtype=torch.int32)
+    return out

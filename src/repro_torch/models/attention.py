@@ -45,7 +45,7 @@ def init_gqa(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
         "wq": lin(gen, d, H * hd, cfg, use_bias=cfg.qkv_bias, device=device),
         "wk": lin(gen, d, KV * hd, cfg, use_bias=cfg.qkv_bias, device=device),
         "wv": lin(gen, d, KV * hd, cfg, use_bias=cfg.qkv_bias, device=device),
-        "wo": lin(gen, H * hd, d, cfg, device=device),
+        "wo": lin(gen, H * hd, d, cfg, device=device, shard=("model", None)),
     }
 
 
@@ -343,13 +343,14 @@ def init_mla(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     lin = linear_init
     cfg_dense = dataclasses.replace(cfg, serve_impl="dense")
     return {
-        "wq_a": lin(gen, d, ql, cfg, device=device),
+        "wq_a": lin(gen, d, ql, cfg, device=device, shard=(None, None)),
         "q_norm": nn.init_rmsnorm(ql, device),
         "wq_b": lin(gen, ql, H * (nod + rod), cfg, device=device),
-        "wkv_a": lin(gen, d, kvl + rod, cfg, device=device),
+        "wkv_a": lin(gen, d, kvl + rod, cfg, device=device,
+                     shard=(None, None)),
         "kv_norm": nn.init_rmsnorm(kvl, device),
         "wkv_b": lin(gen, kvl, H * (nod + vd), cfg_dense, device=device),
-        "wo": lin(gen, H * vd, d, cfg, device=device),
+        "wo": lin(gen, H * vd, d, cfg, device=device, shard=("model", None)),
     }
 
 

@@ -48,6 +48,12 @@ loop over layers replaces the scans.  Differences from JAX, on purpose:
 - the ``jax.named_scope`` labels of the forwards are
   ``torch.profiler.record_function`` ranges (host ranges: inside a
   captured graph they are recorded at capture, not at replay).
+
+Every param leaf carries the reference's partition spec from the line
+that makes it (``param_axes`` reads them; ``cache_axes_tree`` gives the
+caches'), and the reference's eight ``shard_hint`` sites are kept: no-ops
+without a mesh or under a 1x1 mesh, refusals under a larger one (the
+model does not run sharded yet).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ import torch.utils.checkpoint
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, nn, rglru, xlstm
+from repro_torch.parallel.sharding import P, shard_hint, spec_tree, with_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +142,7 @@ def init_ffn(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     p = {"wi": linear_init(gen, d, f, cfg, device=device)}
     if cfg.act == "swiglu":
         p["wg"] = linear_init(gen, d, f, cfg, device=device)
-    p["wo"] = linear_init(gen, f, d, cfg, device=device)
+    p["wo"] = linear_init(gen, f, d, cfg, device=device, shard=("model", None))
     return p
 
 
@@ -398,7 +405,8 @@ def init_front(gen, cfg, device="cuda") -> dict:
     projects a batch's ``front`` with it); an enc-dec model's encoder
     runs it (``nn.linear_apply``) on the frames."""
     d_front = 1024 if cfg.frontend == "frames" else 1152
-    return nn.init_linear(gen, d_front, cfg.d_model, cfg, device=device)
+    return nn.init_linear(gen, d_front, cfg.d_model, cfg, device=device,
+                          shard=(None, None))
 
 
 def _fill(dst, src, i: int) -> None:
@@ -410,8 +418,12 @@ def _fill(dst, src, i: int) -> None:
 
 
 def _empty_stack(tree, n: int):
+    """Leaves ``[n, *leaf.shape]``, each spec gaining a leading None (the
+    stacked layer axis is never sharded)."""
     return {k: _empty_stack(v, n) if isinstance(v, dict)
-            else torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+            else with_spec(torch.empty((n, *v.shape), dtype=v.dtype,
+                                       device=v.device),
+                           P(None, *spec_tree(v)))
             for k, v in tree.items()}
 
 
@@ -420,9 +432,11 @@ def init_segment(gen, seg: Segment, cfg, device="cuda",
     """One segment's params stacked ``[seg.n, ...]``: every leaf is
     allocated once and filled layer by layer, each layer drawn from
     ``gen`` in order and freed once copied, so the peak is the stacked
-    params plus one layer."""
+    params plus one layer.  On the meta device one layer gives the
+    stack's shapes and specs."""
     out = None
-    for i in range(seg.n):
+    meta = torch.device(device).type == "meta"
+    for i in range(1 if meta else seg.n):
         layer = {f"b{bi}": init_block(gen, kind, cfg, device, linear_init)
                  for bi, kind in enumerate(seg.pattern)}
         if out is None:
@@ -445,6 +459,15 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
       same ``front``, ``encoder`` and ``enc_norm`` leaves.
 
     Returns a ``ParamTree`` (trainable float leaves for ``'train'``)."""
+    return nn.ParamTree(init_tree(cfg, gen, purpose, device),
+                        trainable=purpose == "train")
+
+
+def init_tree(cfg, gen: torch.Generator, purpose: str = "serve",
+              device="cuda") -> dict:
+    """``init_lm``'s nested dict of tensors, each leaf tagged with its
+    partition spec (on ``device="meta"``: the abstract params of the dry
+    run, nothing allocated)."""
     if purpose not in ("serve", "train"):
         raise ValueError(f"purpose {purpose!r} not in serve | train")
     train = purpose == "train"
@@ -464,7 +487,13 @@ def init_lm(cfg, gen: torch.Generator, purpose: str = "serve",
         p["enc_norm"] = nn.init_rmsnorm(cfg.d_model, device)
     p["segments"] = [init_segment(gen, seg, cfg, device, linear_init)
                      for seg in segments_for(cfg)]
-    return nn.ParamTree(p, trainable=train)
+    return p
+
+
+def param_axes(cfg, purpose: str = "serve"):
+    """The partition spec of every param leaf, in ``init_lm``'s tree (the
+    reference's ``init_lm(...)[1]``), read from a meta init."""
+    return spec_tree(init_tree(cfg, torch.Generator(), purpose, "meta"))
 
 
 def _encoder_segment(cfg) -> Segment:
@@ -541,6 +570,60 @@ def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
             for seg in segments_for(cfg)]
 
 
+def cache_axes(kind: str, cfg, paged=None):
+    """Partition specs of one block's cache (the reference's).  KV heads
+    shard on 'model' when they divide the axis (16); otherwise the cache's
+    sequence dim does (the decode attention's reduction then runs over S
+    shards).  Paged pools shard the same way: KV heads when they divide,
+    else the page dim; scale sidecars shard with their codes."""
+    b = ("pod", "data")
+    if paged is not None:
+        if cfg.n_kv % nn.MODEL_AXIS == 0:
+            s, s3 = P(None, None, "model", None), P(None, None, "model")
+        else:
+            s, s3 = P("model", None, None, None), P("model", None, None)
+        out = {"k": s, "v": s}
+        if paged_kernels.qspec_for(cfg).quantised:
+            out["ks"] = out["vs"] = s3
+        return out
+    if kind in ("attn", "attn_moe") and cfg.attn_kind == "mla":
+        return {"ckv": P(b, "model", None), "kr": P(b, "model", None)}
+    if kind in ("attn", "attn_moe", "attn_local", "dec_cross"):
+        if cfg.n_kv % nn.MODEL_AXIS == 0:
+            s = P(b, None, "model", None)
+        else:
+            s = P(b, "model", None, None)
+        out = {"k": s, "v": s}
+        if kind == "dec_cross":
+            out["xk"] = out["xv"] = s
+        return out
+    if kind == "mlstm":
+        h_ok = cfg.n_heads % nn.MODEL_AXIS == 0
+        return {
+            "C": P(b, "model", None, None) if h_ok else P(b, None, "model",
+                                                          None),
+            "n": P(b, "model", None) if h_ok else P(b, None, "model"),
+            "m": P(b, "model") if h_ok else P(b, None),
+            "conv": P(b, None, "model"),
+        }
+    if kind == "slstm":
+        z = P(b, "model")
+        return {"c": z, "n": z, "h": z, "m": z}
+    if kind == "rglru":
+        return {"h": P(b, "model"), "conv": P(b, None, "model")}
+    raise ValueError(f"block kind {kind!r} has no cache")
+
+
+def cache_axes_tree(cfg, paged=None):
+    """The specs of ``init_caches``' tree (the reference's
+    ``init_caches(...)[1]``): each block's ``cache_axes`` under a leading
+    None for the stacked layer axis."""
+    return [{f"b{bi}": {k: P(None, *s)
+                        for k, s in cache_axes(kind, cfg, paged).items()}
+             for bi, kind in enumerate(seg.pattern)}
+            for seg in segments_for(cfg)]
+
+
 def _run_layers(params, caches, x, cfg, decode: bool, paged_ctx=None,
                 pos=None, enc_out=None, stack: str = "segments"):
     apply_fn = nn.serve_linear_apply
@@ -607,6 +690,11 @@ def _segment_scan(seg: Segment, params_stacked, x, cfg, apply_fn,
             xx, _, al, last = apply_block(kind, layer[f"b{bi}"], xx, cfg,
                                           apply_fn, enc_out=enc, x32=x32)
             aux = aux + al
+        # sequence parallelism at the layer boundary (Megatron-SP)
+        if cfg.pure_fsdp:
+            xx = shard_hint(xx, P(("data", "model"), None, None))
+        else:
+            xx = shard_hint(xx, P(("pod", "data"), "model", None))
         return xx, aux
 
     aux_total = 0.0
@@ -665,6 +753,7 @@ def forward(params, batch, cfg):
     if front:
         fx = nn.linear_apply(p["front"], batch["front"], cfg)
         x = torch.cat([fx.to(x.dtype), x], dim=1)
+    x = shard_hint(x, P(("pod", "data"), None, None))
     aux_total = 0.0
     for seg, sp in zip(segments_for(cfg), p["segments"]):
         x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat,
@@ -674,6 +763,7 @@ def forward(params, batch, cfg):
     if front:
         x = x[:, -tokens.shape[1]:]
     logits = nn.logits_apply(p.get("head", p["embed"]), x, vocab=cfg.vocab)
+    logits = shard_hint(logits, P(("pod", "data"), None, "model"))
     loss = next_token_loss(logits, tokens)
     return loss + 0.01 * aux_total, logits[..., : cfg.vocab]
 
@@ -725,6 +815,7 @@ def decode_step(params, caches, tokens, pos: int, cfg):
     ``(logits [B, vocab], caches)``."""
     with torch.profiler.record_function("repro_torch.lm.decode_step"):
         x = nn.embed_apply(params.embed.tree(), tokens)
+        x = shard_hint(x, P(("pod", "data"), None, None))
         x = _run_layers(params, caches, x, cfg, decode=True, pos=pos)
         logits = _logits(params, x, cfg)
     return logits[:, 0, : cfg.vocab], caches
@@ -740,6 +831,7 @@ def prefill_chunk(params, caches, tokens, start, block_table_row, cfg,
     the logits of chunk row ``last`` only, picked on the device."""
     with torch.profiler.record_function("repro_torch.lm.prefill_chunk"):
         x = nn.embed_apply(params.embed.tree(), tokens)
+        x = shard_hint(x, P(("pod", "data"), None, None))
         ctx = {"block_table": block_table_row, "start": start}
         x = _run_layers(params, caches, x, cfg, decode=False, paged_ctx=ctx)
         last = torch.as_tensor(last, device=x.device)
@@ -793,6 +885,7 @@ def decode_step_paged(params, caches, tokens, positions, block_table, cfg):
     reader follows ``cfg.serve_paged_attn_impl``."""
     with torch.profiler.record_function("repro_torch.lm.decode_step_paged"):
         x = nn.embed_apply(params.embed.tree(), tokens)
+        x = shard_hint(x, P(("pod", "data"), None, None))
         ctx = {"block_table": block_table, "positions": positions,
                "impl": cfg.serve_paged_attn_impl}
         x = _run_layers(params, caches, x, cfg, decode=True, paged_ctx=ctx)
@@ -814,6 +907,7 @@ def verify_step_paged(params, caches, tokens, positions, n_writes,
     choice: it always runs the gather + masked softmax."""
     with torch.profiler.record_function("repro_torch.lm.verify_step_paged"):
         x = nn.embed_apply(params.embed.tree(), tokens)
+        x = shard_hint(x, P(("pod", "data"), None, None))
         ctx = {"block_table": block_table, "positions": positions,
                "n_writes": n_writes}
         x = _run_layers(params, caches, x, cfg, decode=True, paged_ctx=ctx)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import nn
+from repro_torch.parallel.sharding import P, with_spec
 
 MAX_GROUP_TOKENS = 4096
 
@@ -45,7 +46,7 @@ def init_moe(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     lin = linear_init
     w = torch.randn((d, E), generator=gen, dtype=torch.float32,
                     device=device).mul_(0.02)
-    p = {"router": {"w": w},
+    p = {"router": {"w": with_spec(w, P(None, None))},
          "wi": lin(gen, d, F, cfg, device=device, expert=E),
          "wg": lin(gen, d, F, cfg, device=device, expert=E),
          "wo": lin(gen, F, d, cfg, device=device, expert=E)}
@@ -53,7 +54,8 @@ def init_moe(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
         Fs = F * cfg.n_shared
         p["shared_wi"] = lin(gen, d, Fs, cfg, device=device)
         p["shared_wg"] = lin(gen, d, Fs, cfg, device=device)
-        p["shared_wo"] = lin(gen, Fs, d, cfg, device=device)
+        p["shared_wo"] = lin(gen, Fs, d, cfg, device=device,
+                             shard=("model", None))
     return p
 
 

@@ -6,7 +6,13 @@ embeddings, rotary, activations.
 Parameters travel as nested dicts of tensors, like the JAX pytrees;
 ``ParamTree`` holds such a tree as an ``nn.Module`` (float leaves are
 ``Parameter``s, frozen for serving and trainable for training; integer
-plan arrays are buffers)."""
+plan arrays are buffers).
+
+Every ``init_*`` tags each leaf it makes with the reference's partition
+spec (``parallel.sharding.with_spec``): the production mesh's axes
+``('pod', 'data', 'model')``, FSDP configs also sharding a reduction dim
+over ``('pod', 'data')`` (``_fsdp_spec``).  ``models.lm.param_axes``
+reads the tags."""
 
 from __future__ import annotations
 
@@ -25,9 +31,10 @@ from repro_torch.core.tlmac.compile import plan_shapes
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.int8_experts import int8_experts_matmul
 from repro_torch.kernels.tlmac_fused import narrow_table
+from repro_torch.parallel.sharding import P, with_spec
 
 COMPUTE_DTYPE = torch.bfloat16
-MODEL_AXIS = 16  # the JAX package's 'model' mesh axis; fixes dp choices
+MODEL_AXIS = 16  # 'model' axis size in both production meshes; fixes dp
 
 
 class ParamTree(nn.Module):
@@ -113,6 +120,20 @@ def _pick_dp(N: int, want: int) -> int:
     return best or min(want, N)
 
 
+def _fsdp_spec(spec: P, fsdp: bool, shape=None, axes=("pod", "data"),
+               n_shards=32) -> P:
+    """Extend a TP spec with FSDP sharding on the first unsharded dim
+    whose size divides the shard count (shape-aware)."""
+    if not fsdp:
+        return spec
+    parts = list(spec)
+    for i, s in enumerate(parts):
+        if s is None and (shape is None or shape[i] % n_shards == 0):
+            parts[i] = axes
+            return P(*parts)
+    return spec
+
+
 def _bf16_matmul(x, w):
     """``x @ w`` of bf16 operands to bf16: one bf16 ``torch.matmul`` on the
     card (cuBLAS accumulates in f32); on the CPU the f32 product of the
@@ -131,21 +152,37 @@ def _winit(gen, shape, device) -> torch.Tensor:
 
 def init_linear(gen: torch.Generator, K: int, N: int, cfg,
                 use_bias: bool = False, device="cuda",
-                expert: int = 0) -> dict:
+                expert: int = 0, shard=(None, "model")) -> dict:
     """Train-path linear (the reference's ``init_linear``): ``w [K, N]``
     f32 (``[E, K, N]`` with ``expert=E``), a zero bias ``[N]`` (``[E, N]``)
     with ``use_bias``, and under ``linear_impl='qdq'`` the LSQ step
     ``w_step [N]`` (per output channel over every expert) and the N2UQ
-    activation params ``aq``."""
+    activation params ``aq``.  ``shard`` is the TP spec of ``w``: an
+    expert stack shards E on 'model' instead, a ``pure_fsdp`` config
+    shards ``w`` 256 ways over ('data', 'model')."""
     shape = (expert, K, N) if expert else (K, N)
-    p = {"w": _winit(gen, shape, device)}
+    if expert:
+        spec = _fsdp_spec(P("model", None, None), cfg.fsdp, shape)
+    elif cfg.pure_fsdp:
+        spec = _fsdp_spec(P(None, None), True, shape,
+                          axes=("data", "model"), n_shards=256)
+        if spec == P(None, None):       # neither dim divides 256
+            spec = _fsdp_spec(P(None, None), True, shape)
+    else:
+        spec = _fsdp_spec(P(*shard), cfg.fsdp, shape)
+    p = {"w": with_spec(_winit(gen, shape, device), spec)}
     if use_bias:
-        p["b"] = torch.zeros(shape[:-2] + (N,), dtype=torch.float32,
-                             device=device)
+        p["b"] = with_spec(
+            torch.zeros(shape[:-2] + (N,), dtype=torch.float32,
+                        device=device),
+            P("model", shard[-1]) if expert else P(shard[-1]))
     if cfg.linear_impl == "qdq":
-        p["w_step"] = Q.lsq_init(p["w"].reshape(-1, N), cfg.quant.w_bits,
-                                 per_channel=True)
-        p["aq"] = Q.n2uq_act_init(cfg.quant.a_bits, device=device)
+        p["w_step"] = with_spec(
+            Q.lsq_init(p["w"].reshape(-1, N), cfg.quant.w_bits,
+                       per_channel=True), P(shard[-1]))
+        aq = Q.n2uq_act_init(cfg.quant.a_bits, device=device)
+        p["aq"] = {"deltas": with_spec(aq["deltas"], P(None)),
+                   "out_step": with_spec(aq["out_step"], P())}
     return p
 
 
@@ -174,7 +211,7 @@ def linear_apply(params, x, cfg, use_bias: bool = False):
 
 def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
                       use_bias: bool = False, device="cuda",
-                      expert: int = 0) -> dict:
+                      expert: int = 0, shard=(None, "model")) -> dict:
     """Serve-linear params of ``cfg.serve_impl``, drawn from ``gen``
     (which must live on ``device``):
 
@@ -191,32 +228,46 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
     reference's expert-stacked linear).  Each leaf is allocated once in
     its stored dtype and drawn expert by expert, so no draw holds a wider
     copy of it (an int64 draw of one deepseek MoE layer's indices alone
-    would be 22.5 GB)."""
+    would be 22.5 GB); on the meta device nothing is drawn.
+
+    Specs, the reference's: ``shard`` is the TP spec (output dim on
+    'model' by default; ``('model', None)`` for a row-parallel linear),
+    an expert stack shards E on 'model'.  A tlmac linear shards its
+    output tiles on 'model' where they divide the axis, else its
+    reduction groups, and an FSDP config its groups over ('pod', 'data')
+    too; the tables are replicated (``table_narrow``, the port's own
+    leaf, as ``table``)."""
     impl = cfg.serve_impl
-    kw = dict(generator=gen, device=device)
     e = (expert,) if expert else ()
+    espec = ("model",) if expert else ()
+    meta = torch.device(device).type == "meta"
 
     def draw(shape, dtype, fill):
         """A leaf ``[*e, *shape]`` of ``dtype``, each expert's slice
         filled by ``fill(slice)`` in turn."""
         out = torch.empty((*e, *shape), dtype=dtype, device=device)
-        for part in (out.unbind(0) if expert else (out,)):
+        for part in (() if meta else out.unbind(0) if expert else (out,)):
             fill(part)
         return out
 
     ones = lambda *shape: torch.ones((*e, *shape), dtype=torch.float32,
                                      device=device)
+    w_step_spec = P(*espec, None if expert else shard[-1])
+    a_step_spec = P(*espec) if e else P()
     if impl == "dense":     # drawn in bf16: no f32 copy at init
-        p = {"w": draw((K, N), torch.bfloat16,
-                       lambda t: t.normal_(generator=gen).mul_(
-                           1.0 / math.sqrt(K)))}
+        p = {"w": with_spec(
+            draw((K, N), torch.bfloat16,
+                 lambda t: t.normal_(generator=gen).mul_(1.0 / math.sqrt(K))),
+            P("model", *shard[:-1], None) if expert else P(*shard))}
     elif impl == "int8":
         p = {
-            "w8": pad_int8_weight(draw((K, N), torch.int8,
-                                       lambda t: t.random_(-127, 127,
-                                                           generator=gen))),
-            "w_step": ones(N),
-            "a_step": ones(),
+            "w8": with_spec(
+                pad_int8_weight(draw((K, N), torch.int8,
+                                     lambda t: t.random_(-127, 127,
+                                                         generator=gen))),
+                P("model", None, None) if expert else P(*shard)),
+            "w_step": with_spec(ones(N), w_step_spec),
+            "a_step": with_spec(ones(), a_step_spec),
         }
     elif impl == "tlmac":
         G, dp = cfg.tlmac_G, _pick_dp(N, cfg.tlmac_dp)
@@ -224,23 +275,43 @@ def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
                          n_arr_cap=cfg.tlmac_narr_cap, d_p=dp)
         n_tiles, kg = N // dp, K // G
         idx_dtype = torch.uint8 if ps["N_arr"] <= 256 else torch.int16
+        dp_extra = ("pod", "data") if (cfg.fsdp and kg % 32 == 0) else None
+        if expert:
+            idx_spec = P("model", None, dp_extra, None)
+            cl_spec = P("model", None, dp_extra)
+        elif tuple(shard) == (None, None):
+            idx_spec, cl_spec = P(None, None, None), P(None, None)
+        elif n_tiles % MODEL_AXIS == 0:
+            idx_spec, cl_spec = P("model", dp_extra, None), P("model",
+                                                               dp_extra)
+        elif kg % MODEL_AXIS == 0:
+            idx_spec, cl_spec = P(None, "model", None), P(None, "model")
+        else:
+            idx_spec, cl_spec = P(None, None, None), P(None, None)
+        table = draw(ps["table"][0], torch.int32,
+                     lambda t: t.random_(-8, 8, generator=gen))
         p = {
-            "table": draw(ps["table"][0], torch.int32,
-                          lambda t: t.random_(-8, 8, generator=gen)),
-            "exec_idx": draw((n_tiles, kg, dp), idx_dtype,
-                             lambda t: t.random_(0, ps["N_arr"],
-                                                 generator=gen)),
-            "step_cluster": draw((n_tiles, kg), torch.int8,
-                                 lambda t: t.random_(0, ps["N_clus"],
-                                                     generator=gen)),
-            "w_step": ones(N),
-            "a_step": ones(),
+            "table": with_spec(table, P(*espec)),
+            "exec_idx": with_spec(
+                draw((n_tiles, kg, dp), idx_dtype,
+                     lambda t: t.random_(0, ps["N_arr"], generator=gen)),
+                idx_spec),
+            "step_cluster": with_spec(
+                draw((n_tiles, kg), torch.int8,
+                     lambda t: t.random_(0, ps["N_clus"], generator=gen)),
+                cl_spec),
+            "w_step": with_spec(ones(N), w_step_spec),
+            "a_step": with_spec(ones(), a_step_spec),
+            # entries drawn in [-8, 8): int8 rows (unknown on meta)
+            "table_narrow": with_spec(
+                table.to(torch.int8) if meta else narrow_table(table),
+                P(*espec)),
         }
-        p["table_narrow"] = narrow_table(p["table"])
     else:
         raise ValueError(f"serve_impl {impl!r} not in dense | int8 | tlmac")
     if use_bias:
-        p["b"] = torch.zeros((*e, N), dtype=torch.bfloat16, device=device)
+        p["b"] = with_spec(torch.zeros((*e, N), dtype=torch.bfloat16,
+                                       device=device), P(*espec, shard[-1]))
     return p
 
 
@@ -601,16 +672,19 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda",
     (``dtype=torch.float32``), as the reference does."""
     emb = torch.randn((padded_vocab(vocab), d), generator=gen,
                       dtype=dtype, device=device)
-    return {"emb": emb.mul_(0.02)}
+    return {"emb": with_spec(emb.mul_(0.02), P("model", None))}  # vocab-par.
 
 
 def init_rmsnorm(d: int, device="cuda"):
-    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    return {"scale": with_spec(torch.ones(d, dtype=torch.float32,
+                                          device=device), P(None))}
 
 
 def init_layernorm(d: int, device="cuda"):
-    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
-            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+    return {"scale": with_spec(torch.ones(d, dtype=torch.float32,
+                                          device=device), P(None)),
+            "bias": with_spec(torch.zeros(d, dtype=torch.float32,
+                                          device=device), P(None))}
 
 
 def layernorm_apply(params, x, eps: float = 1e-5):

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.quant.quantizers import _softplus
 from repro_torch.models import nn
+from repro_torch.parallel.sharding import P, with_spec
 from repro_torch.models.xlstm import _conv_step, _winit
 
 _C = 8.0
@@ -43,11 +44,15 @@ def init_rglru_block(gen, cfg, device="cuda",
     return {
         "win": lin(gen, d, lru, cfg, device=device),
         "wgate": lin(gen, d, lru, cfg, device=device),
-        "conv": {"w": _winit(gen, (cfg.conv_width, lru), 0.1, device)},
-        "wr": {"w": _winit(gen, (lru, lru), 0.02, device)},
-        "wi": {"w": _winit(gen, (lru, lru), 0.02, device)},
-        "lam": {"l": torch.log(torch.exp(-torch.log(lam) / _C) - 1.0)},
-        "wout": lin(gen, lru, d, cfg, device=device),
+        "conv": {"w": with_spec(_winit(gen, (cfg.conv_width, lru), 0.1,
+                                       device), P(None, "model"))},
+        "wr": {"w": with_spec(_winit(gen, (lru, lru), 0.02, device),
+                              P("model", None))},
+        "wi": {"w": with_spec(_winit(gen, (lru, lru), 0.02, device),
+                              P("model", None))},
+        "lam": {"l": with_spec(
+            torch.log(torch.exp(-torch.log(lam) / _C) - 1.0), P("model"))},
+        "wout": lin(gen, lru, d, cfg, device=device, shard=("model", None)),
     }
 
 

@@ -29,6 +29,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.quant.quantizers import _softplus
 from repro_torch.models import nn
+from repro_torch.parallel.sharding import P, with_spec
 
 
 def _depthwise_causal_conv(x, w):
@@ -103,17 +104,21 @@ def init_mlstm(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     d, H = cfg.d_model, cfg.n_heads
     inner = 2 * d
     lin = linear_init
+    row = ("model", None)           # row-parallel: K on 'model'
     return {
         "up": lin(gen, d, 2 * inner, cfg, device=device),
-        "conv": {"w": _winit(gen, (cfg.conv_width, inner), 0.1, device)},
-        "wq": lin(gen, inner, inner, cfg, device=device),
-        "wk": lin(gen, inner, inner, cfg, device=device),
-        "wv": lin(gen, inner, inner, cfg, device=device),
-        "wi": {"w": _winit(gen, (inner, H), 0.02, device)},
-        "wf": {"w": _winit(gen, (inner, H), 0.02, device),
-               "b": torch.full((H,), 3.0, dtype=torch.float32,
-                               device=device)},
-        "down": lin(gen, inner, d, cfg, device=device),
+        "conv": {"w": with_spec(_winit(gen, (cfg.conv_width, inner), 0.1,
+                                       device), P(None, "model"))},
+        "wq": lin(gen, inner, inner, cfg, device=device, shard=row),
+        "wk": lin(gen, inner, inner, cfg, device=device, shard=row),
+        "wv": lin(gen, inner, inner, cfg, device=device, shard=row),
+        "wi": {"w": with_spec(_winit(gen, (inner, H), 0.02, device),
+                              P("model", None))},
+        "wf": {"w": with_spec(_winit(gen, (inner, H), 0.02, device),
+                              P("model", None)),
+               "b": with_spec(torch.full((H,), 3.0, dtype=torch.float32,
+                                         device=device), P(None))},
+        "down": lin(gen, inner, d, cfg, device=device, shard=row),
     }
 
 
@@ -211,8 +216,10 @@ def init_slstm(gen, cfg, device="cuda", linear_init=nn.init_serve_linear):
     bias[3 * d:] = 3.0
     return {
         "wx": lin(gen, d, 4 * d, cfg, device=device),
-        "r": {"w": _winit(gen, (4, H, hd, hd), 0.05, device)},
-        "bias": {"b": bias},
+        # H is small (4): the recurrences shard over hd instead
+        "r": {"w": with_spec(_winit(gen, (4, H, hd, hd), 0.05, device),
+                             P(None, None, "model", None))},
+        "bias": {"b": with_spec(bias, P(None))},
         "down": lin(gen, d, d, cfg, device=device),
         "up_gate": lin(gen, d, d, cfg, device=device),
     }
