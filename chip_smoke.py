@@ -15,6 +15,9 @@
     python3 chip_smoke.py --only parallel # no kernel built: the parallel
                                           # layer and the dry run (phase
                                           # 11), one JSON line
+    python3 chip_smoke.py --only sharded  # kernel 1 built: the dense
+                                          # serve forwards sharded (phase
+                                          # 12), one JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -233,6 +236,23 @@ Phases, in order; any failure raises and exits non-zero:
     --mesh both``, no JAX on the machine) over every cell and both
     meshes, each cell's per-device argument bytes printed against the
     card's 80 GB.
+12. the dense serve forwards sharded (``phase_sharded``): one NCCL rank
+    spawned per visible card, a (data 1, model world) mesh (world 1 on
+    one card: every collective is still issued, over one-rank groups);
+    codeqwen1.5-7b at full width and depth (32 KV heads: head-sharded
+    caches) and command-r-35b cut to 8 of 40 layers (8 KV heads:
+    sequence-sharded caches, the decode softmax combined over 'model'),
+    seeded TLMAC weights, B 4 x 256-token prompts and 16 greedy decode
+    steps, each through ``lm.prefill``/``lm.decode_step`` unsharded and
+    then under the mesh on this rank's blocks (``local_tree``), held
+    bit-equal (tokens, prefill and last logits, caches), kernel 1's
+    launches counted on the sharded run (7 x layers x 17), the
+    collectives a decode step (kind, count, bytes) and both decode steps'
+    median ms; then kernel 1 at the blocks one rank of a 16-way 'model'
+    axis runs at M 4 (codeqwen1.5-7b's and mistral-large-123b's q/o, k/v,
+    wi/wg and FFN wo: n_tiles / 16 output tiles, the FSDP reduction
+    groups gathered whole), int32-equal to its plain twin and timed
+    beside it, its bound and the one-hot ``_int_mm``.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -240,7 +260,9 @@ main path for kernels 1-2, the paper path for kernels 3-6, the int8
 moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
 rows also carry ``launches_by_path``, each counted on one of the
 families' runs with the counters set to 0 just before it, kernel 1's
-and kernels 3-4's also the trained weights' launches in phase 8); the
+and kernels 3-4's also the trained weights' launches in phase 8 and
+kernel 1's the sharded runs of phase 12, with its 16-way shard-shape
+times under ``shard_shapes``); the
 last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
@@ -1386,12 +1408,13 @@ def _requests(vocab, lens, max_new, seed):
 PROFILED_STEP = 10   # decode step traced with torch.profiler
 
 
-def _profiled(fn, a, kw):
+def _profiled(fn, a, kw, host: int = 0):
     """Run one forward (a graph replay) under torch.profiler and print
     where its device time goes: the two hand kernels, every other kernel,
     and the busy share of the step's wall time.  Where the profiler
     records no kernel, the device time between CUDA events around the
-    replay stands in for the busy time (said so in the line)."""
+    replay stands in for the busy time (said so in the line).  ``host``:
+    also the ``host`` host ops of most self CPU time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1442,6 +1465,14 @@ def _profiled(fn, a, kw):
         f"{span:.2f} ms")
     for v, k in others[:5]:
         log(f"    {v:8.3f} ms  {k[:90]}")
+    if host:
+        ops = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None)
+                      == torch.autograd.DeviceType.CPU), reverse=True)
+        log(f"    host, self CPU ms (calls) of the {host} costliest ops:")
+        for ms, n, k in ops[:host]:
+            log(f"    {ms:8.3f} ms ({n})  {k[:80]}")
     return logits
 
 
@@ -5168,11 +5199,317 @@ def phase_dry_run(dry_run_args) -> dict:
                 max_gb=max(cells.values()) / 1e9)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dense serve forwards sharded under a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+SHARD_B, SHARD_PROMPT, SHARD_STEPS = 4, 256, 16
+# the models served sharded: arch -> layers kept (None: full depth)
+SHARD_CUTS = {"codeqwen1.5-7b": None, "command-r-35b": 8}
+SHARD_WAY = 16        # the production meshes' 'model' axis
+SHARD_M = 4           # rows a decode step of 4 slots gives each linear
+SHARD_ARCHS = ("codeqwen1.5-7b", "mistral-large-123b")   # kernel 1's shapes
+
+
+def _greedy_run(params, tokens, cfg, S_max: int, steps: int, profile=None):
+    """``lm.prefill`` then ``steps`` greedy ``lm.decode_step``s (under the
+    active mesh, if any).  Returns the prefill and last logits, the tokens
+    ``[steps + 1, B]``, the caches, each decode step's ms (CUDA events on
+    the card, the host clock on the CPU) and the last step's collectives.
+    ``profile`` (a label): on the card, step ``PROFILED_STEP`` runs under
+    ``torch.profiler`` (``_profiled``) and is left out of the times."""
+    import torch
+
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.models import lm
+
+    first, caches = lm.prefill(params, tokens, cfg, S_max=S_max)
+    t = lm.greedy(first)
+    toks, ms = [t], []
+    for i in range(steps):
+        if profile and DEV == "cuda" and i == PROFILED_STEP:
+            log(f"  {profile}:")
+            logits, caches = _profiled(lm.decode_step, (
+                params, caches, t[:, None].to(torch.int32),
+                tokens.shape[1] + i, cfg), {}, host=8)
+            t = lm.greedy(logits)
+            toks.append(t)
+            continue
+        with record_collectives() as st:
+            if DEV == "cuda":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+            t0 = time.perf_counter()
+            logits, caches = lm.decode_step(params, caches, t[:, None].to(
+                torch.int32), tokens.shape[1] + i, cfg)
+            t = lm.greedy(logits)
+            if DEV == "cuda":
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            else:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(t)
+    return dict(first=first, last=logits, tokens=torch.stack(toks),
+                caches=caches, step_ms=ms, stats=st)
+
+
+def _vocab_block(whole, local, rows):
+    """The whole logits' block a rank holds: its rows, its vocab block of
+    the padded vocab (padding columns at -1e30, as the rank masks them)."""
+    import torch
+
+    from repro_torch.parallel import collectives as coll
+
+    vl = local.shape[-1]
+    lo = coll.index("model") * vl
+    pad = torch.full((whole.shape[0], lo + vl), -1e30, dtype=whole.dtype,
+                     device=whole.device)
+    pad[:, :min(whole.shape[1], lo + vl)] = whole[:, :lo + vl]
+    return pad[rows[0]:rows[0] + rows[1], lo:lo + vl]
+
+
+def _sharded_model(arch: str, layers, mesh, dev) -> dict:
+    """One model served unsharded, then sharded under ``mesh`` on this
+    rank's blocks (``local_tree`` of the same params), kernel 1's launch
+    counter set to 0 just before the sharded run and read just after;
+    the two held bit-equal: tokens, prefill and last logits (this rank's
+    rows and vocab block), caches (this rank's blocks)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import attention, lm, nn
+    from repro_torch.parallel.sharding import (batch_entry, block_range,
+                                               fix_batch_axes, local_tree)
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm.init_lm(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    S_max = SHARD_PROMPT + SHARD_STEPS
+    plain = _greedy_run(params, tokens, cfg, S_max, SHARD_STEPS,
+                        profile=f"{arch} unsharded" if layers is None
+                        else None)
+    local = nn.ParamTree(local_tree(params.tree(), lm.param_axes(cfg), mesh))
+    rows = block_range(SHARD_B, batch_entry(SHARD_B, mesh), mesh)
+    with mesh_context(mesh):
+        tf.launches = 0
+        sh = _greedy_run(local, tokens[rows[0]:rows[0] + rows[1]], cfg,
+                         S_max, SHARD_STEPS, profile=f"{arch} sharded"
+                         if layers is None else None)
+        launches = tf.launches
+        first = _vocab_block(plain["first"], sh["first"], rows)
+        last = _vocab_block(plain["last"], sh["last"], rows)
+    want = 7 * cfg.n_layers * (1 + SHARD_STEPS)
+    assert launches == want or DEV != "cuda", (arch, launches, want)
+    caches = local_tree(plain["caches"], fix_batch_axes(
+        lm.cache_axes_tree(cfg), SHARD_B, mesh), mesh)
+    same = dict(
+        tokens=torch.equal(sh["tokens"], plain["tokens"][
+            :, rows[0]:rows[0] + rows[1]]),
+        prefill_logits=torch.equal(sh["first"], first),
+        last_logits=torch.equal(sh["last"], last),
+        caches=all(torch.equal(a[b][k], c[b][k]) for a, c in zip(
+            sh["caches"], caches) for b in a for k in a[b]))
+    st = sh["stats"]
+    return dict(
+        layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+        cache="KV heads on 'model'" if attention.kv_heads_sharded(cfg)
+        else "sequence on 'model'", equal=same, launches=launches,
+        step_ms=_median(sh["step_ms"]), plain_step_ms=_median(
+            plain["step_ms"]),
+        collectives={k: [st.count_by_kind[k], st.bytes_by_kind[k]]
+                     for k in st.count_by_kind if st.count_by_kind[k]},
+        param_collectives=[st.param_count, st.param_bytes])
+
+
+def _shard_gemms(dev, B_a=3) -> dict:
+    """Kernel 1 at one rank's blocks of the 16-way 'model' axis (output
+    tiles n_tiles / 16; FSDP reduction groups gathered, so kg whole), M 4:
+    int32-equal to its plain twin, timed by graph replay over rotated plan
+    copies beside the twin, the bound and the one-hot ``_int_mm``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.models import nn
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for arch in SHARD_ARCHS:
+        cfg = get_config(arch)
+        d, f, hd = cfg.d_model, cfg.d_ff, cfg.kv_head_dim
+        G = cfg.tlmac_G
+        shapes = {"q/o": (d, cfg.n_heads * hd), "k/v": (d, cfg.n_kv * hd),
+                  "wi/wg": (d, f), "ffn wo": (f, d)}
+        for what, (K, N) in shapes.items():
+            p = nn.init_serve_linear(gen, K, N, cfg, device=dev)
+            nt, kg, dp = p["exec_idx"].shape
+            assert nt % SHARD_WAY == 0, (arch, what, nt)
+            ntl = nt // SHARD_WAY
+            reps = rotation(ntl * kg * dp * p["exec_idx"].element_size())
+            plans = [(p["exec_idx"][i * ntl:(i + 1) * ntl].contiguous(),
+                      p["step_cluster"][i * ntl:(i + 1) * ntl].contiguous())
+                     for i in range(reps)]
+            tab = p["table_narrow"]
+            aq = torch.randint(0, 2**B_a, (SHARD_M, K), dtype=torch.int8,
+                               generator=gen, device=dev)
+            idx, cl = plans[0]
+            got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+            want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G)
+            _equal(f"lookup GEMM {arch} {what} shard", got, want)
+            it = iter(range(1 << 30))
+
+            def run_kernel():
+                i, c = plans[next(it) % reps]
+                tf.tlmac_gemm_fused(aq, i, c, tab, B_a=B_a, G=G)
+
+            ms = graph_ms(run_kernel)
+            plain_ms = cuda_ms(lambda: tf.tlmac_gemm_fused_plain(
+                aq, idx, cl, tab, B_a=B_a, G=G), iters=3, warmup=1)
+            nbytes = (aq.numel() + idx.numel() * idx.element_size()
+                      + cl.numel() + tab.numel() + SHARD_M * ntl * dp * 4)
+            b = _gemm_bound(SHARD_M, kg, ntl * dp, G, nbytes)
+            lib = _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G)
+            _equal(f"lookup GEMM {arch} {what} shard one-hot _int_mm",
+                   lib(), got)
+            lib_ms = graph_ms(lib)
+            key = f"{arch} {what} {K}->{N}"
+            out[key] = dict(tiles=f"{ntl} of {nt} (dp {dp})", kg=kg,
+                            ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                            bound_by=_bound_by(b), library_ms=lib_ms)
+            log(f"  kernel 1 {key}, one rank of 16: {ntl} of {nt} tiles "
+                f"(dp {dp}), kg {kg}, M {SHARD_M}: equal int32; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({_bound_by(b)}), one-hot _int_mm "
+                f"{lib_ms:.4f} ms")
+            del p, plans, lib
+    return out
+
+
+def _gather_rate(mesh, dev) -> dict:
+    """One FSDP plan gather as the sharded path issues it: codeqwen1.5-7b's
+    ``ffn.wi`` plan (``exec_idx [112, 1024, 120]`` int16, 27.5 MB) over
+    ('pod', 'data') along kg, the NCCL call alone on the same bytes, and a
+    device copy of them (``clone``); ms and GB/s (the bytes over the time:
+    at world 1 each is one copy of the plan)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group, mesh_context
+    from repro_torch.parallel import collectives as coll
+
+    t = torch.randint(0, 4096, (112, 1024, 120), dtype=torch.int16,
+                      generator=torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    nbytes = t.numel() * t.element_size()
+    src = t.view(torch.uint8)
+    buf = torch.empty((dist.get_world_size(axis_group(
+        mesh, ("pod", "data"))) * src.shape[0], *src.shape[1:]),
+        dtype=torch.uint8, device=dev)
+    with mesh_context(mesh):
+        out = dict(
+            gather_ms=cuda_ms(lambda: coll.all_gather(
+                t, ("pod", "data"), dim=1, param=True), iters=10),
+            nccl_ms=cuda_ms(lambda: dist.all_gather_into_tensor(
+                buf, src, group=axis_group(mesh, ("pod", "data"))),
+                iters=10),
+            clone_ms=cuda_ms(lambda: t.clone(), iters=10))
+    out.update({k.replace("_ms", "_GBs"): nbytes / v / 1e6
+                for k, v in list(out.items())}, bytes=nbytes)
+    return out
+
+
+def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
+                  cuts: dict) -> None:
+    """One rank of the sharded phase: every model of ``cuts`` unsharded and
+    sharded under a (1, world) mesh, then (rank 0) kernel 1 at the 16-way
+    shard shapes; rank 0 writes the figures to ``tmp/rank0.json``."""
+    global DEV
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    DEV = dev_type
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+        out = {"world": world, "mesh": [1, world], "models": {}}
+        for arch, layers in cuts.items():
+            out["models"][arch] = _sharded_model(arch, layers, mesh, dev)
+            gc.collect()
+            if dev_type == "cuda":
+                torch.cuda.empty_cache()
+        if dev_type == "cuda":
+            out["fsdp_gather"] = _gather_rate(mesh, dev)
+        if rank == 0 and dev_type == "cuda":
+            out["shard_gemms"] = _shard_gemms(dev)
+        if rank == 0:
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(world: int = 0, cuts: dict = SHARD_CUTS) -> dict:
+    """Phase 12: the dense serve forwards sharded under a (1, world) mesh,
+    one NCCL rank per visible card (world 1 on one card: every collective
+    is issued over its one-rank group).  Returns rank 0's figures."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_sharded_rank, args=(world, tmp, DEV, cuts),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            out = json.load(f)
+    for arch, r in out["models"].items():
+        depth = ("full depth" if r["layers"] == r["of_layers"] else
+                 f"{r['layers']} of {r['of_layers']} layers")
+        log(f"  {arch} ({depth}, full width; caches: {r['cache']}), B "
+            f"{SHARD_B} x {SHARD_PROMPT} + {SHARD_STEPS} greedy steps: "
+            f"sharded vs unsharded {r['equal']}; kernel 1 launches "
+            f"{r['launches']} (7 x {r['layers']} x {1 + SHARD_STEPS})")
+        log(f"    a decode step: sharded {r['step_ms']:.3f} ms, unsharded "
+            f"{r['plain_step_ms']:.3f} ms [{gpu}]; collectives a step "
+            f"(kind: count, bytes) {r['collectives']}, of them parameter "
+            f"gathers {r['param_collectives']}")
+        assert all(r["equal"].values()), (arch, r["equal"])
+    g = out.get("fsdp_gather")
+    if g:
+        log(f"  one FSDP plan gather (codeqwen1.5-7b ffn.wi exec_idx, "
+            f"{g['bytes'] / 1e6:.1f} MB, over ('pod', 'data') of size "
+            f"1): {g['gather_ms']:.3f} ms "
+            f"({g['gather_GBs']:.1f} GB/s); the NCCL call alone "
+            f"{g['nccl_ms']:.3f} ms ({g['nccl_GBs']:.1f} GB/s); a device "
+            f"copy {g['clone_ms']:.3f} ms ({g['clone_GBs']:.1f} GB/s) [{gpu}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
                                        "serve-families", "train",
-                                       "parallel"),
+                                       "parallel", "sharded"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -5180,7 +5517,10 @@ def main() -> int:
                          "forward families); train (kernels 1, 4 and 3 "
                          "built, the training stack (a)-(g), one JSON "
                          "line); parallel (no kernel built: the rings, "
-                         "the pipeline and the dry run, one JSON line)")
+                         "the pipeline and the dry run, one JSON line); "
+                         "sharded (kernel 1 built: the dense serve "
+                         "forwards under a (1, cards) mesh and kernel 1 at "
+                         "the 16-way shard shapes, one JSON line)")
     args = ap.parse_args()
 
     import torch
@@ -5200,7 +5540,8 @@ def main() -> int:
         return 0
     t0 = time.perf_counter()
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
-               "train": TRAIN_SOURCES}.get(args.only, SOURCES)
+               "train": TRAIN_SOURCES, "sharded": SOURCES[:1]}.get(
+        args.only, SOURCES)
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
         f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
@@ -5208,6 +5549,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.only == "sharded":
+        phase("sharded serve: the dense forwards under a (data, model) mesh")
+        log(json.dumps({"sharded": phase_sharded()}))
+        return 0
     if args.only == "train":
         train, _ = phase_train()
         log(json.dumps({"train": train}))
@@ -5300,6 +5645,14 @@ def main() -> int:
         counts.update(phase_paper_path(rcfg, rparams, plans))
         phase("parallel layer: rings, pipeline, dry run")
         phase_parallel()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("sharded serve: the dense forwards under a (data, model) mesh")
+        sharded = phase_sharded()
+        gemm["launches_by_path"].update(
+            {f"sharded {a}": r["launches"]
+             for a, r in sharded["models"].items()})
+        gemm["shard_shapes"] = sharded["shard_gemms"]
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

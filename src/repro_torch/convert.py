@@ -30,6 +30,14 @@ reads, and every int8 linear's ``w8`` has K and N zero-padded to
 multiples of 8 (``models.nn.pad_int8_weight``: the card's int8 GEMM
 takes no other; ``w_step`` keeps the true N).
 
+With a ``mesh`` (and the ``cfg`` whose specs cut it), ``params_from_jax``
+and ``dense_caches_from_jax`` give this rank's blocks
+(``parallel.sharding.local_tree`` under ``models.lm.param_axes`` and
+``cache_axes_tree``, the caches' batch entry as ``sharding.batch_entry``
+picks it), each leaf tagged with its spec.  The port's own leaves are
+made from the local block: ``table_narrow`` from the replicated
+``table``, a K- or N-sharded ``w8`` cut first and then padded.
+
 ``train_params_from_jax`` keeps every leaf as it is, ``embed``/``head``
 in f32 too (training updates the f32 masters), as a trainable
 ``ParamTree``.
@@ -66,9 +74,9 @@ def _serve_leaves(x):
     TLMAC plan, the padded ``w8`` of an int8 linear."""
     if isinstance(x, dict):
         if "table" in x and "exec_idx" in x:
-            x["table_narrow"] = narrow_table(x["table"])
+            x["table_narrow"] = _retag(narrow_table(x["table"]), x["table"])
         if "w8" in x:
-            x["w8"] = pad_int8_weight(x["w8"]).contiguous()
+            x["w8"] = _retag(pad_int8_weight(x["w8"]).contiguous(), x["w8"])
         for v in x.values():
             _serve_leaves(v)
     elif isinstance(x, list):
@@ -76,16 +84,53 @@ def _serve_leaves(x):
             _serve_leaves(v)
 
 
-def params_from_jax(tree, device="cuda") -> ParamTree:
+def _local(tree, device, mesh, specs):
+    """``_tree``, or this rank's blocks of it under ``specs``."""
+    if mesh is None:
+        return _tree(tree, device)
+    from repro_torch.parallel.sharding import local_tree
+
+    out = local_tree(_tree(tree, "cpu"), specs, mesh)
+    return out if torch.device(device).type == "cpu" else _to(out, device)
+
+
+def _to(tree, device):
+    """A tree of tagged CPU tensors on ``device``, tags kept."""
+    from repro_torch.parallel.sharding import spec_of, with_spec
+
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return with_spec(tree.to(device), spec_of(tree))
+
+
+def params_from_jax(tree, device="cuda", mesh=None, cfg=None) -> ParamTree:
     """JAX serve params (``lm.init_lm(..., purpose='serve')[0]`` as numpy)
     -> the port's ``ParamTree``, plus each serve linear's
-    ``table_narrow`` and padded ``w8``."""
-    p = _tree(tree, device)
+    ``table_narrow`` and padded ``w8``.  With ``mesh``: this rank's blocks
+    under ``cfg``'s specs."""
+    specs = None
+    if mesh is not None:
+        from repro_torch.models import lm
+
+        specs = lm.param_axes(cfg)
+    p = _local(tree, device, mesh, specs)
     for name in ("embed", "head"):
         if name in p:
-            p[name] = {"emb": p[name]["emb"].to(torch.bfloat16)}
+            emb = p[name]["emb"]
+            p[name] = {"emb": _retag(emb.to(torch.bfloat16), emb)}
     _serve_leaves(p)
     return ParamTree(p)
+
+
+def _retag(new, old):
+    """``new`` with ``old``'s spec tag, where it has one."""
+    from repro_torch.parallel.sharding import _SPEC_ATTR
+
+    if hasattr(old, _SPEC_ATTR):
+        setattr(new, _SPEC_ATTR, getattr(old, _SPEC_ATTR))
+    return new
 
 
 def train_params_from_jax(tree, device="cuda") -> ParamTree:
@@ -126,15 +171,24 @@ def pool_from_jax(tree, device="cuda"):
     return _tree(tree, device)
 
 
-def dense_caches_from_jax(tree, device="cuda"):
+def dense_caches_from_jax(tree, device="cuda", mesh=None, cfg=None):
     """JAX dense caches (``lm.init_caches(cfg, B, S_max)[0]`` or a
     ``prefill``'s, as numpy: a list per segment of ``{'b0': {'k', 'v'}}``
     with leaves ``[n_layers, B, S, KV, hd]``, bf16 or f32, an MLA
     model's ``{'b0': {'ckv', 'kr'}}`` latents ``[n_layers, B, S, kv_lora |
     rope]`` bf16, a ``dec_cross`` block's ``k``/``v`` and ``xk``/``xv``,
     or a recurrent block's f32 state leaves) -> the same structure of
-    tensors, as ``lm.init_caches(cfg, B=, S_max=)`` holds them."""
-    return _tree(tree, device)
+    tensors, as ``lm.init_caches(cfg, B=, S_max=)`` holds them.  With
+    ``mesh``: this rank's blocks under ``cfg``'s cache specs, as
+    ``lm.init_caches(..., mesh=mesh)`` holds them."""
+    specs = None
+    if mesh is not None:
+        from repro_torch.models import lm
+        from repro_torch.parallel.sharding import fix_batch_axes
+
+        B = next(iter(tree[0].values()))["k"].shape[1]
+        specs = fix_batch_axes(lm.cache_axes_tree(cfg), B, mesh)
+    return _local(tree, device, mesh, specs)
 
 
 def resnet_params_from_jax(tree, device="cuda"):

@@ -5,9 +5,13 @@ The reference sums the collectives of XLA's optimized HLO text
 (``parse_collectives``).  The port has no compiled graph to read, so that
 parser has no counterpart here; instead ``record_collectives`` is a
 context manager that counts every collective the port's own code issues
-(``parallel.overlap``, ``parallel.pipeline``): kind, bytes, count, under
-the reference's kind names.  Bytes are each call's tensor bytes on the
-issuing rank (for a P2P hop, the block sent).
+(``parallel.overlap``, ``parallel.pipeline``, ``parallel.collectives``):
+kind, bytes, count, under the reference's kind names.  Bytes are each
+call's tensor bytes on the issuing rank: for a P2P hop the block sent,
+for an all-gather the gathered output (as the reference's parser counts
+output shapes).  A collective that moves a parameter (the FSDP gather
+of a sharded lookup plan) is counted again under ``param_count`` and
+``param_bytes``.
 
 ``Roofline`` keeps the reference's fields and properties.  Its hardware
 model is an argument; the default is the NVIDIA H100 SXM data sheet for
@@ -37,6 +41,8 @@ _COLLECTIVES = (
 class CollectiveStats:
     bytes_by_kind: Dict[str, int]
     count_by_kind: Dict[str, int]
+    param_count: int = 0       # of the above, collectives moving params
+    param_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -59,14 +65,19 @@ def record_collectives():
         _RECORDERS.reset(token)
 
 
-def note_collective(kind: str, tensor: torch.Tensor) -> None:
-    """Count one collective of ``kind`` moving ``tensor``'s bytes."""
+def note_collective(kind: str, tensor: torch.Tensor,
+                    param: bool = False) -> None:
+    """Count one collective of ``kind`` moving ``tensor``'s bytes
+    (``param``: the tensor is a parameter's)."""
     if kind not in _COLLECTIVES:
         raise ValueError(f"collective kind {kind!r} not in {_COLLECTIVES}")
     nbytes = tensor.numel() * tensor.element_size()
     for stats in _RECORDERS.get():
         stats.bytes_by_kind[kind] += nbytes
         stats.count_by_kind[kind] += 1
+        if param:
+            stats.param_count += 1
+            stats.param_bytes += nbytes
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,9 +44,9 @@ from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      mesh_context)
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
-from repro_torch.parallel.sharding import (P, PartitionSpec, make_shardings,
-                                           mesh_sizes, spec_tree,
-                                           tree_map_specs)
+from repro_torch.parallel.sharding import (P, PartitionSpec, batch_entry,
+                                           fix_batch_axes, make_shardings,
+                                           mesh_sizes, spec_tree)
 
 ENC_LEN_DECODE = 4096  # enc-dec decode cells: cached encoder length
 # Where the port's params differ from the reference's: ``table_narrow``
@@ -84,31 +84,6 @@ def abstract_caches(cfg, B, S_max, enc_len=0):
     caches = lm.init_caches(cfg, device="meta", B=B, S_max=S_max,
                             enc_len=enc_len)
     return caches, lm.cache_axes_tree(cfg)
-
-
-def _batch_entry(B, mesh):
-    """Largest data-parallel axis combo that divides B."""
-    sizes = mesh_sizes(mesh)
-    for c in (("pod", "data"), ("data",), ("pod",)):
-        if not all(a in sizes for a in c):
-            continue
-        n = 1
-        for a in c:
-            n *= sizes[a]
-        if B % n == 0 and n > 1:
-            return c
-    return None
-
-
-def _fix_batch_axes(tree, B, mesh):
-    """Replace ('pod', 'data') batch entries with a combo that divides B."""
-    entry = _batch_entry(B, mesh)
-
-    def fix(spec):
-        return P(*(entry if isinstance(e, tuple) and set(e) == {"pod", "data"}
-                   else e for e in spec))
-
-    return tree_map_specs(fix, tree)
 
 
 def _opt_axes(param_axes, opt_m, state_dtype, mesh):
@@ -196,7 +171,7 @@ def _train_args(cfg, shape, mesh):
     opt_axes = _opt_axes(axes, opt["m"], cfg.opt_state_dtype, mesh)
     bspecs = batch_specs(cfg, shape)
     bentry = (("data", "model") if cfg.pure_fsdp
-              else _batch_entry(shape.global_batch, mesh))
+              else batch_entry(shape.global_batch, mesh))
     batch_axes = {k: P(bentry, *([None] * (v.dim() - 1)))
                   for k, v in bspecs.items()}
     scalars = {"step": _scalar(torch.int32), "key": _scalar(torch.int32, 2)}
@@ -208,7 +183,7 @@ def _train_args(cfg, shape, mesh):
 def _prefill_args(cfg, shape, mesh):
     params, axes = abstract_init(cfg, "serve")
     bspecs = batch_specs(cfg, shape)
-    bentry = _batch_entry(shape.global_batch, mesh)
+    bentry = batch_entry(shape.global_batch, mesh)
     batch_axes = {k: P(bentry, *([None] * (v.dim() - 1)))
                   for k, v in bspecs.items()}
     return {"params": (params, axes), "batch": (bspecs, batch_axes)}
@@ -219,8 +194,8 @@ def _decode_args(cfg, shape, mesh):
     params, axes = abstract_init(cfg, "serve")
     enc_len = ENC_LEN_DECODE if cfg.n_enc_layers else 0
     caches, cache_axes = abstract_caches(cfg, B, S, enc_len)
-    cache_axes = _fix_batch_axes(cache_axes, B, mesh)
-    bentry = _batch_entry(B, mesh)
+    cache_axes = fix_batch_axes(cache_axes, B, mesh)
+    bentry = batch_entry(B, mesh)
     return {"params": (params, axes), "caches": (caches, cache_axes),
             "tokens": ({"tokens": _scalar(torch.int32, B, 1)},
                        {"tokens": P(bentry, None)}),
@@ -257,7 +232,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, skip_hlo=False):
     t0 = time.time()
     try:
         with fake_world(n_chips):
-            mesh = make_production_mesh(multi_pod=multi_pod)
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                            device_type="cpu")
             with mesh_context(mesh):
                 args = step_args(cfg, shape, mesh)
                 mem = _local_bytes(args, mesh)

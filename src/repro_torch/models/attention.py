@@ -19,7 +19,9 @@ caches only, as the reference serves it.  The train forward runs
 ``gqa_train`` (windowed for ``attn_local``, cross-attention for
 ``dec_cross``) and ``mla_train`` with ``apply_fn=nn.linear_apply`` under
 autograd: these functions make no in-place update of a tensor the graph
-reads."""
+reads.  Under a mesh the dense prefill and decode of a GQA block are
+``tp_gqa_prefill`` and ``tp_gqa_decode``, on this rank's heads or cache
+positions."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.kernels import paged
 from repro_torch.models import nn
+from repro_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
 
@@ -322,6 +325,157 @@ def gqa_decode(params, x, cfg, cache, pos: int,
         mask &= j > pos - window
     out = _sdpa(q, kc, vc, mask, cfg)
     return apply_fn(params["wo"], out.reshape(B, 1, H * hd), cfg), (kc, vc)
+
+
+# ---------------------------------------------------------------------------
+# dense caches under a mesh: heads and cache positions over 'model'
+# ---------------------------------------------------------------------------
+
+
+def kv_heads_sharded(cfg) -> bool:
+    """The caches' layout under a mesh (``lm.cache_axes``, dense and
+    paged): KV heads on 'model' where they divide the production axis
+    (16), else the sequence (the pages of a paged pool)."""
+    return cfg.n_kv % nn.MODEL_AXIS == 0
+
+
+def _tp_qkv(params, x, cfg):
+    """q, k, v of this rank, each ``(tensor [B, S, cols], split)``."""
+    return [nn.tp_linear_apply(params[n], x, cfg, use_bias=cfg.qkv_bias)
+            for n in ("wq", "wk", "wv")]
+
+
+def _heads(t, split: bool, n: int, cfg, local: bool):
+    """``t [B, S, n * hd]`` (split or whole) as heads: all ``n`` of them,
+    or (``local``) this rank's block of ``n / m`` (whole heads when the
+    split columns hold them; else cut from the gathered whole)."""
+    B, S, _ = t.shape
+    hd = cfg.kv_head_dim
+    if not local:
+        return nn.gather_cols(t, split).reshape(B, S, n, hd)
+    nl = n // coll.size("model")
+    if not split:
+        t = t.narrow(-1, coll.index("model") * nl * hd, nl * hd)
+    return t.reshape(B, S, nl, hd)
+
+
+def _local_groups(k, cfg):
+    """The KV heads ``[B, S, KV_l, hd]`` that this rank's block of query
+    heads reads, from all of them ``k [B, S, KV, hd]``."""
+    H, KV, m = cfg.n_heads, cfg.n_kv, coll.size("model")
+    Hl, rep = H // m, H // KV
+    h0 = coll.index("model") * Hl
+    if Hl % rep == 0:
+        g0, ng = h0 // rep, Hl // rep
+    elif rep % Hl == 0:
+        g0, ng = h0 // rep, 1
+    else:
+        raise NotImplementedError(f"{Hl} query heads a rank straddle KV "
+                                  f"groups of {rep}")
+    return k[:, :, g0:g0 + ng]
+
+
+def _rope_rt(q, k, v, positions, cfg, roundtrip: bool):
+    sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
+    q, k = nn.apply_rotary(q, sin, cos), nn.apply_rotary(k, sin, cos)
+    qs = paged.qspec_for(cfg)
+    if roundtrip and qs.quantised:
+        k, v = paged.kv_roundtrip(k, qs), paged.kv_roundtrip(v, qs)
+    return q, k, v
+
+
+def tp_gqa_prefill(params, x, cfg, cache=None):
+    """``gqa_train`` as the dense prefill under the mesh: the causal
+    attention of this rank's block of query heads (every head where the
+    heads do not divide over 'model'), the K/V of this rank's cache block
+    stored in place (``cache`` ``{'k', 'v'}``: its KV heads, or its
+    positions of every head), then ``wo``.  Returns ``(y, split)``."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
+    m = coll.size("model")
+    (q, qs), (k, ks), (v, vs) = _tp_qkv(params, x, cfg)
+    local = H % m == 0
+    on_heads = kv_heads_sharded(cfg)
+    q = _heads(q, qs, H, cfg, local)
+    if on_heads:        # KV % 16 == 0: this rank's KV heads
+        k, v = _heads(k, ks, KV, cfg, True), _heads(v, vs, KV, cfg, True)
+    else:
+        k, v = _heads(k, ks, KV, cfg, False), _heads(v, vs, KV, cfg, False)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _rope_rt(q, k, v, positions, cfg, cache is not None)
+    kl, vl = k, v       # KV % 16 == 0 makes H divide over 'model' too
+    if local and not on_heads:
+        kl, vl = _local_groups(k, cfg), _local_groups(v, cfg)
+    out = sdpa(q, kl, vl, cfg, causal=True)
+    if cache is not None:
+        kc, vc = cache["k"], cache["v"]
+        if on_heads:
+            kc[:, :S] = k.to(kc.dtype)
+            vc[:, :S] = v.to(vc.dtype)
+        else:           # this rank's positions of every head
+            n = kc.shape[1]
+            lo = coll.index("model") * n
+            hi = min(lo + n, S)
+            if hi > lo:
+                kc[:, :hi - lo] = k[:, lo:hi].to(kc.dtype)
+                vc[:, :hi - lo] = v[:, lo:hi].to(vc.dtype)
+    return nn.tp_linear_apply(params["wo"], out, cfg, split=local)
+
+
+def _sdpa_seq_sharded(q, kc, vc, start: int, pos: int):
+    """One query row against this rank's block of cache positions
+    ``[start, start + S_l)``, the softmax distributed over 'model' as the
+    reference's partitioned graph runs it (read in its compiled HLO): the
+    local max, its max over 'model'; ``exp``; the local sum, its sum over
+    'model'; the weights ``exp / sum``; the local weighted V, its sum over
+    'model'; all in f32.  q ``[B, 1, H, hd]`` -> ``[B, 1, H, hd]``."""
+    B, Sq, H, hd = q.shape
+    KV = kc.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), kc.float()) * (
+        1.0 / math.sqrt(hd))
+    j = start + torch.arange(kc.shape[1], device=q.device)
+    s = torch.where(j <= pos, s, torch.full_like(s, NEG_INF))
+    mx = coll.all_reduce(s.amax(dim=-1), "model", "max")
+    e = torch.exp(s - mx[..., None])
+    den = coll.all_reduce(e.sum(dim=-1), "model")
+    w = e / den[..., None]
+    o = coll.all_reduce(torch.einsum("bkrqs,bskh->bkrqh", w, vc.float()),
+                        "model")
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, -1).to(q.dtype)
+
+
+def tp_gqa_decode(params, x, cfg, cache, pos: int):
+    """``gqa_decode`` under the mesh: the step's K/V written in place into
+    the rank that holds them (its KV heads, or the rank whose cache block
+    holds position ``pos``), then the attention: this rank's heads over
+    its heads' cache, or every head over the sequence-sharded cache (the
+    softmax over 'model', ``_sdpa_seq_sharded``); then ``wo``.  Returns
+    ``(y, split)``."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
+    (q, qs), (k, ks), (v, vs) = _tp_qkv(params, x, cfg)
+    kc, vc = cache
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if kv_heads_sharded(cfg):
+        q = _heads(q, qs, H, cfg, True)
+        k, v = _heads(k, ks, KV, cfg, True), _heads(v, vs, KV, cfg, True)
+        q, k, v = _rope_rt(q, k, v, positions, cfg, True)
+        kc[:, pos:pos + 1] = k.to(kc.dtype)
+        vc[:, pos:pos + 1] = v.to(vc.dtype)
+        j = torch.arange(kc.shape[1], device=x.device)[None, :]
+        out = _sdpa(q, kc, vc, j <= pos, cfg)
+        return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, -1), cfg,
+                                  split=True)
+    q = _heads(q, qs, H, cfg, False)
+    k, v = _heads(k, ks, KV, cfg, False), _heads(v, vs, KV, cfg, False)
+    q, k, v = _rope_rt(q, k, v, positions, cfg, True)
+    start = coll.index("model") * kc.shape[1]
+    if start <= pos < start + kc.shape[1]:
+        kc[:, pos - start:pos - start + 1] = k.to(kc.dtype)
+        vc[:, pos - start:pos - start + 1] = v.to(vc.dtype)
+    out = _sdpa_seq_sharded(q, kc, vc, start, pos)
+    return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, H * hd), cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -51,9 +51,24 @@ loop over layers replaces the scans.  Differences from JAX, on purpose:
 
 Every param leaf carries the reference's partition spec from the line
 that makes it (``param_axes`` reads them; ``cache_axes_tree`` gives the
-caches'), and the reference's eight ``shard_hint`` sites are kept: no-ops
-without a mesh or under a 1x1 mesh, refusals under a larger one (the
-model does not run sharded yet).
+caches'), and the reference's eight ``shard_hint`` sites are kept.
+
+Sharded serving: under ``launch.mesh.mesh_context(mesh)`` the dense-cache
+forwards ``prefill`` and ``decode_step`` of a GQA decoder (``attn``
+blocks) run on this rank's blocks, as the reference's ``jax.jit`` runs
+them under the shardings of its specs: params from
+``convert.params_from_jax(..., mesh=, cfg=)`` or
+``parallel.sharding.local_tree(tree, param_axes(cfg), mesh)``, this
+rank's rows of the batch (``sharding.batch_entry``), caches made by
+``init_caches(..., mesh=)`` (or by ``prefill``).  The linears are tensor
+parallel over 'model' (``nn.tp_linear_apply``), the attention runs on
+this rank's heads or its cache positions (``attention.tp_gqa_prefill``,
+``tp_gqa_decode``), the embedding and the logits are vocab-parallel and
+``greedy`` is their argmax over 'model'; every collective goes through
+``parallel.collectives``.  The residual stream is whole on every rank of
+'model'.  The returned logits are this rank's block of the padded vocab.
+The train forward, the paged forwards and the other block kinds raise
+under a mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -67,7 +82,9 @@ import torch.utils.checkpoint
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, nn, rglru, xlstm
-from repro_torch.parallel.sharding import P, shard_hint, spec_tree, with_spec
+from repro_torch.parallel.sharding import (P, batch_entry, block_range,
+                                           current_mesh, shard_hint,
+                                           spec_tree, with_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +259,11 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     recurrent block (``mlstm``, ``slstm``, ``rglru``) starts from the
     state in ``cache`` (zeros: a prefill) and writes its final state
     back into it."""
+    mesh = current_mesh()      # a train forward under a 1x1 mesh is plain
+    if mesh is not None and (apply_fn is nn.serve_linear_apply
+                             or mesh.size() > 1):
+        return _tp_block(kind, params, x, cfg, apply_fn, cache, pos, decode,
+                         paged_ctx)
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
                          dtype=x.dtype)
     if kind in ("mlstm", "slstm"):
@@ -321,6 +343,53 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     else:
         y = ffn_apply(params["ffn"], hf, cfg, apply_fn)
     return x + y, cache, aux, (x, y)
+
+
+def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
+              paged_ctx):
+    """``apply_block`` under the active mesh, on this rank's blocks: the
+    dense-cache serve block of a GQA decoder (``attn``), its linears
+    tensor-parallel over 'model' (``nn.tp_linear_apply``), its attention
+    on this rank's heads or cache positions (``attention.tp_gqa_prefill``,
+    ``tp_gqa_decode``), the residual stream whole on every rank of 'model'
+    and this rank's rows of the batch.  Other block kinds, the paged
+    forwards and the train forward do not run sharded yet."""
+    if (apply_fn is not nn.serve_linear_apply or paged_ctx is not None
+            or kind != "attn" or cfg.attn_kind != "gqa"):
+        raise NotImplementedError(
+            f"block {kind!r} (attn_kind {cfg.attn_kind!r}, "
+            f"{'paged' if paged_ctx is not None else 'dense'}, "
+            f"{'serve' if apply_fn is nn.serve_linear_apply else 'train'}) "
+            "under a mesh: only the dense-cache serve forwards of a GQA "
+            "decoder run sharded (the train step is the next slice)")
+    h = nn.rmsnorm_apply(params["norm1"], x)
+    if decode:
+        y, split = attn.tp_gqa_decode(params["attn"], h, cfg,
+                                      (cache["k"], cache["v"]), pos)
+    else:
+        y, split = attn.tp_gqa_prefill(params["attn"], h, cfg, cache)
+    x, s = _residual(x, nn.gather_cols(y, split))
+    hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+    y = _tp_ffn(params["ffn"], hf, cfg)
+    return x + y, cache, 0.0, (x, y)
+
+
+def _tp_ffn(params, x, cfg):
+    """``ffn_apply`` under the mesh: wi/wg on this rank's columns (or
+    whole), the gated product in f32 into ``wo``, its output whole."""
+    if cfg.serve_shared_act_quant and "wg" in params:
+        h, g, split = nn.tp_linear_pair_apply(params["wi"], params["wg"], x,
+                                              cfg)
+        h = h.float() * nn.silu(g)
+    else:
+        h, split = nn.tp_linear_apply(params["wi"], x, cfg)
+        if "wg" in params:
+            g, _ = nn.tp_linear_apply(params["wg"], x, cfg)
+            h = h.float() * nn.silu(g)
+        else:
+            h = nn.gelu(h, f32_out=True)
+    return nn.gather_cols(*nn.tp_linear_apply(params["wo"], h, cfg,
+                                              split=split))
 
 
 def _bidir_attn(params, h, cfg, apply_fn):
@@ -548,12 +617,22 @@ def zero_cache(kind: str, cfg, B: int, S_max: int, n_layers: int = 0,
 
 
 def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
-                device="cuda", B: int = 0, S_max: int = 0, enc_len: int = 0):
+                device="cuda", B: int = 0, S_max: int = 0, enc_len: int = 0,
+                mesh=None):
     """Stacked caches per segment, ``[{'b0': {...}}]``.  With ``paged``
     (a ``PageSpec``), paged pools ``{'k', 'v'[, 'ks', 'vs']}`` with leaves
     ``[n_layers, n_pages, P, KV, hd]``; without, the dense caches of
     ``zero_cache`` for ``B`` slots of ``S_max`` positions (and an
-    encoder output of ``enc_len``)."""
+    encoder output of ``enc_len``).  With ``mesh`` (dense only): this
+    rank's blocks under ``cache_axes_tree``, the batch cut by
+    ``batch_entry(B, mesh)`` as the reference's dry run cuts it (whole
+    where no data-parallel combo divides ``B``: a data axis of 1)."""
+    if mesh is not None:
+        if paged is not None:
+            raise NotImplementedError("paged pools under a mesh: the paged "
+                                      "forwards do not run sharded yet")
+        rows = block_range(B, batch_entry(B, mesh), mesh)[1]
+        return _local_caches(cfg, rows, S_max, device, mesh)
     if paged is None:
         return [{f"b{bi}": zero_cache(kind, cfg, B, S_max, seg.n, device,
                                       enc_len)
@@ -578,7 +657,7 @@ def cache_axes(kind: str, cfg, paged=None):
     else the page dim; scale sidecars shard with their codes."""
     b = ("pod", "data")
     if paged is not None:
-        if cfg.n_kv % nn.MODEL_AXIS == 0:
+        if attn.kv_heads_sharded(cfg):
             s, s3 = P(None, None, "model", None), P(None, None, "model")
         else:
             s, s3 = P("model", None, None, None), P("model", None, None)
@@ -589,7 +668,7 @@ def cache_axes(kind: str, cfg, paged=None):
     if kind in ("attn", "attn_moe") and cfg.attn_kind == "mla":
         return {"ckv": P(b, "model", None), "kr": P(b, "model", None)}
     if kind in ("attn", "attn_moe", "attn_local", "dec_cross"):
-        if cfg.n_kv % nn.MODEL_AXIS == 0:
+        if attn.kv_heads_sharded(cfg):
             s = P(b, None, "model", None)
         else:
             s = P(b, "model", None, None)
@@ -612,6 +691,22 @@ def cache_axes(kind: str, cfg, paged=None):
     if kind == "rglru":
         return {"h": P(b, "model"), "conv": P(b, None, "model")}
     raise ValueError(f"block kind {kind!r} has no cache")
+
+
+def _local_caches(cfg, rows: int, S_max: int, device, mesh):
+    """Zeroed dense caches of ``rows`` batch rows (this rank's already),
+    every other dim cut to this rank's block of ``cache_axes_tree``."""
+    shapes = init_caches(cfg, device="meta", B=rows, S_max=S_max)
+
+    def local(meta, spec):
+        shape = [n if d == 1 else block_range(n, e, mesh)[1]
+                 for d, (n, e) in enumerate(zip(meta.shape, (*spec, *(
+                     None,) * (meta.dim() - len(spec)))))]
+        return torch.zeros(shape, dtype=meta.dtype, device=device)
+
+    specs = cache_axes_tree(cfg)
+    return [{b: {k: local(leaf, specs[si][b][k]) for k, leaf in blk.items()}
+             for b, blk in seg.items()} for si, seg in enumerate(shapes)]
 
 
 def cache_axes_tree(cfg, paged=None):
@@ -798,14 +893,18 @@ def prefill(params, tokens, cfg, S_max: Optional[int] = None, frames=None):
                 raise KeyError("frames: an encoder-decoder config needs "
                                "frames [B, Se, d_front] to prefill")
             enc_out = encode(params, frames, cfg)
-        caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S,
-                             enc_len=0 if enc_out is None
-                             else enc_out.shape[1])
+        mesh = current_mesh()
+        if mesh is not None:
+            caches = _local_caches(cfg, B, S_max or S, dev, mesh)
+        else:
+            caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S,
+                                 enc_len=0 if enc_out is None
+                                 else enc_out.shape[1])
         x = nn.embed_apply(params.embed.tree(), tokens)
         x = _run_layers(params, caches, x, cfg, decode=False,
                         enc_out=enc_out)
         logits = _logits(params, x[:, -1:], cfg)
-    return logits[:, 0, : cfg.vocab], caches
+    return _vocab_cut(logits[:, 0], cfg), caches
 
 
 @torch.no_grad()
@@ -818,7 +917,16 @@ def decode_step(params, caches, tokens, pos: int, cfg):
         x = shard_hint(x, P(("pod", "data"), None, None))
         x = _run_layers(params, caches, x, cfg, decode=True, pos=pos)
         logits = _logits(params, x, cfg)
-    return logits[:, 0, : cfg.vocab], caches
+    return _vocab_cut(logits[:, 0], cfg), caches
+
+
+def _vocab_cut(logits, cfg):
+    """The logits' true vocab columns; under a mesh this rank's block of
+    the padded vocab, as it is (padded rows hold -1e30)."""
+    return logits if current_mesh() is not None else logits[..., :cfg.vocab]
+
+
+greedy = nn.greedy   # the next tokens of prefill/decode_step logits
 
 
 @torch.no_grad()

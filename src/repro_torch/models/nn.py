@@ -12,7 +12,9 @@ Every ``init_*`` tags each leaf it makes with the reference's partition
 spec (``parallel.sharding.with_spec``): the production mesh's axes
 ``('pod', 'data', 'model')``, FSDP configs also sharding a reduction dim
 over ``('pod', 'data')`` (``_fsdp_spec``).  ``models.lm.param_axes``
-reads the tags."""
+reads the tags; a ``ParamTree`` keeps them on its leaves and on the
+per-layer views, and the serve linears under a mesh
+(``tp_linear_apply``) read them to pick their collectives."""
 
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from repro_torch.core.tlmac.compile import plan_shapes
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.int8_experts import int8_experts_matmul
 from repro_torch.kernels.tlmac_fused import narrow_table
-from repro_torch.parallel.sharding import P, with_spec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (_SPEC_ATTR as SPEC_ATTR, P,
+                                           current_mesh, spec_of, with_spec)
 
 COMPUTE_DTYPE = torch.bfloat16
 MODEL_AXIS = 16  # 'model' axis size in both production meshes; fixes dp
@@ -50,6 +54,7 @@ class ParamTree(nn.Module):
         super().__init__()
         self.trainable = trainable
         self._kinds = {}
+        self._specs = {}    # leaf name -> its partition spec, where tagged
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v, trainable))
@@ -65,6 +70,8 @@ class ParamTree(nn.Module):
             else:
                 self.register_buffer(k, v)
                 self._kinds[k] = "leaf"
+            if self._kinds[k] == "leaf" and hasattr(v, SPEC_ATTR):
+                self._specs[k] = getattr(v, SPEC_ATTR)
         self._views = {}
 
     def tree(self) -> dict:
@@ -76,6 +83,8 @@ class ParamTree(nn.Module):
             elif kind == "list":
                 out[k] = [x.tree() for x in v]
             else:
+                if k in self._specs:    # a new Parameter drops the tag
+                    setattr(v, SPEC_ATTR, self._specs[k])
                 out[k] = v
         return out
 
@@ -102,9 +111,17 @@ def _leading(tree) -> int:
 
 
 def tree_index(tree, i: int):
-    """``jax.tree.map(lambda c: c[i], tree)`` over nested dicts."""
-    return {k: tree_index(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+    """``jax.tree.map(lambda c: c[i], tree)`` over nested dicts; a tagged
+    stacked leaf's view carries its spec less the layer axis."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = tree_index(v, i)
+            continue
+        out[k] = v[i]
+        if hasattr(v, SPEC_ATTR):
+            setattr(out[k], SPEC_ATTR, getattr(v, SPEC_ATTR)[1:])
+    return out
 
 
 def _pick_dp(N: int, want: int) -> int:
@@ -383,16 +400,27 @@ def _tlmac_gemm(params, aq, lead, cfg):
     inline; a miss takes kernel 1.  Reads ``table_narrow`` where the
     params carry it (made once with them); a bare int32 ``table`` serves
     the CPU's plain version and is refused by the kernels."""
-    n_tiles, kg, dp = params["exec_idx"].shape
-    N = n_tiles * dp
+    yi = _tlmac_int(params, params["exec_idx"], params["step_cluster"], aq,
+                    cfg)
+    y = _dequant(yi, params["a_step"], params["w_step"])
+    return y.reshape(*lead, yi.shape[-1])
+
+
+def _tlmac_int(params, exec_idx, step_cluster, aq, cfg):
+    """The int32 lookup product ``[M, n_tiles * dp]`` of codes ``aq``
+    through ``cfg.serve_tlmac_impl`` on the plan ``exec_idx``/
+    ``step_cluster`` (the params' own, or their gathered blocks)."""
+    n_tiles, kg, dp = exec_idx.shape
     table = params.get("table_narrow", params["table"])
-    yi = kops.tlmac_matmul(aq, table, params["exec_idx"],
-                           params["step_cluster"], B_a=cfg.quant.a_bits,
-                           G=cfg.tlmac_G, N=N, impl=cfg.serve_tlmac_impl,
-                           tune_on_miss=False)
-    y = (yi.to(torch.float32) * (params["a_step"] * params["w_step"])).to(
-        COMPUTE_DTYPE)
-    return y.reshape(*lead, N)
+    return kops.tlmac_matmul(aq, table, exec_idx, step_cluster,
+                             B_a=cfg.quant.a_bits, G=cfg.tlmac_G,
+                             N=n_tiles * dp, impl=cfg.serve_tlmac_impl,
+                             tune_on_miss=False)
+
+
+def _dequant(yi, a_step, w_step):
+    """``yi * (a_step * w_step)`` in f32, to bf16."""
+    return (yi.to(torch.float32) * (a_step * w_step)).to(COMPUTE_DTYPE)
 
 
 def serve_linear_apply(params, x, cfg, use_bias: bool = False):
@@ -417,8 +445,7 @@ def serve_linear_apply(params, x, cfg, use_bias: bool = False):
         aq = _int8_codes(x, a_step, w8.shape[0])
         N = params["w_step"].shape[-1]
         yi = int8_matmul(aq.reshape(-1, w8.shape[0]), w8)[:, :N]
-        y = (yi.to(torch.float32) * (a_step * params["w_step"])).to(
-            COMPUTE_DTYPE).reshape(*x.shape[:-1], N)
+        y = _dequant(yi, a_step, params["w_step"]).reshape(*x.shape[:-1], N)
     else:
         aq = _tlmac_quant_pack(params["a_step"], x, cfg)
         y = _tlmac_gemm(params, aq, x.shape[:-1], cfg)
@@ -488,6 +515,169 @@ def serve_expert_linear_apply(params, xe, cfg):
 
 
 # ---------------------------------------------------------------------------
+# Serve linears under a mesh: tensor parallelism over 'model'
+# ---------------------------------------------------------------------------
+#
+# Under ``launch.mesh.mesh_context`` every leaf is this rank's block of the
+# reference's leaf, tagged with its spec (``parallel.sharding.local_tree``),
+# and an activation's last dim is either whole or this rank's block of
+# 'model' columns (``split``).  A linear follows its leaves' specs, which
+# ``init_serve_linear`` picks as the reference does:
+#
+# - output dim on 'model' (tlmac ``exec_idx`` P('model', ...), int8 ``w8``
+#   and dense ``w`` P(None, 'model')): the product of the whole input on the
+#   local output tiles gives this rank's columns;
+# - reduction dim on 'model' (tlmac P(None, 'model', None), int8 and dense
+#   ``wo`` P('model', None)): the product of the input's local block, then
+#   a sum over 'model': exact in int32 for tlmac and int8; for dense the
+#   reference's partitioned graph rounds each partial product to bf16,
+#   sums the partials in f32 and rounds the sum to bf16 (read in its
+#   compiled HLO), and so does the port;
+# - a tlmac plan's reduction groups also on ('pod', 'data') (FSDP): the
+#   ``exec_idx``/``step_cluster`` blocks are gathered over those axes at
+#   use, the only collective that moves a parameter;
+# - replicated: the whole input, the whole output.
+#
+# An input that is split where the whole is needed is gathered over 'model'
+# as its int8 codes (tlmac, int8; half the bytes of bf16, the same
+# product), as bf16 for dense.  An output is split where the output tiles
+# are, or where ``w_step`` (and the bias) is sharded on 'model' although the
+# product is whole: it is then cut to this rank's columns.
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _model_dim(spec, d: int) -> bool:
+    return d < len(spec) and "model" in _names(spec[d])
+
+
+def _cut_cols(t, n_local: int):
+    """This rank's block of ``n_local`` columns of a whole ``t``."""
+    return t.narrow(-1, coll.index("model") * n_local, n_local)
+
+
+def _tp_in(codes, split: bool, want_split: bool):
+    """Codes (or bf16 activations) in the layout the weight reads: this
+    rank's block of columns, or the whole gathered over 'model'."""
+    if want_split and not split:
+        return _cut_cols(codes, codes.shape[-1] // coll.size("model")
+                         ).contiguous()
+    if split and not want_split:
+        return coll.all_gather(codes, "model", dim=-1)
+    return codes
+
+
+def _tp_layout(params):
+    """(output dim on 'model', reduction dim on 'model', the FSDP axes of a
+    tlmac plan's reduction groups)."""
+    impl = layout(params)
+    if impl == "tlmac":
+        spec = spec_of(params["exec_idx"])
+        fsdp = tuple(a for a in _names(spec[1]) if a != "model") if len(
+            spec) > 1 else ()
+        return _model_dim(spec, 0), _model_dim(spec, 1), fsdp
+    spec = spec_of(params["w8" if impl == "int8" else "w"])
+    return _model_dim(spec, 1), _model_dim(spec, 0), ()
+
+
+def _tp_cols(y, split: bool, leaf):
+    """``(y, leaf)`` on the same columns: ``y`` cut to this rank's where
+    ``leaf`` (``w_step`` or a bias) is sharded on 'model' and ``y`` whole,
+    ``leaf`` cut where ``y`` is split and ``leaf`` whole; and ``y``'s
+    split."""
+    if _model_dim(spec_of(leaf), 0):
+        if not split:
+            y = _cut_cols(y, leaf.shape[-1])
+        return y, leaf, True
+    if split:
+        leaf = _cut_cols(leaf, y.shape[-1])
+    return y, leaf, split
+
+
+def _tp_tlmac(params, aq, split: bool, cfg):
+    """One tlmac linear's product on this rank, from codes ``aq [M, K |
+    K_local]``: the int32 lookup GEMM on the local plan (its FSDP blocks
+    gathered), summed over 'model' where the reduction groups are split,
+    then dequantised; returns ``(y, split)``."""
+    out_m, in_m, fsdp = _tp_layout(params)
+    exec_idx, step_cluster = params["exec_idx"], params["step_cluster"]
+    if fsdp:
+        exec_idx = coll.all_gather(exec_idx, fsdp, dim=1, param=True)
+        step_cluster = coll.all_gather(step_cluster, fsdp, dim=1, param=True)
+    yi = _tlmac_int(params, exec_idx, step_cluster,
+                    _tp_in(aq, split, in_m), cfg)
+    if in_m:
+        yi = coll.all_reduce(yi, "model")
+    yi, w_step, split = _tp_cols(yi, out_m, params["w_step"])
+    return _dequant(yi, params["a_step"], w_step), split
+
+
+def _tp_bias(y, split: bool, params, use_bias: bool):
+    if not use_bias:
+        return y, split
+    y, b, split = _tp_cols(y, split, params["b"])
+    return y + b.to(y.dtype), split
+
+
+def tp_linear_apply(params, x, cfg, split: bool = False,
+                    use_bias: bool = False):
+    """``serve_linear_apply`` on this rank's blocks under the active mesh:
+    ``x [..., K]`` whole, or its block of 'model' columns with ``split``.
+    Returns ``(y, split)``: ``y``'s last dim whole or this rank's block of
+    columns."""
+    lead = x.shape[:-1]
+    impl = layout(params)
+    out_m, in_m, _ = _tp_layout(params)
+    if impl == "tlmac":
+        aq = _tlmac_quant_pack(params["a_step"], x, cfg)
+        y, split = _tp_tlmac(params, aq, split, cfg)
+    elif impl == "int8":
+        w8 = params["w8"]
+        aq = _int8_codes(x, params["a_step"], x.shape[-1]).reshape(
+            -1, x.shape[-1])
+        aq = _tp_in(aq, split, in_m)
+        aq = torch.nn.functional.pad(aq, (0, w8.shape[0] - aq.shape[-1]))
+        yi = int8_matmul(aq.contiguous(), w8)[:, :params["w_step"].shape[-1]]
+        if in_m:
+            yi = coll.all_reduce(yi, "model")
+        yi, w_step, split = _tp_cols(yi, out_m, params["w_step"])
+        y = _dequant(yi, params["a_step"], w_step)
+    else:
+        w = params["w"]
+        y = _bf16_matmul(_tp_in(x.to(COMPUTE_DTYPE), split, in_m), w)
+        if in_m:   # bf16 partials summed in f32, rounded once
+            y = coll.all_reduce(y.float(), "model").to(COMPUTE_DTYPE)
+        split = out_m
+    y, split = _tp_bias(y, split, params, use_bias)
+    return y.reshape(*lead, y.shape[-1]), split
+
+
+def tp_linear_pair_apply(p1, p2, x, cfg):
+    """``serve_linear_pair_apply`` under the mesh (``x`` whole): a tlmac
+    pair shares the first branch's codes.  Returns ``(y1, y2, split)``:
+    the two linears have one spec, so their outputs one layout."""
+    if layout(p1) != "tlmac" or layout(p2) != "tlmac":
+        (y1, s1), (y2, _) = (tp_linear_apply(p1, x, cfg),
+                             tp_linear_apply(p2, x, cfg))
+    else:
+        aq = _tlmac_quant_pack(p1["a_step"], x, cfg)
+        y1, s1 = _tp_tlmac(p1, aq, False, cfg)
+        y2, _ = _tp_tlmac(dict(p2, a_step=p1["a_step"]), aq, False, cfg)
+    lead = x.shape[:-1]
+    return (y1.reshape(*lead, y1.shape[-1]), y2.reshape(*lead, y2.shape[-1]),
+            s1)
+
+
+def gather_cols(t, split: bool):
+    """The whole of an activation that may be split over 'model'."""
+    return coll.all_gather(t, "model", dim=-1) if split else t
+
+
+# ---------------------------------------------------------------------------
 # Norms / embeddings / rotary
 # ---------------------------------------------------------------------------
 
@@ -505,21 +695,58 @@ def padded_vocab(vocab: int) -> int:
     return vocab + (-vocab) % MODEL_AXIS
 
 
+def _vocab_start(emb) -> int:
+    """The global index of this rank's first vocab row: 0 without a mesh;
+    under one, the rows are this rank's 'model' block (vocab-parallel)."""
+    if current_mesh() is None:
+        return 0
+    return coll.index("model") * emb.shape[0]
+
+
 def embed_apply(params, tokens):
-    return params["emb"][tokens.long()].to(COMPUTE_DTYPE)
+    """Token embeddings in bf16.  Under a mesh the table is this rank's
+    block of vocab rows: each rank takes the rows it owns, zeros for the
+    others, and a sum over 'model' assembles them (exact: one nonzero term
+    an element)."""
+    emb = params["emb"]
+    if current_mesh() is None:
+        return emb[tokens.long()].to(COMPUTE_DTYPE)
+    t = tokens.long() - _vocab_start(emb)
+    own = (t >= 0) & (t < emb.shape[0])
+    rows = emb[t.clamp(0, emb.shape[0] - 1)].to(COMPUTE_DTYPE)
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return coll.all_reduce(rows, "model")
 
 
 def logits_apply(params, x, vocab: Optional[int] = None):
     """Logits in bf16; padded vocab rows masked to -1e30.  On the CPU the
     product is XLA's CPU dot (``_bf16_matmul``: f32 over the bf16
     operands, rounded once): torch's CPU bf16 GEMM differs from it by an
-    ulp in a few logits, more often on a sliced ``x``."""
+    ulp in a few logits, more often on a sliced ``x``.  Under a mesh the
+    result is this rank's block of the padded vocab (its rows of the
+    table), padded rows masked by their global index."""
     lg = _bf16_matmul(x.to(COMPUTE_DTYPE), params["emb"].to(COMPUTE_DTYPE).T)
-    if vocab is not None and lg.shape[-1] != vocab:
-        iota = torch.arange(lg.shape[-1], device=lg.device)
+    start = _vocab_start(params["emb"])
+    if vocab is not None and start + lg.shape[-1] > vocab:
+        iota = start + torch.arange(lg.shape[-1], device=lg.device)
         lg = torch.where(iota < vocab, lg,
                          torch.full_like(lg, -1e30))
     return lg
+
+
+def greedy(logits) -> torch.Tensor:
+    """The argmax over the vocab (the lower index on a tie, as
+    ``jnp.argmax``), int64.  Under a mesh ``logits`` is this rank's vocab
+    block: the max over 'model', then the least global index holding it."""
+    if current_mesh() is None:
+        return logits.argmax(dim=-1)
+    i = logits.argmax(dim=-1)
+    v = logits.gather(-1, i[..., None])[..., 0].float()
+    i = i + coll.index("model") * logits.shape[-1]
+    top = coll.all_reduce(v, "model", "max")
+    cand = torch.where(v == top, i, torch.full_like(i, torch.iinfo(
+        torch.int64).max))
+    return coll.all_reduce(cand, "model", "min")
 
 
 def rotary_embedding(positions, dim: int, base: float = 10000.0):

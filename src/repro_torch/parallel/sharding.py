@@ -17,6 +17,11 @@ split it unevenly).
 Every param leaf carries its spec from the line that makes it
 (``with_spec``; ``spec_tree`` reads a tree of them), so
 ``models.lm.param_axes`` derives from the init code itself.
+
+The sharded serve path holds plain local tensors, not DTensors:
+``local_shard``/``local_tree`` cut a whole tensor (tree) into this rank's
+block in JAX's order, each block tagged with its spec, which the model
+code reads to pick its collectives.
 """
 
 from __future__ import annotations
@@ -187,21 +192,108 @@ def make_shardings(mesh, axes_tree):
                           filter_specs(axes_tree, mesh))
 
 
+def current_mesh():
+    """The active mesh (``launch.mesh.mesh_context``), or None."""
+    return _ACTIVE.get()
+
+
 def shard_hint(x, spec: P):
     """The reference's conditional ``with_sharding_constraint``: a no-op
     without an active mesh or with one whose axes all have size 1.  Under
-    a larger mesh it raises: the port's model does not run sharded yet
-    (its activations are plain tensors, not DTensors)."""
+    a larger mesh the sharded serve path holds its activations as this
+    rank's local rows of the batch, so a hint that shards the batch dim
+    and nothing else (``P(('pod', 'data'), None, ...)``, the dense
+    ``decode_step``'s) states the layout it already has and returns ``x``.
+    Any other hint raises: the train forward's sequence- and vocab-parallel
+    layouts and the paged forwards do not run sharded yet."""
     mesh = _ACTIVE.get()
     if mesh is None or mesh.size() == 1:
         return x
+    spec = P(*spec)
+    if (len(spec) and spec[0] == ("pod", "data")
+            and all(e is None for e in spec[1:])):
+        return x
     raise NotImplementedError(
         f"shard_hint{tuple(spec)} under a mesh of {mesh.size()} devices: "
-        "the port's model does not run sharded")
+        "the port's model does not run sharded here (the sharded train "
+        "forward and the paged forwards are later work); the dense serve "
+        "forwards shard only the batch")
 
 
 def batch_spec() -> P:
     return P(("pod", "data"), None)
+
+
+def batch_entry(B: int, mesh):
+    """The largest data-parallel axis combo of ``mesh`` that divides the
+    batch ``B`` (None: the batch is replicated), as the reference's dry
+    run picks it."""
+    sizes = mesh_sizes(mesh)
+    for c in (("pod", "data"), ("data",), ("pod",)):
+        if all(a in sizes for a in c):
+            n = math.prod(sizes[a] for a in c)
+            if B % n == 0 and n > 1:
+                return c
+    return None
+
+
+def fix_batch_axes(tree, B: int, mesh):
+    """Replace the ``('pod', 'data')`` batch entries of a spec tree with
+    ``batch_entry(B, mesh)`` (the reference's ``_fix_batch_axes``)."""
+    entry = batch_entry(B, mesh)
+
+    def fix(spec):
+        return P(*(entry if isinstance(e, tuple) and set(e) == {"pod", "data"}
+                   else e for e in spec))
+
+    return tree_map_specs(fix, tree)
+
+
+# ---------------------------------------------------------------------------
+# this rank's blocks
+# ---------------------------------------------------------------------------
+
+
+def block_range(n: int, entry, mesh) -> tuple:
+    """``(start, length)`` of this rank's block of a dim of size ``n`` whose
+    spec entry is ``entry`` (the whole dim for None); raises where ``n``
+    does not divide."""
+    from repro_torch.launch.mesh import axis_index, axis_size
+
+    k = axis_size(mesh, entry)
+    if n % k:
+        raise ValueError(f"a dim of {n} does not divide over {entry} "
+                         f"({k} ranks)")
+    return axis_index(mesh, entry) * (n // k), n // k
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``: each
+    dim cut by its entry's axes (a tuple entry pod-major, as JAX cuts it;
+    axes the mesh lacks are dropped), copied so the whole tensor can be
+    freed.  The block carries ``spec`` (``with_spec``)."""
+    spec = P(*spec)
+    if len(spec) > t.dim():
+        raise ValueError(f"spec {spec} has more entries than the shape "
+                         f"{tuple(t.shape)} has dims")
+    out = t
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            start, length = block_range(t.shape[d], entry, mesh)
+            out = out.narrow(d, start, length)
+    if out is not t:
+        out = out.clone(memory_format=torch.contiguous_format)
+    return with_spec(out, spec)
+
+
+def local_tree(tree, specs, mesh):
+    """``local_shard`` over a tree of nested dicts and lists and its spec
+    tree (``lm.param_axes``, ``lm.cache_axes_tree``)."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [local_tree(v, s, mesh) for v, s in zip(tree, specs)]
+    return local_shard(tree, specs, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -76,3 +76,107 @@ def parallel_rank(rank, world, tmp, inputs):
                                      t["params"][rank], t["xs"]).numpy()
     out["pipe_stats"] = st
     return out
+
+
+def sharded_serve_rank(rank, world, tmp, names):
+    """The sharded dense serve path on this rank for each case of
+    ``names`` (``tmp/{name}.pkl``: arch, config overrides, mesh shape, the
+    reference's params as numpy, tokens, ``S_max``, steps): this rank's
+    param blocks (``convert.params_from_jax(mesh=)``), ``lm.prefill`` of
+    its batch rows, then greedy ``lm.decode_step``s, each step under
+    ``record_collectives``.  A single-linear case runs
+    ``nn.tp_linear_apply`` on its blocks instead.  Returns numpy results
+    by case."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.launch.mesh import make_mesh_compat, mesh_context
+    from repro_torch.models import lm, nn
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import (batch_entry, block_range,
+                                               local_tree)
+
+    meshes, out = {}, {}
+    for name in names:
+        with open(os.path.join(tmp, f"{name}.pkl"), "rb") as f:
+            case = pickle.load(f)
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh_compat(shape, ("data", "model"), "cpu")
+        mesh = meshes[shape]
+        res = out[name] = {}
+        if case.get("collectives"):
+            res.update(_collectives_on(mesh))
+            continue
+        cfg = dataclasses.replace(smoke_config(case["arch"]), **case["over"])
+        if "linear" in case:
+            specs = case["specs"]
+            p = local_tree(convert._tree(case["linear"], "cpu"), specs, mesh)
+            convert._serve_leaves(p)        # table_narrow from the block
+            x = torch.from_numpy(case["x"])
+            with mesh_context(mesh), record_collectives() as st:
+                y, split = nn.tp_linear_apply(p, x, cfg)
+                res["model_index"] = coll.index("model")
+            res.update(y=convert.to_numpy(y), split=split, stats=st,
+                       blocks=convert.to_numpy(p))
+            continue
+        params = convert.params_from_jax(case["params"], "cpu", mesh=mesh,
+                                         cfg=cfg)
+        tokens = torch.from_numpy(case["tokens"])
+        B, S = tokens.shape
+        r0, nr = block_range(B, batch_entry(B, mesh), mesh)
+        with mesh_context(mesh):
+            logits, caches = lm.prefill(params, tokens[r0:r0 + nr], cfg,
+                                        S_max=case["S_max"])
+            res["prefill_logits"] = convert.to_numpy(logits)
+            t = lm.greedy(logits)
+            toks, stats = [t], []
+            for i in range(case["steps"]):
+                with record_collectives() as st:
+                    logits, caches = lm.decode_step(
+                        params, caches, t[:, None].to(torch.int32), S + i,
+                        cfg)
+                    t = lm.greedy(logits)
+                toks.append(t)
+                stats.append(st)
+            res["model_index"] = coll.index("model")
+        res["init_caches"] = [
+            {b: {k: tuple(v.shape) for k, v in blk.items()}
+             for b, blk in seg.items()}
+            for seg in lm.init_caches(cfg, device="cpu", B=B,
+                                      S_max=case["S_max"], mesh=mesh)]
+        res.update(rows=(r0, nr), tokens=torch.stack(toks).numpy(),
+                   last_logits=convert.to_numpy(logits), stats=stats,
+                   caches=convert.to_numpy(caches),
+                   blocks=convert.to_numpy(params))
+    return out
+
+
+def _collectives_on(mesh):
+    """``parallel.collectives`` on this rank: a gather over ('data',
+    'model') (data-major), an int16 gather (moved as bytes), sum, max and
+    min over 'model', a reduce-scatter over 'model'; with the counts."""
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.parallel import collectives as coll
+
+    rank = torch.distributed.get_rank()
+    with mesh_context(mesh), record_collectives() as st:
+        t = torch.arange(8, dtype=torch.float32) + 100 * rank
+        out = dict(
+            gather=coll.all_gather(torch.tensor([[rank]]), ("data", "model"),
+                                   dim=1).numpy(),
+            gather16=coll.all_gather(torch.full((2,), rank - 300,
+                                                dtype=torch.int16),
+                                     "model", dim=0).numpy(),
+            sum=coll.all_reduce(t, "model").numpy(),
+            max=coll.all_reduce(t, "model", "max").numpy(),
+            min=coll.all_reduce(t, "model", "min").numpy(),
+            scatter=coll.reduce_scatter(t, "model").numpy(),
+            index=(coll.index("data"), coll.index("model"),
+                   coll.index(("data", "model"))),
+            size=(coll.size("data"), coll.size(("data", "model"))))
+    out["stats"] = st
+    return out

@@ -199,7 +199,8 @@ def test_rank0_shard_shapes_equal_jax(ref):
     n = 0
     for mname, shape in MESHES.items():
         with fake_world(int(np.prod(shape))):
-            mesh = make_production_mesh(multi_pod=len(shape) == 3)
+            mesh = make_production_mesh(multi_pod=len(shape) == 3,
+                                            device_type="cpu")
             for arch in ARCHS:
                 for purpose in ("train", "serve"):
                     _, got = _port_shard_shapes(get_config(arch), purpose,
@@ -223,7 +224,8 @@ def test_rows_each_rank_holds_equal_jax(ref):
                for r in ROW_RANKS)
     for rank in ROW_RANKS:
         with fake_world(512, rank=rank):
-            mesh = make_production_mesh(multi_pod=True)
+            mesh = make_production_mesh(multi_pod=True,
+                                            device_type="cpu")
             tree = lm.init_tree(cfg, torch.Generator(), "train", "meta")
             T = dict(_flat(tree))
             A = dict(_flat(filter_specs(spec_tree(tree), mesh)))

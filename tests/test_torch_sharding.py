@@ -238,7 +238,7 @@ def test_shard_hint_refuses_plain_tensors_under_a_larger_mesh():
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "train",
                         device="cpu")
     with fake_world(4):
-        mesh = make_mesh_compat((2, 2), ("data", "model"))
+        mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
         with mesh_context(mesh):
             with pytest.raises(NotImplementedError, match="not run sharded"):
                 tsh.shard_hint(torch.zeros(4, 2), P("data", None))
@@ -256,7 +256,7 @@ def test_uneven_dims_are_refused_and_placements_split_pod_major():
         compute_local_shape_and_global_offset
 
     with fake_world(256):
-        mesh = make_production_mesh()
+        mesh = make_production_mesh(device_type="cpu")
         sh = NamedSharding(mesh, P("model", None))
         with pytest.raises(ValueError, match="divides by 16"):
             sh.shard_shape((122753, 2304))
@@ -267,7 +267,7 @@ def test_uneven_dims_are_refused_and_placements_split_pod_major():
             NamedSharding(mesh, P(("model", "data")))
     for rank in (0, 17, 300, 511):
         with fake_world(512, rank=rank):
-            mesh = make_production_mesh(multi_pod=True)
+            mesh = make_production_mesh(multi_pod=True, device_type="cpu")
             sh = NamedSharding(mesh, P(("pod", "data"), "model"))
             shape, off = compute_local_shape_and_global_offset(
                 (1024, 64), mesh, sh.placements)
