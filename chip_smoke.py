@@ -18,6 +18,9 @@
     python3 chip_smoke.py --only sharded  # kernel 1 built: the dense
                                           # serve forwards sharded (phase
                                           # 12), one JSON line
+    python3 chip_smoke.py --only sharded-train  # kernel 1 built: the QAT
+                                          # train step sharded (phase
+                                          # 13), one JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -201,8 +204,9 @@ Phases, in order; any failure raises and exits non-zero:
    each other family's smoke (recurrentgemma-2b at window 8, xlstm-350m,
    seamless-m4t-medium with frames, deepseek-v3-671b with MLA + MoE and
    int8 moments, moe-gqa, kimi-k2-1t-a32b, internvl2-76b with ``front``);
-   (g) recurrentgemma-2b (batch 2 x 1024, the last of 4 steps profiled),
-   xlstm-350m (4 x 256: four of the scan's 64-step chunks),
+   (g) recurrentgemma-2b cut to 13 of 26 layers (batch 2 x 1024, the
+   last of 4 steps profiled), xlstm-350m cut to 8 of 24 layers (4 x 256:
+   four of the scan's 64-step chunks),
    seamless-m4t-medium (4 x 1024 tokens, 512 frames) and
    deepseek-v3-671b cut to its 3 dense MLA layers (of 61; int8 moments,
    4 x 1024) at full width through the train CLI, each with its memory
@@ -253,6 +257,23 @@ Phases, in order; any failure raises and exits non-zero:
     wi/wg and FFN wo: n_tiles / 16 output tiles, the FSDP reduction
     groups gathered whole), int32-equal to its plain twin and timed
     beside it, its bound and the one-hot ``_int_mm``.
+13. the QAT train step sharded (``phase_sharded_train``): one NCCL rank
+    per visible card, a (data 1, model world) mesh (world 1 on one card);
+    minicpm-2b at full width and depth (``pure_fsdp``: every linear
+    ZeRO-3-sharded over ('data', 'model') and gathered at use) and
+    codeqwen1.5-7b at full width cut to 8 of 32 layers (tensor, sequence
+    and vocab parallel over 'model', FSDP over ('pod', 'data')), each
+    from phase 8's seeded params and batches (4 x 1024, WSD): two
+    unsharded ``make_train_step``s, freed, then two sharded ones from the
+    same state on this rank's blocks (``local_tree``) and rows, the loss,
+    gradient norm, every gradient leaf's norm and bit checksum and every
+    param after each step compared bit for bit (a step that is not is
+    named, its loss held within 1e-6 and each gradient leaf within the
+    CPU tests' tolerances), the collectives of a step by kind, count and
+    bytes with the backward's and the parameter ones apart, both steps'
+    ms and peak memory; then minicpm-2b's trained layer 0 ``ffn.wi``
+    gathered over its axes, compiled and run on kernel 1 at M 4 and 64,
+    int32-equal to its plain twin (``phase_trained_linear``).
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -261,8 +282,9 @@ moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
 rows also carry ``launches_by_path``, each counted on one of the
 families' runs with the counters set to 0 just before it, kernel 1's
 and kernels 3-4's also the trained weights' launches in phase 8 and
-kernel 1's the sharded runs of phase 12, with its 16-way shard-shape
-times under ``shard_shapes``); the
+kernel 1's the sharded runs of phase 12 and the sharded trained
+``ffn.wi`` of phase 13, with its 16-way shard-shape times under
+``shard_shapes``); the
 last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
@@ -4423,8 +4445,11 @@ TRAIN_SMOKES = (
 # (g): (arch, batch, seq_len, steps, profiled step, layers kept); widths
 # are never cut
 TRAIN_FULL = (
-    ("recurrentgemma-2b", 2, 1024, 4, 3, None),
-    ("xlstm-350m", 4, 256, 2, None, None),       # ~33 s a step, host bound
+    # recurrentgemma and xlstm cut in depth to keep the whole script well
+    # inside its time limit: both are host bound (~1.7 and ~30 s a step at
+    # full depth), and their time grows with the layers
+    ("recurrentgemma-2b", 2, 1024, 4, 3, 13),
+    ("xlstm-350m", 4, 256, 2, None, 8),
     ("seamless-m4t-medium", 4, 1024, 3, None, None),
     ("deepseek-v3-671b", 4, 1024, 3, None, 3),     # its 3 dense MLA layers
 )
@@ -5505,11 +5530,332 @@ def phase_sharded(world: int = 0, cuts: dict = SHARD_CUTS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded QAT train step of the dense GQA decoders
+# ---------------------------------------------------------------------------
+
+# layers kept (None: full depth); widths are never cut.  codeqwen1.5-7b's
+# f32 params, gradients and moments take 16 bytes a parameter: 3.7 GB a
+# layer and 12.1 GB for its untied tables, so 8 of its 32 layers (41.8 GB)
+# leave room for the step's activations (``train_reckoning`` prints it)
+STRAIN_CUTS = {TRAIN_ARCH: None, "codeqwen1.5-7b": 8}
+STRAIN_STEPS = 2
+# tests/_torch_train.py's tolerances, for an op the card cannot keep
+# bit-equal: gradients by cosine and max error over the leaf's largest
+# (the N2UQ ``aq`` leaves over the largest of their kind), the loss
+GRAD_COS, GRAD_REL, AQ_REL, LOSS_RTOL = 0.9999, 2e-2, 5e-2, 1e-6
+
+
+def _leaf_marks(tree) -> list:
+    """Per leaf of ``tree`` (``tree_leaves`` order): its f64 norm and a
+    checksum of its bits (its 32-bit words summed in int64)."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    return [(float(t.detach().double().norm()),
+             int(t.detach().float().contiguous().view(torch.int32).long()
+                 .sum())) for t in tree_leaves(tree)]
+
+
+def _sync():
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak():
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _hold_leaves(names, want, got, mesh) -> dict:
+    """Gradient leaves ``got`` (this rank's blocks on the card, tagged with
+    their specs) against ``want`` (host copies of the unsharded step's,
+    cut to the same blocks) by ``GRAD_COS``/``GRAD_REL`` (``aq`` leaves
+    by ``AQ_REL`` of the largest of their kind); returns the worst cosine
+    and error, or raises."""
+    from repro_torch.parallel.sharding import local_shard, spec_of
+
+    want = [local_shard(w, spec_of(g), mesh).double()
+            for w, g in zip(want, got)]
+    kinds = {}
+    for n, w in zip(names, want):
+        if ".aq." in n:
+            k = n.rsplit(".", 1)[1]
+            kinds[k] = max(kinds.get(k, 0.0), float(w.abs().max()))
+    worst = dict(cos=1.0, err=0.0)
+    for n, w, g in zip(names, want, got):
+        g = g.detach().double().cpu()
+        scale = float(w.abs().max())
+        if scale == 0:
+            if float(g.abs().max()):
+                raise AssertionError(f"{n}: nonzero where unsharded is 0")
+            continue
+        if ".aq." in n:
+            err = float((w - g).abs().max()) / kinds[n.rsplit(".", 1)[1]]
+            if err >= AQ_REL:
+                raise AssertionError(f"{n}: aq error {err}")
+        else:
+            cos = float((w * g).sum() / (w.norm() * g.norm()))
+            err = float((w - g).abs().max()) / scale
+            if not (cos > GRAD_COS and err < GRAD_REL):
+                raise AssertionError(f"{n}: cos {cos}, error {err}")
+            worst["cos"] = min(worst["cos"], cos)
+        worst["err"] = max(worst["err"], err)
+    return worst
+
+
+def _named_leaves(tree, pre=""):
+    """``(dotted name, leaf)`` of a nested dict/list of tensors, in
+    ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{pre}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{pre}{i}.")
+    else:
+        yield pre[:-1], tree
+
+
+def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
+    """One model's QAT train step unsharded, then sharded under ``mesh`` on
+    this rank's blocks, from the same seeded params (phase 8's: the train
+    CLI's ``init``, seed 0) and batches (its ``SyntheticLMData``, batch
+    ``TRAIN_BATCH x TRAIN_SEQ``), WSD, ``STRAIN_STEPS`` steps each: the
+    loss, the gradient norm, every gradient leaf (norm and bit checksum)
+    and every param after each step compared bit for bit.  Where step 0's
+    gradients differ (every step at world > 1: the blocks are not the
+    whole), the loss is held within ``LOSS_RTOL`` and each gradient
+    leaf within the CPU tests' tolerances of the unsharded one's block.
+    Returns the figures and (``want_wi``) layer 0's trained ``ffn.wi``
+    gathered over its axes, on the host."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import lm, nn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.parallel.sharding import block_range, local_tree
+    from repro_torch.train import trainer as T
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    reck = train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(STRAIN_STEPS)]
+    tc = T.TrainConfig(lr=3e-4, total_steps=TRAIN_STEPS, schedule="wsd",
+                       adamw=AdamWConfig(state_dtype=cfg.opt_state_dtype))
+
+    def init():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return lm.init_lm(cfg, gen, purpose="train", device=dev)
+
+    def run(params, rows, plain=None) -> tuple:
+        step = T.make_train_step(cfg, tc)
+        grads_of, seen = step.grads, {}
+
+        def watched(p, b):     # the step's gradient, before clipping
+            loss, g = grads_of(p, b)
+            first = "loss" not in seen
+            seen.update(loss=float(loss), grads=_leaf_marks(g))
+            if first and plain is None:
+                seen["host"] = [t.detach().to("cpu", copy=True)
+                                for t in tree_leaves(g)]
+            elif first and seen["grads"] != plain["steps"][0]["grads"]:
+                want = plain["steps"][0]["loss"]
+                if abs(seen["loss"] - want) > LOSS_RTOL * abs(want):
+                    raise AssertionError(f"{arch}: loss {seen['loss']} vs "
+                                         f"{want}")
+                names = [n for n, _ in _named_leaves(p.tree())]
+                seen["held"] = _hold_leaves(names, plain["host"],
+                                            tree_leaves(g), mesh)
+            return loss, g
+
+        step.grads = watched
+        opt = adamw_init(params, tc.adamw)
+        out = dict(steps=[])
+        for i, b in enumerate(batches):
+            b = {k: v[rows[0]:rows[0] + rows[1]] for k, v in b.items()}
+            with record_collectives() as st:
+                _sync()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, b, i)
+                float(m["loss"])
+                _sync()
+                ms = (time.perf_counter() - t) * 1e3
+            out["steps"].append(dict(
+                ms=ms, loss=seen["loss"], gnorm=float(m["gnorm"]),
+                grads=seen["grads"], params=_leaf_marks(params), stats=st))
+        out["host"] = seen.pop("host", None)
+        out["held"] = seen.get("held")
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if DEV == "cuda" else 0.0)
+        return out, params
+
+    _free()
+    _reset_peak()
+    plain, params = run(init(), (0, TRAIN_BATCH))
+    del params
+    _free()
+    _reset_peak()
+    whole = init()
+    local = nn.ParamTree(local_tree(whole.tree(), lm.param_axes(
+        cfg, "train"), mesh), trainable=True)
+    del whole
+    rows = block_range(TRAIN_BATCH, nn.train_batch_axes(cfg), mesh)
+    wi = None
+    with mesh_context(mesh):
+        sh, local = run(local, rows, plain)
+        if want_wi:
+            stacked = local.tree()["segments"][0]["b0"]["ffn"]["wi"]
+            layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
+                                 cfg.n_layers)[0]
+            wi = {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
+                  for k, v in layer0.items()}
+    del local, plain["host"]
+    _free()
+    equal = [dict(loss=a["loss"] == b["loss"], gnorm=a["gnorm"] == b[
+        "gnorm"], grads=a["grads"] == b["grads"], params=a["params"] == b[
+        "params"]) for a, b in zip(plain["steps"], sh["steps"])]
+    if sh["held"] is not None and mesh.size() == 1:
+        diff = [n for (n, _), x, y in zip(
+            _named_leaves(lm.param_axes(cfg, "train")), plain["steps"][0][
+                "grads"], sh["steps"][0]["grads"]) if x != y]
+        log(f"  {arch}: step 0 not bit-equal at world 1 ({equal[0]}); "
+            f"gradient leaves that differ: {diff[:6]}"
+            f"{' ...' if len(diff) > 6 else ''}; the op: the row-parallel "
+            "wo products (the bf16 GEMM's f32 output, rounded to bf16 after "
+            "the sum over 'model', where the unsharded step's bf16 GEMM "
+            "rounds in cuBLAS); held within the CPU tests' tolerances "
+            f"{sh['held']}")
+    st = sh["steps"][0]["stats"]
+    coll = {k: dict(count=st.count_by_kind[k], bytes=st.bytes_by_kind[k],
+                    backward_count=st.backward_count_by_kind[k],
+                    backward_bytes=st.backward_bytes_by_kind[k])
+            for k in st.count_by_kind if st.count_by_kind[k]}
+    return dict(
+        layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+        layout="pure_fsdp" if cfg.pure_fsdp else "TP + SP + FSDP",
+        reckoning=reck, equal=equal, held=sh["held"],
+        loss=[s["loss"] for s in sh["steps"]],
+        gnorm=[s["gnorm"] for s in sh["steps"]],
+        plain_loss=[s["loss"] for s in plain["steps"]],
+        plain_gnorm=[s["gnorm"] for s in plain["steps"]],
+        step_ms=[s["ms"] for s in sh["steps"]],
+        plain_step_ms=[s["ms"] for s in plain["steps"]],
+        peak_gib=sh["peak_gib"], plain_peak_gib=plain["peak_gib"],
+        collectives=coll, param_collectives=[st.param_count,
+                                             st.param_bytes]), wi
+
+
+def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
+                        cuts: dict) -> None:
+    """One rank of phase 13: every model of ``cuts`` trained unsharded and
+    sharded under a (1, world) mesh; then (rank 0) the first model's
+    trained layer 0 ``ffn.wi`` on kernel 1; rank 0 writes the figures to
+    ``tmp/rank0.json``."""
+    global DEV
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    DEV = dev_type
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+        out = {"world": world, "mesh": [1, world], "models": {}}
+        wi = None
+        for arch, layers in cuts.items():
+            out["models"][arch], w = _sharded_train_model(
+                arch, layers, mesh, dev, want_wi=wi is None)
+            wi = wi if wi is not None else w
+        if rank == 0:
+            gpu = gpu_line() if dev_type == "cuda" else "cpu"
+            out["trained_linear"], out["launches"] = phase_trained_linear(
+                wi, gpu)
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_train(world: int = 0, cuts: dict = STRAIN_CUTS) -> dict:
+    """Phase 13: the QAT train step of the dense GQA decoders sharded under
+    a (1, world) mesh, one NCCL rank per visible card (world 1 on one
+    card: every collective is still issued, over one-rank groups).
+    Returns rank 0's figures."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_sharded_train_rank, args=(world, tmp, DEV, cuts),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            out = json.load(f)
+    for arch, r in out["models"].items():
+        depth = ("full depth" if r["layers"] == r["of_layers"] else
+                 f"{r['layers']} of {r['of_layers']} layers")
+        log(f"  {arch} ({depth}, full width, {r['layout']}), batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, WSD, {STRAIN_STEPS} steps: "
+            f"sharded vs unsharded {r['equal']}"
+            + (f"; held within the CPU tests' tolerances {r['held']}"
+               if r["held"] else ""))
+        log(f"    loss {r['loss']} |g| {r['gnorm']} (unsharded "
+            f"{r['plain_loss']}, {r['plain_gnorm']}); a step: sharded "
+            f"{[round(x, 1) for x in r['step_ms']]} ms, unsharded "
+            f"{[round(x, 1) for x in r['plain_step_ms']]} ms; peak "
+            f"{r['peak_gib']:.2f} GiB sharded, {r['plain_peak_gib']:.2f} "
+            f"GiB unsharded [{gpu}]")
+        log(f"    collectives step 0 (kind: count/bytes, of them backward) "
+            + "; ".join(f"{k} {c['count']}/{c['bytes']} ({c['backward_count']}"
+                        f"/{c['backward_bytes']})"
+                        for k, c in r["collectives"].items())
+            + f"; parameter collectives {r['param_collectives']} (the FSDP "
+            "gathers and their reduce-scatters)")
+        for i, e in enumerate(r["equal"]):
+            # a step 0 held within tolerances leaves the later steps on
+            # another state: those must only be finite
+            if not all(e.values()) and not r["held"]:
+                raise AssertionError(f"{arch} step {i}: {e}")
+            if not (math.isfinite(r["loss"][i])
+                    and math.isfinite(r["gnorm"][i])):
+                raise AssertionError(f"{arch} step {i}: loss {r['loss']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
                                        "serve-families", "train",
-                                       "parallel", "sharded"),
+                                       "parallel", "sharded",
+                                       "sharded-train"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -5520,7 +5866,11 @@ def main() -> int:
                          "the pipeline and the dry run, one JSON line); "
                          "sharded (kernel 1 built: the dense serve "
                          "forwards under a (1, cards) mesh and kernel 1 at "
-                         "the 16-way shard shapes, one JSON line)")
+                         "the 16-way shard shapes, one JSON line); "
+                         "sharded-train (kernel 1 built: the QAT train "
+                         "step of minicpm-2b and codeqwen1.5-7b under a "
+                         "(1, cards) mesh, the trained ffn.wi on kernel 1, "
+                         "one JSON line)")
     args = ap.parse_args()
 
     import torch
@@ -5540,7 +5890,8 @@ def main() -> int:
         return 0
     t0 = time.perf_counter()
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
-               "train": TRAIN_SOURCES, "sharded": SOURCES[:1]}.get(
+               "train": TRAIN_SOURCES, "sharded": SOURCES[:1],
+               "sharded-train": SOURCES[:1]}.get(
         args.only, SOURCES)
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
@@ -5552,6 +5903,10 @@ def main() -> int:
     if args.only == "sharded":
         phase("sharded serve: the dense forwards under a (data, model) mesh")
         log(json.dumps({"sharded": phase_sharded()}))
+        return 0
+    if args.only == "sharded-train":
+        phase("sharded train: the QAT train step under a (data, model) mesh")
+        log(json.dumps({"sharded_train": phase_sharded_train()}))
         return 0
     if args.only == "train":
         train, _ = phase_train()
@@ -5653,6 +6008,12 @@ def main() -> int:
             {f"sharded {a}": r["launches"]
              for a, r in sharded["models"].items()})
         gemm["shard_shapes"] = sharded["shard_gemms"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("sharded train: the QAT train step under a (data, model) mesh")
+        strain = phase_sharded_train()
+        gemm["launches_by_path"][
+            f"sharded-train {TRAIN_ARCH} trained ffn.wi"] = strain["launches"]
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

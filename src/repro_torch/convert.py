@@ -40,7 +40,8 @@ made from the local block: ``table_narrow`` from the replicated
 
 ``train_params_from_jax`` keeps every leaf as it is, ``embed``/``head``
 in f32 too (training updates the f32 masters), as a trainable
-``ParamTree``.
+``ParamTree``; with a ``mesh``, this rank's blocks under the train specs,
+and ``adamw_state_from_jax`` the moments' blocks alike.
 """
 
 from __future__ import annotations
@@ -133,18 +134,35 @@ def _retag(new, old):
     return new
 
 
-def train_params_from_jax(tree, device="cuda") -> ParamTree:
+def train_params_from_jax(tree, device="cuda", mesh=None,
+                          cfg=None) -> ParamTree:
     """JAX train params (``lm.init_lm(key, cfg)[0]`` as numpy) -> the
-    port's trainable ``ParamTree``, every leaf as it is."""
-    return ParamTree(_tree(tree, device), trainable=True)
+    port's trainable ``ParamTree``, every leaf as it is.  With ``mesh``:
+    this rank's blocks under ``cfg``'s train specs (the sharded train
+    step's params)."""
+    specs = None
+    if mesh is not None:
+        from repro_torch.models import lm
+
+        specs = lm.param_axes(cfg, "train")
+    return ParamTree(_local(tree, device, mesh, specs), trainable=True)
 
 
-def adamw_state_from_jax(state, device="cuda"):
+def adamw_state_from_jax(state, device="cuda", mesh=None, cfg=None):
     """JAX AdamW state (``optim.adamw_init``/``adamw_update``'s ``{'m',
     'v', 'step'}`` as numpy: f32 or bf16 moments, int8 moments as ``{'q',
     'scale'}`` dicts, a 0-d int32 step) -> the same structure of
-    tensors."""
-    return _tree(state, device)
+    tensors.  With ``mesh``: this rank's blocks of f32 moments, cut as
+    the params are (the reference's ``_opt_axes``), the step whole."""
+    if mesh is None:
+        return _tree(state, device)
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import P
+
+    axes = lm.param_axes(cfg, "train")
+    return {"m": _local(state["m"], device, mesh, axes),
+            "v": _local(state["v"], device, mesh, axes),
+            "step": _local(state["step"], device, mesh, P())}
 
 
 def to_numpy(tree):

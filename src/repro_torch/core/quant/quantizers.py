@@ -120,16 +120,21 @@ def _grad_scale(x: torch.Tensor, scale) -> torch.Tensor:
 
 
 def lsq_quant(x: torch.Tensor, step: torch.Tensor, bits: int,
-              signed: bool = True, dequant: bool = True) -> torch.Tensor:
+              signed: bool = True, dequant: bool = True,
+              numel: Optional[int] = None) -> torch.Tensor:
     """LSQ fake-quant (or codes if ``dequant=False``).  The step's
-    gradient is scaled by ``1/sqrt(numel*qmax)``."""
+    gradient is scaled by ``1/sqrt(numel*qmax)``: ``numel`` is the element
+    count of the whole weight, ``x``'s own by default.  A sharded train
+    linear passes its block with the whole weight's count (the
+    reference's ``x.size`` is the global size under GSPMD)."""
     if signed:
         qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
     else:
         qmin, qmax = 0, 2**bits - 1
     x = _f32(x)
     step = _f32(step, x)
-    g = (_f32(1.0) / torch.sqrt(_f32(float(x.numel()) * max(qmax, 1)))).to(
+    n = x.numel() if numel is None else numel
+    g = (_f32(1.0) / torch.sqrt(_f32(float(n) * max(qmax, 1)))).to(
         x.device)
     s = _grad_scale(step, g)
     q = _clip(_round_ste(x / s), qmin, qmax)

@@ -10,8 +10,11 @@ kind, bytes, count, under the reference's kind names.  Bytes are each
 call's tensor bytes on the issuing rank: for a P2P hop the block sent,
 for an all-gather the gathered output (as the reference's parser counts
 output shapes).  A collective that moves a parameter (the FSDP gather
-of a sharded lookup plan) is counted again under ``param_count`` and
-``param_bytes``.
+of a sharded lookup plan or train weight, and its reduce-scatter in the
+backward) is counted again under ``param_count`` and ``param_bytes``.
+The collectives that a backward issues (``parallel.collectives``'
+autograd forms) are counted with the rest and again under
+``backward_count_by_kind`` and ``backward_bytes_by_kind``.
 
 ``Roofline`` keeps the reference's fields and properties.  Its hardware
 model is an argument; the default is the NVIDIA H100 SXM data sheet for
@@ -25,7 +28,6 @@ model is an argument; the default is the NVIDIA H100 SXM data sheet for
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 from typing import Dict
 
@@ -43,41 +45,54 @@ class CollectiveStats:
     count_by_kind: Dict[str, int]
     param_count: int = 0       # of the above, collectives moving params
     param_bytes: int = 0
+    # of the above, those a backward issued
+    backward_count_by_kind: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in _COLLECTIVES})
+    backward_bytes_by_kind: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in _COLLECTIVES})
 
     @property
     def total_bytes(self) -> int:
         return sum(self.bytes_by_kind.values())
 
 
-_RECORDERS = contextvars.ContextVar("repro_torch_collectives", default=())
+# the open recorders: process-wide, not a context variable, so that a
+# backward that autograd runs on its device thread is counted too
+_RECORDERS = []
 
 
 @contextlib.contextmanager
 def record_collectives():
     """Yields a ``CollectiveStats`` that counts every collective the
-    port's code issues inside the block (nested blocks all count)."""
+    port's code issues inside the block (nested blocks all count), its
+    backward's included."""
     stats = CollectiveStats({k: 0 for k in _COLLECTIVES},
                             {k: 0 for k in _COLLECTIVES})
-    token = _RECORDERS.set(_RECORDERS.get() + (stats,))
+    _RECORDERS.append(stats)
     try:
         yield stats
     finally:
-        _RECORDERS.reset(token)
+        del _RECORDERS[next(i for i, r in enumerate(_RECORDERS)
+                            if r is stats)]
 
 
 def note_collective(kind: str, tensor: torch.Tensor,
-                    param: bool = False) -> None:
+                    param: bool = False, backward: bool = False) -> None:
     """Count one collective of ``kind`` moving ``tensor``'s bytes
-    (``param``: the tensor is a parameter's)."""
+    (``param``: the tensor is a parameter's or its gradient's;
+    ``backward``: a backward issued it)."""
     if kind not in _COLLECTIVES:
         raise ValueError(f"collective kind {kind!r} not in {_COLLECTIVES}")
     nbytes = tensor.numel() * tensor.element_size()
-    for stats in _RECORDERS.get():
+    for stats in _RECORDERS:
         stats.bytes_by_kind[kind] += nbytes
         stats.count_by_kind[kind] += 1
         if param:
             stats.param_count += 1
             stats.param_bytes += nbytes
+        if backward:
+            stats.backward_count_by_kind[kind] += 1
+            stats.backward_bytes_by_kind[kind] += nbytes
 
 
 @dataclasses.dataclass(frozen=True)

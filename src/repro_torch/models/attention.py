@@ -21,7 +21,7 @@ caches only, as the reference serves it.  The train forward runs
 autograd: these functions make no in-place update of a tensor the graph
 reads.  Under a mesh the dense prefill and decode of a GQA block are
 ``tp_gqa_prefill`` and ``tp_gqa_decode``, on this rank's heads or cache
-positions."""
+positions, and its train forward ``tp_gqa_train``."""
 
 from __future__ import annotations
 
@@ -420,6 +420,41 @@ def tp_gqa_prefill(params, x, cfg, cache=None):
                 kc[:, :hi - lo] = k[:, lo:hi].to(kc.dtype)
                 vc[:, :hi - lo] = v[:, lo:hi].to(vc.dtype)
     return nn.tp_linear_apply(params["wo"], out, cfg, split=local)
+
+
+def tp_gqa_train(params, x, cfg):
+    """``gqa_train`` of the sharded train step under tensor parallelism
+    (causal self-attention from position 0, with gradients): ``x [B, S,
+    d]`` the whole sequence of this rank's batch rows (gathered by the
+    block, ``models.lm._tp_train_block``).  The column-parallel wq/wk/wv
+    (``nn.linear_apply`` on this rank's columns) give its block of query
+    heads and of KV heads; where its k/v columns are not whole KV groups
+    (fewer KV heads than 'model' ranks, or half a head), k and v are
+    gathered over 'model' (backward: reduce-scatter) and it reads the
+    groups of its query heads.  Returns the row-parallel ``wo``'s partial
+    sum ``[B, S, d]`` over this rank's heads (the block reduce-scatters
+    it over 'model')."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
+    m = coll.size("model")
+    if H % m:
+        raise NotImplementedError(f"{H} query heads do not divide over "
+                                  f"'model' ({m} ranks)")
+    lin = nn.linear_apply
+    q = lin(params["wq"], x, cfg, use_bias=cfg.qkv_bias).reshape(
+        B, S, H // m, hd)
+    k = lin(params["wk"], x, cfg, use_bias=cfg.qkv_bias)
+    v = lin(params["wv"], x, cfg, use_bias=cfg.qkv_bias)
+    if KV % m == 0:
+        k, v = k.reshape(B, S, KV // m, hd), v.reshape(B, S, KV // m, hd)
+    else:
+        k, v = (_local_groups(coll.all_gather_ad(t, "model").reshape(
+            B, S, KV, hd), cfg) for t in (k, v))
+    positions = torch.arange(S, device=x.device)[None, :]
+    sin, cos = nn.rotary_embedding(positions, hd)
+    q = nn.apply_rotary(q, sin, cos)
+    k = nn.apply_rotary(k, sin, cos)
+    return lin(params["wo"], sdpa(q, k, v, cfg, causal=True), cfg)
 
 
 def _sdpa_seq_sharded(q, kc, vc, start: int, pos: int):

@@ -67,8 +67,15 @@ this rank's heads or its cache positions (``attention.tp_gqa_prefill``,
 ``greedy`` is their argmax over 'model'; every collective goes through
 ``parallel.collectives``.  The residual stream is whole on every rank of
 'model'.  The returned logits are this rank's block of the padded vocab.
-The train forward, the paged forwards and the other block kinds raise
-under a mesh of more than one device.
+
+Sharded training: under the mesh the train ``forward`` of those decoders
+runs on this rank's param blocks and batch rows (``_forward_sharded``),
+as the reference's ``make_train_step`` jitted with its specs' shardings
+runs it: tensor and sequence parallel over 'model' (``_tp_train_block``,
+Megatron-SP), the embedding, logits and loss vocab-parallel, FSDP
+weights gathered at use; or under ``pure_fsdp`` the plain blocks on the
+rows, every weight gathered at use.  The paged forwards and the other
+block kinds raise under a mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -82,9 +89,10 @@ import torch.utils.checkpoint
 from repro_torch.kernels import paged as paged_kernels
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, nn, rglru, xlstm
-from repro_torch.parallel.sharding import (P, batch_entry, block_range,
-                                           current_mesh, shard_hint,
-                                           spec_tree, with_spec)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (_SPEC_ATTR, P, batch_entry,
+                                           block_range, current_mesh,
+                                           shard_hint, spec_tree, with_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,11 +267,15 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     recurrent block (``mlstm``, ``slstm``, ``rglru``) starts from the
     state in ``cache`` (zeros: a prefill) and writes its final state
     back into it."""
-    mesh = current_mesh()      # a train forward under a 1x1 mesh is plain
-    if mesh is not None and (apply_fn is nn.serve_linear_apply
-                             or mesh.size() > 1):
-        return _tp_block(kind, params, x, cfg, apply_fn, cache, pos, decode,
-                         paged_ctx)
+    if current_mesh() is not None:
+        if apply_fn is nn.serve_linear_apply:
+            return _tp_block(kind, params, x, cfg, apply_fn, cache, pos,
+                             decode, paged_ctx)
+        check_sharded_train(cfg, kind)
+        if not cfg.pure_fsdp:
+            return _tp_train_block(params, x, cfg, x32)
+        # pure_fsdp: the plain block on this rank's batch rows, each linear
+        # gathering its FSDP blocks (nn.linear_apply)
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
                          dtype=x.dtype)
     if kind in ("mlstm", "slstm"):
@@ -352,16 +364,16 @@ def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
     tensor-parallel over 'model' (``nn.tp_linear_apply``), its attention
     on this rank's heads or cache positions (``attention.tp_gqa_prefill``,
     ``tp_gqa_decode``), the residual stream whole on every rank of 'model'
-    and this rank's rows of the batch.  Other block kinds, the paged
-    forwards and the train forward do not run sharded yet."""
-    if (apply_fn is not nn.serve_linear_apply or paged_ctx is not None
-            or kind != "attn" or cfg.attn_kind != "gqa"):
+    and this rank's rows of the batch.  Other block kinds and the paged
+    forwards do not run sharded yet (the train forward is
+    ``_tp_train_block``'s)."""
+    if paged_ctx is not None or kind != "attn" or cfg.attn_kind != "gqa":
         raise NotImplementedError(
             f"block {kind!r} (attn_kind {cfg.attn_kind!r}, "
-            f"{'paged' if paged_ctx is not None else 'dense'}, "
-            f"{'serve' if apply_fn is nn.serve_linear_apply else 'train'}) "
-            "under a mesh: only the dense-cache serve forwards of a GQA "
-            "decoder run sharded (the train step is the next slice)")
+            f"{'paged' if paged_ctx is not None else 'dense'}) under a "
+            "mesh: only the dense-cache serve forwards of a GQA decoder run "
+            "sharded; MoE and MLA, the recurrent and enc-dec families and "
+            "the paged loop are ROADMAP queue 1's later items")
     h = nn.rmsnorm_apply(params["norm1"], x)
     if decode:
         y, split = attn.tp_gqa_decode(params["attn"], h, cfg,
@@ -372,6 +384,51 @@ def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
     y = _tp_ffn(params["ffn"], hf, cfg)
     return x + y, cache, 0.0, (x, y)
+
+
+def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
+    """Raise for what the sharded train step does not cover: every block
+    kind but a GQA decoder's ``attn`` (``kind``, or every kind of the
+    config), an enc-dec model, a VLM's frontend."""
+    kinds = ({kind} if kind is not None else
+             {k for seg in segments_for(cfg) for k in seg.pattern})
+    if (kinds != {"attn"} or cfg.attn_kind != "gqa" or cfg.n_enc_layers
+            or cfg.frontend != "none"):
+        raise NotImplementedError(
+            f"the train forward of {cfg.name!r} (blocks {sorted(kinds)}, "
+            f"attn_kind {cfg.attn_kind!r}, frontend {cfg.frontend!r}) does "
+            "not run sharded: only the dense GQA decoders train under a mesh; MoE "
+            "expert parallelism and MLA, the recurrent and enc-dec families "
+            "and a VLM's front are ROADMAP queue 1's later items")
+
+
+def _tp_train_block(params, x, cfg, x32=None):
+    """An ``attn`` block of the train forward under the mesh with tensor
+    and sequence parallelism over 'model' (Megatron-SP): ``x [B, S_l,
+    d]`` is this rank's sequence block of its batch rows (``x32`` the
+    same block's f32 sum, where the layer body passes one).  The norms run
+    on the block; the block's sequence is all-gathered (backward:
+    reduce-scatter) into the column-parallel wq/wk/wv and wi/wg; the
+    attention runs on this rank's heads (``attention.tp_gqa_train``); the
+    row-parallel ``wo``s' f32 partial sums are reduce-scattered back onto
+    the sequence block and rounded to bf16 once (backward: all-gather)."""
+    h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
+                         dtype=x.dtype)
+    h = coll.all_gather_ad(h, "model", dim=1)
+    y = _seq_reduce_scatter(attn.tp_gqa_train(params["attn"], h, cfg))
+    x, s = _residual(x, y)
+    hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+    hf = coll.all_gather_ad(hf, "model", dim=1)
+    y = _seq_reduce_scatter(ffn_apply(params["ffn"], hf, cfg,
+                                      nn.linear_apply))
+    return x + y, None, 0.0, (x, y)
+
+
+def _seq_reduce_scatter(y):
+    """A row-parallel linear's f32 partial sums ``[B, S, d]`` onto this
+    rank's sequence block: summed over 'model' in f32, rounded to bf16
+    once."""
+    return coll.reduce_scatter_ad(y, "model", dim=1).to(nn.COMPUTE_DTYPE)
 
 
 def _tp_ffn(params, x, cfg):
@@ -762,8 +819,12 @@ def _unstack(stacked, n: int) -> List[dict]:
     views = [{} for _ in range(n)]
     for k, v in stacked.items():
         parts = (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+        spec = getattr(v, _SPEC_ATTR, None)
         for i in range(n):
             views[i][k] = parts[i]
+            if spec is not None and not isinstance(v, dict):
+                # a layer's view carries the spec less the layer axis
+                setattr(parts[i], _SPEC_ATTR, spec[1:])
     return views
 
 
@@ -804,15 +865,38 @@ def _segment_scan(seg: Segment, params_stacked, x, cfg, apply_fn,
     return x, aux_total
 
 
-def next_token_loss(logits, tokens):
+def next_token_loss(logits, tokens, cfg=None, start: int = 0):
     """Mean cross-entropy of next-token prediction: f32 logsumexp with the
-    max held constant, padded vocab rows (-1e30) contributing nothing."""
+    max held constant, padded vocab rows (-1e30) contributing nothing.
+
+    Under the active mesh (``cfg`` given), of the sharded train step:
+    ``logits``/``tokens`` are this rank's batch rows, and under tensor
+    parallelism ``logits`` is its block of the padded vocab from global
+    index ``start`` (vocab-parallel): the max is reduced over 'model' and
+    held constant, ``sum(exp)`` summed over it, and the target's logit
+    taken from the rank that holds it (a masked gather, summed over
+    'model').  The mean over the local rows is then averaged over the
+    batch axes, which is the global mean since every rank holds as many
+    rows.  The loss is the same on every rank."""
     lg = logits[:, :-1].to(torch.float32)
     tg = tokens[:, 1:].long()
-    true = lg.gather(-1, tg[..., None])[..., 0]
-    m = lg.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    return (lse - true).mean()
+    if cfg is None or current_mesh() is None:
+        true = lg.gather(-1, tg[..., None])[..., 0]
+        m = lg.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+        return (lse - true).mean()
+    vocab = () if cfg.pure_fsdp else "model"
+    n = lg.shape[-1]
+    t = tg - start
+    own = (t >= 0) & (t < n)
+    true = lg.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+    true = coll.all_reduce_ad(torch.where(own, true, torch.zeros_like(true)),
+                              vocab)
+    m = coll.all_reduce_max(lg.amax(dim=-1, keepdim=True), vocab)
+    se = coll.all_reduce_ad(torch.exp(lg - m).sum(dim=-1), vocab)
+    lse = torch.log(se) + m[..., 0]
+    batch = nn.train_batch_axes(cfg)
+    return coll.all_reduce_ad((lse - true).mean(), batch) / coll.size(batch)
 
 
 def _encode_train(p: dict, frames, cfg):
@@ -839,6 +923,8 @@ def forward(params, batch, cfg):
     p = _tree(params)
     tokens = batch["tokens"]
     remat = cfg.remat == "layer"
+    if current_mesh() is not None:
+        return _forward_sharded(p, tokens, cfg, remat)
     x = nn.embed_apply(p["embed"], tokens)
     enc_out = None
     if cfg.n_enc_layers:
@@ -861,6 +947,39 @@ def forward(params, batch, cfg):
     logits = shard_hint(logits, P(("pod", "data"), None, "model"))
     loss = next_token_loss(logits, tokens)
     return loss + 0.01 * aux_total, logits[..., : cfg.vocab]
+
+
+def _forward_sharded(p: dict, tokens, cfg, remat: bool):
+    """``forward`` under the active mesh, on this rank's param blocks and
+    batch rows (the reference's ``make_train_step`` jitted with its specs'
+    shardings): the embedding (``nn.train_embed_apply``), then under
+    tensor parallelism this rank's sequence block on 'model' into the
+    layers (``_tp_train_block``), the final norm on the block, the
+    sequence gathered into the vocab-parallel logits
+    (``nn.train_logits_apply``) and loss (``next_token_loss``).  Under
+    ``pure_fsdp`` the plain layers on the rows, each linear gathering its
+    blocks.  Returns ``(loss, logits)``: the global loss on every rank,
+    this rank's rows and (TP) its block of the vocab's real columns."""
+    check_sharded_train(cfg)
+    x = nn.train_embed_apply(p["embed"], tokens, cfg)
+    x = shard_hint(x, P(("pod", "data"), None, None))
+    if not cfg.pure_fsdp:
+        m, S = coll.size("model"), x.shape[1]
+        if S % m:
+            raise ValueError(
+                f"sequence length {S} does not divide over 'model' ({m} "
+                "ranks): the layer boundary is sequence-sharded, which the "
+                "reference's GSPMD pads and the port refuses")
+        x = coll.split_ad(x, "model", dim=1)
+    for seg, sp in zip(segments_for(cfg), p["segments"]):
+        x, _ = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat)
+    x = nn.rmsnorm_apply(p["final_norm"], x)
+    if not cfg.pure_fsdp:
+        x = coll.all_gather_ad(x, "model", dim=1)
+    logits, start = nn.train_logits_apply(p.get("head", p["embed"]), x, cfg)
+    logits = shard_hint(logits, P(("pod", "data"), None, "model"))
+    loss = next_token_loss(logits, tokens, cfg, start)
+    return loss, logits[..., :max(cfg.vocab - start, 0)]
 
 
 @torch.no_grad()

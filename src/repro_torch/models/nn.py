@@ -151,14 +151,39 @@ def _fsdp_spec(spec: P, fsdp: bool, shape=None, axes=("pod", "data"),
     return spec
 
 
-def _bf16_matmul(x, w):
+def _bf16_matmul(x, w, f32_out: bool = False):
     """``x @ w`` of bf16 operands to bf16: one bf16 ``torch.matmul`` on the
     card (cuBLAS accumulates in f32); on the CPU the f32 product of the
     bf16 operands, which is XLA's CPU dot (a CPU bf16 GEMM orders its sums
-    differently)."""
+    differently).  ``f32_out``: the f32 product, unrounded (on the card
+    cuBLAS's bf16 GEMM with an f32 output, ``_MatmulF32Out``)."""
     if x.device.type == "cuda":
-        return torch.matmul(x, w)
-    return torch.matmul(x.float(), w.float()).to(COMPUTE_DTYPE)
+        return _MatmulF32Out.apply(x, w) if f32_out else torch.matmul(x, w)
+    y = torch.matmul(x.float(), w.float())
+    return y if f32_out else y.to(COMPUTE_DTYPE)
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``x [..., K] @ w [K, N]`` of bf16 operands on the card, as f32: the
+    bf16 GEMM with an f32 output (``torch.mm(out_dtype=)``, which has no
+    derivative of its own), so the sum is the bf16 product's less its
+    last rounding.  The backward is the bf16 product's: the gradient
+    rounded to bf16 (the values a bf16 output's gradient holds), then the
+    two bf16 GEMMs of ``torch.matmul``'s backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, w.shape[-1])
+        dx = g.mm(w.t()).reshape(x.shape)
+        dw = x.reshape(-1, x.shape[-1]).t().mm(g)
+        return dx, dw
 
 
 def _winit(gen, shape, device) -> torch.Tensor:
@@ -211,19 +236,110 @@ def linear_apply(params, x, cfg, use_bias: bool = False):
     and ``w``.  Expert weights ``[E, K, N]`` take ``x [..., E, cap, K]``
     to ``[..., E, cap, N]``.  The serve path also reaches it through an
     enc-dec model's ``front`` projection (``models.lm.encode``)."""
+    numel, partial = None, False
+    if current_mesh() is not None:
+        partial = _row_parallel(params["w"], cfg)
+        if partial and use_bias:
+            raise NotImplementedError("a bias on a row-parallel train linear")
+        params, numel = _train_leaves(params, cfg)
     w = params["w"]
     if "aq" in params:
         xq = Q.n2uq_act_quant(x.to(torch.float32), params["aq"],
                               cfg.quant.a_bits)
         wq = Q.lsq_quant(w.reshape(-1, w.shape[-1]), params["w_step"],
-                         cfg.quant.w_bits).reshape(w.shape)
+                         cfg.quant.w_bits, numel=numel).reshape(w.shape)
         x_, w_ = xq.to(COMPUTE_DTYPE), wq.to(COMPUTE_DTYPE)
     else:
         x_, w_ = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
-    y = _bf16_matmul(x_, w_)     # [..., E, cap, K] @ [E, K, N] broadcasts
+    # [..., E, cap, K] @ [E, K, N] broadcasts
+    y = _bf16_matmul(x_, w_, f32_out=partial)
     if use_bias:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# The train linear under a mesh (the sharded train step)
+# ---------------------------------------------------------------------------
+#
+# Under ``launch.mesh.mesh_context`` a train linear's leaves are this rank's
+# blocks, tagged with the reference's specs (``init_linear``), and
+# ``linear_apply`` follows them:
+#
+# - tensor parallel (every config but ``pure_fsdp``): 'model' in ``w``'s
+#   spec is TP.  Column-parallel ``w`` P(fsdp, 'model') (wq, wk, wv, wi,
+#   wg) with ``w_step`` P('model') and a bias P('model'): the product of
+#   the whole input (gathered over the sequence by the block) on this
+#   rank's columns.  Row-parallel ``w`` P('model', fsdp) (both ``wo``s)
+#   with ``w_step`` P(None): the product of this rank's input columns on
+#   its rows, a partial sum that the block reduce-scatters.  The N2UQ
+#   activation quantiser reads the input the linear gets; LSQ runs on the
+#   local block with the whole weight's element count.  A row-parallel
+#   product is returned in f32, unrounded: the block sums the partials
+#   over 'model' in f32 and rounds the sum once, so the sum differs from
+#   the whole product's only in its f32 order (the reference's partitioned
+#   graph computes these products whole, after resharding its
+#   activations, and rounds once; partials rounded to bf16 first moved
+#   the N2UQ codes downstream);
+# - FSDP: the axes of ``w``'s spec other than a TP 'model' (('pod',
+#   'data'), or ('data', 'model') and ``w_step``'s 'model' under
+#   ``pure_fsdp``, which has no TP) are gathered at each use
+#   (``collectives.all_gather_ad``, counted as parameter collectives); the
+#   backward reduce-scatters the gradient, which sums it over those axes.
+
+
+def train_work_axes(cfg) -> tuple:
+    """Every mesh axis over which the sharded train step splits its work:
+    the batch rows' axes (``train_batch_axes``) and, under tensor
+    parallelism, 'model'."""
+    return ("data", "model") if cfg.pure_fsdp else ("pod", "data", "model")
+
+
+def train_batch_axes(cfg) -> tuple:
+    """The mesh axes a sharded train step splits its batch rows over, as
+    the reference's ``_lower_train`` shards the batch: ('data', 'model')
+    under ``pure_fsdp`` (no TP), else ('pod', 'data')."""
+    return ("data", "model") if cfg.pure_fsdp else ("pod", "data")
+
+
+def _row_parallel(w, cfg) -> bool:
+    """Whether a train linear's ``w`` is row-parallel: its reduction dim
+    on a TP 'model'."""
+    spec = spec_of(w)
+    return (not cfg.pure_fsdp and len(spec) >= 2
+            and "model" in _names(spec[-2]))
+
+
+def _train_leaves(params, cfg):
+    """A train linear's leaves as its product reads them on this rank
+    (FSDP axes gathered), and the whole weight's element count."""
+    w = params["w"]
+    numel = w.numel()
+    for e in spec_of(w):
+        numel *= coll.size(e)
+    out = dict(params)
+    for name in ("w", "w_step", "b"):
+        if name in params:
+            out[name] = gather_fsdp(params[name], cfg)
+    return out, numel
+
+
+def gather_fsdp(t, cfg):
+    """A param block of the sharded train step gathered over its FSDP
+    axes (every axis its spec names but a TP 'model'), as it is used; the
+    backward reduce-scatters the gradient.  Under ``pure_fsdp`` the batch
+    is split over ('data', 'model') only, so a gather over a 'pod' of more
+    than one rank would sum copies of one gradient: refused."""
+    for d, e in enumerate(spec_of(t)):
+        axes = tuple(a for a in _names(e) if cfg.pure_fsdp or a != "model")
+        if cfg.pure_fsdp and "pod" in axes and coll.size("pod") > 1:
+            raise NotImplementedError(
+                "a pure_fsdp leaf sharded over 'pod' under a mesh with a pod "
+                "axis: its batch is replicated over 'pod' (the reference's "
+                "_lower_train), so the gather's backward would sum copies")
+        if axes:
+            t = coll.all_gather_ad(t, axes, dim=d, param=True)
+    return t
 
 
 def init_serve_linear(gen: torch.Generator, K: int, N: int, cfg,
@@ -718,15 +834,49 @@ def embed_apply(params, tokens):
     return coll.all_reduce(rows, "model")
 
 
-def logits_apply(params, x, vocab: Optional[int] = None):
+def train_embed_apply(params, tokens, cfg):
+    """``embed_apply`` of the sharded train step (f32 master rows, with
+    gradients): under tensor parallelism vocab-parallel, each rank's own
+    rows (zeros for the others) summed over 'model'
+    (``collectives.all_reduce_ad``: each rank's rows get the gradient of
+    their tokens); under ``pure_fsdp`` the table gathered over its FSDP
+    axes ('model'), then the plain lookup."""
+    emb = params["emb"]
+    if cfg.pure_fsdp:
+        return gather_fsdp(emb, cfg)[tokens.long()].to(COMPUTE_DTYPE)
+    n = emb.shape[0]
+    t = tokens.long() - _vocab_start(emb)
+    own = (t >= 0) & (t < n)
+    rows = emb[t.clamp(0, n - 1)].to(COMPUTE_DTYPE)
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return coll.all_reduce_ad(rows, "model")
+
+
+def train_logits_apply(params, x, cfg):
+    """``logits_apply`` of the sharded train step: under tensor
+    parallelism this rank's block of the padded vocab from the whole
+    sequence ``x`` (its rows of the table); under ``pure_fsdp`` the table
+    gathered and the whole vocab.  Returns ``(logits, the global index of
+    its first column)``."""
+    if cfg.pure_fsdp:
+        emb = gather_fsdp(params["emb"], cfg)
+        return logits_apply({"emb": emb}, x, cfg.vocab, start=0), 0
+    return (logits_apply(params, x, cfg.vocab),
+            _vocab_start(params["emb"]))
+
+
+def logits_apply(params, x, vocab: Optional[int] = None,
+                 start: Optional[int] = None):
     """Logits in bf16; padded vocab rows masked to -1e30.  On the CPU the
     product is XLA's CPU dot (``_bf16_matmul``: f32 over the bf16
     operands, rounded once): torch's CPU bf16 GEMM differs from it by an
     ulp in a few logits, more often on a sliced ``x``.  Under a mesh the
     result is this rank's block of the padded vocab (its rows of the
-    table), padded rows masked by their global index."""
+    table), padded rows masked by their global index (``start``, the
+    index of its first row, where the table is not the 'model' block)."""
     lg = _bf16_matmul(x.to(COMPUTE_DTYPE), params["emb"].to(COMPUTE_DTYPE).T)
-    start = _vocab_start(params["emb"])
+    if start is None:
+        start = _vocab_start(params["emb"])
     if vocab is not None and start + lg.shape[-1] > vocab:
         iota = start + torch.arange(lg.shape[-1], device=lg.device)
         lg = torch.where(iota < vocab, lg,

@@ -5,7 +5,11 @@ Functions over a tree of tensors (nested dicts and lists, or a
 ``ParamTree``), leaf at a time as the reference, updating params and
 state in place under ``torch.no_grad()`` (the reference returns new
 arrays and donates the old).  Leaves are visited in the reference's
-order (sorted dict keys), so the global norm sums in its order.
+order (sorted dict keys), so the global norm sums in its order.  Under a
+mesh (the sharded train step) every function runs on this rank's blocks:
+``adamw_init`` makes local moments, ``adamw_update`` is unchanged (weight
+decay's ``p.dim() >= 2`` reads the local block, which keeps the global
+rank), and ``clip_by_global_norm`` sums the norm over the shards.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.optim.lowbit import q8_compatible, q8_decode, q8_encode
+from repro_torch.parallel.sharding import _names, current_mesh, spec_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,15 +118,43 @@ def clip_by_global_norm(grads, max_norm: float):
     """Scale every leaf by ``min(1, max_norm / max(norm, 1e-12))``, in
     place; the norm is the sqrt of the f32 sum of the leaves' sums of
     squares, summed leaf by leaf in the reference's order.  Returns
-    ``(grads, norm)``."""
+    ``(grads, norm)``.
+
+    Under the active mesh the leaves are this rank's blocks, each tagged
+    with its spec (``train.trainer``): a leaf's sum of squares is summed
+    over the axes its spec shards it on (one all-reduce for the leaves of
+    each set of axes), and a replicated leaf, the same on every rank, is
+    counted once.  The norm is the global one on every rank."""
+    leaves = tree_leaves(grads)
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
+    if current_mesh() is not None:
+        sq = _sum_over_shards(leaves, sq)
     total = 0
-    for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for v in sq:
+        total = total + v
     gn = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
     return grads, gn
+
+
+def _sum_over_shards(leaves, sq):
+    """Each leaf's sum of squares ``sq`` summed over the mesh axes its
+    spec names."""
+    from repro_torch.parallel import collectives as coll
+
+    groups = {}
+    for i, g in enumerate(leaves):
+        axes = tuple(a for e in spec_of(g) for a in _names(e))
+        groups.setdefault(axes, []).append(i)
+    out = list(sq)
+    for axes, idx in groups.items():
+        if axes:
+            red = coll.all_reduce(torch.stack([sq[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                out[i] = red[j]
+    return out
 
 
 @torch.no_grad()

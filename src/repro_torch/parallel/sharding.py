@@ -18,7 +18,7 @@ Every param leaf carries its spec from the line that makes it
 (``with_spec``; ``spec_tree`` reads a tree of them), so
 ``models.lm.param_axes`` derives from the init code itself.
 
-The sharded serve path holds plain local tensors, not DTensors:
+The sharded serve and train paths hold plain local tensors, not DTensors:
 ``local_shard``/``local_tree`` cut a whole tensor (tree) into this rank's
 block in JAX's order, each block tagged with its spec, which the model
 code reads to pick its collectives.
@@ -27,7 +27,6 @@ code reads to pick its collectives.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import math
 from typing import Optional
 
@@ -57,18 +56,22 @@ class PartitionSpec(tuple):
 
 P = PartitionSpec
 
-# The active mesh (``launch.mesh.mesh_context``); None: no mesh.
-_ACTIVE = contextvars.ContextVar("repro_torch_active_mesh", default=None)
+# The active mesh (``launch.mesh.mesh_context``); None: no mesh.  Process
+# wide, not a context variable: on the card autograd runs a backward (and
+# the remat recompute inside it) on its own device thread, which must see
+# the mesh its forward ran under.
+_active = None
 
 
 @contextlib.contextmanager
 def active_mesh(mesh):
     """Make ``mesh`` (a ``DeviceMesh``) the one ``shard_hint`` reads."""
-    token = _ACTIVE.set(mesh)
+    global _active
+    prev, _active = _active, mesh
     try:
         yield mesh
     finally:
-        _ACTIVE.reset(token)
+        _active = prev
 
 
 def mesh_sizes(mesh) -> dict:
@@ -78,7 +81,7 @@ def mesh_sizes(mesh) -> dict:
 
 def _active_axes() -> Optional[set]:
     """The active mesh's axis names, or None without one."""
-    mesh = _ACTIVE.get()
+    mesh = _active
     return None if mesh is None else set(mesh.mesh_dim_names)
 
 
@@ -194,30 +197,48 @@ def make_shardings(mesh, axes_tree):
 
 def current_mesh():
     """The active mesh (``launch.mesh.mesh_context``), or None."""
-    return _ACTIVE.get()
+    return _active
 
 
 def shard_hint(x, spec: P):
     """The reference's conditional ``with_sharding_constraint``: a no-op
     without an active mesh or with one whose axes all have size 1.  Under
-    a larger mesh the sharded serve path holds its activations as this
-    rank's local rows of the batch, so a hint that shards the batch dim
-    and nothing else (``P(('pod', 'data'), None, ...)``, the dense
-    ``decode_step``'s) states the layout it already has and returns ``x``.
-    Any other hint raises: the train forward's sequence- and vocab-parallel
-    layouts and the paged forwards do not run sharded yet."""
-    mesh = _ACTIVE.get()
+    a larger mesh the sharded code holds its activations in the layouts
+    the reference's hints name, so a hint states the layout ``x`` already
+    has and returns it:
+
+    - batch only, ``P(('pod', 'data'), None, ...)``: this rank's batch
+      rows (the dense ``decode_step``'s and the train forward's
+      embeddings; under ``pure_fsdp`` its rows of ('data', 'model'));
+    - ``P(('pod', 'data'), 'model', None)``, the train forward's layer
+      boundary: its rows and its sequence block on 'model' (Megatron-SP);
+    - ``P(('data', 'model'), None, None)``, the same under ``pure_fsdp``:
+      its rows of the batch split over both axes;
+    - ``P(('pod', 'data'), None, 'model')``, the train logits: its rows
+      and its block of the vocab (under ``pure_fsdp``, which has no
+      tensor parallelism, the whole vocab of its rows).
+
+    Any other hint raises: the paged forwards and the block kinds other
+    than a GQA decoder's ``attn`` (MoE, MLA, the recurrent and enc-dec
+    families) do not run sharded yet (ROADMAP queue 1)."""
+    mesh = _active
     if mesh is None or mesh.size() == 1:
         return x
     spec = P(*spec)
-    if (len(spec) and spec[0] == ("pod", "data")
-            and all(e is None for e in spec[1:])):
+    if ((len(spec) and spec[0] == ("pod", "data")
+         and all(e is None for e in spec[1:])) or spec in _TRAIN_HINTS):
         return x
     raise NotImplementedError(
         f"shard_hint{tuple(spec)} under a mesh of {mesh.size()} devices: "
-        "the port's model does not run sharded here (the sharded train "
-        "forward and the paged forwards are later work); the dense serve "
-        "forwards shard only the batch")
+        "the port's model does not run sharded here (the paged forwards, "
+        "MoE, MLA and the recurrent and enc-dec families are ROADMAP queue "
+        "1's later items); the dense forwards hold their rows, the train "
+        "forward its sequence and vocab blocks")
+
+
+_TRAIN_HINTS = (P(("pod", "data"), "model", None),
+                P(("data", "model"), None, None),
+                P(("pod", "data"), None, "model"))
 
 
 def batch_spec() -> P:

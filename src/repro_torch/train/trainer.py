@@ -6,6 +6,18 @@ global-norm clipping, AdamW with the configured state dtype, and the
 schedule.  It runs eagerly: params and optimizer state are updated in
 place (the reference's jit donates them; buffer donation is an XLA hint
 with no counterpart here).
+
+Under ``launch.mesh.mesh_context(mesh)`` the step runs on this rank's
+blocks, as the reference's ``jax.jit(make_train_step(cfg, tc),
+in_shardings=...)`` runs it (``launch/dryrun.py::_lower_train``): params
+and f32 moments cut by their specs (``convert.train_params_from_jax(...,
+mesh=)``, ``adamw_state_from_jax(..., mesh=)``), the batch this rank's
+rows (over ('pod', 'data'), or ('data', 'model') under ``pure_fsdp``).
+The forward is ``models.lm.forward``'s sharded one; ``accum_steps``
+splits this rank's rows.  After the backward each gradient leaf is
+summed over the mesh axes on which its uses saw different data
+(``_reduce_grads``); clipping sums the norm over the shards.  The loss
+and the norm are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -16,10 +28,13 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import lm, nn
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      clip_by_global_norm, tree_leaves,
                                      tree_map)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (_names, current_mesh, spec_of,
+                                           with_spec)
 from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
 from repro_torch.train.compress import compress_grads
 
@@ -52,6 +67,53 @@ def _unflatten(tree, leaves):
     return tree_map(lambda t: order[id(t)], tree)
 
 
+def grad_axes(cfg, spec) -> tuple:
+    """The mesh axes over which the gradient of a leaf of spec ``spec`` is
+    summed after the backward: every axis on which the sharded step splits
+    its work (``nn.train_work_axes``: the batch's, and 'model' under
+    tensor parallelism) that the spec does not shard the leaf on.
+
+    Along an axis the spec names, each rank's block is reduced already:
+    an FSDP axis by the backward of the block's gather (a reduce-scatter,
+    the data-parallel sum), a TP 'model' because only its owner uses the
+    block (a column-parallel ``w``, ``w_step`` or bias; the
+    vocab-parallel table).  Along every other work axis the ranks hold
+    one copy and use it on different data: their rows (the batch axes),
+    or under tensor parallelism their sequence block (the norms), their
+    columns (an ``aq`` beside a column- or row-parallel product; a
+    row-parallel ``wo``'s replicated ``w_step``).  So each such gradient
+    is a partial sum."""
+    sharded = {a for e in spec for a in _names(e)}
+    return tuple(a for a in nn.train_work_axes(cfg) if a not in sharded)
+
+
+def _reduce_grads(params, grads, cfg):
+    """Each gradient leaf summed over its ``grad_axes`` (this rank's
+    block of the global gradient) and tagged with its param's spec."""
+    out = []
+    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        spec = spec_of(p)
+        axes = grad_axes(cfg, spec)
+        if axes:
+            g = coll.all_reduce(g, axes)
+        out.append(with_spec(g, spec))
+    return _unflatten(grads, out)
+
+
+def check_sharded_step(tc: TrainConfig) -> None:
+    """Raise for what the sharded train step does not cover."""
+    if tc.compress:
+        raise NotImplementedError(
+            "int8 gradient compression under a mesh: its uniforms are one "
+            "global draw that each rank would cut (ROADMAP queue 1, with "
+            "MoE expert parallelism)")
+    if tc.adamw.state_dtype != "f32":
+        raise NotImplementedError(
+            f"{tc.adamw.state_dtype} AdamW moments under a mesh: no dense "
+            "config uses them; they come with MoE expert parallelism "
+            "(ROADMAP queue 1)")
+
+
 def make_train_step(cfg, tc: TrainConfig,
                     forward_fn: Optional[Callable] = None):
     """Returns ``train_step(params, opt_state, batch, step, gen=None) ->
@@ -59,7 +121,11 @@ def make_train_step(cfg, tc: TrainConfig,
     params' device (split into ``accum_steps`` microbatches along its
     first dim), ``step`` the int step the schedule reads, ``gen`` the
     generator of the compression's uniforms.  ``metrics``: ``loss``,
-    ``gnorm`` (before clipping) and ``lr``, 0-d tensors."""
+    ``gnorm`` (before clipping) and ``lr``, 0-d tensors.
+
+    ``train_step.grads(params, batch) -> (loss, grads)`` is the step's
+    gradient before clipping: accumulated over the microbatches and,
+    under a mesh, reduced (``_reduce_grads``)."""
     fwd = forward_fn or (lambda p, b: lm.forward(p, b, cfg)[0])
     sched = schedule_fn(tc)
 
@@ -73,8 +139,7 @@ def make_train_step(cfg, tc: TrainConfig,
                  for p, g in zip(leaves, grads)]
         return loss.detach(), _unflatten(params, grads)
 
-    def train_step(params, opt_state, batch, step,
-                   gen: Optional[torch.Generator] = None):
+    def step_grads(params, batch):
         if tc.accum_steps > 1:
             mbs = [{k: v.reshape(tc.accum_steps, -1, *v.shape[1:])[i]
                     for k, v in batch.items()}
@@ -91,6 +156,16 @@ def make_train_step(cfg, tc: TrainConfig,
             grads = tree_map(lambda g: g / tc.accum_steps, gsum)
         else:
             loss, grads = loss_and_grads(params, batch)
+        if current_mesh() is not None:
+            grads = _reduce_grads(params, grads, cfg)
+        return loss, grads
+
+    def train_step(params, opt_state, batch, step,
+                   gen: Optional[torch.Generator] = None):
+        if current_mesh() is not None:
+            check_sharded_step(tc)
+        # looked up at call time: a caller may wrap it to read the gradient
+        loss, grads = train_step.grads(params, batch)
         if tc.compress:
             grads, _ = compress_grads(grads, gen)
         grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
@@ -98,6 +173,7 @@ def make_train_step(cfg, tc: TrainConfig,
         adamw_update(params, grads, opt_state, lr, tc.adamw)
         return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
+    train_step.grads = step_grads
     return train_step
 
 

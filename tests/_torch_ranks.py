@@ -180,3 +180,151 @@ def _collectives_on(mesh):
             size=(coll.size("data"), coll.size(("data", "model"))))
     out["stats"] = st
     return out
+
+
+def sharded_train_rank(rank, world, tmp, names):
+    """The sharded train step on this rank for each case of ``names``
+    (``tmp/{name}.pkl``: arch, config overrides, mesh shape, accumulation,
+    the reference's train params as numpy, tokens, the ``TrainConfig``
+    fields): this rank's param and f32 moment blocks
+    (``convert.train_params_from_jax``/``adamw_state_from_jax`` with
+    ``mesh=``), its batch rows, the step's gradient
+    (``make_train_step(...).grads``), then one step under
+    ``record_collectives``.  Returns numpy results by case."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.launch.mesh import make_mesh_compat, mesh_context
+    from repro_torch.models import nn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import block_range
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    meshes, out = {}, {}
+    for name in names:
+        with open(os.path.join(tmp, f"{name}.pkl"), "rb") as f:
+            case = pickle.load(f)
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh_compat(shape, ("data", "model"), "cpu")
+        mesh = meshes[shape]
+        cfg = dataclasses.replace(smoke_config(case["arch"]), **case["over"])
+        tc = TrainConfig(accum_steps=case["accum"], adamw=AdamWConfig(),
+                         **case["tc"])
+        params = convert.train_params_from_jax(case["params"], "cpu",
+                                               mesh=mesh, cfg=cfg)
+        p0 = _copied(convert.to_numpy(params))   # the step works in place
+        tokens = torch.from_numpy(case["tokens"])
+        r0, nr = block_range(tokens.shape[0], nn.train_batch_axes(cfg), mesh)
+        batch = {"tokens": tokens[r0:r0 + nr]}
+        step = make_train_step(cfg, tc)
+        with mesh_context(mesh):
+            opt = adamw_init(params, tc.adamw)
+            loss, grads = step.grads(params, batch)
+            with record_collectives() as st:
+                params, opt, met = step(params, opt, batch, 0)
+        out[name] = dict(
+            rows=(r0, nr), p0=p0, loss=loss.item(),
+            step_loss=met["loss"].item(), gnorm=met["gnorm"].item(),
+            grads=convert.to_numpy(grads), p1=convert.to_numpy(params),
+            m1=convert.to_numpy(opt["m"]), stats=st)
+    return out
+
+
+def _copied(tree):
+    """A tree of numpy arrays, each copied."""
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copied(v) for v in tree]
+    return tree.copy()
+
+
+def train_units_rank(rank, world, tmp):
+    """The sharded train step's pieces on this rank (``world`` 4):
+
+    - ``gradcheck`` (f64) of each autograd collective of
+      ``parallel.collectives`` on the 'model' axis of a (1, 4) mesh, each
+      inside a function of one input ``X`` that is the same on every rank
+      (so every rank perturbs the same element in step), whose output is
+      a global scalar: ``all_gather_ad``, ``reduce_scatter_ad`` and
+      ``split_ad`` between ``split_ad`` of ``X`` and the sum of the
+      products with this rank's weights, summed over 'model' by
+      ``all_reduce_ad``; ``all_reduce_ad`` read by weights the same on
+      every rank; ``grad_all_reduce`` of ``X`` itself;
+    - ``all_reduce_max``'s value and that it carries no gradient;
+    - the vocab-parallel ``next_token_loss`` on a (2, 2) mesh (rows over
+      'data', the padded vocab over 'model') and its gradient;
+    - ``clip_by_global_norm`` of a tree of blocks on the (2, 2) mesh.
+
+    Returns numpy results; the test holds them against the plain ones."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh_compat, mesh_context
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import clip_by_global_norm
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import P, local_shard, with_spec
+
+    f64 = torch.float64
+    out = {}
+    line = make_mesh_compat((1, world), ("data", "model"), "cpu")
+    mine = torch.Generator().manual_seed(100 + rank)
+    X = torch.randn(world * 8, 3, dtype=f64,
+                    generator=torch.Generator().manual_seed(0))
+    W2 = torch.randn(2, 3, dtype=f64, generator=mine)
+    W8 = torch.randn(8, 3, dtype=f64, generator=mine)
+    W2same = torch.randn(2, 3, dtype=f64,
+                         generator=torch.Generator().manual_seed(1))
+    total = lambda y, w: coll.all_reduce_ad((y * w).sum(), "model")
+    fns = {
+        "split_ad": (lambda x: total(coll.split_ad(x, "model", 0), W2),
+                     X[:world * 2]),
+        "all_gather_ad": (lambda x: total(coll.all_gather_ad(
+            coll.split_ad(x, "model", 0), "model", 0), W8), X[:world * 2]),
+        "reduce_scatter_ad": (lambda x: total(coll.reduce_scatter_ad(
+            coll.split_ad(x, "model", 0), "model", 0), W2), X),
+        "all_reduce_ad": (lambda x: (coll.all_reduce_ad(
+            coll.split_ad(x, "model", 0), "model") * W2same).sum(),
+            X[:world * 2]),
+        "grad_all_reduce": (lambda x: total(
+            coll.grad_all_reduce(x, "model"), W2), X[:2]),
+    }
+    with mesh_context(line):
+        for name, (fn, x) in fns.items():
+            x = x.clone().requires_grad_(True)
+            out[name] = torch.autograd.gradcheck(fn, (x,))
+        t = torch.arange(4, dtype=torch.float32) * (rank + 1)
+        t.requires_grad_(True)
+        mx = coll.all_reduce_max(t, "model")
+        out["max"] = (mx.numpy(), mx.requires_grad)
+
+    square = make_mesh_compat((2, world // 2), ("data", "model"), "cpu")
+    cfg = dataclasses.replace(smoke_config("minicpm-2b"), vocab=257)
+    B, S, V = 4, 6, 272
+    g = torch.Generator().manual_seed(2)
+    logits = torch.randn(B, S, V, generator=g) * 3
+    logits[..., cfg.vocab:] = -1e30
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    with mesh_context(square):
+        d, m = coll.index("data"), coll.index("model")
+        nv = V // coll.size("model")
+        lg = logits[2 * d:2 * d + 2, :, m * nv:(m + 1) * nv].clone()
+        lg.requires_grad_(True)
+        loss = lm.next_token_loss(lg, tokens[2 * d:2 * d + 2], cfg,
+                                  start=m * nv)
+        loss.backward()
+        out["loss"] = (loss.item(), lg.grad.numpy(), (d, m, nv))
+        tree = {"a": torch.randn(8, 4, generator=g), "b": torch.randn(
+            4, generator=g), "c": torch.randn(8, 6, generator=g)}
+        specs = {"a": P("model", None), "b": P(None),
+                 "c": P(("data", "model"), None)}
+        local = {k: local_shard(v, specs[k], square) for k, v in tree.items()}
+        local = {k: with_spec(v.clone(), specs[k]) for k, v in local.items()}
+        clipped, norm = clip_by_global_norm(local, 0.5)
+        out["clip"] = (float(norm), {k: v.numpy() for k, v in clipped.items()},
+                       tree)
+    return out

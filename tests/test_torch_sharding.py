@@ -232,9 +232,11 @@ def test_shard_hint_noop_without_mesh_and_on_a_host_mesh():
 
 
 def test_shard_hint_refuses_plain_tensors_under_a_larger_mesh():
-    """The model does not run sharded: a plain activation under a mesh of
-    more than one device raises at the first hint."""
-    cfg = smoke_config("codeqwen1.5-7b")
+    """A hint the sharded code does not hold raises under a mesh of more
+    than one device, and so does the train forward of a model that does
+    not run sharded (xlstm's: only the dense GQA decoders train under a
+    mesh)."""
+    cfg = smoke_config("xlstm-350m")
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "train",
                         device="cpu")
     with fake_world(4):
