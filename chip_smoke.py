@@ -21,6 +21,10 @@
     python3 chip_smoke.py --only sharded-train  # kernel 1 built: the QAT
                                           # train step sharded (phase
                                           # 13), one JSON line
+    python3 chip_smoke.py --only sharded-moe    # kernels 1 and 7 built: the
+                                          # MoE and MLA decoders served
+                                          # sharded (phase 14), one JSON
+                                          # line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -274,6 +278,23 @@ Phases, in order; any failure raises and exits non-zero:
     ms and peak memory; then minicpm-2b's trained layer 0 ``ffn.wi``
     gathered over its axes, compiled and run on kernel 1 at M 4 and 64,
     int32-equal to its plain twin (``phase_trained_linear``).
+14. the MoE and MLA decoders served sharded (``phase_sharded_moe``): one
+    NCCL rank per visible card, a (data 1, model world) mesh (world 1 on
+    one card); deepseek-v3-671b at full width cut to 5 of 61 layers (3
+    dense MLA + 2 MoE), kimi-k2-1t at full width cut to 2 (1 dense + 1
+    MoE) and int8 moe-gqa cut as deepseek (calibrated steps), each B 4 x
+    256 + 16 greedy steps through ``lm.prefill``/``lm.decode_step``
+    unsharded and then under the mesh on this rank's blocks (expert
+    parallelism over 'model', the MLA latent caches sequence-sharded),
+    held bit-equal (tokens, prefill and last logits, caches), kernel 1's
+    and kernel 7's launches counted on the sharded run (one a lookup
+    linear or expert stack a forward), the collectives a decode step,
+    both decode steps' median ms and both runs' peaks; then kernel 1 at
+    one rank's block of a 16-way 'model' axis's expert stacks
+    (deepseek-v3's 16 of 256 and kimi-k2's 24 of 384 experts of wi, wg
+    and wo) and kernel 7 at 16 of int8 moe-gqa's 256 experts, at the rows
+    a decode step and the prefill give each expert, int32-equal to their
+    plain twins and timed beside them and the bound.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -282,9 +303,10 @@ moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
 rows also carry ``launches_by_path``, each counted on one of the
 families' runs with the counters set to 0 just before it, kernel 1's
 and kernels 3-4's also the trained weights' launches in phase 8 and
-kernel 1's the sharded runs of phase 12 and the sharded trained
-``ffn.wi`` of phase 13, with its 16-way shard-shape times under
-``shard_shapes``); the
+kernel 1's the sharded runs of phases 12 and 14 and the sharded
+trained ``ffn.wi`` of phase 13, with its 16-way shard-shape times under
+``shard_shapes`` and its 16-way expert-block times under
+``expert_block_shapes``, the int8 expert kernel's phase 14's); the
 last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
@@ -5295,44 +5317,88 @@ def _vocab_block(whole, local, rows):
     return pad[rows[0]:rows[0] + rows[1], lo:lo + vl]
 
 
-def _sharded_model(arch: str, layers, mesh, dev) -> dict:
+def _cut_config(arch: str, layers, over=None):
+    """``arch``'s config cut to ``layers`` of its depth (None: full depth),
+    widths unchanged, with the fields ``over`` sets."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def _int8_expert_launches(params) -> int:
+    """int8 expert kernel launches of one forward: one a stack (``w8 [E,
+    K, N]`` in a layer's view) over every layer of every segment."""
+    def walk(tree):
+        if "w8" in tree:
+            return int(tree["w8"].dim() == 3)
+        return sum(walk(v) for v in tree.values() if isinstance(v, dict))
+
+    return sum(walk(params.layers(si)[0]) * len(params.layers(si))
+               for si in range(len(params.segments)))
+
+
+def _gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0
+
+
+def _sharded_model(arch: str, cfg, mesh, dev, profile: bool = False) -> dict:
     """One model served unsharded, then sharded under ``mesh`` on this
-    rank's blocks (``local_tree`` of the same params), kernel 1's launch
-    counter set to 0 just before the sharded run and read just after;
-    the two held bit-equal: tokens, prefill and last logits (this rank's
-    rows and vocab block), caches (this rank's blocks)."""
+    rank's blocks (``local_tree`` of the same params; the whole params
+    freed first), the launch counters of kernels 1 and 7 set to 0 just
+    before the sharded run and read just after and asserted (one launch a
+    lookup linear or expert stack a forward); the two held bit-equal:
+    tokens, prefill and last logits (this rank's rows and vocab block),
+    caches (this rank's blocks).  An int8 model gets calibrated steps.
+    ``profile``: step ``PROFILED_STEP`` of each run under the profiler."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import int8_experts as I8
     from repro_torch.kernels import tlmac_fused as tf
     from repro_torch.launch.mesh import mesh_context
     from repro_torch.models import attention, lm, nn
     from repro_torch.parallel.sharding import (batch_entry, block_range,
                                                fix_batch_axes, local_tree)
 
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = lm.init_lm(cfg, gen, device=dev)
+    if cfg.serve_impl == "int8":
+        _calibrate_int8(params)
     tokens = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_PROMPT),
                            generator=gen, device=dev, dtype=torch.int32)
     S_max = SHARD_PROMPT + SHARD_STEPS
+    _reset_peak()
     plain = _greedy_run(params, tokens, cfg, S_max, SHARD_STEPS,
-                        profile=f"{arch} unsharded" if layers is None
+                        profile=f"{cfg.name} unsharded" if profile
                         else None)
+    plain_peak = _gib()
     local = nn.ParamTree(local_tree(params.tree(), lm.param_axes(cfg), mesh))
+    del params
+    _free()
     rows = block_range(SHARD_B, batch_entry(SHARD_B, mesh), mesh)
     with mesh_context(mesh):
-        tf.launches = 0
+        _reset_peak()
+        tf.launches = tf.expert_launches = I8.launches = 0
         sh = _greedy_run(local, tokens[rows[0]:rows[0] + rows[1]], cfg,
-                         S_max, SHARD_STEPS, profile=f"{arch} sharded"
-                         if layers is None else None)
-        launches = tf.launches
+                         S_max, SHARD_STEPS, profile=f"{cfg.name} sharded"
+                         if profile else None)
+        launches = dict(tlmac_gemm_fused=tf.launches,
+                        expert_stacks=tf.expert_launches,
+                        int8_experts=I8.launches)
+        peak = _gib()
         first = _vocab_block(plain["first"], sh["first"], rows)
         last = _vocab_block(plain["last"], sh["last"], rows)
-    want = 7 * cfg.n_layers * (1 + SHARD_STEPS)
-    assert launches == want or DEV != "cuda", (arch, launches, want)
+    forwards = 1 + SHARD_STEPS
+    per_fwd, per_fwd_expert = _lookup_launches(local)
+    want = dict(tlmac_gemm_fused=per_fwd * forwards,
+                expert_stacks=per_fwd_expert * forwards,
+                int8_experts=_int8_expert_launches(local) * forwards)
+    assert launches == want or DEV != "cuda", (cfg.name, launches, want)
     caches = local_tree(plain["caches"], fix_batch_axes(
         lm.cache_axes_tree(cfg), SHARD_B, mesh), mesh)
     same = dict(
@@ -5343,12 +5409,20 @@ def _sharded_model(arch: str, layers, mesh, dev) -> dict:
         caches=all(torch.equal(a[b][k], c[b][k]) for a, c in zip(
             sh["caches"], caches) for b in a for k in a[b]))
     st = sh["stats"]
+    if cfg.attn_kind == "mla":
+        cache = "latents, sequence on 'model'"
+    else:
+        cache = ("KV heads on 'model'" if attention.kv_heads_sharded(cfg)
+                 else "sequence on 'model'")
+    del local
     return dict(
-        layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
-        cache="KV heads on 'model'" if attention.kv_heads_sharded(cfg)
-        else "sequence on 'model'", equal=same, launches=launches,
+        arch=arch, layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+        serve_impl=cfg.serve_impl, cache=cache, equal=same,
+        launches=launches["tlmac_gemm_fused"], kernel_launches=launches,
         step_ms=_median(sh["step_ms"]), plain_step_ms=_median(
-            plain["step_ms"]),
+            plain["step_ms"]), steps_ms=sh["step_ms"],
+        plain_steps_ms=plain["step_ms"], peak_gib=peak,
+        plain_peak_gib=plain_peak,
         collectives={k: [st.count_by_kind[k], st.bytes_by_kind[k]]
                      for k in st.count_by_kind if st.count_by_kind[k]},
         param_collectives=[st.param_count, st.param_bytes])
@@ -5452,10 +5526,14 @@ def _gather_rate(mesh, dev) -> dict:
 
 
 def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
-                  cuts: dict) -> None:
-    """One rank of the sharded phase: every model of ``cuts`` unsharded and
-    sharded under a (1, world) mesh, then (rank 0) kernel 1 at the 16-way
-    shard shapes; rank 0 writes the figures to ``tmp/rank0.json``."""
+                  models: dict, kind: str = "dense") -> None:
+    """One rank of a sharded serve phase: every model of ``models``
+    (label: ``(arch, layers, config overrides)``) unsharded and sharded
+    under a (1, world) mesh, then (rank 0) the kernel figures of ``kind``:
+    ``'dense'`` the FSDP gather and kernel 1 at the 16-way shard shapes
+    (phase 12), ``'moe'`` kernels 1 and 7 at a 16-way 'model' block's
+    expert stacks (phase 14); rank 0 writes the figures to
+    ``tmp/rank0.json``."""
     global DEV
     import torch
     import torch.distributed as dist
@@ -5473,15 +5551,20 @@ def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
     try:
         mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
         out = {"world": world, "mesh": [1, world], "models": {}}
-        for arch, layers in cuts.items():
-            out["models"][arch] = _sharded_model(arch, layers, mesh, dev)
+        for label, (arch, layers, over) in models.items():
+            out["models"][label] = _sharded_model(
+                arch, _cut_config(arch, layers, over), mesh, dev,
+                profile=kind == "dense" and layers is None)
             gc.collect()
             if dev_type == "cuda":
                 torch.cuda.empty_cache()
-        if dev_type == "cuda":
+        if dev_type == "cuda" and kind == "dense":
             out["fsdp_gather"] = _gather_rate(mesh, dev)
         if rank == 0 and dev_type == "cuda":
-            out["shard_gemms"] = _shard_gemms(dev)
+            if kind == "dense":
+                out["shard_gemms"] = _shard_gemms(dev)
+            else:
+                out["expert_blocks"] = _expert_block_gemms(dev)
         if rank == 0:
             with open(os.path.join(tmp, "rank0.json"), "w") as f:
                 json.dump(out, f)
@@ -5489,36 +5572,56 @@ def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
         dist.destroy_process_group()
 
 
+def _spawn_sharded(world: int, models: dict, kind: str) -> dict:
+    """``_sharded_rank`` on ``world`` spawned ranks; rank 0's figures."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_sharded_rank, args=(world, tmp, DEV, models,
+                                                kind),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            return json.load(f)
+
+
+def _log_sharded(out: dict, gpu: str) -> None:
+    """Print each model's sharded run beside its unsharded one; raise
+    unless they are bit-equal."""
+    for label, r in out["models"].items():
+        depth = ("full depth" if r["layers"] == r["of_layers"] else
+                 f"{r['layers']} of {r['of_layers']} layers")
+        log(f"  {label} ({depth}, full width, {r['serve_impl']}; caches: "
+            f"{r['cache']}), B {SHARD_B} x {SHARD_PROMPT} + {SHARD_STEPS} "
+            f"greedy steps: sharded vs unsharded {r['equal']}; launches "
+            f"{r['kernel_launches']} (one a lookup linear or expert stack "
+            f"a forward x {1 + SHARD_STEPS} forwards)")
+        log(f"    a decode step (median, min-max): sharded "
+            f"{r['step_ms']:.3f} ms ({min(r['steps_ms']):.3f}-"
+            f"{max(r['steps_ms']):.3f}), unsharded {r['plain_step_ms']:.3f} "
+            f"ms ({min(r['plain_steps_ms']):.3f}-"
+            f"{max(r['plain_steps_ms']):.3f}); peak sharded "
+            f"{r['peak_gib']:.3f} GiB, unsharded {r['plain_peak_gib']:.3f} "
+            f"GiB [{gpu}]; collectives a step (kind: count, bytes) "
+            f"{r['collectives']}, of them parameter gathers "
+            f"{r['param_collectives']}")
+        assert all(r["equal"].values()), (label, r["equal"])
+
+
 def phase_sharded(world: int = 0, cuts: dict = SHARD_CUTS) -> dict:
     """Phase 12: the dense serve forwards sharded under a (1, world) mesh,
     one NCCL rank per visible card (world 1 on one card: every collective
     is issued over its one-rank group).  Returns rank 0's figures."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     world = world or torch.cuda.device_count()
     gpu = gpu_line() if DEV == "cuda" else "cpu"
     log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
         f"rank per visible card, mesh (data 1, model {world})")
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_sharded_rank, args=(world, tmp, DEV, cuts),
-                           nprocs=world, start_method="spawn")
-        with open(os.path.join(tmp, "rank0.json")) as f:
-            out = json.load(f)
-    for arch, r in out["models"].items():
-        depth = ("full depth" if r["layers"] == r["of_layers"] else
-                 f"{r['layers']} of {r['of_layers']} layers")
-        log(f"  {arch} ({depth}, full width; caches: {r['cache']}), B "
-            f"{SHARD_B} x {SHARD_PROMPT} + {SHARD_STEPS} greedy steps: "
-            f"sharded vs unsharded {r['equal']}; kernel 1 launches "
-            f"{r['launches']} (7 x {r['layers']} x {1 + SHARD_STEPS})")
-        log(f"    a decode step: sharded {r['step_ms']:.3f} ms, unsharded "
-            f"{r['plain_step_ms']:.3f} ms [{gpu}]; collectives a step "
-            f"(kind: count, bytes) {r['collectives']}, of them parameter "
-            f"gathers {r['param_collectives']}")
-        assert all(r["equal"].values()), (arch, r["equal"])
+    models = {a: (a, layers, {}) for a, layers in cuts.items()}
+    out = _spawn_sharded(world, models, "dense")
+    _log_sharded(out, gpu)
     g = out.get("fsdp_gather")
     if g:
         log(f"  one FSDP plan gather (codeqwen1.5-7b ffn.wi exec_idx, "
@@ -5527,6 +5630,142 @@ def phase_sharded(world: int = 0, cuts: dict = SHARD_CUTS) -> dict:
             f"({g['gather_GBs']:.1f} GB/s); the NCCL call alone "
             f"{g['nccl_ms']:.3f} ms ({g['nccl_GBs']:.1f} GB/s); a device "
             f"copy {g['clone_ms']:.3f} ms ({g['clone_GBs']:.1f} GB/s) [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: sharded serving of the MoE and MLA decoders
+# ---------------------------------------------------------------------------
+
+# label: (arch, layers kept of 61, config overrides); widths are never cut.
+# deepseek-v3's 3 dense MLA layers and 2 MoE, kimi-k2's 1 dense and 1 MoE,
+# and moe-gqa in the int8 layout (kernel 7's expert stacks) cut as deepseek
+SMOE_MODELS = {
+    "deepseek-v3-671b": ("deepseek-v3-671b", 5, {}),
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", 2, {}),
+    "deepseek-v3-671b moe-gqa int8": ("deepseek-v3-671b", 5, dict(
+        attn_kind="gqa", serve_impl="int8",
+        name="deepseek-v3-671b moe-gqa int8")),
+}
+SMOE_WAY = 16        # the production meshes' 'model' axis: experts / 16 a rank
+SMOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+
+
+def _expert_rows(cfg) -> dict:
+    """Rows each expert of a stack sees (groups x capacity): a decode step
+    of ``SHARD_B`` slots (a group of one token each: capacity 1) and the
+    ``SHARD_B`` x ``SHARD_PROMPT`` prefill (a group a sequence)."""
+    cap = max(int(cfg.capacity_factor * SHARD_PROMPT * cfg.top_k
+                  / cfg.n_experts), 1)
+    return {"decode": SHARD_B, "prefill": SHARD_B * cap}
+
+
+def _expert_block_gemms(dev, B_a=3) -> dict:
+    """Kernel 1 at one rank's block of a 16-way 'model' axis's expert
+    stacks (``SMOE_ARCHS``: deepseek-v3's 16 of 256 and kimi-k2's 24 of 384
+    experts of wi, wg, wo at full width, drawn as the serve init draws
+    them) and kernel 7 at 16 of int8 moe-gqa's 256 experts, at the rows a
+    decode step and the 4 x 256 prefill give each expert
+    (``_expert_rows``): one launch a stack, int32-equal to its plain twin,
+    timed by graph replay beside the twin and the bound (no one PyTorch
+    call computes an expert stack; kernel 7 also beside its per-expert
+    ``_int_mm`` loop)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import int8_experts as I8
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.models import nn
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for arch in SMOE_ARCHS:
+        cfg = get_config(arch)
+        El, G = cfg.n_experts // SMOE_WAY, cfg.tlmac_G
+        d, F = cfg.d_model, cfg.d_expert
+        for name, (K, N) in (("wi", (d, F)), ("wg", (d, F)), ("wo", (F, d))):
+            p = nn.init_serve_linear(gen, K, N, cfg, device=dev, expert=El)
+            idx, cl, tab = p["exec_idx"], p["step_cluster"], p["table_narrow"]
+            _, nt, kg, dp = idx.shape
+            for what, M in _expert_rows(cfg).items():
+                aq = torch.randint(0, 2**B_a, (El, M, K), dtype=torch.int8,
+                                   generator=gen, device=dev)
+                got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
+                want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a,
+                                                 G=G)
+                _equal(f"expert block {arch} {name} [{El}] {K}->{N} M={M}",
+                       got, want)
+                del want
+                plain_ms = cuda_ms(lambda: tf.tlmac_gemm_fused_plain(
+                    aq, idx, cl, tab, B_a=B_a, G=G), iters=1, warmup=0)
+                ms = graph_ms(lambda: tf.tlmac_gemm_fused(
+                    aq, idx, cl, tab, B_a=B_a, G=G), iters=10, replays=3)
+                nbytes = (aq.numel() + idx.numel() * idx.element_size()
+                          + cl.numel() + tab.numel() * tab.element_size()
+                          + El * M * N * 4)
+                b = _gemm_bound(El * M, kg, N, G, nbytes)
+                key = f"{arch} {name} [{El} of {cfg.n_experts}] {K}->{N} M={M}"
+                out[key] = dict(kernel="tlmac_gemm_fused", rows=what,
+                                ms=ms, plain_ms=plain_ms,
+                                bound_ms=b["bound_ms"], bound_by=_bound_by(b),
+                                library_ms=None, bytes=nbytes)
+                log(f"  kernel 1 {key} ({what}; dp {dp}, kg {kg}): equal "
+                    f"int32; kernel {ms:.4f} ms (one launch), bound "
+                    f"{b['bound_ms']:.4f} ms ({_bound_by(b)}, "
+                    f"{b['bound_ms'] / ms:.1%} of bound), plain "
+                    f"{plain_ms:.1f} ms")
+            del p, idx, cl, tab, aq
+    cfg = _cut_config(*SMOE_MODELS["deepseek-v3-671b moe-gqa int8"])
+    El = cfg.n_experts // SMOE_WAY
+    K, N = cfg.d_model, cfg.d_expert
+    w8 = nn.init_serve_linear(gen, K, N, cfg, device=dev, expert=El)["w8"]
+    for what, M in _expert_rows(cfg).items():
+        aq = torch.randint(-127, 128, (El, M, K), dtype=torch.int8,
+                           generator=gen, device=dev)
+        got = I8.int8_experts_matmul(aq, w8)
+        want = I8.int8_experts_matmul_plain(aq, w8)
+        _equal(f"int8 expert block wi [{El}] {K}->{N} M={M}", got, want)
+        ms = graph_ms(lambda: I8.int8_experts_matmul(aq, w8), iters=10,
+                      replays=3)
+        plain_ms = cuda_ms(lambda: I8.int8_experts_matmul_plain(aq, w8),
+                           iters=2, warmup=1)
+        loop_ms = graph_ms(lambda: I8.int8_experts_loop(aq, w8), iters=4,
+                           replays=2)
+        nbytes = El * (M * K + K * N + 4 * M * N)
+        t_b = nbytes / HBM_BYTES_S * 1e3
+        t_o = 2 * El * M * K * N / INT8_TC_OPS_S * 1e3
+        b = dict(bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o)
+        key = f"moe-gqa int8 wi [{El} of {cfg.n_experts}] {K}->{N} M={M}"
+        out[key] = dict(kernel="int8_experts", rows=what, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                        bound_by=_bound_by(b), library_ms=None,
+                        int_mm_loop_ms=loop_ms, bytes=nbytes)
+        log(f"  kernel 7 {key} ({what}): equal int32; kernel {ms:.4f} ms "
+            f"(one launch), bound {b['bound_ms']:.4f} ms ({_bound_by(b)}, "
+            f"{b['bound_ms'] / ms:.1%} of bound), plain (per-expert f64) "
+            f"{plain_ms:.3f} ms, {El} _int_mm launches {loop_ms:.4f} ms")
+        del want
+    return out
+
+
+def phase_sharded_moe(world: int = 0, models: dict = SMOE_MODELS) -> dict:
+    """Phase 14: the MoE and MLA decoders served sharded under a (1,
+    world) mesh (expert parallelism over 'model', the MLA latent caches
+    sequence-sharded), one NCCL rank per visible card (world 1 on one
+    card: every collective is issued over its one-rank group); then
+    kernels 1 and 7 at a 16-way 'model' block's expert stacks.  Returns
+    rank 0's figures."""
+    import torch
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    out = _spawn_sharded(world, models, "moe")
+    _log_sharded(out, gpu)
+    for key, r in out.get("expert_blocks", {}).items():
+        log(f"  expert block {key}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms [{gpu}]")
     return out
 
 
@@ -5855,7 +6094,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("all", "kernels", "k12",
                                        "serve-families", "train",
                                        "parallel", "sharded",
-                                       "sharded-train"),
+                                       "sharded-train", "sharded-moe"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -5870,7 +6109,11 @@ def main() -> int:
                          "sharded-train (kernel 1 built: the QAT train "
                          "step of minicpm-2b and codeqwen1.5-7b under a "
                          "(1, cards) mesh, the trained ffn.wi on kernel 1, "
-                         "one JSON line)")
+                         "one JSON line); sharded-moe (kernels 1 and 7 "
+                         "built: deepseek-v3, kimi-k2 and int8 moe-gqa "
+                         "served under a (1, cards) mesh, kernels 1 and 7 "
+                         "at a 16-way block's expert stacks, one JSON "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -5891,7 +6134,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
                "train": TRAIN_SOURCES, "sharded": SOURCES[:1],
-               "sharded-train": SOURCES[:1]}.get(
+               "sharded-train": SOURCES[:1],
+               "sharded-moe": (SOURCES[0], SOURCES[-1])}.get(
         args.only, SOURCES)
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
@@ -5903,6 +6147,11 @@ def main() -> int:
     if args.only == "sharded":
         phase("sharded serve: the dense forwards under a (data, model) mesh")
         log(json.dumps({"sharded": phase_sharded()}))
+        return 0
+    if args.only == "sharded-moe":
+        phase("sharded MoE and MLA serve: expert parallelism under a (data, "
+              "model) mesh")
+        log(json.dumps({"sharded_moe": phase_sharded_moe()}))
         return 0
     if args.only == "sharded-train":
         phase("sharded train: the QAT train step under a (data, model) mesh")
@@ -6008,6 +6257,24 @@ def main() -> int:
             {f"sharded {a}": r["launches"]
              for a, r in sharded["models"].items()})
         gemm["shard_shapes"] = sharded["shard_gemms"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("sharded MoE and MLA serve: expert parallelism under a (data, "
+              "model) mesh")
+        smoe = phase_sharded_moe()
+        for label, r in smoe["models"].items():
+            n = r["kernel_launches"]
+            if n["tlmac_gemm_fused"]:
+                gemm["launches_by_path"][f"sharded {label}"] = n[
+                    "tlmac_gemm_fused"]
+            if n["int8_experts"]:
+                int8_row.setdefault("launches_by_path", {})[
+                    f"sharded {label}"] = n["int8_experts"]
+        blocks = smoe["expert_blocks"]
+        gemm["expert_block_shapes"] = {
+            k: v for k, v in blocks.items() if v["kernel"] == gemm["name"]}
+        int8_row["expert_block_shapes"] = {
+            k: v for k, v in blocks.items() if v["kernel"] == "int8_experts"}
         gc.collect()
         torch.cuda.empty_cache()
         phase("sharded train: the QAT train step under a (data, model) mesh")

@@ -204,7 +204,7 @@ def dense_caches_from_jax(tree, device="cuda", mesh=None, cfg=None):
         from repro_torch.models import lm
         from repro_torch.parallel.sharding import fix_batch_axes
 
-        B = next(iter(tree[0].values()))["k"].shape[1]
+        B = next(iter(next(iter(tree[0].values())).values())).shape[1]
         specs = fix_batch_axes(lm.cache_axes_tree(cfg), B, mesh)
     return _local(tree, device, mesh, specs)
 

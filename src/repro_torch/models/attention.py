@@ -21,7 +21,9 @@ caches only, as the reference serves it.  The train forward runs
 autograd: these functions make no in-place update of a tensor the graph
 reads.  Under a mesh the dense prefill and decode of a GQA block are
 ``tp_gqa_prefill`` and ``tp_gqa_decode``, on this rank's heads or cache
-positions, and its train forward ``tp_gqa_train``."""
+positions, and its train forward ``tp_gqa_train``; an MLA block's are
+``tp_mla_prefill`` and ``tp_mla_decode``, on this rank's heads and its
+positions of the latent cache."""
 
 from __future__ import annotations
 
@@ -345,12 +347,14 @@ def _tp_qkv(params, x, cfg):
             for n in ("wq", "wk", "wv")]
 
 
-def _heads(t, split: bool, n: int, cfg, local: bool):
-    """``t [B, S, n * hd]`` (split or whole) as heads: all ``n`` of them,
-    or (``local``) this rank's block of ``n / m`` (whole heads when the
-    split columns hold them; else cut from the gathered whole)."""
+def _heads(t, split: bool, n: int, cfg, local: bool, hd: int = 0):
+    """``t [B, S, n * hd]`` (split or whole) as heads of ``hd`` (the KV
+    head dim by default): all ``n`` of them, or (``local``) this rank's
+    block of ``n / m`` (whole heads when the split columns hold them; else
+    cut from the gathered whole).  A split is ``n * hd / m`` columns, so
+    it falls on head boundaries wherever ``n`` divides over 'model'."""
     B, S, _ = t.shape
-    hd = cfg.kv_head_dim
+    hd = hd or cfg.kv_head_dim
     if not local:
         return nn.gather_cols(t, split).reshape(B, S, n, hd)
     nl = n // coll.size("model")
@@ -384,6 +388,18 @@ def _rope_rt(q, k, v, positions, cfg, roundtrip: bool):
     return q, k, v
 
 
+def _store_positions(cache, new, start: int) -> None:
+    """Write ``new [B, S_new, ...]`` (positions ``[start, start +
+    S_new)``) into this rank's block of a sequence-sharded cache ``[B,
+    S_l, ...]`` (positions ``[index * S_l, ...)``), in place: the overlap
+    only."""
+    n = cache.shape[1]
+    lo = coll.index("model") * n
+    a, b = max(lo, start), min(lo + n, start + new.shape[1])
+    if b > a:
+        cache[:, a - lo:b - lo] = new[:, a - start:b - start].to(cache.dtype)
+
+
 def tp_gqa_prefill(params, x, cfg, cache=None):
     """``gqa_train`` as the dense prefill under the mesh: the causal
     attention of this rank's block of query heads (every head where the
@@ -413,12 +429,8 @@ def tp_gqa_prefill(params, x, cfg, cache=None):
             kc[:, :S] = k.to(kc.dtype)
             vc[:, :S] = v.to(vc.dtype)
         else:           # this rank's positions of every head
-            n = kc.shape[1]
-            lo = coll.index("model") * n
-            hi = min(lo + n, S)
-            if hi > lo:
-                kc[:, :hi - lo] = k[:, lo:hi].to(kc.dtype)
-                vc[:, :hi - lo] = v[:, lo:hi].to(vc.dtype)
+            _store_positions(kc, k, 0)
+            _store_positions(vc, v, 0)
     return nn.tp_linear_apply(params["wo"], out, cfg, split=local)
 
 
@@ -505,11 +517,10 @@ def tp_gqa_decode(params, x, cfg, cache, pos: int):
     q = _heads(q, qs, H, cfg, False)
     k, v = _heads(k, ks, KV, cfg, False), _heads(v, vs, KV, cfg, False)
     q, k, v = _rope_rt(q, k, v, positions, cfg, True)
-    start = coll.index("model") * kc.shape[1]
-    if start <= pos < start + kc.shape[1]:
-        kc[:, pos - start:pos - start + 1] = k.to(kc.dtype)
-        vc[:, pos - start:pos - start + 1] = v.to(vc.dtype)
-    out = _sdpa_seq_sharded(q, kc, vc, start, pos)
+    _store_positions(kc, k, pos)
+    _store_positions(vc, v, pos)
+    out = _sdpa_seq_sharded(q, kc, vc, coll.index("model") * kc.shape[1],
+                            pos)
     return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, H * hd), cfg)
 
 
@@ -629,3 +640,102 @@ def mla_decode(params, x, cfg, cache, pos: int,
 def _sqrt_f32(dk: int) -> float:
     """``jnp.sqrt(dk)`` of an int: the f32 square root."""
     return float(np.float32(np.sqrt(np.float32(dk))))
+
+
+# ---------------------------------------------------------------------------
+# MLA under a mesh: heads on 'model', the latent cache's positions on 'model'
+# ---------------------------------------------------------------------------
+
+
+def _tp_mla_heads(cfg) -> int:
+    """This rank's number of heads; the heads must divide over 'model'."""
+    H, m = cfg.n_heads, coll.size("model")
+    if H % m:
+        raise NotImplementedError(f"MLA under a mesh: {H} heads do not "
+                                  f"divide over 'model' ({m} ranks)")
+    return H // m
+
+
+def _tp_mla_qkv(params, x, cfg):
+    """``(q_nope, q_rope)`` of this rank's heads ``[B, S, H_l, nope |
+    rope]`` before rotary, and the whole latents ``(c_kv [B, S, kv_lora]
+    normed, k_rope [B, S, rope])``: ``wq_a`` and ``wkv_a`` replicated,
+    ``wq_b`` on this rank's output tiles (its heads)."""
+    nod, rod, kvl = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_kv_lora
+    qa = nn.gather_cols(*nn.tp_linear_apply(params["wq_a"], x, cfg))
+    q, qs = nn.tp_linear_apply(params["wq_b"],
+                               nn.rmsnorm_apply(params["q_norm"], qa), cfg)
+    q = _heads(q, qs, cfg.n_heads, cfg, True, hd=nod + rod)
+    kv = nn.gather_cols(*nn.tp_linear_apply(params["wkv_a"], x, cfg))
+    c_kv = nn.rmsnorm_apply(params["kv_norm"], kv[..., :kvl])
+    return q[..., :nod], q[..., nod:], c_kv, kv[..., kvl:]
+
+
+def tp_mla_prefill(params, x, cfg, cache=None):
+    """``mla_train`` as the dense prefill under the mesh: the causal
+    attention of this rank's heads (``wq_b`` and the dense ``wkv_b`` on
+    its columns), its positions of the latents stored in place into the
+    sequence-sharded cache ``{'ckv', 'kr'}``, then ``wo`` on its heads'
+    rows.  Returns ``(y, split)``."""
+    B, S, _ = x.shape
+    Hl = _tp_mla_heads(cfg)
+    nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    q_nope, q_rope, c_kv, k_rope = _tp_mla_qkv(params, x, cfg)
+    kvu, ks = nn.tp_linear_apply(params["wkv_b"], c_kv, cfg)
+    kvu = _heads(kvu, ks, cfg.n_heads, cfg, True, hd=nod + vd)
+    k_nope, v = kvu[..., :nod], kvu[..., nod:]
+    positions = torch.arange(S, device=x.device)[None, :]
+    sin, cos = nn.rotary_embedding(positions, rod)
+    q_rope = nn.apply_rotary(q_rope, sin, cos)
+    k_rope = nn.apply_rotary(k_rope[:, :, None, :], sin, cos)   # shared head
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, Hl, rod)], dim=-1)
+    out = sdpa(qf, kf, v, cfg, causal=True)
+    if cache is not None:
+        _store_positions(cache["ckv"], c_kv, 0)
+        _store_positions(cache["kr"], k_rope[:, :, 0, :], 0)
+    return nn.tp_linear_apply(params["wo"], out, cfg, split=True)
+
+
+def tp_mla_decode(params, x, cfg, cache, pos: int):
+    """``mla_decode`` under the mesh, as the reference's partitioned graph
+    runs it (read in its compiled HLO): the step's latents written in
+    place into the rank whose cache block holds ``pos``; ``q_eff`` (``W_uk``
+    absorbed) of this rank's heads, then ``q_eff`` and ``q_rope`` gathered
+    over 'model'; every head's scores over this rank's positions, the
+    softmax over 'model' (the max, the denominator and the weighted
+    latents ``out_c`` each summed over 'model' in f32); ``W_uv`` on this
+    rank's heads, then ``wo`` on their rows.  Returns ``(y, split)``."""
+    B = x.shape[0]
+    Hl = _tp_mla_heads(cfg)
+    nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    kvl = cfg.mla_kv_lora
+    q_nope, q_rope, c_new, kr_new = _tp_mla_qkv(params, x, cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    sin, cos = nn.rotary_embedding(positions, rod)
+    q_rope = nn.apply_rotary(q_rope, sin, cos)
+    kr_new = nn.apply_rotary(kr_new[:, :, None, :], sin, cos)[:, :, 0, :]
+    c_cache, kr_cache = cache
+    _store_positions(c_cache, c_new, pos)
+    _store_positions(kr_cache, kr_new, pos)
+    w_kv_b = params["wkv_b"]["w"].reshape(kvl, Hl, nod + vd)
+    q_eff = torch.einsum("bqhn,chn->bqhc", q_nope.float(),
+                         w_kv_b[..., :nod].float())
+    q_eff = coll.all_gather(q_eff, "model", dim=2)        # every head
+    q_rope = coll.all_gather(q_rope, "model", dim=2)
+    cf = c_cache.float()
+    scores = (torch.einsum("bqhc,bsc->bhqs", q_eff, cf)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             kr_cache.float())) / _sqrt_f32(nod + rod)
+    S_l = c_cache.shape[1]
+    j = coll.index("model") * S_l + torch.arange(S_l, device=x.device)
+    scores = torch.where(j <= pos, scores, torch.full_like(scores, NEG_INF))
+    mx = coll.all_reduce(scores.amax(dim=-1), "model", "max")
+    e = torch.exp(scores - mx[..., None])
+    w = e / coll.all_reduce(e.sum(dim=-1), "model")[..., None]
+    out_c = coll.all_reduce(torch.einsum("bhqs,bsc->bqhc", w, cf), "model")
+    h0 = coll.index("model") * Hl
+    out = torch.einsum("bqhc,chv->bqhv", out_c[:, :, h0:h0 + Hl],
+                       w_kv_b[..., nod:].float())
+    return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, Hl * vd).to(
+        x.dtype), cfg, split=True)

@@ -54,19 +54,24 @@ that makes it (``param_axes`` reads them; ``cache_axes_tree`` gives the
 caches'), and the reference's eight ``shard_hint`` sites are kept.
 
 Sharded serving: under ``launch.mesh.mesh_context(mesh)`` the dense-cache
-forwards ``prefill`` and ``decode_step`` of a GQA decoder (``attn``
-blocks) run on this rank's blocks, as the reference's ``jax.jit`` runs
-them under the shardings of its specs: params from
-``convert.params_from_jax(..., mesh=, cfg=)`` or
+forwards ``prefill`` and ``decode_step`` of a GQA or MLA decoder and of a
+MoE model (``attn`` and ``attn_moe`` blocks: the dense GQA decoders,
+deepseek-v3, kimi-k2, a MoE model with GQA attention) run on this rank's
+blocks, as the reference's ``jax.jit`` runs them under the shardings of
+its specs: params from ``convert.params_from_jax(..., mesh=, cfg=)`` or
 ``parallel.sharding.local_tree(tree, param_axes(cfg), mesh)``, this
 rank's rows of the batch (``sharding.batch_entry``), caches made by
 ``init_caches(..., mesh=)`` (or by ``prefill``).  The linears are tensor
 parallel over 'model' (``nn.tp_linear_apply``), the attention runs on
 this rank's heads or its cache positions (``attention.tp_gqa_prefill``,
-``tp_gqa_decode``), the embedding and the logits are vocab-parallel and
-``greedy`` is their argmax over 'model'; every collective goes through
-``parallel.collectives``.  The residual stream is whole on every rank of
-'model'.  The returned logits are this rank's block of the padded vocab.
+``tp_gqa_decode``; MLA's ``tp_mla_prefill``, ``tp_mla_decode`` on its
+heads and its positions of the latent cache), a MoE FFN is expert
+parallel (each rank's block of experts, one launch a stack, the combine
+summed over 'model'; ``moe.moe_apply``), the embedding and the logits are
+vocab-parallel and ``greedy`` is their argmax over 'model'; every
+collective goes through ``parallel.collectives``.  The residual stream is
+whole on every rank of 'model'.  The returned logits are this rank's
+block of the padded vocab.
 
 Sharded training: under the mesh the train ``forward`` of those decoders
 runs on this rank's param blocks and batch rows (``_forward_sharded``),
@@ -74,8 +79,9 @@ as the reference's ``make_train_step`` jitted with its specs' shardings
 runs it: tensor and sequence parallel over 'model' (``_tp_train_block``,
 Megatron-SP), the embedding, logits and loss vocab-parallel, FSDP
 weights gathered at use; or under ``pure_fsdp`` the plain blocks on the
-rows, every weight gathered at use.  The paged forwards and the other
-block kinds raise under a mesh of more than one device.
+rows, every weight gathered at use.  The paged forwards, the recurrent and
+enc-dec block kinds, and the train forward of MoE and MLA raise under a
+mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -360,29 +366,37 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
 def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
               paged_ctx):
     """``apply_block`` under the active mesh, on this rank's blocks: the
-    dense-cache serve block of a GQA decoder (``attn``), its linears
-    tensor-parallel over 'model' (``nn.tp_linear_apply``), its attention
-    on this rank's heads or cache positions (``attention.tp_gqa_prefill``,
-    ``tp_gqa_decode``), the residual stream whole on every rank of 'model'
-    and this rank's rows of the batch.  Other block kinds and the paged
-    forwards do not run sharded yet (the train forward is
+    dense-cache serve block of a GQA or MLA decoder (``attn``) or of a MoE
+    model (``attn_moe``), its linears tensor-parallel over 'model'
+    (``nn.tp_linear_apply``), its attention on this rank's heads or cache
+    positions (``attention.tp_gqa_prefill``/``tp_gqa_decode``,
+    ``tp_mla_prefill``/``tp_mla_decode``), a MoE FFN expert-parallel over
+    'model' (``moe.moe_apply``), the residual stream whole on every rank of
+    'model' and this rank's rows of the batch.  The other block kinds and
+    the paged forwards do not run sharded yet (the train forward is
     ``_tp_train_block``'s)."""
-    if paged_ctx is not None or kind != "attn" or cfg.attn_kind != "gqa":
+    if paged_ctx is not None or kind not in ("attn", "attn_moe"):
         raise NotImplementedError(
             f"block {kind!r} (attn_kind {cfg.attn_kind!r}, "
             f"{'paged' if paged_ctx is not None else 'dense'}) under a "
-            "mesh: only the dense-cache serve forwards of a GQA decoder run "
-            "sharded; MoE and MLA, the recurrent and enc-dec families and "
-            "the paged loop are ROADMAP queue 1's later items")
+            "mesh: only the dense-cache serve forwards of the GQA, MLA and "
+            "MoE decoders run sharded; the recurrent and enc-dec families "
+            "and the paged loop are ROADMAP queue 1's later items")
     h = nn.rmsnorm_apply(params["norm1"], x)
+    mla = cfg.attn_kind == "mla"
     if decode:
-        y, split = attn.tp_gqa_decode(params["attn"], h, cfg,
-                                      (cache["k"], cache["v"]), pos)
+        fn = attn.tp_mla_decode if mla else attn.tp_gqa_decode
+        kv = (cache["ckv"], cache["kr"]) if mla else (cache["k"], cache["v"])
+        y, split = fn(params["attn"], h, cfg, kv, pos)
     else:
-        y, split = attn.tp_gqa_prefill(params["attn"], h, cfg, cache)
+        fn = attn.tp_mla_prefill if mla else attn.tp_gqa_prefill
+        y, split = fn(params["attn"], h, cfg, cache)
     x, s = _residual(x, nn.gather_cols(y, split))
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
-    y = _tp_ffn(params["ffn"], hf, cfg)
+    if kind == "attn_moe":
+        y, _ = moe.moe_apply(params["moe"], hf, cfg)
+    else:
+        y = _tp_ffn(params["ffn"], hf, cfg)
     return x + y, cache, 0.0, (x, y)
 
 
@@ -397,9 +411,11 @@ def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
         raise NotImplementedError(
             f"the train forward of {cfg.name!r} (blocks {sorted(kinds)}, "
             f"attn_kind {cfg.attn_kind!r}, frontend {cfg.frontend!r}) does "
-            "not run sharded: only the dense GQA decoders train under a mesh; MoE "
-            "expert parallelism and MLA, the recurrent and enc-dec families "
-            "and a VLM's front are ROADMAP queue 1's later items")
+            "not run sharded: only the dense GQA decoders train under a "
+            "mesh (MoE and MLA serve sharded); training MoE and MLA under a "
+            "mesh, with int8 moments and gradient compression, is ROADMAP "
+            "queue 1's next item, the recurrent and enc-dec families and a "
+            "VLM's front its later ones")
 
 
 def _tp_train_block(params, x, cfg, x32=None):

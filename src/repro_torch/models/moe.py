@@ -23,6 +23,20 @@ the backward, as ``jax.nn.softmax`` does.
 Ties: ``jax.lax.top_k`` takes the lower expert index first; ``torch.topk``
 promises no order among equal values, so the top k come from a stable
 descending sort.
+
+Expert parallelism (serving under ``launch.mesh.mesh_context``): the expert
+stacks are this rank's block of ``E / |model|`` experts (the reference's
+``P('model', ...)``) and the residual stream is whole on every rank of
+'model'.  The router is replicated, so every rank of 'model' routes its
+batch rows alike; each dispatches only into its own experts, runs them
+(one launch a stack), and combines their outputs into a partial sum over
+its experts.  The partials are rounded to bf16, summed over 'model' in
+f32 and the sum rounded once, as the reference's partitioned graph does
+(read in its compiled HLO: the combine's dot rounded, converted to f32,
+all-reduced).  The shared experts run tensor parallel over 'model'
+(``nn.tp_linear_apply``).  The reference's GSPMD also shards the stream's
+``d`` over 'model' (its router logits and norms sum ``d`` in partial sums
+over 'model'); the port keeps the stream whole and sums ``d`` at once.
 """
 
 from __future__ import annotations
@@ -30,7 +44,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import nn
-from repro_torch.parallel.sharding import P, with_spec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import P, current_mesh, with_spec
 
 MAX_GROUP_TOKENS = 4096
 
@@ -121,19 +136,43 @@ def route(router_w, x, cfg):
     return probs, gates * keep, eidx, keep, pos, cap
 
 
+def local_experts(params, cfg) -> tuple:
+    """``(e0, E_l)``: the first global index and the count of the experts
+    whose stacks ``params`` holds: all of them without a mesh, this rank's
+    block of 'model' under one.  An expert count that does not divide over
+    'model' is refused, as ``shard_shape`` refuses an uneven dim."""
+    E = cfg.n_experts
+    if current_mesh() is None:
+        return 0, E
+    m = coll.size("model")
+    if E % m:
+        raise ValueError(f"{E} experts do not divide over 'model' ({m} "
+                         "ranks)")
+    held = next(iter(params["wi"].values()))     # every leaf leads with E
+    if held.shape[0] != E // m:
+        raise ValueError(f"the expert stacks hold {held.shape[0]} experts, "
+                         f"not this rank's {E // m} of {E}")
+    return coll.index("model") * (E // m), E // m
+
+
 def _moe_grouped(params, x, cfg, apply_fn, expert_apply_fn):
     G, t, D = x.shape
-    E = cfg.n_experts
     bf = nn.COMPUTE_DTYPE
+    ep = current_mesh() is not None
+    if ep and expert_apply_fn is not nn.serve_expert_linear_apply:
+        raise NotImplementedError(
+            "the train MoE under a mesh: expert-parallel training is ROADMAP "
+            "queue 1's next item")
+    e0, El = local_experts(params, cfg)
     with _span("route"):
         probs, gates, eidx, keep, pos, cap = route(params["router"]["w"], x,
                                                    cfg)
     with _span("dispatch"):
         oh_c = _one_hot(torch.where(keep, pos, torch.full_like(pos, cap)),
                         cap, bf)
-        oh_eb = _one_hot(eidx, E, bf)                        # [G, t, k, E]
-        disp = _dot("gtke,gtkc->gtec", oh_eb, oh_c)          # [G, t, E, cap]
-        xe = _dot("gtec,gtd->gecd", disp, x.to(bf))          # [G, E, cap, D]
+        oh_eb = _one_hot(eidx - e0, El, bf)                  # [G, t, k, E_l]
+        disp = _dot("gtke,gtkc->gtec", oh_eb, oh_c)          # [G, t, E_l, cap]
+        xe = _dot("gtec,gtd->gecd", disp, x.to(bf))          # [G, E_l, cap, D]
     with _span("experts"):
         # serving, XLA rounds the experts' gated product to bf16 before
         # wo's quantiser (read in the compiled HLO), where it feeds the
@@ -148,13 +187,34 @@ def _moe_grouped(params, x, cfg, apply_fn, expert_apply_fn):
     with _span("combine"):
         comb = _dot("gtke,gtkc->gtec", oh_eb * gates.to(bf)[..., None], oh_c)
         y = _dot("gtec,gecd->gtd", comb, ye)
+        if ep:      # bf16 partials over the local experts, summed in f32
+            y = coll.all_reduce(y.float(), "model").to(bf)
     if cfg.n_shared:
         with _span("shared"):
-            hs = apply_fn(params["shared_wi"], x, cfg).float() * nn.silu(
-                apply_fn(params["shared_wg"], x, cfg))
-            y = y + apply_fn(params["shared_wo"], hs, cfg)
+            y = y + (_tp_shared(params, x, cfg) if ep
+                     else _shared(params, x, cfg, apply_fn))
     # Switch-style load-balance auxiliary loss (serve discards it)
+    E = cfg.n_experts
     me = probs.reshape(-1, E).mean(dim=0)
     ce = _one_hot(eidx[..., 0].reshape(-1), E, torch.float32).mean(dim=0)
     aux = E * (me * ce).sum()
     return y.to(x.dtype), aux
+
+
+def _shared(params, x, cfg, apply_fn):
+    """The shared experts: a SwiGLU whose gated product reaches
+    ``shared_wo`` in f32."""
+    hs = apply_fn(params["shared_wi"], x, cfg).float() * nn.silu(
+        apply_fn(params["shared_wg"], x, cfg))
+    return apply_fn(params["shared_wo"], hs, cfg)
+
+
+def _tp_shared(params, x, cfg):
+    """``_shared`` under the mesh, tensor parallel over 'model': wi and wg
+    on this rank's columns (or whole), each on its own activation step,
+    ``shared_wo`` following its spec; the output whole."""
+    h, split = nn.tp_linear_apply(params["shared_wi"], x, cfg)
+    g, _ = nn.tp_linear_apply(params["shared_wg"], x, cfg)
+    hs = h.float() * nn.silu(g)
+    return nn.gather_cols(*nn.tp_linear_apply(params["shared_wo"], hs, cfg,
+                                              split=split))

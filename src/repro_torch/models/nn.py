@@ -601,7 +601,12 @@ def serve_expert_linear_apply(params, xe, cfg):
       launch of the expert-stacked int8 kernel
       (``kernels/int8_experts.py``; one batched int32 product on the
       CPU), dequantised in f32 to bf16;
-    - dense: the bf16 product summed in f32 (one batched matmul)."""
+    - dense: the bf16 product summed in f32 (one batched matmul).
+
+    Under a mesh (expert parallelism) the leaves are this rank's block of
+    ``E / |model|`` experts and ``xe`` holds their rows; a tlmac plan's
+    reduction groups sharded over ('pod', 'data') (``fsdp``) are gathered
+    at use, as ``_tp_tlmac`` gathers a single linear's."""
     G, E, cap, K = xe.shape
     x = xe.transpose(0, 1).reshape(E, G * cap, K)
     impl = layout(params)
@@ -610,11 +615,15 @@ def serve_expert_linear_apply(params, xe, cfg):
         aq = torch.clamp(torch.round(x.to(torch.float32) / a_step),
                          0, 2**cfg.quant.a_bits - 1).to(
             torch.int8).contiguous()
-        n_tiles, kg, dp = params["exec_idx"].shape[-3:]
+        exec_idx, step_cluster = params["exec_idx"], params["step_cluster"]
+        if current_mesh() is not None:
+            exec_idx, step_cluster = (_gather_plan_fsdp(t, 2) for t in (
+                exec_idx, step_cluster))
+        n_tiles, kg, dp = exec_idx.shape[-3:]
         table = params.get("table_narrow", params["table"])
-        yi = kops.tlmac_matmul(aq, table, params["exec_idx"],
-                               params["step_cluster"], B_a=cfg.quant.a_bits,
-                               G=cfg.tlmac_G, N=n_tiles * dp, impl="fused")
+        yi = kops.tlmac_matmul(aq, table, exec_idx, step_cluster,
+                               B_a=cfg.quant.a_bits, G=cfg.tlmac_G,
+                               N=n_tiles * dp, impl="fused")
         y = (yi.to(torch.float32)
              * (a_step * params["w_step"][:, None, :])).to(COMPUTE_DTYPE)
     elif impl == "int8":
@@ -688,16 +697,22 @@ def _tp_in(codes, split: bool, want_split: bool):
 
 
 def _tp_layout(params):
-    """(output dim on 'model', reduction dim on 'model', the FSDP axes of a
-    tlmac plan's reduction groups)."""
+    """(output dim on 'model', reduction dim on 'model')."""
     impl = layout(params)
     if impl == "tlmac":
         spec = spec_of(params["exec_idx"])
-        fsdp = tuple(a for a in _names(spec[1]) if a != "model") if len(
-            spec) > 1 else ()
-        return _model_dim(spec, 0), _model_dim(spec, 1), fsdp
+        return _model_dim(spec, 0), _model_dim(spec, 1)
     spec = spec_of(params["w8" if impl == "int8" else "w"])
-    return _model_dim(spec, 1), _model_dim(spec, 0), ()
+    return _model_dim(spec, 1), _model_dim(spec, 0)
+
+
+def _gather_plan_fsdp(t, dim: int):
+    """A tlmac plan leaf (``exec_idx``, ``step_cluster``) with its
+    reduction groups, dim ``dim``, gathered over the FSDP axes its spec
+    puts there (every axis but 'model'): the only collective that moves a
+    parameter."""
+    axes = tuple(a for a in _names(spec_of(t)[dim]) if a != "model")
+    return coll.all_gather(t, axes, dim=dim, param=True) if axes else t
 
 
 def _tp_cols(y, split: bool, leaf):
@@ -719,11 +734,9 @@ def _tp_tlmac(params, aq, split: bool, cfg):
     K_local]``: the int32 lookup GEMM on the local plan (its FSDP blocks
     gathered), summed over 'model' where the reduction groups are split,
     then dequantised; returns ``(y, split)``."""
-    out_m, in_m, fsdp = _tp_layout(params)
-    exec_idx, step_cluster = params["exec_idx"], params["step_cluster"]
-    if fsdp:
-        exec_idx = coll.all_gather(exec_idx, fsdp, dim=1, param=True)
-        step_cluster = coll.all_gather(step_cluster, fsdp, dim=1, param=True)
+    out_m, in_m = _tp_layout(params)
+    exec_idx, step_cluster = (_gather_plan_fsdp(params[n], 1)
+                              for n in ("exec_idx", "step_cluster"))
     yi = _tlmac_int(params, exec_idx, step_cluster,
                     _tp_in(aq, split, in_m), cfg)
     if in_m:
@@ -747,7 +760,7 @@ def tp_linear_apply(params, x, cfg, split: bool = False,
     columns."""
     lead = x.shape[:-1]
     impl = layout(params)
-    out_m, in_m, _ = _tp_layout(params)
+    out_m, in_m = _tp_layout(params)
     if impl == "tlmac":
         aq = _tlmac_quant_pack(params["a_step"], x, cfg)
         y, split = _tp_tlmac(params, aq, split, cfg)

@@ -218,9 +218,11 @@ def shard_hint(x, spec: P):
       and its block of the vocab (under ``pure_fsdp``, which has no
       tensor parallelism, the whole vocab of its rows).
 
-    Any other hint raises: the paged forwards and the block kinds other
-    than a GQA decoder's ``attn`` (MoE, MLA, the recurrent and enc-dec
-    families) do not run sharded yet (ROADMAP queue 1)."""
+    The MoE and MLA serve forwards pass no hint of their own (the
+    reference's pass none: GSPMD places their experts and latents by the
+    params' and caches' specs), so the batch hint covers them.  Any other
+    hint raises: the paged forwards and the recurrent and enc-dec families
+    do not run sharded yet (ROADMAP queue 1)."""
     mesh = _active
     if mesh is None or mesh.size() == 1:
         return x
@@ -230,9 +232,9 @@ def shard_hint(x, spec: P):
         return x
     raise NotImplementedError(
         f"shard_hint{tuple(spec)} under a mesh of {mesh.size()} devices: "
-        "the port's model does not run sharded here (the paged forwards, "
-        "MoE, MLA and the recurrent and enc-dec families are ROADMAP queue "
-        "1's later items); the dense forwards hold their rows, the train "
+        "the port's model does not run sharded here (the paged forwards "
+        "and the recurrent and enc-dec families are ROADMAP queue 1's "
+        "later items); the dense forwards hold their rows, the train "
         "forward its sequence and vocab blocks")
 
 

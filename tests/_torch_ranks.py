@@ -9,6 +9,7 @@ so parallel test workers cannot collide) and run ``fn(rank, world, tmp,
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -32,18 +33,20 @@ def _entry(rank, fn, world, tmp, args):
         pickle.dump(out, f)
 
 
-def spawn_ranks(fn, world: int, tmp, *args) -> list:
-    """Run ``fn`` on ``world`` gloo ranks; returns their results by rank."""
+def spawn_ranks(fn, world: int, tmp, *args, timeout: float = TIMEOUT_S
+                ) -> list:
+    """Run ``fn`` on ``world`` gloo ranks; returns their results by rank.
+    ``timeout``: seconds the ranks may take together."""
     tmp = str(tmp)
     ctx = mp.start_processes(_entry, args=(fn, world, tmp, args),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + TIMEOUT_S
+    deadline = time.monotonic() + timeout
     while not ctx.join(timeout=5):      # raises if a rank raised
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
             raise TimeoutError(f"{world} ranks did not finish in "
-                               f"{TIMEOUT_S} s")
+                               f"{timeout} s")
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -127,7 +130,8 @@ def sharded_serve_rank(rank, world, tmp, names):
         tokens = torch.from_numpy(case["tokens"])
         B, S = tokens.shape
         r0, nr = block_range(B, batch_entry(B, mesh), mesh)
-        with mesh_context(mesh):
+        routes = res["routes"] = []
+        with mesh_context(mesh), _recorded_routes(routes):
             logits, caches = lm.prefill(params, tokens[r0:r0 + nr], cfg,
                                         S_max=case["S_max"])
             res["prefill_logits"] = convert.to_numpy(logits)
@@ -152,6 +156,26 @@ def sharded_serve_rank(rank, world, tmp, names):
                    caches=convert.to_numpy(caches),
                    blocks=convert.to_numpy(params))
     return out
+
+
+@contextlib.contextmanager
+def _recorded_routes(routes: list):
+    """Every ``moe.route`` call's ``(eidx, gates)`` appended to ``routes``
+    as numpy while inside."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routes.append((out[2].numpy(), out[1].numpy()))
+        return out
+
+    moe.route = recording
+    try:
+        yield routes
+    finally:
+        moe.route = real
 
 
 def _collectives_on(mesh):

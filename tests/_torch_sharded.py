@@ -21,9 +21,11 @@ reference and the port side by side:
 
 Each case: ``arch`` (a smoke config), ``over`` (config overrides),
 ``mesh`` ``(data, model)``, and optionally ``hlo`` (parse the decode
-step's collectives) or ``linear`` ``(K, N)`` (one serve linear instead of
-a model).  Prompts are B 4 x 16 tokens into ``S_MAX`` 32, then ``STEPS``
-greedy steps.
+step's collectives), ``spread`` (the reference also runs its forwards on
+one device, fed the sharded run's tokens), ``forced`` (with ``spread``:
+the port's unsharded run is fed them too, after the reference ends) or
+``linear`` ``(K, N)`` (one serve linear instead of a model).  Prompts are
+B 4 x 16 tokens into ``S_MAX`` 32, then ``STEPS`` greedy steps.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -172,8 +175,11 @@ def _jax_params(arch, over, int8_steps: bool):
     return _np(p)
 
 
-def _plain_run(case):
-    """The port unsharded on the whole params: prefill, greedy steps."""
+def _plain_run(case, forced=None):
+    """The port unsharded on the whole params: prefill, greedy steps; with
+    ``forced`` (tokens ``[steps + 1, B]``) step ``i`` is fed ``forced[i]``
+    instead of its own argmax (the reference's one-device run of a
+    ``spread`` case is fed so)."""
     cfg = dataclasses.replace(tsmoke(case["arch"]), **case["over"])
     params = convert.params_from_jax(case["params"], "cpu")
     tokens = torch.from_numpy(case["tokens"])
@@ -182,6 +188,8 @@ def _plain_run(case):
     t = lm.greedy(logits)
     toks = [t]
     for i in range(case["steps"]):
+        if forced is not None:
+            t = torch.from_numpy(forced[i]).long()
         logits, caches = lm.decode_step(params, caches, t[:, None].to(
             torch.int32), S + i, cfg)
         t = lm.greedy(logits)
@@ -192,17 +200,24 @@ def _plain_run(case):
     return out
 
 
-def run(tmp, cases: dict) -> dict:
+def run(tmp, cases: dict, rank_timeout: float = _torch_ranks.TIMEOUT_S
+        ) -> dict:
     """Every case through the reference (one subprocess), the port's 4
-    ranks and the port unsharded.  Returns ``{name: {'case', 'ref',
-    'meta', 'ranks', 'plain'}}``."""
+    ranks (given ``rank_timeout`` seconds) and the port unsharded.
+    Returns ``{name: {'case', 'ref', 'meta', 'ranks', 'plain'}}``."""
     from repro_torch.models import nn as tnn
     from repro_torch.parallel.sharding import spec_tree
 
+    models = [(n, c) for n, c in cases.items()
+              if not c.get("collectives") and "linear" not in c]
+    # the jitted inits compile in threads (XLA compiles outside the GIL)
+    with ThreadPoolExecutor(max(len(models), 1)) as ex:
+        drawn = {n: ex.submit(_jax_params, c["arch"], c["over"], c[
+            "over"].get("serve_impl") == "int8") for n, c in models}
+        drawn = {n: f.result() for n, f in drawn.items()}
     full = {}
     for i, (name, c) in enumerate(cases.items()):
         case = dict(c, steps=STEPS, S_max=S_MAX)
-        layout = c.get("over", {}).get("serve_impl", "tlmac")
         if c.get("collectives"):
             pass
         elif "linear" in c:
@@ -216,8 +231,7 @@ def run(tmp, cases: dict) -> dict:
                                       device="meta")),
                 x=rng.uniform(0, 16, (B * 2, K)).astype(np.float32))
         else:
-            case["params"] = _jax_params(c["arch"], c["over"],
-                                         layout == "int8")
+            case["params"] = drawn[name]
             vocab = jsmoke(c["arch"]).vocab
             case["tokens"] = np.random.default_rng(i).integers(
                 0, vocab, (B, S)).astype(np.int32)
@@ -234,22 +248,25 @@ def run(tmp, cases: dict) -> dict:
         stderr=subprocess.PIPE, text=True)
     try:
         ranks = _torch_ranks.spawn_ranks(_torch_ranks.sharded_serve_rank,
-                                         WORLD, tmp, list(cases))
+                                         WORLD, tmp, list(cases),
+                                         timeout=rank_timeout)
         plain = {n: _plain_run(c) for n, c in full.items()
-                 if "params" in c}
+                 if "params" in c and not c.get("forced")}
         _, err = proc.communicate(timeout=600)
     finally:
         proc.kill()
     assert proc.returncode == 0, err[-3000:]
     out = {}
     for name in cases:
-        out[name] = dict(case=full[name], ranks=[r[name] for r in ranks],
-                         plain=plain.get(name))
+        out[name] = dict(case=full[name], ranks=[r[name] for r in ranks])
         if name in ref_names:
             with open(os.path.join(tmp, f"{name}_ref.json")) as f:
                 out[name]["meta"] = json.load(f)
             out[name]["ref"] = dict(np.load(os.path.join(
                 tmp, f"{name}_ref.npz")))
+        if full[name].get("forced"):
+            plain[name] = _plain_run(full[name], out[name]["ref"]["tokens"])
+        out[name]["plain"] = plain.get(name)
     return out
 
 
