@@ -126,8 +126,9 @@ Phases, in order; any failure raises and exits non-zero:
    then the other dense families the reference pages
    (``phase_families``), each drawn on the card with its init peak
    printed (the params plus at most one layer) and freed before the
-   next: command-r-35b at full width and depth served as the main path
-   is (six requests, both graphs, launches asserted), then the dense
+   next: command-r-35b at full width, 20 of 40 layers, served as the
+   main path is (six requests, both graphs, launches asserted), then the
+   dense
    oracle at its width (``phase_dense_oracle``: four requests solo
    through the dense ``ServeLoop`` and through the paged loop with the
    gathered reader, fp then int8 pools, tokens equal where the margin is
@@ -191,7 +192,7 @@ Phases, in order; any failure raises and exits non-zero:
    codeqwen1.5-7b's smoke (quantisers calibrated) on the card against
    the same step on the CPU (loss, gradient norm, lr within stated
    tolerances), and the loss falling on a fixed batch on the card; (b)
-   minicpm-2b at full width and depth through the train CLI
+   minicpm-2b at full width, 10 of 40 layers, through the train CLI
    (``launch.train.main``: 6 steps, batch 4 x 1024, WSD), its memory
    reckoning beside the params, init and run peaks, every step's loss,
    lr and gradient norm (finite), the median step and tokens a second,
@@ -208,12 +209,11 @@ Phases, in order; any failure raises and exits non-zero:
    each other family's smoke (recurrentgemma-2b at window 8, xlstm-350m,
    seamless-m4t-medium with frames, deepseek-v3-671b with MLA + MoE and
    int8 moments, moe-gqa, kimi-k2-1t-a32b, internvl2-76b with ``front``);
-   (g) recurrentgemma-2b cut to 13 of 26 layers (batch 2 x 1024, the
+   (g) recurrentgemma-2b cut to 6 of 26 layers (batch 2 x 1024, the
    last of 4 steps profiled), xlstm-350m cut to 8 of 24 layers (4 x 256:
-   four of the scan's 64-step chunks),
-   seamless-m4t-medium (4 x 1024 tokens, 512 frames) and
-   deepseek-v3-671b cut to its 3 dense MLA layers (of 61; int8 moments,
-   4 x 1024) at full width through the train CLI, each with its memory
+   four of the scan's 64-step chunks) and seamless-m4t-medium (4 x 1024
+   tokens, 512 frames) at full width through the train CLI (deepseek-v3's
+   3 dense MLA layers train in phase 15), each with its memory
    reckoning, init and run peaks, first and median step, tokens a
    second and finite losses, each freed before the next;
 9. the port on the card against the port on the CPU (plain versions) on
@@ -247,8 +247,9 @@ Phases, in order; any failure raises and exits non-zero:
 12. the dense serve forwards sharded (``phase_sharded``): one NCCL rank
     spawned per visible card, a (data 1, model world) mesh (world 1 on
     one card: every collective is still issued, over one-rank groups);
-    codeqwen1.5-7b at full width and depth (32 KV heads: head-sharded
-    caches) and command-r-35b cut to 8 of 40 layers (8 KV heads:
+    codeqwen1.5-7b at full width cut to 8 of 32 layers (32 KV heads:
+    head-sharded caches) and command-r-35b cut to 4 of 40 layers (8 KV
+    heads:
     sequence-sharded caches, the decode softmax combined over 'model'),
     seeded TLMAC weights, B 4 x 256-token prompts and 16 greedy decode
     steps, each through ``lm.prefill``/``lm.decode_step`` unsharded and
@@ -263,8 +264,8 @@ Phases, in order; any failure raises and exits non-zero:
     beside it, its bound and the one-hot ``_int_mm``.
 13. the QAT train step sharded (``phase_sharded_train``): one NCCL rank
     per visible card, a (data 1, model world) mesh (world 1 on one card);
-    minicpm-2b at full width and depth (``pure_fsdp``: every linear
-    ZeRO-3-sharded over ('data', 'model') and gathered at use) and
+    minicpm-2b at full width cut to 10 of 40 layers (``pure_fsdp``: every
+    linear ZeRO-3-sharded over ('data', 'model') and gathered at use) and
     codeqwen1.5-7b at full width cut to 8 of 32 layers (tensor, sequence
     and vocab parallel over 'model', FSDP over ('pod', 'data')), each
     from phase 8's seeded params and batches (4 x 1024, WSD): two
@@ -295,6 +296,21 @@ Phases, in order; any failure raises and exits non-zero:
     and wo) and kernel 7 at 16 of int8 moe-gqa's 256 experts, at the rows
     a decode step and the prefill give each expert, int32-equal to their
     plain twins and timed beside them and the bound.
+15. the MoE and MLA decoders' QAT train step sharded
+    (``phase_sharded_train_moe``): one NCCL rank per visible card, a
+    (data 1, model world) mesh (world 1 on one card); deepseek-v3-671b at
+    full width cut to its 3 dense MLA layers and the deepseek smoke
+    widened (d_model 256, 8 experts of 64, MLA + MoE), each with
+    ``fsdp``, int8 moments, int8 gradient compression and two
+    microbatches, 4 x 1024, WSD: two unsharded steps, then two sharded
+    ones, the loss, norm, gradients, params and moments compared bit for
+    bit, the collectives of a step with the backward's, the parameter
+    ones and the compression's apart, both steps' ms and peaks; the MoE
+    smoke's step on the card against the CPU; then the trained layer 0
+    ``attn.wq_a`` and expert 0's ``moe.wi`` compiled and run on kernel 1
+    at M 4 and 64, int32-equal to their plain twins and
+    ``dense_int_matmul``, timed beside them, the one-hot ``_int_mm`` and
+    the bound.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -3047,9 +3063,15 @@ def _window_check(loop, cfg, done):
     loop._decode = wrapper
 
 
+# command-r-35b's depth in the families phase and the dense oracle: cut
+# from 40 to keep the whole script inside its time limit
+COMMAND_R_LAYERS = 20
+
+
 def phase_families():
     """The dense families the reference pages, at full width: command-r-35b
-    (full depth, the main path's six requests, then the dense oracle),
+    (``COMMAND_R_LAYERS`` of 40, the main path's six requests, then the
+    dense oracle),
     internvl2-76b's backbone and minicpm-2b (full depth, four requests x 16
     tokens), the sliding window at codeqwen1.5-7b's width (8 layers,
     prompts of 2300/3000/37/300 tokens, s_max 4096), and the int8 and
@@ -3058,9 +3080,10 @@ def phase_families():
     from repro_torch.configs import get_config
 
     out = {}
-    phase("command-r-35b at full width and depth (serve)")
-    cfg = get_config("command-r-35b")
-    params = init_family(cfg)
+    phase(f"command-r-35b at full width, {COMMAND_R_LAYERS} of 40 layers "
+          "(serve)")
+    cfg = _cut_config("command-r-35b", COMMAND_R_LAYERS)
+    params = init_family(cfg, cut=f"{COMMAND_R_LAYERS} of 40 layers")
     out["command-r-35b"] = phase_main(cfg, params)
     phase_tune_family(cfg, params, main_run=out["command-r-35b"][1])
     phase("dense oracle at command-r-35b's width: paged 'lax' vs ServeLoop")
@@ -4442,6 +4465,7 @@ def phase_cli():
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "minicpm-2b"
+TRAIN_LAYERS = 10       # of 40: cut for the script's time limit
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 1024, 4
 TRAIN_PROFILED_STEP = TRAIN_STEPS - 1   # profiled; left out of the median
 TRAIN_LOSS_RTOL = 1e-2        # card vs CPU: bf16 GEMMs summed in other
@@ -4465,15 +4489,15 @@ TRAIN_SMOKES = (
     ("internvl2-76b", {}),
 )
 # (g): (arch, batch, seq_len, steps, profiled step, layers kept); widths
-# are never cut
+# are never cut.  deepseek-v3-671b's 3 dense MLA layers at 4 x 1024 train
+# in phase 15 (its unsharded run, with the full config's int8 moments)
 TRAIN_FULL = (
     # recurrentgemma and xlstm cut in depth to keep the whole script well
     # inside its time limit: both are host bound (~1.7 and ~30 s a step at
     # full depth), and their time grows with the layers
-    ("recurrentgemma-2b", 2, 1024, 4, 3, 13),
+    ("recurrentgemma-2b", 2, 1024, 4, 3, 6),
     ("xlstm-350m", 4, 256, 2, None, 8),
     ("seamless-m4t-medium", 4, 1024, 3, None, None),
-    ("deepseek-v3-671b", 4, 1024, 3, None, 3),     # its 3 dense MLA layers
 )
 
 
@@ -4784,12 +4808,14 @@ def train_cli_run(arch: str, B: int, S: int, steps: int, gpu: str,
 
 
 def phase_train_minicpm(gpu: str):
-    """(b) minicpm-2b at full width and depth through the train CLI (six
-    steps, batch 4 x 1024, WSD), the last step profiled.  Returns (its
-    figures, layer 0's trained ``ffn.wi`` {'w', 'w_step'} on the CPU)."""
+    """(b) minicpm-2b at full width, ``TRAIN_LAYERS`` of its 40 layers,
+    through the train CLI (six steps, batch 4 x 1024, WSD), the last step
+    profiled.  Returns (its figures, layer 0's trained ``ffn.wi`` {'w',
+    'w_step'} on the CPU)."""
     fig, params = train_cli_run(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                                 TRAIN_STEPS, gpu,
-                                profiled=TRAIN_PROFILED_STEP)
+                                profiled=TRAIN_PROFILED_STEP,
+                                cfg=_cut_config(TRAIN_ARCH, TRAIN_LAYERS))
     wi = params.segments[0].b0.ffn.wi
     trained = {"w": wi.w[0].detach().float().cpu().numpy(),
                "w_step": wi.w_step[0].detach().float().cpu().numpy()}
@@ -4811,8 +4837,9 @@ def phase_train_families_card_vs_cpu(seed: int = SEED):
 
 def phase_train_families(gpu: str):
     """(g) ``TRAIN_FULL`` at full width through the train CLI, each freed
-    before the next (deepseek-v3-671b cut to its dense MLA layers: one of
-    its MoE layers alone holds at least 113 GB of train state)."""
+    before the next (deepseek-v3-671b's dense MLA layers train in phase
+    15: one of its MoE layers alone holds at least 113 GB of train
+    state)."""
     from repro_torch.configs import get_config
 
     out = {}
@@ -5013,7 +5040,8 @@ def phase_train():
     t0 = time.perf_counter()
     phase("train (a): one train step, card vs CPU; loss on a fixed batch")
     out = {"card_vs_cpu": phase_train_card_vs_cpu()}
-    phase(f"train (b): {TRAIN_ARCH} at full width and depth through the "
+    phase(f"train (b): {TRAIN_ARCH} at full width ({TRAIN_LAYERS} of 40 "
+          "layers) through the "
           "train CLI")
     out[TRAIN_ARCH], trained = phase_train_minicpm(gpu)
     phase("train (c): the trained ffn.wi compiled and run on kernel 1")
@@ -5252,7 +5280,7 @@ def phase_dry_run(dry_run_args) -> dict:
 
 SHARD_B, SHARD_PROMPT, SHARD_STEPS = 4, 256, 16
 # the models served sharded: arch -> layers kept (None: full depth)
-SHARD_CUTS = {"codeqwen1.5-7b": None, "command-r-35b": 8}
+SHARD_CUTS = {"codeqwen1.5-7b": 8, "command-r-35b": 4}
 SHARD_WAY = 16        # the production meshes' 'model' axis
 SHARD_M = 4           # rows a decode step of 4 slots gives each linear
 SHARD_ARCHS = ("codeqwen1.5-7b", "mistral-large-123b")   # kernel 1's shapes
@@ -5776,8 +5804,9 @@ def phase_sharded_moe(world: int = 0, models: dict = SMOE_MODELS) -> dict:
 # layers kept (None: full depth); widths are never cut.  codeqwen1.5-7b's
 # f32 params, gradients and moments take 16 bytes a parameter: 3.7 GB a
 # layer and 12.1 GB for its untied tables, so 8 of its 32 layers (41.8 GB)
-# leave room for the step's activations (``train_reckoning`` prints it)
-STRAIN_CUTS = {TRAIN_ARCH: None, "codeqwen1.5-7b": 8}
+# fit beside the step's activations; minicpm-2b takes train (b)'s depth,
+# cut to keep the whole script inside its time limit
+STRAIN_CUTS = {TRAIN_ARCH: TRAIN_LAYERS, "codeqwen1.5-7b": 8}
 STRAIN_STEPS = 2
 # tests/_torch_train.py's tolerances, for an op the card cannot keep
 # bit-equal: gradients by cosine and max error over the leaf's largest
@@ -5861,18 +5890,25 @@ def _named_leaves(tree, pre=""):
         yield pre[:-1], tree
 
 
-def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
+def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
+                         strict: bool = False, of_layers=None):
     """One model's QAT train step unsharded, then sharded under ``mesh`` on
     this rank's blocks, from the same seeded params (phase 8's: the train
-    CLI's ``init``, seed 0) and batches (its ``SyntheticLMData``, batch
-    ``TRAIN_BATCH x TRAIN_SEQ``), WSD, ``STRAIN_STEPS`` steps each: the
-    loss, the gradient norm, every gradient leaf (norm and bit checksum)
-    and every param after each step compared bit for bit.  Where step 0's
-    gradients differ (every step at world > 1: the blocks are not the
-    whole), the loss is held within ``LOSS_RTOL`` and each gradient
-    leaf within the CPU tests' tolerances of the unsharded one's block.
-    Returns the figures and (``want_wi``) layer 0's trained ``ffn.wi``
-    gathered over its axes, on the host."""
+    CLI's ``init``, seed 0) and batches (its
+    ``SyntheticLMData``, batch ``TRAIN_BATCH x TRAIN_SEQ``), WSD,
+    ``STRAIN_STEPS`` steps each (``tc``: the step's config, by default
+    ``cfg``'s moments, no accumulation, no compression; the compression's
+    uniforms from one generator seed a step in both runs): the loss, the
+    gradient norm, every gradient leaf (norm and bit checksum), every
+    param and every moment leaf after each step compared bit for bit.
+    Where step 0's gradients differ (every step at world > 1: the blocks
+    are not the whole), the loss is held within ``LOSS_RTOL`` and each
+    gradient leaf within the CPU tests' tolerances of the unsharded one's
+    block; under ``strict`` a difference in the loss, the norm, a param
+    or a moment raises.  Returns the figures
+    and ``pick(local params)`` (a trained linear on the host).
+    ``of_layers``: the depth ``cfg`` was cut from (default: its full
+    config's)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5884,25 +5920,24 @@ def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
     from repro_torch.parallel.sharding import block_range, local_tree
     from repro_torch.train import trainer as T
 
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
     reck = train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ)
     data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH, seed=SEED)
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch(i).items()}
                for i in range(STRAIN_STEPS)]
-    tc = T.TrainConfig(lr=3e-4, total_steps=TRAIN_STEPS, schedule="wsd",
-                       adamw=AdamWConfig(state_dtype=cfg.opt_state_dtype))
+    tc = tc or T.TrainConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                             schedule="wsd", adamw=AdamWConfig(
+                                 state_dtype=cfg.opt_state_dtype))
 
-    def init():
+    def init_params():
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return lm.init_lm(cfg, gen, purpose="train", device=dev)
 
     def run(params, rows, plain=None) -> tuple:
         step = T.make_train_step(cfg, tc)
         grads_of, seen = step.grads, {}
+        real_compress, comp = T.compress_grads, []
 
         def watched(p, b):     # the step's gradient, before clipping
             loss, g = grads_of(p, b)
@@ -5914,28 +5949,42 @@ def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
             elif first and seen["grads"] != plain["steps"][0]["grads"]:
                 want = plain["steps"][0]["loss"]
                 if abs(seen["loss"] - want) > LOSS_RTOL * abs(want):
-                    raise AssertionError(f"{arch}: loss {seen['loss']} vs "
-                                         f"{want}")
+                    raise AssertionError(f"{cfg.name}: loss {seen['loss']} "
+                                         f"vs {want}")
                 names = [n for n, _ in _named_leaves(p.tree())]
                 seen["held"] = _hold_leaves(names, plain["host"],
                                             tree_leaves(g), mesh)
             return loss, g
 
+        def counted(grads, gen=None, error_state=None):
+            with record_collectives() as cst:
+                out = real_compress(grads, gen, error_state)
+            comp.append(cst)
+            return out
+
         step.grads = watched
         opt = adamw_init(params, tc.adamw)
         out = dict(steps=[])
-        for i, b in enumerate(batches):
-            b = {k: v[rows[0]:rows[0] + rows[1]] for k, v in b.items()}
-            with record_collectives() as st:
-                _sync()
-                t = time.perf_counter()
-                params, opt, m = step(params, opt, b, i)
-                float(m["loss"])
-                _sync()
-                ms = (time.perf_counter() - t) * 1e3
-            out["steps"].append(dict(
-                ms=ms, loss=seen["loss"], gnorm=float(m["gnorm"]),
-                grads=seen["grads"], params=_leaf_marks(params), stats=st))
+        T.compress_grads = counted
+        try:
+            for i, b in enumerate(batches):
+                b = {k: v[rows[0]:rows[0] + rows[1]] for k, v in b.items()}
+                gen = torch.Generator(device=dev).manual_seed(
+                    T.COMPRESS_SEED + i)
+                with record_collectives() as st:
+                    _sync()
+                    t = time.perf_counter()
+                    params, opt, m = step(params, opt, b, i, gen)
+                    float(m["loss"])
+                    _sync()
+                    ms = (time.perf_counter() - t) * 1e3
+                out["steps"].append(dict(
+                    ms=ms, loss=seen["loss"], gnorm=float(m["gnorm"]),
+                    grads=seen["grads"], params=_leaf_marks(params),
+                    moments=_leaf_marks({"m": opt["m"], "v": opt["v"]}),
+                    stats=st, compress=comp[i] if comp else None))
+        finally:
+            T.compress_grads = real_compress
         out["host"] = seen.pop("host", None)
         out["held"] = seen.get("held")
         out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
@@ -5944,49 +5993,54 @@ def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
 
     _free()
     _reset_peak()
-    plain, params = run(init(), (0, TRAIN_BATCH))
+    plain, params = run(init_params(), (0, TRAIN_BATCH))
     del params
     _free()
     _reset_peak()
-    whole = init()
+    whole = init_params()
     local = nn.ParamTree(local_tree(whole.tree(), lm.param_axes(
         cfg, "train"), mesh), trainable=True)
     del whole
     rows = block_range(TRAIN_BATCH, nn.train_batch_axes(cfg), mesh)
-    wi = None
+    picked = None
     with mesh_context(mesh):
         sh, local = run(local, rows, plain)
-        if want_wi:
-            stacked = local.tree()["segments"][0]["b0"]["ffn"]["wi"]
-            layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
-                                 cfg.n_layers)[0]
-            wi = {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
-                  for k, v in layer0.items()}
+        if pick is not None:
+            picked = pick(local.tree(), cfg)
     del local, plain["host"]
     _free()
     equal = [dict(loss=a["loss"] == b["loss"], gnorm=a["gnorm"] == b[
         "gnorm"], grads=a["grads"] == b["grads"], params=a["params"] == b[
-        "params"]) for a, b in zip(plain["steps"], sh["steps"])]
+        "params"], moments=a["moments"] == b["moments"])
+        for a, b in zip(plain["steps"], sh["steps"])]
+    if strict and not all(e[k] for e in equal
+                          for k in ("loss", "gnorm", "params", "moments")):
+        raise AssertionError(f"{cfg.name}: sharded vs unsharded {equal}")
     if sh["held"] is not None and mesh.size() == 1:
         diff = [n for (n, _), x, y in zip(
             _named_leaves(lm.param_axes(cfg, "train")), plain["steps"][0][
                 "grads"], sh["steps"][0]["grads"]) if x != y]
-        log(f"  {arch}: step 0 not bit-equal at world 1 ({equal[0]}); "
+        log(f"  {cfg.name}: step 0 not bit-equal at world 1 ({equal[0]}); "
             f"gradient leaves that differ: {diff[:6]}"
             f"{' ...' if len(diff) > 6 else ''}; the op: the row-parallel "
             "wo products (the bf16 GEMM's f32 output, rounded to bf16 after "
             "the sum over 'model', where the unsharded step's bf16 GEMM "
             "rounds in cuBLAS); held within the CPU tests' tolerances "
             f"{sh['held']}")
-    st = sh["steps"][0]["stats"]
-    coll = {k: dict(count=st.count_by_kind[k], bytes=st.bytes_by_kind[k],
-                    backward_count=st.backward_count_by_kind[k],
-                    backward_bytes=st.backward_bytes_by_kind[k])
-            for k in st.count_by_kind if st.count_by_kind[k]}
+
+    def kinds(st):
+        return {k: dict(count=st.count_by_kind[k], bytes=st.bytes_by_kind[k],
+                        backward_count=st.backward_count_by_kind[k],
+                        backward_bytes=st.backward_bytes_by_kind[k])
+                for k in st.count_by_kind if st.count_by_kind[k]}
+
+    st, cst = sh["steps"][0]["stats"], sh["steps"][0]["compress"]
     return dict(
-        layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+        layers=cfg.n_layers, of_layers=of_layers or get_config(
+            cfg.name).n_layers,
         layout="pure_fsdp" if cfg.pure_fsdp else "TP + SP + FSDP",
-        reckoning=reck, equal=equal, held=sh["held"],
+        moments=tc.adamw.state_dtype, accum=tc.accum_steps,
+        compress=tc.compress, reckoning=reck, equal=equal, held=sh["held"],
         loss=[s["loss"] for s in sh["steps"]],
         gnorm=[s["gnorm"] for s in sh["steps"]],
         plain_loss=[s["loss"] for s in plain["steps"]],
@@ -5994,8 +6048,20 @@ def _sharded_train_model(arch: str, layers, mesh, dev, want_wi: bool):
         step_ms=[s["ms"] for s in sh["steps"]],
         plain_step_ms=[s["ms"] for s in plain["steps"]],
         peak_gib=sh["peak_gib"], plain_peak_gib=plain["peak_gib"],
-        collectives=coll, param_collectives=[st.param_count,
-                                             st.param_bytes]), wi
+        collectives=kinds(st), param_collectives=[st.param_count,
+                                                  st.param_bytes],
+        compress_collectives=kinds(cst) if cst else None), picked
+
+
+def _ffn_wi_layer0(tree, cfg) -> dict:
+    """Layer 0's trained ``ffn.wi`` gathered over its axes, on the host."""
+    from repro_torch.models import lm, nn
+
+    stacked = tree["segments"][0]["b0"]["ffn"]["wi"]
+    layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
+                         cfg.n_layers)[0]
+    return {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
+            for k, v in layer0.items()}
 
 
 def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
@@ -6023,8 +6089,9 @@ def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
         out = {"world": world, "mesh": [1, world], "models": {}}
         wi = None
         for arch, layers in cuts.items():
+            cfg = _cut_config(arch, layers)
             out["models"][arch], w = _sharded_train_model(
-                arch, layers, mesh, dev, want_wi=wi is None)
+                cfg, mesh, dev, pick=_ffn_wi_layer0 if wi is None else None)
             wi = wi if wi is not None else w
         if rank == 0:
             gpu = gpu_line() if dev_type == "cuda" else "cpu"
@@ -6089,12 +6156,267 @@ def phase_sharded_train(world: int = 0, cuts: dict = STRAIN_CUTS) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded QAT train step of the MoE and MLA decoders
+# ---------------------------------------------------------------------------
+
+# (1) deepseek-v3-671b at full width cut to its 3 dense MLA layers (the
+# train phase's former cell) with its full config's fsdp and int8 moments,
+# compression on
+# and two accumulation microbatches; (2) the MoE path at the deepseek smoke
+# widened as tests/test_torch_sharded_train.py::MOE_WIDE (MLA + MoE, 8
+# experts top-2, fsdp), int8 moments, compression, two microbatches
+STRAIN_MOE_ARCH, STRAIN_MOE_LAYERS, STRAIN_MOE_ACCUM = "deepseek-v3-671b", 3, 2
+MOE_TRAIN_WIDE = dict(d_model=256, d_ff=512, d_expert=64, fsdp=True,
+                      opt_state_dtype="int8")
+
+
+def _moe_train_config(cfg):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import trainer as T
+
+    return T.TrainConfig(lr=3e-4, total_steps=TRAIN_STEPS, schedule="wsd",
+                         accum_steps=STRAIN_MOE_ACCUM, compress=True,
+                         adamw=AdamWConfig(state_dtype=cfg.opt_state_dtype))
+
+
+def _mla_wq_a_layer0(tree, cfg) -> dict:
+    """Layer 0's trained ``attn.wq_a`` gathered over its axes, on the
+    host."""
+    from repro_torch.models import lm, nn
+
+    stacked = tree["segments"][0]["b0"]["attn"]["wq_a"]
+    layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
+                         stacked["w"].shape[0])[0]
+    return {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
+            for k, v in layer0.items()}
+
+
+def _expert0_wi(tree, cfg) -> dict:
+    """The first MoE layer's trained ``moe.wi`` of expert 0 (this rank's
+    first expert at world 1) with its step gathered whole, on the host."""
+    from repro_torch.models import lm, nn
+    from repro_torch.parallel import collectives as coll
+
+    stacked = tree["segments"][1]["b0"]["moe"]["wi"]
+    layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
+                         stacked["w"].shape[0])[0]
+    w = nn.gather_fsdp(layer0["w"], cfg)[0]
+    step = coll.all_gather(layer0["w_step"].detach().clone(), "model", 0)
+    return {"w": w.detach().float().cpu().numpy(),
+            "w_step": step.detach().float().cpu().numpy()}
+
+
+def _trained_shard_on_kernel1(label: str, trained, gpu: str, d_p: int):
+    """A trained linear compiled back (codes ``clip(round(w / w_step), -4,
+    3)``, G 4, ``verify_plan``) and run on kernel 1 at M 4 and 64 on seeded
+    3-bit activation codes: int32-equal to its plain version and to
+    ``dense_int_matmul``; then timed by graph replay beside the plain
+    version, the one-hot ``_int_mm`` and the byte / one-hot-operation
+    bound.  Returns (figures, kernel 1's launches on the checks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tlmac.api import TLMACLinear
+    from repro_torch.core.tlmac.compile import compile_layer, verify_plan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tlmac_fused as tf
+
+    codes = np.clip(np.round(trained["w"] / trained["w_step"]), -4, 3
+                    ).astype(np.int32)
+    K, N = codes.shape
+    t = time.perf_counter()
+    plan = compile_layer(codes, B_w=3, B_a=3, G=4, d_p=d_p,
+                         anneal_iters=3000)
+    secs = time.perf_counter() - t
+    if not verify_plan(plan):
+        raise AssertionError(f"verify_plan fails on the trained {label}")
+    lin = TLMACLinear(plan=plan, w_step=torch.as_tensor(trained["w_step"]),
+                      a_step=torch.ones((), device=DEV), a_bits=3, N=N)
+    sp = lin.as_serve_params()
+    sp_cpu = {k: v.cpu() for k, v in sp.items()}
+    w = torch.as_tensor(codes, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 29)
+    aqs = {M: torch.randint(0, 8, (M, K), generator=gen, dtype=torch.int8,
+                            device=DEV) for M in TRAINED_LINEAR_MS}
+
+    def kernel(aq):
+        return ops.tlmac_matmul(aq, sp["table_narrow"], sp["exec_idx"],
+                                sp["step_cluster"], B_a=3, G=4, N=N,
+                                impl="fused")
+
+    def plain(aq):
+        return ops.tlmac_matmul(aq.cpu(), sp_cpu["table"],
+                                sp_cpu["exec_idx"], sp_cpu["step_cluster"],
+                                B_a=3, G=4, N=N, impl="fused")
+
+    n0 = tf.launches
+    for M, aq in aqs.items():
+        got = kernel(aq)
+        _equal(f"trained {label} M={M}: kernel 1 vs plain", got.cpu(),
+               plain(aq))
+        _equal(f"trained {label} M={M}: kernel 1 vs dense_int_matmul", got,
+               ops.dense_int_matmul(aq, w))
+    launches = tf.launches - n0
+    if DEV == "cuda" and launches != len(TRAINED_LINEAR_MS):
+        raise AssertionError(f"kernel 1 launched {launches} times")
+    idx, cl, tab = sp["exec_idx"], sp["step_cluster"], sp["table_narrow"]
+    nt, kg, dp = idx.shape
+    rows = {}
+    for M, aq in aqs.items():
+        nbytes = (aq.numel() + idx.numel() * idx.element_size() + cl.numel()
+                  * cl.element_size() + tab.numel() * tab.element_size()
+                  + M * N * 4)
+        b = _gemm_bound(M, kg, N, 4, nbytes)
+        rows[M] = dict(bound_ms=b["bound_ms"], bound_by=_bound_by(b))
+        if DEV == "cuda":     # graph replay, as the kernel table's rows
+            lib = _onehot_int_mm(tf, aq, idx, cl, tab, 3, 4)
+            rows[M].update(
+                ms=graph_ms(lambda: tf.tlmac_gemm_fused(aq, idx, cl, tab,
+                                                        B_a=3, G=4)),
+                plain_ms=cuda_ms(lambda: plain(aq), iters=1, warmup=0),
+                library_ms=graph_ms(lib))
+        r = rows[M]
+        log(f"  {gpu}: kernel 1 on the trained {label} {K}->{N} (N_arr "
+            f"{plan.N_arr}, dp {dp}), M {M}: == plain == dense_int_matmul; "
+            + (f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, one-hot "
+               f"_int_mm {r['library_ms']:.4f} ms, " if "ms" in r else "")
+            + f"bound {b['bound_ms']:.4f} ms ({_bound_by(b)})")
+    log(f"  trained {label}: codes "
+        f"{np.bincount(codes.ravel() + 4, minlength=8).tolist()} (-4..3), "
+        f"compiled in {secs:.1f} s (host), verify_plan holds; {launches} "
+        "kernel 1 launches on the checks")
+    return dict(shape=[K, N], compile_s=secs, N_arr=plan.N_arr, rows=rows,
+                launches=launches), launches
+
+
+def _sharded_train_moe_rank(rank: int, world: int, tmp: str,
+                            dev_type: str) -> None:
+    """One rank of phase 15: deepseek-v3's 3 dense MLA layers at full width
+    and the widened MoE smoke trained unsharded and sharded under a (1,
+    world) mesh, bit for bit; then (rank 0) the MoE smoke's step card vs
+    CPU and the two trained shards on kernel 1; rank 0 writes the figures
+    to ``tmp/rank0.json``."""
+    global DEV
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    DEV = dev_type
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # the two runs compare bit for bit: no atomics-ordered sums
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+        out = {"world": world, "mesh": [1, world], "models": {}}
+        mla = _cut_config(STRAIN_MOE_ARCH, STRAIN_MOE_LAYERS)
+        out["models"]["deepseek-v3-671b MLA"], wq_a = _sharded_train_model(
+            mla, mesh, dev, pick=_mla_wq_a_layer0,
+            tc=_moe_train_config(mla), strict=True)
+        moe = dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                                  **MOE_TRAIN_WIDE)
+        out["models"]["deepseek-v3 MoE smoke"], wi = _sharded_train_model(
+            moe, mesh, dev, pick=_expert0_wi, tc=_moe_train_config(moe),
+            strict=True, of_layers=moe.n_layers)
+        if rank == 0:
+            gpu = gpu_line() if dev_type == "cuda" else "cpu"
+            out["card_vs_cpu"] = train_step_card_vs_cpu(moe)
+            out["trained"], n = {}, 0
+            for label, trained, d_p in (
+                    ("deepseek-v3 layer 0 attn.wq_a", wq_a, 128),
+                    ("MoE smoke expert 0 moe.wi", wi, 64)):
+                out["trained"][label], k = _trained_shard_on_kernel1(
+                    label, trained, gpu, d_p)
+                n += k
+            out["launches"] = n
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_train_moe(world: int = 0) -> dict:
+    """Phase 15: the QAT train step of the MoE and MLA decoders sharded
+    under a (1, world) mesh (experts over 'model', MLA on each rank's
+    heads, int8 moments by the reference's ``_opt_axes``, int8 gradient
+    compression on each rank's block of the global gradient), one NCCL
+    rank per visible card.  Returns rank 0's figures."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    # the ranks' allocator grows its segments in place: run 1 peaks near
+    # the card's size, where fixed segments left 13 GiB unusable
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(_sharded_train_moe_rank,
+                               args=(world, tmp, DEV), nprocs=world,
+                               start_method="spawn")
+            with open(os.path.join(tmp, "rank0.json")) as f:
+                out = json.load(f)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    for label, r in out["models"].items():
+        depth = ("full depth" if r["layers"] == r["of_layers"] else
+                 f"{r['layers']} of {r['of_layers']} layers")
+        log(f"  {label} ({depth}, {r['layout']}, {r['moments']} moments, "
+            f"accum {r['accum']}, compression {r['compress']}), batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, WSD, {STRAIN_STEPS} steps: "
+            f"sharded vs unsharded {r['equal']}")
+        log(f"    loss {r['loss']} |g| {r['gnorm']} (unsharded "
+            f"{r['plain_loss']}, {r['plain_gnorm']}); a step: sharded "
+            f"{[round(x, 1) for x in r['step_ms']]} ms, unsharded "
+            f"{[round(x, 1) for x in r['plain_step_ms']]} ms (the second "
+            f"{TRAIN_BATCH * TRAIN_SEQ / r['plain_step_ms'][-1] * 1e3:.1f} "
+            f"tokens/s unsharded); {r['reckoning']['params'] / 1e9:.3f} B "
+            f"params; peak {r['peak_gib']:.2f} GiB sharded, "
+            f"{r['plain_peak_gib']:.2f} GiB unsharded [{gpu}]")
+        log("    collectives step 0 (kind: count/bytes, of them backward) "
+            + "; ".join(f"{k} {c['count']}/{c['bytes']} ({c['backward_count']}"
+                        f"/{c['backward_bytes']})"
+                        for k, c in r["collectives"].items())
+            + f"; parameter collectives {r['param_collectives']}; of them "
+            "the compression's "
+            + ("; ".join(f"{k} {c['count']}/{c['bytes']}"
+                         for k, c in (r["compress_collectives"] or {}).items())
+               or "none"))
+        for i, e in enumerate(r["equal"]):
+            if not all(e[k] for k in ("loss", "gnorm", "params", "moments")):
+                raise AssertionError(f"{label} step {i}: {e}")
+            if not (math.isfinite(r["loss"][i])
+                    and math.isfinite(r["gnorm"][i])):
+                raise AssertionError(f"{label} step {i}: loss {r['loss']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
                                        "serve-families", "train",
                                        "parallel", "sharded",
-                                       "sharded-train", "sharded-moe"),
+                                       "sharded-train", "sharded-moe",
+                                       "sharded-train-moe"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -6113,6 +6435,11 @@ def main() -> int:
                          "built: deepseek-v3, kimi-k2 and int8 moe-gqa "
                          "served under a (1, cards) mesh, kernels 1 and 7 "
                          "at a 16-way block's expert stacks, one JSON "
+                         "line); sharded-train-moe (kernel 1 built: the "
+                         "QAT train step of deepseek-v3's dense MLA layers "
+                         "and of the widened MoE smoke under a (1, cards) "
+                         "mesh with int8 moments and compression, the "
+                         "trained wq_a and expert wi on kernel 1, one JSON "
                          "line)")
     args = ap.parse_args()
 
@@ -6135,6 +6462,7 @@ def main() -> int:
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
                "train": TRAIN_SOURCES, "sharded": SOURCES[:1],
                "sharded-train": SOURCES[:1],
+               "sharded-train-moe": SOURCES[:1],
                "sharded-moe": (SOURCES[0], SOURCES[-1])}.get(
         args.only, SOURCES)
     logs = _build.build(sources)
@@ -6156,6 +6484,11 @@ def main() -> int:
     if args.only == "sharded-train":
         phase("sharded train: the QAT train step under a (data, model) mesh")
         log(json.dumps({"sharded_train": phase_sharded_train()}))
+        return 0
+    if args.only == "sharded-train-moe":
+        phase("sharded MoE and MLA train: experts over 'model', int8 "
+              "moments and compression under a (data, model) mesh")
+        log(json.dumps({"sharded_train_moe": phase_sharded_train_moe()}))
         return 0
     if args.only == "train":
         train, _ = phase_train()
@@ -6281,6 +6614,17 @@ def main() -> int:
         strain = phase_sharded_train()
         gemm["launches_by_path"][
             f"sharded-train {TRAIN_ARCH} trained ffn.wi"] = strain["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("sharded MoE and MLA train: experts over 'model', int8 "
+              "moments and compression under a (data, model) mesh")
+        smt = phase_sharded_train_moe()
+        gemm["launches_by_path"][
+            "sharded-train-moe trained wq_a and expert wi"] = smt["launches"]
+        gemm["trained_shards"] = {
+            label: dict(shape=t["shape"], **{f"M{M}": row for M, row in
+                                              t["rows"].items()})
+            for label, t in smt["trained"].items()}
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

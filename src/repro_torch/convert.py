@@ -40,8 +40,10 @@ made from the local block: ``table_narrow`` from the replicated
 
 ``train_params_from_jax`` keeps every leaf as it is, ``embed``/``head``
 in f32 too (training updates the f32 masters), as a trainable
-``ParamTree``; with a ``mesh``, this rank's blocks under the train specs,
-and ``adamw_state_from_jax`` the moments' blocks alike.
+``ParamTree``; with a ``mesh``, this rank's blocks under the train specs
+(an expert stack's experts on 'model', MLA's leaves as their specs cut
+them), and ``adamw_state_from_jax`` the moments' blocks under the
+reference's moment shardings (int8 and bf16 moments too).
 """
 
 from __future__ import annotations
@@ -152,17 +154,20 @@ def adamw_state_from_jax(state, device="cuda", mesh=None, cfg=None):
     """JAX AdamW state (``optim.adamw_init``/``adamw_update``'s ``{'m',
     'v', 'step'}`` as numpy: f32 or bf16 moments, int8 moments as ``{'q',
     'scale'}`` dicts, a 0-d int32 step) -> the same structure of
-    tensors.  With ``mesh``: this rank's blocks of f32 moments, cut as
-    the params are (the reference's ``_opt_axes``), the step whole."""
+    tensors.  With ``mesh``: this rank's blocks, cut by the reference's
+    moment shardings (``optim.adamw.opt_axes``: f32 and bf16 moments as
+    the params, an int8 moment's ``q`` and ``scale`` by the param spec
+    with each dim that does not divide replicated), the step whole."""
     if mesh is None:
         return _tree(state, device)
     from repro_torch.models import lm
-    from repro_torch.parallel.sharding import P
+    from repro_torch.optim.adamw import opt_axes
 
-    axes = lm.param_axes(cfg, "train")
-    return {"m": _local(state["m"], device, mesh, axes),
-            "v": _local(state["v"], device, mesh, axes),
-            "step": _local(state["step"], device, mesh, P())}
+    # every {'q', 'scale'} node is an int8 moment; other leaves keep the
+    # param specs, whatever the state dtype
+    axes = opt_axes(lm.param_axes(cfg, "train"), state["m"], "int8", mesh)
+    return {k: _local(state[k], device, mesh, axes[k])
+            for k in ("m", "v", "step")}
 
 
 def to_numpy(tree):

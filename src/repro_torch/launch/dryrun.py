@@ -43,10 +43,9 @@ from repro_torch.launch.comm_analysis import Roofline
 from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      mesh_context)
 from repro_torch.models import lm
-from repro_torch.optim.adamw import AdamWConfig, adamw_init
-from repro_torch.parallel.sharding import (P, PartitionSpec, batch_entry,
-                                           fix_batch_axes, make_shardings,
-                                           mesh_sizes, spec_tree)
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, opt_axes
+from repro_torch.parallel.sharding import (P, batch_entry, fix_batch_axes,
+                                           make_shardings, spec_tree)
 
 ENC_LEN_DECODE = 4096  # enc-dec decode cells: cached encoder length
 # Where the port's params differ from the reference's: ``table_narrow``
@@ -84,41 +83,6 @@ def abstract_caches(cfg, B, S_max, enc_len=0):
     caches = lm.init_caches(cfg, device="meta", B=B, S_max=S_max,
                             enc_len=enc_len)
     return caches, lm.cache_axes_tree(cfg)
-
-
-def _opt_axes(param_axes, opt_m, state_dtype, mesh):
-    """Moment specs: int8 leaves inherit the param spec (the last-axis
-    block split appends a trailing unsharded dim); entries that do not
-    divide degrade to None per dim."""
-    if state_dtype != "int8":
-        return {"m": param_axes, "v": param_axes, "step": P()}
-    sizes = mesh_sizes(mesh)
-
-    def nshards(entry):
-        n = 1
-        for a in (() if entry is None else
-                  entry if isinstance(entry, tuple) else (entry,)):
-            n *= sizes.get(a, 1)
-        return n
-
-    def leaf(pspec, node):
-        if not (isinstance(node, dict) and "q" in node):
-            return pspec  # f32 fallback leaf keeps the param spec
-        qshape = node["q"].shape
-        entries = list(pspec) + [None] * (len(qshape) - len(pspec))
-        q = [e if d % nshards(e) == 0 else None
-             for e, d in zip(entries, qshape)]
-        return {"q": P(*q), "scale": P(*q[:-1])}
-
-    def walk(ax, node):
-        if isinstance(ax, PartitionSpec):
-            return leaf(ax, node)
-        if isinstance(ax, dict):
-            return {k: walk(v, node[k]) for k, v in ax.items()}
-        return [walk(a, n) for a, n in zip(ax, node)]
-
-    mv = walk(param_axes, opt_m)
-    return {"m": mv, "v": mv, "step": P()}
 
 
 def _leaves(tree, axes, path=()):
@@ -167,15 +131,17 @@ def _scalar(dtype, *shape):
 
 def _train_args(cfg, shape, mesh):
     params, axes = abstract_init(cfg, "train")
-    opt = adamw_init(params, AdamWConfig(state_dtype=cfg.opt_state_dtype))
-    opt_axes = _opt_axes(axes, opt["m"], cfg.opt_state_dtype, mesh)
+    with mesh_context(None):      # the whole (abstract) moments
+        opt = adamw_init(params, AdamWConfig(
+            state_dtype=cfg.opt_state_dtype))
+    o_axes = opt_axes(axes, opt["m"], cfg.opt_state_dtype, mesh)
     bspecs = batch_specs(cfg, shape)
     bentry = (("data", "model") if cfg.pure_fsdp
               else batch_entry(shape.global_batch, mesh))
     batch_axes = {k: P(bentry, *([None] * (v.dim() - 1)))
                   for k, v in bspecs.items()}
     scalars = {"step": _scalar(torch.int32), "key": _scalar(torch.int32, 2)}
-    return {"params": (params, axes), "opt_state": (opt, opt_axes),
+    return {"params": (params, axes), "opt_state": (opt, o_axes),
             "batch": (bspecs, batch_axes),
             "scalars": (scalars, {"step": P(), "key": P()})}
 

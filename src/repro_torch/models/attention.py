@@ -561,7 +561,7 @@ def _mla_q(params, x, cfg, apply_fn):
     q = apply_fn(params["wq_b"],
                  nn.rmsnorm_apply(params["q_norm"],
                                   apply_fn(params["wq_a"], x, cfg)), cfg)
-    q = q.reshape(B, S, cfg.n_heads, nod + rod)
+    q = q.reshape(B, S, -1, nod + rod)     # this rank's heads under a mesh
     return q[..., :nod], q[..., nod:]
 
 
@@ -581,10 +581,10 @@ def mla_train(params, x, cfg, apply_fn=nn.serve_linear_apply, **_):
     ``window`` and ``kv_quant_rt`` keywords of ``gqa_train`` are taken
     and ignored."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     nod, rod, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
     positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(params, x, cfg, apply_fn)
+    H = q_nope.shape[2]
     c_kv, k_rope = _mla_latent(params, x, cfg, apply_fn)
     kvu = apply_fn(params["wkv_b"], c_kv, cfg).reshape(B, S, H, nod + vd)
     k_nope, v = kvu[..., :nod], kvu[..., nod:]
@@ -669,6 +669,22 @@ def _tp_mla_qkv(params, x, cfg):
     kv = nn.gather_cols(*nn.tp_linear_apply(params["wkv_a"], x, cfg))
     c_kv = nn.rmsnorm_apply(params["kv_norm"], kv[..., :kvl])
     return q[..., :nod], q[..., nod:], c_kv, kv[..., kvl:]
+
+
+def tp_mla_train(params, x, cfg):
+    """``mla_train`` of the sharded train step under tensor parallelism:
+    ``x [B, S, d]`` the whole sequence of this rank's batch rows (gathered
+    by the block, ``models.lm._tp_train_block``).  ``wq_a``, ``wkv_a`` and
+    their norms (``shard=(None, None)``) run whole on every rank, their
+    gradients partial sums over its heads (``train.trainer.grad_axes``
+    sums them over 'model'); the column-parallel ``wq_b`` and ``wkv_b``
+    (``nn.linear_apply`` on this rank's columns, which fall on head
+    boundaries when the heads divide over 'model') give its heads' queries,
+    keys and values; the attention runs on those heads with the rotary key
+    every head shares.  Returns the row-parallel ``wo``'s f32 partial sum
+    ``[B, S, d]`` over this rank's heads (the block reduce-scatters it)."""
+    _tp_mla_heads(cfg)
+    return mla_train(params, x, cfg, apply_fn=nn.linear_apply)[0]
 
 
 def tp_mla_prefill(params, x, cfg, cache=None):

@@ -74,14 +74,17 @@ whole on every rank of 'model'.  The returned logits are this rank's
 block of the padded vocab.
 
 Sharded training: under the mesh the train ``forward`` of those decoders
-runs on this rank's param blocks and batch rows (``_forward_sharded``),
-as the reference's ``make_train_step`` jitted with its specs' shardings
-runs it: tensor and sequence parallel over 'model' (``_tp_train_block``,
-Megatron-SP), the embedding, logits and loss vocab-parallel, FSDP
-weights gathered at use; or under ``pure_fsdp`` the plain blocks on the
-rows, every weight gathered at use.  The paged forwards, the recurrent and
-enc-dec block kinds, and the train forward of MoE and MLA raise under a
-mesh of more than one device.
+(the dense GQA decoders, deepseek-v3, kimi-k2, a MoE model with GQA
+attention) runs on this rank's param blocks and batch rows
+(``_forward_sharded``), as the reference's ``make_train_step`` jitted
+with its specs' shardings runs it: tensor and sequence parallel over
+'model' (``_tp_train_block``, Megatron-SP; MLA on this rank's heads,
+``attention.tp_mla_train``), a MoE FFN expert parallel over 'model' with
+its aux loss over the global batch (``moe.moe_apply``), the embedding,
+logits and loss vocab-parallel, FSDP weights gathered at use; or under
+``pure_fsdp`` the plain blocks on the rows, every weight gathered at use.
+The paged forwards, the recurrent and enc-dec block kinds and a VLM's
+front raise under a mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -279,7 +282,7 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                              decode, paged_ctx)
         check_sharded_train(cfg, kind)
         if not cfg.pure_fsdp:
-            return _tp_train_block(params, x, cfg, x32)
+            return _tp_train_block(kind, params, x, cfg, x32)
         # pure_fsdp: the plain block on this rank's batch rows, each linear
         # gathering its FSDP blocks (nn.linear_apply)
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
@@ -401,39 +404,51 @@ def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
 
 
 def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
-    """Raise for what the sharded train step does not cover: every block
-    kind but a GQA decoder's ``attn`` (``kind``, or every kind of the
-    config), an enc-dec model, a VLM's frontend."""
+    """Raise for what the sharded train step does not cover: a block kind
+    other than ``attn`` and ``attn_moe`` (``kind``, or every kind of the
+    config), an enc-dec model, a VLM's frontend, a MoE FFN under
+    ``pure_fsdp`` (no reference config trains one)."""
     kinds = ({kind} if kind is not None else
              {k for seg in segments_for(cfg) for k in seg.pattern})
-    if (kinds != {"attn"} or cfg.attn_kind != "gqa" or cfg.n_enc_layers
+    if (not kinds <= {"attn", "attn_moe"} or cfg.n_enc_layers
             or cfg.frontend != "none"):
         raise NotImplementedError(
             f"the train forward of {cfg.name!r} (blocks {sorted(kinds)}, "
             f"attn_kind {cfg.attn_kind!r}, frontend {cfg.frontend!r}) does "
-            "not run sharded: only the dense GQA decoders train under a "
-            "mesh (MoE and MLA serve sharded); training MoE and MLA under a "
-            "mesh, with int8 moments and gradient compression, is ROADMAP "
-            "queue 1's next item, the recurrent and enc-dec families and a "
-            "VLM's front its later ones")
+            "not run sharded: the GQA, MLA and MoE decoders train under a "
+            "mesh; the recurrent and enc-dec families and a VLM's front are "
+            "ROADMAP queue 1's later items")
+    if "attn_moe" in kinds and cfg.pure_fsdp:
+        raise NotImplementedError(
+            f"the MoE FFN of {cfg.name!r} under pure_fsdp: experts are "
+            "parallel over 'model', which pure_fsdp gives the batch (no "
+            "reference config trains it; ROADMAP queue 1)")
 
 
-def _tp_train_block(params, x, cfg, x32=None):
-    """An ``attn`` block of the train forward under the mesh with tensor
-    and sequence parallelism over 'model' (Megatron-SP): ``x [B, S_l,
-    d]`` is this rank's sequence block of its batch rows (``x32`` the
-    same block's f32 sum, where the layer body passes one).  The norms run
-    on the block; the block's sequence is all-gathered (backward:
-    reduce-scatter) into the column-parallel wq/wk/wv and wi/wg; the
-    attention runs on this rank's heads (``attention.tp_gqa_train``); the
-    row-parallel ``wo``s' f32 partial sums are reduce-scattered back onto
-    the sequence block and rounded to bf16 once (backward: all-gather)."""
+def _tp_train_block(kind: str, params, x, cfg, x32=None):
+    """An ``attn`` or ``attn_moe`` block of the train forward under the
+    mesh with tensor and sequence parallelism over 'model' (Megatron-SP):
+    ``x [B, S_l, d]`` is this rank's sequence block of its batch rows
+    (``x32`` the same block's f32 sum, where the layer body passes one).
+    The norms run on the block; the block's sequence is all-gathered
+    (backward: reduce-scatter) into the column-parallel wq/wk/wv (MLA:
+    wq_b, wkv_b) and wi/wg; the attention runs on this rank's heads
+    (``attention.tp_gqa_train``, ``tp_mla_train``); the row-parallel
+    ``wo``s' f32 partial sums are reduce-scattered back onto the sequence
+    block and rounded to bf16 once (backward: all-gather).  A MoE FFN is
+    expert parallel (``moe.moe_apply`` on the block, which gathers and
+    scatters the sequence itself); its aux loss is returned."""
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
                          dtype=x.dtype)
     h = coll.all_gather_ad(h, "model", dim=1)
-    y = _seq_reduce_scatter(attn.tp_gqa_train(params["attn"], h, cfg))
+    fwd = attn.tp_mla_train if cfg.attn_kind == "mla" else attn.tp_gqa_train
+    y = _seq_reduce_scatter(fwd(params["attn"], h, cfg))
     x, s = _residual(x, y)
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+    if kind == "attn_moe":
+        y, aux = moe.moe_apply(params["moe"], hf, cfg,
+                               apply_fn=nn.linear_apply)
+        return x + y, None, aux, (x, y)
     hf = coll.all_gather_ad(hf, "model", dim=1)
     y = _seq_reduce_scatter(ffn_apply(params["ffn"], hf, cfg,
                                       nn.linear_apply))
@@ -987,15 +1002,17 @@ def _forward_sharded(p: dict, tokens, cfg, remat: bool):
                 "ranks): the layer boundary is sequence-sharded, which the "
                 "reference's GSPMD pads and the port refuses")
         x = coll.split_ad(x, "model", dim=1)
+    aux_total = 0.0
     for seg, sp in zip(segments_for(cfg), p["segments"]):
-        x, _ = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat)
+        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat)
+        aux_total = aux_total + aux
     x = nn.rmsnorm_apply(p["final_norm"], x)
     if not cfg.pure_fsdp:
         x = coll.all_gather_ad(x, "model", dim=1)
     logits, start = nn.train_logits_apply(p.get("head", p["embed"]), x, cfg)
     logits = shard_hint(logits, P(("pod", "data"), None, "model"))
     loss = next_token_loss(logits, tokens, cfg, start)
-    return loss, logits[..., :max(cfg.vocab - start, 0)]
+    return loss + 0.01 * aux_total, logits[..., :max(cfg.vocab - start, 0)]
 
 
 @torch.no_grad()

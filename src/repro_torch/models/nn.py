@@ -285,7 +285,11 @@ def linear_apply(params, x, cfg, use_bias: bool = False):
 #   'data'), or ('data', 'model') and ``w_step``'s 'model' under
 #   ``pure_fsdp``, which has no TP) are gathered at each use
 #   (``collectives.all_gather_ad``, counted as parameter collectives); the
-#   backward reduce-scatters the gradient, which sums it over those axes.
+#   backward reduce-scatters the gradient, which sums it over those axes;
+# - an expert stack ``w [E, K, N]`` P('model', fsdp, None) holds this rank's
+#   experts (expert parallelism, ``models.moe``), and its ``w_step``
+#   P('model'), a step per output channel over every expert, is gathered
+#   over 'model' at use.
 
 
 def train_work_axes(cfg) -> tuple:
@@ -321,6 +325,13 @@ def _train_leaves(params, cfg):
     for name in ("w", "w_step", "b"):
         if name in params:
             out[name] = gather_fsdp(params[name], cfg)
+    if w.dim() == 3 and "w_step" in out and not cfg.pure_fsdp:
+        # an expert stack: its experts are on 'model' and its step, one a
+        # column over every expert's rows, is cut on 'model' too; the
+        # rank's experts read it whole, and the backward's reduce-scatter
+        # sums every rank's experts into each block
+        out["w_step"] = coll.all_gather_ad(out["w_step"], "model", dim=0,
+                                           param=True)
     return out, numel
 
 

@@ -15,8 +15,11 @@ import torch
 BLOCK = 256
 
 
-def q8_compatible(x: torch.Tensor) -> bool:
-    return x.dim() >= 1 and x.shape[-1] % BLOCK == 0 and x.shape[-1] > 0
+def q8_compatible(x) -> bool:
+    """Whether a tensor, or a shape, takes int8 blocks: a last dim that is
+    a positive multiple of 256."""
+    shape = tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(x)
+    return len(shape) >= 1 and shape[-1] % BLOCK == 0 and shape[-1] > 0
 
 
 def q8_encode(x: torch.Tensor) -> dict:

@@ -100,13 +100,15 @@ def all_gather(t: torch.Tensor, axes, dim: int = -1,
 
 
 def all_reduce(t: torch.Tensor, axes, op: str = "sum",
-               backward: bool = False) -> torch.Tensor:
+               backward: bool = False, inplace: bool = False) -> torch.Tensor:
     """``t`` reduced (``'sum'``, ``'max'`` or ``'min'``) over the ranks of
-    ``axes``; returns a new tensor (``t`` is left as it was)."""
+    ``axes``; returns a new tensor (``t`` is left as it was), or with
+    ``inplace`` ``t`` itself reduced (a contiguous tensor the caller
+    owns: no copy)."""
     mesh = _mesh()
     if not mesh_mod.mesh_axes(mesh, axes):
         return t
-    out = t.clone(memory_format=torch.contiguous_format)
+    out = t if inplace else t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=_OPS[op], group=mesh_mod.axis_group(mesh, axes))
     note_collective("all-reduce", out, backward=backward)
     return out

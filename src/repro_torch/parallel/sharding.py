@@ -218,11 +218,11 @@ def shard_hint(x, spec: P):
       and its block of the vocab (under ``pure_fsdp``, which has no
       tensor parallelism, the whole vocab of its rows).
 
-    The MoE and MLA serve forwards pass no hint of their own (the
-    reference's pass none: GSPMD places their experts and latents by the
-    params' and caches' specs), so the batch hint covers them.  Any other
-    hint raises: the paged forwards and the recurrent and enc-dec families
-    do not run sharded yet (ROADMAP queue 1)."""
+    The MoE and MLA forwards, serve and train, pass no hint of their own
+    (the reference's pass none: GSPMD places their experts and latents by
+    the params' and caches' specs), so the hints above cover them.  Any
+    other hint raises: the paged forwards and the recurrent and enc-dec
+    families do not run sharded yet (ROADMAP queue 1)."""
     mesh = _active
     if mesh is None or mesh.size() == 1:
         return x

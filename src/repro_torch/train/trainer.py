@@ -10,14 +10,20 @@ with no counterpart here).
 Under ``launch.mesh.mesh_context(mesh)`` the step runs on this rank's
 blocks, as the reference's ``jax.jit(make_train_step(cfg, tc),
 in_shardings=...)`` runs it (``launch/dryrun.py::_lower_train``): params
-and f32 moments cut by their specs (``convert.train_params_from_jax(...,
-mesh=)``, ``adamw_state_from_jax(..., mesh=)``), the batch this rank's
-rows (over ('pod', 'data'), or ('data', 'model') under ``pure_fsdp``).
-The forward is ``models.lm.forward``'s sharded one; ``accum_steps``
-splits this rank's rows.  After the backward each gradient leaf is
-summed over the mesh axes on which its uses saw different data
-(``_reduce_grads``); clipping sums the norm over the shards.  The loss
-and the norm are the global values on every rank.
+cut by their specs (``convert.train_params_from_jax(..., mesh=)``) and
+moments by ``optim.adamw.opt_axes`` (``adamw_init`` under the mesh, or
+``adamw_state_from_jax(..., mesh=)``), the batch this rank's rows (over
+('pod', 'data'), or ('data', 'model') under ``pure_fsdp``).  The forward
+is ``models.lm.forward``'s sharded one (a MoE FFN expert parallel, MLA
+on this rank's heads); each of the ``accum_steps`` microbatches is this
+rank's share of the global batch's (``_sharded_microbatches``).  After
+the backward each gradient leaf is summed over the mesh axes on which its
+uses saw different data (``_reduce_grads``); the compression runs on
+this rank's block of the global gradient and gives that block of the
+unsharded compression (``train.compress``); clipping sums the norm over
+the shards; AdamW updates each rank's moments (int8 moments that
+``opt_axes`` replicates from the whole gradient).  The loss and the norm
+are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -89,29 +95,30 @@ def grad_axes(cfg, spec) -> tuple:
 
 def _reduce_grads(params, grads, cfg):
     """Each gradient leaf summed over its ``grad_axes`` (this rank's
-    block of the global gradient) and tagged with its param's spec."""
+    block of the global gradient), in place (the step owns its
+    gradients: no second copy of the tree), and tagged with its param's
+    spec."""
     out = []
     for p, g in zip(tree_leaves(params), tree_leaves(grads)):
         spec = spec_of(p)
         axes = grad_axes(cfg, spec)
         if axes:
-            g = coll.all_reduce(g, axes)
+            g = coll.all_reduce(g.contiguous(), axes, inplace=True)
         out.append(with_spec(g, spec))
     return _unflatten(grads, out)
 
 
-def check_sharded_step(tc: TrainConfig) -> None:
-    """Raise for what the sharded train step does not cover."""
-    if tc.compress:
-        raise NotImplementedError(
-            "int8 gradient compression under a mesh: its uniforms are one "
-            "global draw that each rank would cut (ROADMAP queue 1, with "
-            "MoE expert parallelism)")
-    if tc.adamw.state_dtype != "f32":
-        raise NotImplementedError(
-            f"{tc.adamw.state_dtype} AdamW moments under a mesh: no dense "
-            "config uses them; they come with MoE expert parallelism "
-            "(ROADMAP queue 1)")
+def _sharded_microbatches(batch, n: int, cfg) -> list:
+    """This rank's share of each of ``n`` microbatches under the mesh.
+    Microbatch ``i`` is the global batch's rows ``[i B / n, (i + 1) B /
+    n)``, as the reference's step reshapes the global batch (the MoE aux
+    loss is not linear in the rows, so the grouping counts): the rows are
+    gathered over the batch axes (token ids, a few KB) and each
+    microbatch's rows cut into blocks over them again."""
+    axes = nn.train_batch_axes(cfg)
+    whole = {k: coll.all_gather(v, axes, dim=0) for k, v in batch.items()}
+    return [{k: coll.split(v.reshape(n, -1, *v.shape[1:])[i], axes, dim=0)
+             for k, v in whole.items()} for i in range(n)]
 
 
 def make_train_step(cfg, tc: TrainConfig,
@@ -141,9 +148,11 @@ def make_train_step(cfg, tc: TrainConfig,
 
     def step_grads(params, batch):
         if tc.accum_steps > 1:
-            mbs = [{k: v.reshape(tc.accum_steps, -1, *v.shape[1:])[i]
-                    for k, v in batch.items()}
-                   for i in range(tc.accum_steps)]
+            mbs = (_sharded_microbatches(batch, tc.accum_steps, cfg)
+                   if current_mesh() is not None else
+                   [{k: v.reshape(tc.accum_steps, -1, *v.shape[1:])[i]
+                     for k, v in batch.items()}
+                    for i in range(tc.accum_steps)])
             gsum = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             lsum = torch.zeros((), dtype=torch.float32)
@@ -151,9 +160,10 @@ def make_train_step(cfg, tc: TrainConfig,
                 loss, g = loss_and_grads(params, mb)
                 for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
                     a.add_(b)
+                del g           # one microbatch's gradient alive at a time
                 lsum = lsum.to(loss.device) + loss
             loss = lsum / tc.accum_steps
-            grads = tree_map(lambda g: g / tc.accum_steps, gsum)
+            grads = tree_map(lambda g: g.div_(tc.accum_steps), gsum)
         else:
             loss, grads = loss_and_grads(params, batch)
         if current_mesh() is not None:
@@ -162,12 +172,10 @@ def make_train_step(cfg, tc: TrainConfig,
 
     def train_step(params, opt_state, batch, step,
                    gen: Optional[torch.Generator] = None):
-        if current_mesh() is not None:
-            check_sharded_step(tc)
         # looked up at call time: a caller may wrap it to read the gradient
         loss, grads = train_step.grads(params, batch)
-        if tc.compress:
-            grads, _ = compress_grads(grads, gen)
+        if tc.compress:   # the residuals, a gradient's size, freed at once
+            grads = compress_grads(grads, gen)[0]
         grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
         lr = sched(step)
         adamw_update(params, grads, opt_state, lr, tc.adamw)

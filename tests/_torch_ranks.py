@@ -168,7 +168,7 @@ def _recorded_routes(routes: list):
 
     def recording(*args, **kwargs):
         out = real(*args, **kwargs)
-        routes.append((out[2].numpy(), out[1].numpy()))
+        routes.append((out[2].numpy(), out[1].detach().numpy()))
         return out
 
     moe.route = recording
@@ -206,25 +206,65 @@ def _collectives_on(mesh):
     return out
 
 
+def train_config(case):
+    """The case's port ``TrainConfig``."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    return TrainConfig(accum_steps=case["accum"], adamw=AdamWConfig(
+        state_dtype=case.get("state_dtype", "f32")),
+        compress=case.get("compress", False), **case["tc"])
+
+
+@contextlib.contextmanager
+def fed_uniforms(case, record: list = None):
+    """``trainer.compress_grads`` fed the case's reference uniforms while
+    inside (no change without compression); each call's compressed
+    gradient appended to ``record`` as numpy."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.train import trainer
+
+    if not case.get("compress"):
+        yield
+        return
+    real = trainer.compress_grads
+    us = [torch.from_numpy(u.copy()) for u in case["uniforms"]]
+
+    def fed(grads, gen=None, error_state=None):
+        out = real(grads, gen, error_state, uniforms=us)
+        if record is not None:
+            record.append(to_numpy(out[0]))
+        return out
+
+    trainer.compress_grads = fed
+    try:
+        yield
+    finally:
+        trainer.compress_grads = real
+
+
 def sharded_train_rank(rank, world, tmp, names):
     """The sharded train step on this rank for each case of ``names``
     (``tmp/{name}.pkl``: arch, config overrides, mesh shape, accumulation,
     the reference's train params as numpy, tokens, the ``TrainConfig``
-    fields): this rank's param and f32 moment blocks
-    (``convert.train_params_from_jax``/``adamw_state_from_jax`` with
-    ``mesh=``), its batch rows, the step's gradient
-    (``make_train_step(...).grads``), then one step under
-    ``record_collectives``.  Returns numpy results by case."""
+    fields, the moments' dtype, compression and its uniforms, a seeded
+    AdamW state): this rank's param blocks
+    (``convert.train_params_from_jax`` with ``mesh=``) and moments
+    (``adamw_init`` under the mesh), its batch rows, the aux loss of the
+    forward (a MoE case), the step's gradient (``make_train_step(...)
+    .grads``), then one step under ``record_collectives``, and the seeded
+    state's blocks (``convert.adamw_state_from_jax`` with ``mesh=``).
+    Returns numpy results by case."""
     import dataclasses
 
     from repro_torch import convert
     from repro_torch.configs import smoke_config
     from repro_torch.launch.comm_analysis import record_collectives
     from repro_torch.launch.mesh import make_mesh_compat, mesh_context
-    from repro_torch.models import nn
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.models import lm, nn
+    from repro_torch.optim.adamw import adamw_init
     from repro_torch.parallel.sharding import block_range
-    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.train.trainer import make_train_step
 
     meshes, out = {}, {}
     for name in names:
@@ -235,8 +275,7 @@ def sharded_train_rank(rank, world, tmp, names):
             meshes[shape] = make_mesh_compat(shape, ("data", "model"), "cpu")
         mesh = meshes[shape]
         cfg = dataclasses.replace(smoke_config(case["arch"]), **case["over"])
-        tc = TrainConfig(accum_steps=case["accum"], adamw=AdamWConfig(),
-                         **case["tc"])
+        tc = train_config(case)
         params = convert.train_params_from_jax(case["params"], "cpu",
                                                mesh=mesh, cfg=cfg)
         p0 = _copied(convert.to_numpy(params))   # the step works in place
@@ -244,17 +283,48 @@ def sharded_train_rank(rank, world, tmp, names):
         r0, nr = block_range(tokens.shape[0], nn.train_batch_axes(cfg), mesh)
         batch = {"tokens": tokens[r0:r0 + nr]}
         step = make_train_step(cfg, tc)
+        res = out[name] = {}
         with mesh_context(mesh):
+            if case.get("aux"):     # 0.01 x the aux loss: the CE taken out
+                real = lm.next_token_loss
+                lm.next_token_loss = lambda *a, **k: torch.zeros(())
+                try:
+                    with torch.no_grad():
+                        res["aux"] = lm.forward(params, batch, cfg)[0].item()
+                finally:
+                    lm.next_token_loss = real
             opt = adamw_init(params, tc.adamw)
-            loss, grads = step.grads(params, batch)
-            with record_collectives() as st:
+            m0 = {p: tuple(v.shape) for p, v in keystr_leaves(
+                convert.to_numpy(opt["m"]))}
+            with _recorded_routes(res.setdefault("routes", [])):
+                loss, grads = step.grads(params, batch)
+            comp = []
+            with record_collectives() as st, fed_uniforms(case, comp):
                 params, opt, met = step(params, opt, batch, 0)
-        out[name] = dict(
+            if comp:
+                res["compressed"] = comp[0]
+        state = convert.adamw_state_from_jax(case["state"], "cpu", mesh=mesh,
+                                             cfg=cfg)
+        res.update(
             rows=(r0, nr), p0=p0, loss=loss.item(),
             step_loss=met["loss"].item(), gnorm=met["gnorm"].item(),
             grads=convert.to_numpy(grads), p1=convert.to_numpy(params),
-            m1=convert.to_numpy(opt["m"]), stats=st)
+            m0_shapes=m0, m1=convert.to_numpy(opt["m"]),
+            v1=convert.to_numpy(opt["v"]), state=convert.to_numpy(state),
+            stats=st)
     return out
+
+
+def keystr_leaves(tree, path=""):
+    """``(path, leaf)`` in ``jax.tree_util.keystr`` form (sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from keystr_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from keystr_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
 
 
 def _copied(tree):
@@ -351,4 +421,77 @@ def train_units_rank(rank, world, tmp):
         clipped, norm = clip_by_global_norm(local, 0.5)
         out["clip"] = (float(norm), {k: v.numpy() for k, v in clipped.items()},
                        tree)
+    return out
+
+
+def train_pieces_rank(rank, world, tmp):
+    """Pieces of the sharded MoE train step on this rank of a (2, 2) mesh:
+
+    - ``compress``: ``train.compress.compress_grads`` of blocks of four
+      global leaves under the mesh, each block tagged with its spec, fed
+      the global uniforms (the table ``[256, 64]`` on 'model' by rows and
+      an expert stack ``[2, 4, 64, 64]`` on 'model' by experts and on
+      'data' by rows, both runs of whole 1024-blocks; a ``[64, 48]`` on
+      ('data', 'model') and a ``[6, 2500]`` on 'data' by rows, whose runs
+      are not): this rank's blocks, its blocks of the unsharded
+      compression of the global leaves, and each leaf's route;
+    - ``drawn``: the same with the uniforms drawn from one seeded
+      generator, sharded and unsharded, 4096 at a time (``CHUNK``, so
+      each leaf's draw is several chunks: the table's and the long rows'
+      runs are longer than a chunk, the others' shorter);
+    - ``w_step``: ``nn._train_leaves`` of this rank's block of an expert
+      stack's train linear (4 experts, ``w_step`` P('model')): the step
+      it reads, the element count, the parameter collectives.
+
+    Every rank builds the same global tensors from one seed."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.comm_analysis import record_collectives
+    from repro_torch.launch.mesh import make_mesh_compat, mesh_context
+    from repro_torch.models import nn
+    from repro_torch.parallel.sharding import (P, local_shard, local_tree,
+                                               spec_tree)
+    from repro_torch.train import compress as C
+
+    mesh = make_mesh_compat((2, world // 2), ("data", "model"), "cpu")
+    g = torch.Generator().manual_seed(0)
+    leaves = {"table": (torch.randn(256, 64, generator=g), P("model", None)),
+              "experts": (torch.randn(2, 4, 64, 64, generator=g),
+                          P(None, "model", "data", None)),
+              "columns": (torch.randn(64, 48, generator=g),
+                          P("data", "model")),
+              "long": (torch.randn(6, 2500, generator=g), P("data", None))}
+    us = {k: torch.rand(-(-t.numel() // C.BLOCK), C.BLOCK, generator=g)
+          for k, (t, _) in leaves.items()}
+    chunk, C.CHUNK = C.CHUNK, 4 * C.BLOCK
+    drawn, _ = C.compress_grads({k: t for k, (t, _) in leaves.items()},
+                                torch.Generator().manual_seed(5))
+    C.CHUNK = chunk
+    out = {}
+    with mesh_context(mesh):
+        blocks = {k: local_shard(t, spec, mesh)
+                  for k, (t, spec) in leaves.items()}
+        q, _ = C.compress_grads(blocks, uniforms=[us[k] for k in sorted(us)])
+        out["compress"] = {
+            k: (q[k].numpy(), local_shard(C.q8_sr(t, u=us[k]), spec,
+                                          mesh).numpy(),
+                C.compress_route(blocks[k]))
+            for k, (t, spec) in leaves.items()}
+        C.CHUNK = 4 * C.BLOCK
+        q, _ = C.compress_grads(blocks, torch.Generator().manual_seed(5))
+        out["drawn"] = {k: (q[k].numpy(),
+                            local_shard(drawn[k], spec, mesh).numpy())
+                        for k, (_, spec) in leaves.items()}
+        C.CHUNK = chunk
+        cfg = smoke_config("deepseek-v3-671b")
+        lin = nn.init_linear(torch.Generator().manual_seed(1), 32, 64, cfg,
+                             device="cpu", expert=4)
+        local = local_tree(lin, spec_tree(lin), mesh)
+        with record_collectives() as st:
+            used, numel = nn._train_leaves(local, cfg)
+        out["w_step"] = dict(whole=lin["w_step"].numpy(),
+                             used=used["w_step"].detach().numpy(),
+                             numel=numel, whole_numel=lin["w"].numel(),
+                             params=st.param_count)
     return out

@@ -7,7 +7,7 @@ jitted ``init_lm``, every N2UQ quantiser calibrated:
 ``_torch_train.calibrate``) and a seeded batch of ``B`` x ``S`` tokens,
 saves them under ``tmp``, then runs:
 
-- the reference in ONE subprocess with 4 forced host devices
+- the reference in two subprocesses with 4 forced host devices
   (``REF_SCRIPT``): ``make_train_step`` jitted with the shardings of the
   specs, as ``launch/dryrun.py::_lower_train`` jits it (params and f32
   moments by ``lm.init_lm``'s specs, the batch over ``_batch_entry`` or
@@ -26,11 +26,20 @@ saves them under ``tmp``, then runs:
 
 Each case: ``arch`` (a smoke config), ``over`` (config overrides),
 ``mesh`` ``(data, model)``, ``accum`` (``accum_steps``), optionally
-``hlo``.
+``hlo``, ``state_dtype`` (the moments': f32, bf16 or int8), ``compress``
+(int8 gradient compression: the port fed the reference's uniforms, one
+``jax.random.uniform`` draw over each global leaf's blocks, key
+``PRNGKey(0)`` split per leaf) and ``aux`` (the MoE aux loss of the
+4-device forward, the CE taken out).  The reference also dumps its
+moments after the step (``m1``/``v1``; one device ``n1``/``w1``) and
+their per-device blocks under its ``_opt_axes``; each rank converts a
+seeded state of the reference's moment structure
+(``convert.adamw_state_from_jax(..., mesh=)``) for ``check_moments``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -44,7 +53,8 @@ import torch
 
 import _torch_ranks
 import _torch_train as T
-from _torch_sharded import block, keystr_leaves
+from _torch_ranks import fed_uniforms, train_config
+from _torch_sharded import bf16, block, keystr_leaves
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 WORLD, B, S = 4, 4, 32
@@ -59,15 +69,21 @@ from repro.models import lm
 from repro.launch.mesh import make_mesh_compat, mesh_context
 from repro.launch.dryrun import _batch_entry, _opt_axes, abstract_init
 from repro.launch.hlo_analysis import parse_collectives
-from repro.optim.adamw import adamw_init
+from repro.models import lm as L
+from repro.optim.adamw import AdamWConfig, adamw_init
 from repro.parallel.sharding import make_shardings
 from repro.train.trainer import TrainConfig, make_train_step
 
 tmp, names = sys.argv[1], sys.argv[2].split(",")
 
 def flat(tree, pre):
-    return {pre + jax.tree_util.keystr(p): np.asarray(v)
-            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    out = {}
+    for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        v = np.asarray(v)
+        if v.dtype == jnp.bfloat16:
+            v = v.astype(np.float32)
+        out[pre + jax.tree_util.keystr(p)] = v
+    return out
 
 def blocks(tree, shardings, mesh):
     leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
@@ -83,7 +99,10 @@ for name in names:
     case = pickle.load(open(f"{tmp}/{name}.pkl", "rb"))
     cfg = dataclasses.replace(smoke_config(case["arch"]), **case["over"])
     mesh = make_mesh_compat(tuple(case["mesh"]), ("data", "model"))
-    tc = TrainConfig(accum_steps=case["accum"], **case["tc"])
+    dtype = case.get("state_dtype", "f32")
+    tc = TrainConfig(accum_steps=case["accum"], adamw=AdamWConfig(
+        state_dtype=dtype), compress=case.get("compress", False),
+        **case["tc"])
     step = make_train_step(cfg, tc)
     fwd = lambda p, b: lm.forward(p, b, cfg)[0]
 
@@ -106,28 +125,43 @@ for name in names:
     opt = adamw_init(params, tc.adamw)
     batch = {"tokens": jnp.asarray(case["tokens"])}
     _, axes = abstract_init(cfg, "train")
-    opt_axes = _opt_axes(axes, opt, "f32", mesh)
+    opt_axes = _opt_axes(axes, opt, dtype, mesh)
     be = (("data", "model") if cfg.pure_fsdp
           else _batch_entry(case["tokens"].shape[0], mesh))
     sh_p, sh_o = make_shardings(mesh, axes), make_shardings(mesh, opt_axes)
     sh_b = {"tokens": NamedSharding(mesh, P(be, None))}
     rep = NamedSharding(mesh, P())
     args = (jnp.int32(0), jax.random.PRNGKey(0))
+    def aux_of(p, b):      # 0.01 x the aux loss: the CE taken out
+        real = L.next_token_loss
+        L.next_token_loss = lambda logits, tokens: jnp.float32(0)
+        try:
+            return fwd(p, b)
+        finally:
+            L.next_token_loss = real
+
+    def both(p, o, b, s, k):    # one compile for the step and its gradient
+        return (step(p, o, b, s, k), grads(p, b),
+                aux_of(p, b) if case.get("aux") else jnp.float32(0))
+
     out = {}
     with mesh_context(mesh):
-        jstep = jax.jit(step, in_shardings=(sh_p, sh_o, sh_b, rep, rep))
-        p1, _, met = jstep(params, opt, batch, *args)
-        loss, g = jax.jit(grads, in_shardings=(sh_p, sh_b))(params, batch)
         if case.get("hlo"):
+            jstep = jax.jit(step, in_shardings=(sh_p, sh_o, sh_b, rep, rep))
             txt = jstep.lower(params, opt, batch, *args).compile().as_text()
             st = parse_collectives(txt, loop_multiplier=cfg.n_layers)
             hlo = {"count": st.count_by_kind, "bytes": st.bytes_by_kind}
+        (p1, o1, met), (loss, g), aux = jax.jit(both, in_shardings=(
+            sh_p, sh_o, sh_b, rep, rep))(params, opt, batch, *args)
     out.update(flat(p1, "p1"), **flat(g, "g"))
+    out.update(flat(o1["m"], "m1"), **flat(o1["v"], "v1"))
     out.update(loss=np.asarray(loss), step_loss=np.asarray(met["loss"]),
-               gnorm=np.asarray(met["gnorm"]))
-    p1_one, _, met1 = jax.jit(step)(params, opt, batch, *args)
-    loss1, g1 = jax.jit(grads)(params, batch)
+               gnorm=np.asarray(met["gnorm"]), aux=np.asarray(aux))
+    one = lambda p, o, b, s, k: (step(p, o, b, s, k), grads(p, b))
+    (p1_one, o1_one, met1), (loss1, g1) = jax.jit(one)(params, opt, batch,
+                                                       *args)
     out.update(flat(g1, "g1"), **flat(p1_one, "q1"))
+    out.update(flat(o1_one["m"], "n1"), **flat(o1_one["v"], "w1"))
     out.update(loss1=np.asarray(loss1), gnorm1=np.asarray(met1["gnorm"]))
     meta = {"param_blocks": blocks(params, sh_p, mesh),
             "moment_blocks": blocks(opt["m"], sh_o["m"], mesh)}
@@ -146,25 +180,32 @@ def run(tmp, cases: dict) -> dict:
     for name, c in cases.items():
         jcfg, _, p = T.model(c["arch"], **c["over"])
         case = dict(c, params=p, tc=TC_KW,
-                    tokens=T.tokens(jcfg.vocab, seed=1, b=B, s=S))
+                    tokens=T.tokens(jcfg.vocab, seed=1, b=B, s=S),
+                    state=seeded_state(p, c.get("state_dtype", "f32")))
+        if c.get("compress"):
+            case["uniforms"] = ref_uniforms(p)
         with open(os.path.join(tmp, f"{name}.pkl"), "wb") as f:
             pickle.dump(case, f)
         full[name] = case
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
-    proc = subprocess.Popen(
+    names = list(cases)     # two subprocesses: XLA compiles on one core
+    procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(REF_SCRIPT), str(tmp),
-         ",".join(cases)], env=env, stdout=subprocess.PIPE,
+         ",".join(part)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+        for part in (names[::2], names[1::2]) if part]
     try:
         ranks = _torch_ranks.spawn_ranks(_torch_ranks.sharded_train_rank,
-                                         WORLD, tmp, list(cases))
+                                         WORLD, tmp, names)
         plain = {n: plain_step(c) for n, c in full.items()}
-        _, err = proc.communicate(timeout=600)
+        errs = [p.communicate(timeout=600)[1] for p in procs]
     finally:
-        proc.kill()
-    assert proc.returncode == 0, err[-3000:]
+        for p in procs:
+            p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
     out = {}
     for name in cases:
         with open(os.path.join(tmp, f"{name}_ref.json")) as f:
@@ -176,38 +217,79 @@ def run(tmp, cases: dict) -> dict:
     return out
 
 
+def seeded_state(params, dtype: str):
+    """An AdamW state of the reference's structure for ``params`` (its
+    ``adamw_init``: int8 moments ``{'q', 'scale'}`` where the last dim
+    takes blocks) filled with seeded values, as numpy."""
+    import jax
+
+    from repro.optim.adamw import AdamWConfig, adamw_init
+
+    state = adamw_init(jax.tree.map(np.asarray, params),
+                       AdamWConfig(state_dtype=dtype))
+    rng = np.random.default_rng(3)
+
+    def fill(a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return rng.integers(-127, 128, a.shape).astype(np.int8)
+        return rng.standard_normal(a.shape).astype(a.dtype)
+
+    return jax.tree.map(fill, state)
+
+
+def ref_uniforms(params) -> list:
+    """The reference's compression uniforms of a step with key
+    ``PRNGKey(0)``: one ``[n_blocks, 1024]`` draw a leaf, over the global
+    leaf, in leaf order."""
+    import jax
+
+    leaves = jax.tree.leaves(params)
+    keys = jax.random.split(jax.random.PRNGKey(0), len(leaves))
+    return [np.asarray(jax.random.uniform(k, (-(-np.size(g) // 1024), 1024)))
+            for k, g in zip(keys, leaves)]
+
+
 def plain_step(case) -> dict:
     """The port's unsharded step on the whole batch: its loss and gnorm,
-    and its gradient by leaf path."""
+    and its gradient, params and moments by leaf path."""
     from repro_torch import convert
     from repro_torch.configs import smoke_config
     from repro_torch.optim.adamw import adamw_init
-    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.train.trainer import make_train_step
 
     cfg = dataclasses.replace(smoke_config(case["arch"]), **case["over"])
-    step = make_train_step(cfg, TrainConfig(accum_steps=case["accum"],
-                                            **case["tc"]))
+    tc = train_config(case)
+    step = make_train_step(cfg, tc)
     params = convert.train_params_from_jax(case["params"], "cpu")
     batch = {"tokens": torch.from_numpy(case["tokens"])}
     loss, grads = step.grads(params, batch)
-    params, _, met = step(params, adamw_init(params), batch, 0)
+    with fed_uniforms(case):
+        params, opt, met = step(params, adamw_init(params, tc.adamw), batch,
+                                0)
     return dict(loss=loss.item(), gnorm=met["gnorm"].item(),
                 grads=dict(keystr_leaves(convert.to_numpy(grads))),
-                p1=dict(keystr_leaves(convert.to_numpy(params))))
+                p1=dict(keystr_leaves(convert.to_numpy(params))),
+                m1=dict(keystr_leaves(convert.to_numpy(opt["m"]))))
 
 
-def assemble(out, key: str) -> dict:
-    """The whole leaves of the ranks' blocks ``key`` (``grads`` or
-    ``p1``): each rank's block written at its device's slices, and a
-    slice written twice (a replicated leaf) the same on every rank."""
-    slices = out["meta"]["param_blocks"]
-    whole = dict(keystr_leaves(out["case"]["params"]))
+def assemble(out, key: str, blocks: str = "param_blocks",
+             shapes: dict = None) -> dict:
+    """The whole leaves of the ranks' blocks ``key`` (``grads``, ``p1``;
+    with ``blocks='moment_blocks'`` and the whole ``shapes``, ``m1`` or
+    ``v1``): each rank's block written at its device's slices, and a
+    slice written twice (a replicated leaf) the same on every rank.  bf16
+    blocks (uint16 bits) as their values; all in f64."""
+    slices = out["meta"][blocks]
+    if shapes is None:
+        shapes = {p: v.shape for p, v in keystr_leaves(out["case"]["params"])}
     got = {}
     for rank, r in enumerate(out["ranks"]):
         for path, leaf in keystr_leaves(r[key]):
+            leaf = bf16(leaf) if leaf.dtype == np.uint16 else leaf
             sl = tuple(slice(a, b) for a, b in slices[path][rank])
             if path not in got:
-                got[path] = np.full(whole[path].shape, np.nan, np.float32)
+                got[path] = np.full(shapes[path], np.nan, np.float64)
             prev = got[path][sl]
             if not np.isnan(prev).all():
                 np.testing.assert_array_equal(prev, leaf, err_msg=path)
@@ -217,12 +299,14 @@ def assemble(out, key: str) -> dict:
     return got
 
 
-def _errors(want, got):
-    """``(cosine, max error over want's largest entry)`` in f64."""
+def _errors(want, got, outliers: int = 0):
+    """``(cosine, max error over want's largest entry)`` in f64; the max
+    taken over all but the ``outliers`` largest errors."""
     want, got = np.asarray(want, np.float64), np.asarray(got, np.float64)
     scale = np.abs(want).max()
     cos = (want * got).sum() / np.sqrt((want ** 2).sum() * (got ** 2).sum())
-    return cos, np.abs(want - got).max() / scale
+    err = np.sort(np.abs(want - got).ravel())
+    return cos, err[len(err) - 1 - outliers] / scale
 
 
 def _kind_scale(want: dict) -> dict:
@@ -236,42 +320,70 @@ def _kind_scale(want: dict) -> dict:
     return out
 
 
-def hold_grads(want: dict, got: dict, spread: dict = None) -> dict:
+def hold_grads(want: dict, got: dict, spread: dict = None,
+               rel: float = T.GRAD_REL, spread_of: dict = None,
+               outliers: dict = None) -> dict:
     """Every gradient leaf ``got`` (by path) against ``want``: zero where
     it is zero; an ``aq`` leaf by its max error over the largest gradient
     of its kind (``AQ_REL``), every other by its cosine and its max error
-    over its largest entry (``GRAD_COS``, ``GRAD_REL``).  ``spread`` (the
-    reference's own one-device gradient): where the reference's two
-    partitionings of one step already differ beyond those tolerances on a
-    leaf (N2UQ codes that flip on a rounding), the leaf is held to twice
-    that difference instead.  Returns the error of each live leaf."""
+    over its largest entry (``GRAD_COS``, ``rel``: ``GRAD_REL``, or the
+    model's own where its unsharded tests set one).  ``spread`` (the reference's own
+    one-device gradient): where the reference's two partitionings of one
+    step already differ beyond those tolerances on a leaf (N2UQ codes that
+    flip on a rounding), the leaf is held to twice that difference
+    instead; ``spread_of`` the other partitioning (default ``want``).
+    ``outliers``: by path, how many of a leaf's largest errors the max
+    leaves out.  Returns the error of each live leaf."""
     kinds = _kind_scale(want)
     worst = {}
+    spread_of = want if spread_of is None else spread_of
     for path, g in got.items():
         w = np.asarray(want[path], np.float64)
         if not np.abs(w).max():
             assert not np.abs(g).max(), path
             continue
-        cos_min, rel_max = T.GRAD_COS, T.GRAD_REL
+        cos_min, rel_max = T.GRAD_COS, rel
         if "['aq']" in path:
             scale = kinds[path.rsplit("[", 1)[1]]
             err = np.abs(w - g).max() / scale
             if spread is not None:
-                rel_max = max(T.AQ_REL,
-                              2 * np.abs(w - spread[path]).max() / scale)
+                rel_max = max(T.AQ_REL, 2 * np.abs(np.asarray(
+                    spread_of[path], np.float64) - spread[path]).max() / scale)
             else:
                 rel_max = T.AQ_REL
             assert err < rel_max, (path, err, rel_max)
         else:
-            cos, err = _errors(w, g)
+            cos, err = _errors(w, g, (outliers or {}).get(path, 0))
             if spread is not None:
-                cos1, err1 = _errors(w, spread[path])
+                cos1, err1 = _errors(spread_of[path], spread[path])
                 cos_min = min(cos_min, 1 - 2 * (1 - cos1))
                 rel_max = max(rel_max, 2 * err1)
             assert cos > cos_min and err < rel_max, (path, cos, cos_min,
                                                      err, rel_max)
         worst[path] = err
     return worst
+
+
+def hold_compression(out):
+    """Under compression: the compressed gradient that each rank's step
+    gives, gathered from the ranks' blocks, is the unsharded compression
+    (``q8_sr``) of the gathered gradient with the reference's uniforms,
+    bit for bit."""
+    from repro_torch.train.compress import q8_sr
+
+    got = assemble(out, "compressed")
+    grads = assemble(out, "grads")
+    for (path, g), u in zip(sorted(grads.items(), key=lambda kv: _order(
+            out, kv[0])), out["case"]["uniforms"]):
+        want = q8_sr(torch.from_numpy(g.astype(np.float32)),
+                     u=torch.from_numpy(u)).numpy()
+        np.testing.assert_array_equal(got[path], want, err_msg=path)
+
+
+def _order(out, path) -> int:
+    """A leaf path's index in the reference's leaf order."""
+    paths = [p for p, _ in keystr_leaves(out["case"]["params"])]
+    return paths.index(path)
 
 
 def hold_loss_and_norm(out):
@@ -292,7 +404,8 @@ def hold_loss_and_norm(out):
         assert q["gnorm"] == r["gnorm"]
     np.testing.assert_allclose(r["loss"], float(ref["loss"]),
                                rtol=T.LOSS_RTOL)
-    got = assemble(out, "grads")
+    got = assemble(out, "compressed" if out["case"].get("compress")
+                   else "grads")      # the gradient that the clip reads
     norm = np.sqrt(sum((np.asarray(g, np.float64) ** 2).sum()
                        for g in got.values()))
     np.testing.assert_allclose(r["gnorm"], norm, rtol=1e-6)
@@ -343,18 +456,57 @@ def ref_grads(out, prefix: str = "g") -> dict:
 
 def check_blocks(out):
     """Each rank's param and moment blocks: the shapes of the reference's
-    per-device blocks, and before the step the whole leaf's contents
-    there."""
+    per-device blocks (the moments ``adamw_init``'s under the mesh, an
+    int8 moment's ``q`` and ``scale`` apart), and before the step the
+    whole param's contents there."""
     whole = dict(keystr_leaves(out["case"]["params"]))
     pb, mb = out["meta"]["param_blocks"], out["meta"]["moment_blocks"]
     for rank, r in enumerate(out["ranks"]):
-        p0, m1 = dict(keystr_leaves(r["p0"])), dict(keystr_leaves(r["m1"]))
-        assert set(p0) == set(whole) == set(m1), rank
+        p0 = dict(keystr_leaves(r["p0"]))
+        assert set(p0) == set(whole) and set(r["m0_shapes"]) == set(mb), rank
         for path, leaf in p0.items():
             np.testing.assert_array_equal(
                 leaf, block(whole[path], pb[path][rank]), err_msg=path)
-            shape = tuple(b - a for a, b in mb[path][rank])
-            assert m1[path].shape == shape, (path, m1[path].shape, shape)
+        for path, shape in r["m0_shapes"].items():
+            want = tuple(b - a for a, b in mb[path][rank])
+            assert shape == want, (path, shape, want)
+
+
+def check_moments(out):
+    """The moments: the seeded state's blocks that each rank converts
+    (``adamw_state_from_jax(..., mesh=)``) are the reference's per-device
+    blocks of it, the step whole; after the step each moment leaf
+    (``m`` and ``v``; an int8 moment's ``q`` and ``scale``), gathered from
+    the ranks' blocks, is held as ``hold_updates`` holds the params:
+    against the port's unsharded step by ``UPDATE_AGREE`` (``m``), and
+    against the reference's 4-device step by that share or twice the
+    reference's own 4-vs-1 disagreement."""
+    mb, state = out["meta"]["moment_blocks"], out["case"]["state"]
+    for rank, r in enumerate(out["ranks"]):
+        for k in ("m", "v"):
+            whole = dict(keystr_leaves(state[k]))
+            got = dict(keystr_leaves(r["state"][k]))
+            assert set(got) == set(whole) == set(mb), (rank, k)
+            for path, leaf in got.items():
+                want = block(np.asarray(whole[path]), mb[path][rank])
+                if leaf.dtype == np.uint16:
+                    want = want.view(np.uint16)
+                np.testing.assert_array_equal(leaf, want, err_msg=path)
+        np.testing.assert_array_equal(r["state"]["step"], state["step"])
+    ref = out["ref"]
+    for k, own in (("m1", "n1"), ("v1", "w1")):
+        shapes = {p: ref[k + p].shape for p in mb}
+        got = assemble(out, k, "moment_blocks", shapes)
+        zero = {p: np.zeros(shapes[p]) for p in mb}
+        want = {p: ref[k + p] for p in mb}
+        if k == "m1":
+            plain = {p: (bf16(v) if v.dtype == np.uint16 else v)
+                     for p, v in out["plain"]["m1"].items()}
+            assert _agree(zero, plain, got) >= T.UPDATE_AGREE, k
+        spread = _agree(zero, want, {p: ref[own + p] for p in mb})
+        share = _agree(zero, want, got)
+        assert share >= min(T.UPDATE_AGREE, 1 - 2 * (1 - spread)), (
+            k, share, spread)
 
 
 def step_stats(out):

@@ -293,19 +293,3 @@ def test_experts_that_do_not_divide_model_are_refused():
             moe_p = whole.layers(1)[0]["b0"]["moe"]
             with pytest.raises(ValueError, match="do not divide"):
                 moe.local_experts(moe_p, cfg)
-
-
-@pytest.mark.parametrize("arch,over", [("deepseek-v3-671b", {}),
-                                       ("kimi-k2-1t", {}),
-                                       ("deepseek-v3-671b",
-                                        {"attn_kind": "gqa"})])
-def test_sharded_train_forward_of_moe_and_mla_raises(arch, over):
-    """Serving runs sharded; the train forward of a MoE or MLA model under
-    a mesh still raises, naming the next item of ROADMAP queue 1."""
-    cfg = dataclasses.replace(smoke_config(arch), **over)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with fake_world(4):
-        with mesh_context(make_mesh_compat((2, 2), ("data", "model"),
-                                           "cpu")):
-            with pytest.raises(NotImplementedError, match="next item"):
-                lm.forward({}, {"tokens": tokens}, cfg)

@@ -28,16 +28,23 @@ rounding), within twice that (``hold_grads``); the update likewise
 (``hold_updates``); each rank's param and moment blocks are the
 reference's per-device blocks; the only parameter collectives are the
 FSDP gathers the specs imply.  On a one-rank mesh the sharded step is the
-unsharded one bit for bit.
+unsharded one bit for bit (the MoE and MLA decoders too, with int8 and
+bf16 moments and compression).  Pieces of the MoE step on 4 ranks:
+compression under a mesh is the global leaf's, an expert stack's
+``w_step`` is gathered whole at use; an int8 moment is decided on the
+global shape.  The recurrent and enc-dec families and a VLM's front
+raise under a mesh.
 """
 
 import dataclasses
 import threading
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+import _torch_ranks
 import _torch_sharded_train as H
 import _torch_train as T
 
@@ -129,21 +136,32 @@ def test_train_collectives_beside_reference_hlo(runs, capsys):
     assert st.count_by_kind["all-gather"] > 0
 
 
+MOE_WIDE = dict(d_model=256, d_ff=512, d_expert=64, fsdp=True)
+# name: (arch, config overrides, accum_steps, moments' dtype, compress)
 WORLD1 = {
-    "codeqwen-fsdp": ("codeqwen1.5-7b", {"fsdp": True}, 1),
+    "codeqwen-fsdp": ("codeqwen1.5-7b", {"fsdp": True}, 1, "f32", False),
     "mistral-accum2-noremat": ("mistral-large-123b",
-                               {"fsdp": True, "remat": "none"}, 2),
+                               {"fsdp": True, "remat": "none"}, 2, "f32",
+                               False),
+    "deepseek-f32": ("deepseek-v3-671b", {}, 1, "f32", False),
+    "deepseek-int8-fsdp-accum2": ("deepseek-v3-671b", MOE_WIDE, 2, "int8",
+                                  False),
+    "kimi-bf16": ("kimi-k2-1t", {}, 1, "bf16", False),
+    "moe-gqa-compress": ("deepseek-v3-671b", {"attn_kind": "gqa"}, 1, "f32",
+                         True),
 }
 
 
 @pytest.mark.parametrize("name", WORLD1)
 def test_one_rank_mesh_is_unsharded_step_bit_for_bit(name):
     """On a one-rank gloo mesh (1, 1) the sharded step (every collective
-    issued over one rank) equals the unsharded step: the loss, every
-    gradient leaf and every param after the step."""
-    arch, over, accum = WORLD1[name]
+    issued over one rank) equals the unsharded step: the loss, the norm,
+    every gradient leaf, every param and every moment leaf after the step
+    (the compression's uniforms drawn from one seed in both)."""
+    arch, over, accum, dtype, compress = WORLD1[name]
     _, tcfg, p = T.model(arch, **over)
-    tc = TrainConfig(accum_steps=accum, **H.TC_KW)
+    tc = TrainConfig(accum_steps=accum, compress=compress,
+                     adamw=AdamWConfig(state_dtype=dtype), **H.TC_KW)
     step = make_train_step(tcfg, tc)
     batch = {"tokens": torch.from_numpy(T.tokens(tcfg.vocab, b=4, s=32))}
     runs = []
@@ -153,20 +171,23 @@ def test_one_rank_mesh_is_unsharded_step_bit_for_bit(name):
             with (mesh_context(mesh) if mesh else mesh_context(None)):
                 params = convert.train_params_from_jax(p, "cpu", mesh=mesh,
                                                        cfg=tcfg)
-                opt = adamw_init(params)
+                opt = adamw_init(params, tc.adamw)
                 loss, grads = step.grads(params, batch)
-                params, opt, met = step(params, opt, batch, 0)
+                params, opt, met = step(params, opt, batch, 0,
+                                        torch.Generator().manual_seed(7))
                 runs.append((loss, tree_leaves(grads), met,
-                             tree_leaves(params)))
+                             tree_leaves(params), tree_leaves(opt)))
         finally:
             if mesh is not None:
                 dist.destroy_process_group()
-    (l0, g0, m0, p0), (l1, g1, m1, p1) = runs
+    (l0, g0, m0, p0, o0), (l1, g1, m1, p1, o1) = runs
     assert torch.equal(l0, l1) and torch.equal(m0["loss"], m1["loss"])
     assert torch.equal(m0["gnorm"], m1["gnorm"])
-    for a, b in zip(g0, g1):
-        assert torch.equal(a, b)
-    for a, b in zip(p0, p1):
+    assert len(o0) == len(o1)
+    if dtype != "f32":
+        assert {t.dtype for t in o1} >= {getattr(torch, {
+            "int8": "int8", "bf16": "bfloat16"}[dtype])}
+    for a, b in [*zip(g0, g1), *zip(p0, p1), *zip(o0, o1)]:
         assert torch.equal(a, b)
 
 
@@ -222,28 +243,119 @@ def test_sequence_that_does_not_divide_is_refused():
                            cfg)
 
 
-@pytest.mark.parametrize("what", ["compress", "int8", "bf16", "xlstm",
-                                  "mla", "moe", "encdec", "vlm"])
+@pytest.mark.parametrize("what", ["xlstm", "encdec", "vlm"])
 def test_out_of_scope_under_a_mesh_raises(what):
-    """int8 gradient compression, int8 and bf16 moments, and every model
-    but a dense GQA decoder raise under a mesh, naming the later items."""
-    arch = {"xlstm": "xlstm-350m", "mla": "deepseek-v3-671b",
-            "moe": "deepseek-v3-671b", "encdec": "seamless-m4t-medium",
-            "vlm": "internvl2-76b"}.get(what, "codeqwen1.5-7b")
+    """The recurrent and enc-dec families and a VLM's front raise under a
+    mesh, naming the later items."""
+    arch = {"xlstm": "xlstm-350m", "encdec": "seamless-m4t-medium",
+            "vlm": "internvl2-76b"}[what]
     cfg = smoke_config(arch)
-    if what == "moe":
-        cfg = dataclasses.replace(cfg, attn_kind="gqa")
-    tc = TrainConfig(compress=what == "compress",
-                     adamw=AdamWConfig(state_dtype=what if what in (
-                         "int8", "bf16") else "f32"))
-    step = make_train_step(cfg, tc)
+    step = make_train_step(cfg, TrainConfig())
     tokens = torch.zeros((2, 8), dtype=torch.int32)
     with fake_world(4):
         with mesh_context(_fake_mesh((2, 2))):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 step({}, {}, {"tokens": tokens}, 0)
-            if what not in ("compress", "int8", "bf16"):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    lm.check_sharded_train(cfg)
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    lm.forward({}, {"tokens": tokens}, cfg)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                lm.check_sharded_train(cfg)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                lm.forward({}, {"tokens": tokens}, cfg)
+
+
+@pytest.fixture(scope="module")
+def pieces(tmp_path_factory):
+    return _torch_ranks.spawn_ranks(_torch_ranks.train_pieces_rank, 4,
+                                    tmp_path_factory.mktemp("pieces"))
+
+
+ROUTES = [("table", "local"), ("experts", "local"), ("columns", "reduce"),
+          ("long", "reduce")]
+
+
+@pytest.mark.parametrize("leaf, route", ROUTES)
+def test_compression_under_a_mesh_is_the_global_leafs(pieces, leaf, route):
+    """int8 compression of a gradient block under a (2, 2) mesh is this
+    rank's block of the unsharded compression of the global leaf with the
+    same uniforms: in place where the rank's elements are runs of whole
+    1024-blocks (rows of the table; an expert stack cut on its experts and
+    its rows), else with each block's absmax all-reduced over the leaf's
+    axes (a leaf cut on both axes into runs of 24; rows of 2500)."""
+    for r in pieces:
+        got, want, how = r["compress"][leaf]
+        assert how == route
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("leaf", [leaf for leaf, _ in ROUTES])
+def test_drawn_compression_under_a_mesh_is_the_global_leafs(pieces, leaf):
+    """The same with the uniforms drawn from one seed, a chunk at a time
+    (``compress.CHUNK`` set to 4096): each rank keeps its elements of the
+    global draw, so its block is the unsharded compression's, bit for
+    bit."""
+    for r in pieces:
+        got, want = r["drawn"][leaf]
+        np.testing.assert_array_equal(got, want)
+
+
+def test_expert_stack_step_is_gathered_whole_at_use(pieces):
+    """An expert stack's train linear on this rank's experts (2 of 4)
+    reads its ``w_step`` (P('model'), one step a column over every expert)
+    whole, gathered over 'model' as a parameter collective, and LSQ's
+    element count is the whole stack's."""
+    for r in pieces:
+        ws = r["w_step"]
+        np.testing.assert_array_equal(ws["used"], ws["whole"])
+        assert ws["numel"] == ws["whole_numel"] and ws["params"] == 1
+
+
+def test_deepseek_v3_compression_routes():
+    """deepseek-v3-671b's train leaves (meta tensors) on its production
+    (16, 16) mesh, by compression route (rank 0's blocks under a fake
+    world of 256: no collective runs): 69 leaves, 657.8 B elements,
+    compressed in place, 19, 13.2 B, with each block's absmax reduced.
+    The largest leaf of each route and rank 0's block of it are what
+    ``PERF.md`` reckons the compression's memory a rank from: every rank
+    holds a few f32 copies of its block, its uniforms and one chunk of
+    the global draw, and on the reduce route a float a global block."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel.sharding import local_shard, spec_of
+    from repro_torch.train.compress import CHUNK, compress_route
+
+    cfg = get_config("deepseek-v3-671b")
+    tree = lm.init_tree(cfg, torch.Generator(), "train", "meta")
+    routes = {}
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with mesh_context(mesh):
+            for leaf in tree_leaves(tree):
+                block = local_shard(leaf, spec_of(leaf), mesh)
+                routes.setdefault(compress_route(block), []).append(
+                    (leaf.numel(), block.numel(), tuple(leaf.shape)))
+    count = {r: (len(v), sum(n for n, _, _ in v)) for r, v in routes.items()}
+    assert count == {"local": (69, 657_819_451_376),
+                     "reduce": (19, 13_212_461_056)}, count
+    big = {r: max(v) for r, v in routes.items()}
+    assert big["local"] == (58 * 256 * 7168 * 2048, 58 * 16 * 448 * 2048,
+                            (58, 256, 7168, 2048))          # moe.wi
+    assert big["reduce"] == (58 * 16384 * 7168, 58 * 1024 * 448,
+                             (58, 16384, 7168))            # attn.wo
+    assert CHUNK == 1 << 24
+
+
+def test_int8_moment_decision_reads_the_global_shape():
+    """Whether a moment is int8 blocks is decided on the param's global
+    shape: a [64, 512] param cut to [64, 128] on 'model' (1, 4) gets an int8
+    moment, replicated whole ([64, 2, 256]: 512 / 256 blocks do not divide
+    4 ranks), where its local block (last dim 128) would stay f32; a [64,
+    1024] one keeps its block dim sharded ([64, 1, 256] a rank)."""
+    from repro_torch.parallel.sharding import P, with_spec
+
+    with fake_world(4):
+        with mesh_context(_fake_mesh((1, 4))):
+            params = {"a": with_spec(torch.zeros(64, 128), P(None, "model")),
+                      "b": with_spec(torch.zeros(64, 256), P(None, "model"))}
+            opt = adamw_init(params, AdamWConfig(state_dtype="int8"))
+    assert opt["m"]["a"]["q"].shape == (64, 2, 256)
+    assert opt["v"]["a"]["scale"].shape == (64, 2)
+    assert opt["m"]["b"]["q"].shape == (64, 1, 256)
