@@ -25,6 +25,10 @@
                                           # MoE and MLA decoders served
                                           # sharded (phase 14), one JSON
                                           # line
+    python3 chip_smoke.py --only sharded-families  # kernel 1 built: the
+                                          # recurrent, enc-dec and VLM
+                                          # families served sharded (phase
+                                          # 16), one JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -311,6 +315,24 @@ Phases, in order; any failure raises and exits non-zero:
     at M 4 and 64, int32-equal to their plain twins and
     ``dense_int_matmul``, timed beside them, the one-hot ``_int_mm`` and
     the bound.
+16. the recurrent, enc-dec and VLM families served sharded
+    (``phase_sharded_families``): one NCCL rank per visible card, a (data
+    1, model world) mesh (world 1 on one card); recurrentgemma-2b at full
+    width cut to 6 of 26 layers (two whole (rglru, rglru, attn_local)
+    patterns), the same with a B 1 x 2304 prompt past its 2048-slot
+    window (the ring wraps), xlstm-350m cut to 8 of 24 (one 7 + 1
+    pattern), seamless-m4t-medium whole with 512 frames and internvl2-76b
+    cut to 4 of 80 with its 256-row front, each B 4 x 256 + 16 greedy
+    steps through ``lm.prefill``/``lm.decode_step`` unsharded and then
+    under the mesh on this rank's blocks (the recurrent states, the ring's
+    slots, the encoder and the cross caches), held bit-equal (tokens,
+    prefill and last logits, caches), kernel 1's launches counted on the
+    sharded run (``_sharded_launches``), the collectives a decode step,
+    both decode steps' median ms, both prefills' tok/s and both runs'
+    peaks; then kernel 1 at one rank's block of a 16-way 'model' axis of
+    every distinct lookup linear shape of the four families, M 4,
+    int32-equal to its plain twin and timed beside it, the bound and the
+    one-hot ``_int_mm``.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -319,10 +341,10 @@ moe-gqa path for the int8 expert kernel; kernel 1's and kernel 2's
 rows also carry ``launches_by_path``, each counted on one of the
 families' runs with the counters set to 0 just before it, kernel 1's
 and kernels 3-4's also the trained weights' launches in phase 8 and
-kernel 1's the sharded runs of phases 12 and 14 and the sharded
+kernel 1's the sharded runs of phases 12, 14 and 16 and the sharded
 trained ``ffn.wi`` of phase 13, with its 16-way shard-shape times under
-``shard_shapes`` and its 16-way expert-block times under
-``expert_block_shapes``, the int8 expert kernel's phase 14's); the
+``shard_shapes`` and ``family_shard_shapes`` and its 16-way expert-block
+times under ``expert_block_shapes``, the int8 expert kernel's phase 14's); the
 last line is the device JSON.  Needs one CUDA card; exits non-zero without
 one.
 """
@@ -5286,48 +5308,65 @@ SHARD_M = 4           # rows a decode step of 4 slots gives each linear
 SHARD_ARCHS = ("codeqwen1.5-7b", "mistral-large-123b")   # kernel 1's shapes
 
 
-def _greedy_run(params, tokens, cfg, S_max: int, steps: int, profile=None):
+def _timed(fn):
+    """``fn()`` and its ms: CUDA events on the card, the host clock on the
+    CPU."""
+    import torch
+
+    if DEV == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEV == "cuda":
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _greedy_run(params, tokens, cfg, S_max: int, steps: int, profile=None,
+                extra=None, pos0=None):
     """``lm.prefill`` then ``steps`` greedy ``lm.decode_step``s (under the
     active mesh, if any).  Returns the prefill and last logits, the tokens
-    ``[steps + 1, B]``, the caches, each decode step's ms (CUDA events on
-    the card, the host clock on the CPU) and the last step's collectives.
-    ``profile`` (a label): on the card, step ``PROFILED_STEP`` runs under
-    ``torch.profiler`` (``_profiled``) and is left out of the times."""
+    ``[steps + 1, B]``, the caches, the prefill's and each decode step's
+    ms (CUDA events on the card, the host clock on the CPU) and the last
+    step's collectives.  ``extra``: ``lm.prefill``'s ``frames``/``front``;
+    ``pos0``: the first decode position (the prompt's length by default;
+    a VLM's front adds its rows).  ``profile`` (a label): on the card,
+    step ``PROFILED_STEP`` runs under ``torch.profiler`` (``_profiled``)
+    and is left out of the times."""
     import torch
 
     from repro_torch.launch.comm_analysis import record_collectives
     from repro_torch.models import lm
 
-    first, caches = lm.prefill(params, tokens, cfg, S_max=S_max)
+    pos0 = tokens.shape[1] if pos0 is None else pos0
+    (first, caches), pre_ms = _timed(lambda: lm.prefill(
+        params, tokens, cfg, S_max=S_max, **(extra or {})))
     t = lm.greedy(first)
     toks, ms = [t], []
     for i in range(steps):
         if profile and DEV == "cuda" and i == PROFILED_STEP:
             log(f"  {profile}:")
             logits, caches = _profiled(lm.decode_step, (
-                params, caches, t[:, None].to(torch.int32),
-                tokens.shape[1] + i, cfg), {}, host=8)
+                params, caches, t[:, None].to(torch.int32), pos0 + i, cfg),
+                {}, host=8)
             t = lm.greedy(logits)
             toks.append(t)
             continue
+        def step():
+            lg, c = lm.decode_step(params, caches, t[:, None].to(
+                torch.int32), pos0 + i, cfg)
+            return lg, c, lm.greedy(lg)
+
         with record_collectives() as st:
-            if DEV == "cuda":
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-            t0 = time.perf_counter()
-            logits, caches = lm.decode_step(params, caches, t[:, None].to(
-                torch.int32), tokens.shape[1] + i, cfg)
-            t = lm.greedy(logits)
-            if DEV == "cuda":
-                b.record()
-                b.synchronize()
-                ms.append(a.elapsed_time(b))
-            else:
-                ms.append((time.perf_counter() - t0) * 1e3)
+            (logits, caches, t), step_ms = _timed(step)
+            ms.append(step_ms)
         toks.append(t)
     return dict(first=first, last=logits, tokens=torch.stack(toks),
-                caches=caches, step_ms=ms, stats=st)
+                caches=caches, step_ms=ms, prefill_ms=pre_ms, stats=st)
 
 
 def _vocab_block(whole, local, rows):
@@ -5374,15 +5413,37 @@ def _gib() -> float:
     return torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else 0.0
 
 
-def _sharded_model(arch: str, cfg, mesh, dev, profile: bool = False) -> dict:
+def _sharded_launches(local, cfg, steps: int) -> dict:
+    """Kernel 1 and kernel 7 launches the sharded run of ``steps`` decode
+    steps makes: one a lookup linear or expert stack a forward; an enc-dec
+    model's encoder once (the prefill), and each ``dec_cross`` block's
+    ``xattn`` without its ``wk``/``wv`` of the decoder stream (the
+    reference's compiled graph drops them: the prefill runs them on the
+    encoder's output instead, a decode step not at all)."""
+    per_fwd, per_fwd_expert = _lookup_launches(local)
+    forwards = 1 + steps
+    n = per_fwd * forwards
+    if cfg.n_enc_layers:
+        n += (_tables(local.layers(0, "encoder")[0]) * cfg.n_enc_layers
+              - 2 * cfg.n_layers * steps)
+    return dict(tlmac_gemm_fused=n, expert_stacks=per_fwd_expert * forwards,
+                int8_experts=_int8_expert_launches(local) * forwards)
+
+
+def _sharded_model(arch: str, cfg, mesh, dev, profile: bool = False,
+                   run=None) -> dict:
     """One model served unsharded, then sharded under ``mesh`` on this
     rank's blocks (``local_tree`` of the same params; the whole params
     freed first), the launch counters of kernels 1 and 7 set to 0 just
-    before the sharded run and read just after and asserted (one launch a
-    lookup linear or expert stack a forward); the two held bit-equal:
-    tokens, prefill and last logits (this rank's rows and vocab block),
-    caches (this rank's blocks).  An int8 model gets calibrated steps.
-    ``profile``: step ``PROFILED_STEP`` of each run under the profiler."""
+    before the sharded run and read just after and asserted
+    (``_sharded_launches``); the two held bit-equal: tokens, prefill and
+    last logits (this rank's rows and vocab block), caches (this rank's
+    blocks).  An int8 model gets calibrated steps.  ``run``: the batch
+    ``B`` and ``prompt`` length (``SHARD_B`` x ``SHARD_PROMPT`` by
+    default), an enc-dec model's ``frames`` (their count, drawn ``[B,
+    frames, 1024]``), a VLM's ``front`` (its ``frontend_len`` rows of
+    1152, drawn).  ``profile``: step ``PROFILED_STEP`` of each run under
+    the profiler."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5393,94 +5454,135 @@ def _sharded_model(arch: str, cfg, mesh, dev, profile: bool = False) -> dict:
     from repro_torch.parallel.sharding import (batch_entry, block_range,
                                                fix_batch_axes, local_tree)
 
+    run = run or {}
+    B, prompt = run.get("B", SHARD_B), run.get("prompt", SHARD_PROMPT)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = lm.init_lm(cfg, gen, device=dev)
     if cfg.serve_impl == "int8":
         _calibrate_int8(params)
-    tokens = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_PROMPT),
-                           generator=gen, device=dev, dtype=torch.int32)
-    S_max = SHARD_PROMPT + SHARD_STEPS
+    tokens = torch.randint(0, cfg.vocab, (B, prompt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    extra, F = {}, 0
+    if run.get("frames"):
+        extra["frames"] = torch.randn((B, run["frames"], 1024),
+                                      generator=gen, device=dev)
+    if run.get("front"):
+        F = cfg.frontend_len
+        extra["front"] = torch.randn((B, F, 1152), generator=gen,
+                                     device=dev)
+    S_max = F + prompt + SHARD_STEPS
+
+    def warm_prefill(p, rows=slice(None)):
+        """The prefill again, its ms: the first one pays the process's
+        first launches and collectives of its shapes."""
+        return _timed(lambda: lm.prefill(
+            p, tokens[rows], cfg, S_max=S_max,
+            **{k: v[rows] for k, v in extra.items()}))[1]
+
     _reset_peak()
     plain = _greedy_run(params, tokens, cfg, S_max, SHARD_STEPS,
                         profile=f"{cfg.name} unsharded" if profile
-                        else None)
+                        else None, extra=extra, pos0=F + prompt)
     plain_peak = _gib()
+    plain_warm_ms = warm_prefill(params)
     local = nn.ParamTree(local_tree(params.tree(), lm.param_axes(cfg), mesh))
     del params
     _free()
-    rows = block_range(SHARD_B, batch_entry(SHARD_B, mesh), mesh)
+    rows = block_range(B, batch_entry(B, mesh), mesh)
+    mine = slice(rows[0], rows[0] + rows[1])
     with mesh_context(mesh):
         _reset_peak()
         tf.launches = tf.expert_launches = I8.launches = 0
-        sh = _greedy_run(local, tokens[rows[0]:rows[0] + rows[1]], cfg,
-                         S_max, SHARD_STEPS, profile=f"{cfg.name} sharded"
-                         if profile else None)
+        sh = _greedy_run(local, tokens[mine], cfg, S_max, SHARD_STEPS,
+                         profile=f"{cfg.name} sharded" if profile else None,
+                         extra={k: v[mine] for k, v in extra.items()},
+                         pos0=F + prompt)
         launches = dict(tlmac_gemm_fused=tf.launches,
                         expert_stacks=tf.expert_launches,
                         int8_experts=I8.launches)
         peak = _gib()
+        warm_ms = warm_prefill(local, mine)
         first = _vocab_block(plain["first"], sh["first"], rows)
         last = _vocab_block(plain["last"], sh["last"], rows)
-    forwards = 1 + SHARD_STEPS
-    per_fwd, per_fwd_expert = _lookup_launches(local)
-    want = dict(tlmac_gemm_fused=per_fwd * forwards,
-                expert_stacks=per_fwd_expert * forwards,
-                int8_experts=_int8_expert_launches(local) * forwards)
+    want = _sharded_launches(local, cfg, SHARD_STEPS)
     assert launches == want or DEV != "cuda", (cfg.name, launches, want)
     caches = local_tree(plain["caches"], fix_batch_axes(
-        lm.cache_axes_tree(cfg), SHARD_B, mesh), mesh)
+        lm.cache_axes_tree(cfg), B, mesh), mesh)
     same = dict(
-        tokens=torch.equal(sh["tokens"], plain["tokens"][
-            :, rows[0]:rows[0] + rows[1]]),
+        tokens=torch.equal(sh["tokens"], plain["tokens"][:, mine]),
         prefill_logits=torch.equal(sh["first"], first),
         last_logits=torch.equal(sh["last"], last),
         caches=all(torch.equal(a[b][k], c[b][k]) for a, c in zip(
             sh["caches"], caches) for b in a for k in a[b]))
     st = sh["stats"]
+    kinds = {k for seg in lm.segments_for(cfg) for k in seg.pattern}
     if cfg.attn_kind == "mla":
         cache = "latents, sequence on 'model'"
+    elif cfg.attn_kind == "none":
+        cache = "recurrent states"
     else:
         cache = ("KV heads on 'model'" if attention.kv_heads_sharded(cfg)
                  else "sequence on 'model'")
+        if kinds & {"rglru", "mlstm", "slstm"}:
+            cache = f"recurrent states, ring {cache}"
+    n_in = B * (prompt + F + run.get("frames", 0))
     del local
     return dict(
         arch=arch, layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
-        serve_impl=cfg.serve_impl, cache=cache, equal=same,
+        serve_impl=cfg.serve_impl, cache=cache, equal=same, B=B,
+        prompt=prompt, inputs={k: list(v.shape) for k, v in extra.items()},
         launches=launches["tlmac_gemm_fused"], kernel_launches=launches,
         step_ms=_median(sh["step_ms"]), plain_step_ms=_median(
             plain["step_ms"]), steps_ms=sh["step_ms"],
-        plain_steps_ms=plain["step_ms"], peak_gib=peak,
-        plain_peak_gib=plain_peak,
+        plain_steps_ms=plain["step_ms"], prefill_ms=sh["prefill_ms"],
+        plain_prefill_ms=plain["prefill_ms"],
+        prefill_tok_s=n_in / (sh["prefill_ms"] / 1e3),
+        plain_prefill_tok_s=n_in / (plain["prefill_ms"] / 1e3),
+        prefill_warm_ms=warm_ms, plain_prefill_warm_ms=plain_warm_ms,
+        peak_gib=peak, plain_peak_gib=plain_peak,
         collectives={k: [st.count_by_kind[k], st.bytes_by_kind[k]]
                      for k in st.count_by_kind if st.count_by_kind[k]},
         param_collectives=[st.param_count, st.param_bytes])
 
 
-def _shard_gemms(dev, B_a=3) -> dict:
-    """Kernel 1 at one rank's blocks of the 16-way 'model' axis (output
-    tiles n_tiles / 16; FSDP reduction groups gathered, so kg whole), M 4:
-    int32-equal to its plain twin, timed by graph replay over rotated plan
-    copies beside the twin, the bound and the one-hot ``_int_mm``."""
+def _shard_gemms(dev, archs, seed: int, B_a=3) -> dict:
+    """Kernel 1 at one rank's block of the 16-way 'model' axis of every
+    distinct lookup linear of ``archs`` at full width (``_block_linear_
+    shapes`` of each block kind they build), M 4 (a decode step of 4
+    slots).  The block is the one the linear's own plan spec gives
+    (``nn.init_serve_linear``, as the reference's: output tiles n_tiles /
+    16 wherever they divide, for the row-parallel linears too; FSDP
+    reduction groups gathered at use, so kg whole); every shape of these
+    archs cuts its tiles.  Each is int32-equal to its plain twin, timed
+    by graph replay over rotated plan blocks beside the twin, the bound
+    and the one-hot ``_int_mm``."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import tlmac_fused as tf
-    from repro_torch.models import nn
+    from repro_torch.models import lm, nn
+    from repro_torch.parallel.sharding import spec_of
 
-    out = {}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    for arch in SHARD_ARCHS:
+    out, seen = {}, set()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for arch in archs:
         cfg = get_config(arch)
-        d, f, hd = cfg.d_model, cfg.d_ff, cfg.kv_head_dim
+        kinds = {k for seg in lm.segments_for(cfg) for k in seg.pattern}
+        if cfg.n_enc_layers:
+            kinds.add("enc_attn")
         G = cfg.tlmac_G
-        shapes = {"q/o": (d, cfg.n_heads * hd), "k/v": (d, cfg.n_kv * hd),
-                  "wi/wg": (d, f), "ffn wo": (f, d)}
-        for what, (K, N) in shapes.items():
+        for K, N in sorted({ks for k in kinds
+                            for ks in _block_linear_shapes(k, cfg)[0]}):
+            if (K, N, G, cfg.tlmac_dp) in seen:
+                continue
+            seen.add((K, N, G, cfg.tlmac_dp))
             p = nn.init_serve_linear(gen, K, N, cfg, device=dev)
             nt, kg, dp = p["exec_idx"].shape
-            assert nt % SHARD_WAY == 0, (arch, what, nt)
+            spec = spec_of(p["exec_idx"])
+            assert spec[0] == "model", (arch, K, N, spec)
             ntl = nt // SHARD_WAY
-            reps = rotation(ntl * kg * dp * p["exec_idx"].element_size())
+            reps = min(SHARD_WAY, rotation(ntl * kg * dp
+                                           * p["exec_idx"].element_size()))
             plans = [(p["exec_idx"][i * ntl:(i + 1) * ntl].contiguous(),
                       p["step_cluster"][i * ntl:(i + 1) * ntl].contiguous())
                      for i in range(reps)]
@@ -5490,7 +5592,7 @@ def _shard_gemms(dev, B_a=3) -> dict:
             idx, cl = plans[0]
             got = tf.tlmac_gemm_fused(aq, idx, cl, tab, B_a=B_a, G=G)
             want = tf.tlmac_gemm_fused_plain(aq, idx, cl, tab, B_a=B_a, G=G)
-            _equal(f"lookup GEMM {arch} {what} shard", got, want)
+            _equal(f"lookup GEMM {arch} {K}->{N} shard", got, want)
             it = iter(range(1 << 30))
 
             def run_kernel():
@@ -5504,17 +5606,19 @@ def _shard_gemms(dev, B_a=3) -> dict:
                       + cl.numel() + tab.numel() + SHARD_M * ntl * dp * 4)
             b = _gemm_bound(SHARD_M, kg, ntl * dp, G, nbytes)
             lib = _onehot_int_mm(tf, aq, idx, cl, tab, B_a, G)
-            _equal(f"lookup GEMM {arch} {what} shard one-hot _int_mm",
+            _equal(f"lookup GEMM {arch} {K}->{N} shard one-hot _int_mm",
                    lib(), got)
             lib_ms = graph_ms(lib)
-            key = f"{arch} {what} {K}->{N}"
-            out[key] = dict(tiles=f"{ntl} of {nt} (dp {dp})", kg=kg,
-                            ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                            bound_by=_bound_by(b), library_ms=lib_ms)
-            log(f"  kernel 1 {key}, one rank of 16: {ntl} of {nt} tiles "
-                f"(dp {dp}), kg {kg}, M {SHARD_M}: equal int32; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({_bound_by(b)}), one-hot _int_mm "
+            key = f"{arch} {K}->{N}"
+            out[key] = dict(spec=str(spec), tiles=f"{ntl} of {nt} (dp {dp})",
+                            kg=kg, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b["bound_ms"], bound_by=_bound_by(b),
+                            library_ms=lib_ms)
+            log(f"  kernel 1 {key}, one rank of 16 (exec_idx {spec}): {ntl}"
+                f" of {nt} tiles (dp {dp}), kg {kg}, M {SHARD_M}: equal "
+                f"int32; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({_bound_by(b)}, "
+                f"{b['bound_ms'] / ms:.1%} of bound), one-hot _int_mm "
                 f"{lib_ms:.4f} ms")
             del p, plans, lib
     return out
@@ -5556,12 +5660,14 @@ def _gather_rate(mesh, dev) -> dict:
 def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
                   models: dict, kind: str = "dense") -> None:
     """One rank of a sharded serve phase: every model of ``models``
-    (label: ``(arch, layers, config overrides)``) unsharded and sharded
-    under a (1, world) mesh, then (rank 0) the kernel figures of ``kind``:
-    ``'dense'`` the FSDP gather and kernel 1 at the 16-way shard shapes
-    (phase 12), ``'moe'`` kernels 1 and 7 at a 16-way 'model' block's
-    expert stacks (phase 14); rank 0 writes the figures to
-    ``tmp/rank0.json``."""
+    (label: ``(arch, layers, config overrides[, run])``, ``run`` as
+    ``_sharded_model`` takes it) unsharded and sharded under a (1, world)
+    mesh, then (rank 0) the kernel figures of ``kind``: ``'dense'`` the
+    FSDP gather and kernel 1 at the 16-way shard shapes (phase 12),
+    ``'moe'`` kernels 1 and 7 at a 16-way 'model' block's expert stacks
+    (phase 14), ``'families'`` kernel 1 at the recurrent, enc-dec and VLM
+    families' 16-way shard shapes (phase 16); rank 0 writes the figures
+    to ``tmp/rank0.json``."""
     global DEV
     import torch
     import torch.distributed as dist
@@ -5579,10 +5685,11 @@ def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
     try:
         mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
         out = {"world": world, "mesh": [1, world], "models": {}}
-        for label, (arch, layers, over) in models.items():
+        for label, (arch, layers, over, *run) in models.items():
             out["models"][label] = _sharded_model(
                 arch, _cut_config(arch, layers, over), mesh, dev,
-                profile=kind == "dense" and layers is None)
+                profile=kind == "dense" and layers is None,
+                run=run[0] if run else None)
             gc.collect()
             if dev_type == "cuda":
                 torch.cuda.empty_cache()
@@ -5590,7 +5697,9 @@ def _sharded_rank(rank: int, world: int, tmp: str, dev_type: str,
             out["fsdp_gather"] = _gather_rate(mesh, dev)
         if rank == 0 and dev_type == "cuda":
             if kind == "dense":
-                out["shard_gemms"] = _shard_gemms(dev)
+                out["shard_gemms"] = _shard_gemms(dev, SHARD_ARCHS, SEED + 3)
+            elif kind == "families":
+                out["shard_gemms"] = _shard_gemms(dev, SFAM_ARCHS, SEED + 7)
             else:
                 out["expert_blocks"] = _expert_block_gemms(dev)
         if rank == 0:
@@ -5621,7 +5730,7 @@ def _log_sharded(out: dict, gpu: str) -> None:
         depth = ("full depth" if r["layers"] == r["of_layers"] else
                  f"{r['layers']} of {r['of_layers']} layers")
         log(f"  {label} ({depth}, full width, {r['serve_impl']}; caches: "
-            f"{r['cache']}), B {SHARD_B} x {SHARD_PROMPT} + {SHARD_STEPS} "
+            f"{r['cache']}), B {r['B']} x {r['prompt']} + {SHARD_STEPS} "
             f"greedy steps: sharded vs unsharded {r['equal']}; launches "
             f"{r['kernel_launches']} (one a lookup linear or expert stack "
             f"a forward x {1 + SHARD_STEPS} forwards)")
@@ -5634,6 +5743,14 @@ def _log_sharded(out: dict, gpu: str) -> None:
             f"GiB [{gpu}]; collectives a step (kind: count, bytes) "
             f"{r['collectives']}, of them parameter gathers "
             f"{r['param_collectives']}")
+        if "prefill_ms" in r:
+            log(f"    prefill of {r['B']} x {r['prompt']} tokens"
+                f"{' + ' + str(r['inputs']) if r['inputs'] else ''}: "
+                f"sharded {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.1f}"
+                f" tok/s; warm {r['prefill_warm_ms']:.1f} ms), unsharded "
+                f"{r['plain_prefill_ms']:.1f} ms ("
+                f"{r['plain_prefill_tok_s']:.1f} tok/s; warm "
+                f"{r['plain_prefill_warm_ms']:.1f} ms) [{gpu}]")
         assert all(r["equal"].values()), (label, r["equal"])
 
 
@@ -5794,6 +5911,52 @@ def phase_sharded_moe(world: int = 0, models: dict = SMOE_MODELS) -> dict:
     for key, r in out.get("expert_blocks", {}).items():
         log(f"  expert block {key}: {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms [{gpu}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: sharded serving of the recurrent, enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+SFAM_WRAP = 2304     # a prompt past recurrentgemma-2b's 2048-slot ring
+# label: (arch, layers kept, config overrides, run); widths are never cut:
+# recurrentgemma-2b two whole (rglru, rglru, attn_local) patterns, and a
+# B 1 prompt longer than its window so that the ring wraps on the card;
+# xlstm-350m one 7 + 1 pattern; seamless-m4t-medium whole with 512 frames;
+# internvl2-76b 4 of 80 layers with its 256-row front
+SFAM_MODELS = {
+    "recurrentgemma-2b": ("recurrentgemma-2b", 6, {}),
+    "recurrentgemma-2b ring wrap": ("recurrentgemma-2b", 6, {}, dict(
+        B=1, prompt=SFAM_WRAP)),
+    "xlstm-350m": ("xlstm-350m", 8, {}),
+    "seamless-m4t-medium": ("seamless-m4t-medium", None, {}, dict(
+        frames=512)),
+    "internvl2-76b": ("internvl2-76b", 4, {}, dict(front=True)),
+}
+SFAM_PHASE = ("sharded recurrent, enc-dec and VLM serve: recurrent states, "
+              "rings, encoders and a front under a (data, model) mesh")
+SFAM_ARCHS = ("recurrentgemma-2b", "xlstm-350m", "seamless-m4t-medium",
+              "internvl2-76b")
+
+
+def phase_sharded_families(world: int = 0,
+                           models: dict = SFAM_MODELS) -> dict:
+    """Phase 16: the recurrent, enc-dec and VLM families served sharded
+    under a (1, world) mesh (the RG-LRU, mLSTM and sLSTM on each rank's
+    blocks of their states, the ``attn_local`` ring cut on its slots, the
+    encoder and the cross-attention on each rank's heads or positions, a
+    VLM's front projected by its FSDP-gathered weight), one NCCL rank per
+    visible card (world 1 on one card: every collective is issued over
+    its one-rank group); then kernel 1 at the families' 16-way shard
+    shapes.  Returns rank 0's figures."""
+    import torch
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    out = _spawn_sharded(world, models, "families")
+    _log_sharded(out, gpu)
     return out
 
 
@@ -6416,7 +6579,8 @@ def main() -> int:
                                        "serve-families", "train",
                                        "parallel", "sharded",
                                        "sharded-train", "sharded-moe",
-                                       "sharded-train-moe"),
+                                       "sharded-train-moe",
+                                       "sharded-families"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -6440,7 +6604,11 @@ def main() -> int:
                          "and of the widened MoE smoke under a (1, cards) "
                          "mesh with int8 moments and compression, the "
                          "trained wq_a and expert wi on kernel 1, one JSON "
-                         "line)")
+                         "line); sharded-families (kernel 1 built: "
+                         "recurrentgemma-2b, xlstm-350m, seamless-m4t-medium "
+                         "and internvl2-76b with its front served under a "
+                         "(1, cards) mesh, kernel 1 at their 16-way shard "
+                         "shapes, one JSON line)")
     args = ap.parse_args()
 
     import torch
@@ -6463,6 +6631,7 @@ def main() -> int:
                "train": TRAIN_SOURCES, "sharded": SOURCES[:1],
                "sharded-train": SOURCES[:1],
                "sharded-train-moe": SOURCES[:1],
+               "sharded-families": SOURCES[:1],
                "sharded-moe": (SOURCES[0], SOURCES[-1])}.get(
         args.only, SOURCES)
     logs = _build.build(sources)
@@ -6489,6 +6658,10 @@ def main() -> int:
         phase("sharded MoE and MLA train: experts over 'model', int8 "
               "moments and compression under a (data, model) mesh")
         log(json.dumps({"sharded_train_moe": phase_sharded_train_moe()}))
+        return 0
+    if args.only == "sharded-families":
+        phase(SFAM_PHASE)
+        log(json.dumps({"sharded_families": phase_sharded_families()}))
         return 0
     if args.only == "train":
         train, _ = phase_train()
@@ -6625,6 +6798,14 @@ def main() -> int:
             label: dict(shape=t["shape"], **{f"M{M}": row for M, row in
                                               t["rows"].items()})
             for label, t in smt["trained"].items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(SFAM_PHASE)
+        sfam = phase_sharded_families()
+        gemm["launches_by_path"].update(
+            {f"sharded {a}": r["launches"]
+             for a, r in sfam["models"].items()})
+        gemm["family_shard_shapes"] = sfam["shard_gemms"]
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

@@ -400,34 +400,60 @@ def _store_positions(cache, new, start: int) -> None:
         cache[:, a - lo:b - lo] = new[:, a - start:b - start].to(cache.dtype)
 
 
-def tp_gqa_prefill(params, x, cfg, cache=None):
+def _tp_heads(qkv, cfg):
+    """``qkv`` (``_tp_qkv``'s three ``(tensor, split)``) as this rank's
+    query heads (all of them where the heads do not divide over 'model')
+    and its K/V heads (its block where they shard, ``kv_heads_sharded``,
+    else all of them): ``(q, k, v, local)``."""
+    (q, qs), (k, ks), (v, vs) = qkv
+    H, KV = cfg.n_heads, cfg.n_kv
+    on_heads = kv_heads_sharded(cfg)    # KV % 16 == 0: H divides too
+    local = H % coll.size("model") == 0
+    return (_heads(q, qs, H, cfg, local), _heads(k, ks, KV, cfg, on_heads),
+            _heads(v, vs, KV, cfg, on_heads), local)
+
+
+def _read_groups(k, v, cfg, local: bool):
+    """The K/V groups this rank's query heads read."""
+    if local and not kv_heads_sharded(cfg):
+        return _local_groups(k, cfg), _local_groups(v, cfg)
+    return k, v
+
+
+def tp_gqa_prefill(params, x, cfg, cache=None, window: Optional[int] = None,
+                   bidir: bool = False):
     """``gqa_train`` as the dense prefill under the mesh: the causal
     attention of this rank's block of query heads (every head where the
     heads do not divide over 'model'), the K/V of this rank's cache block
     stored in place (``cache`` ``{'k', 'v'}``: its KV heads, or its
-    positions of every head), then ``wo``.  Returns ``(y, split)``."""
+    positions of every head), then ``wo``.  Returns ``(y, split)``.
+
+    ``window`` (``attn_local``): the windowed causal attention, and the
+    cache is the ring of the last ``W`` keys at indices ``0..`` (zeros
+    after them when ``S < W``; ``lm._store_prefill``'s), this rank's slots
+    of it.  ``bidir`` (``enc_attn``, the encoder's ``lm._bidir_attn``):
+    every key visible through the direct masked softmax, no cache."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
-    m = coll.size("model")
-    (q, qs), (k, ks), (v, vs) = _tp_qkv(params, x, cfg)
-    local = H % m == 0
-    on_heads = kv_heads_sharded(cfg)
-    q = _heads(q, qs, H, cfg, local)
-    if on_heads:        # KV % 16 == 0: this rank's KV heads
-        k, v = _heads(k, ks, KV, cfg, True), _heads(v, vs, KV, cfg, True)
-    else:
-        k, v = _heads(k, ks, KV, cfg, False), _heads(v, vs, KV, cfg, False)
+    q, k, v, local = _tp_heads(_tp_qkv(params, x, cfg), cfg)
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _rope_rt(q, k, v, positions, cfg, cache is not None)
-    kl, vl = k, v       # KV % 16 == 0 makes H divide over 'model' too
-    if local and not on_heads:
-        kl, vl = _local_groups(k, cfg), _local_groups(v, cfg)
-    out = sdpa(q, kl, vl, cfg, causal=True)
+    kl, vl = _read_groups(k, v, cfg, local)
+    if bidir:
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, kl, vl, mask, cfg).reshape(B, S, -1)
+    else:
+        out = sdpa(q, kl, vl, cfg, causal=True, window=window)
     if cache is not None:
         kc, vc = cache["k"], cache["v"]
+        on_heads = kv_heads_sharded(cfg)
+        if window is not None:      # the ring: the last W keys from 0
+            W = kc.shape[1] * (1 if on_heads else coll.size("model"))
+            k, v = k[:, -W:], v[:, -W:]
+            kc.zero_()
+            vc.zero_()
         if on_heads:
-            kc[:, :S] = k.to(kc.dtype)
-            vc[:, :S] = v.to(vc.dtype)
+            kc[:, :k.shape[1]] = k.to(kc.dtype)
+            vc[:, :v.shape[1]] = v.to(vc.dtype)
         else:           # this rank's positions of every head
             _store_positions(kc, k, 0)
             _store_positions(vc, v, 0)
@@ -469,20 +495,23 @@ def tp_gqa_train(params, x, cfg):
     return lin(params["wo"], sdpa(q, k, v, cfg, causal=True), cfg)
 
 
-def _sdpa_seq_sharded(q, kc, vc, start: int, pos: int):
+def _sdpa_seq_sharded(q, kc, vc, start: int, pos: Optional[int]):
     """One query row against this rank's block of cache positions
     ``[start, start + S_l)``, the softmax distributed over 'model' as the
     reference's partitioned graph runs it (read in its compiled HLO): the
     local max, its max over 'model'; ``exp``; the local sum, its sum over
     'model'; the weights ``exp / sum``; the local weighted V, its sum over
-    'model'; all in f32.  q ``[B, 1, H, hd]`` -> ``[B, 1, H, hd]``."""
+    'model'; all in f32.  q ``[B, 1, H, hd]`` -> ``[B, 1, H, hd]``.
+    Positions past ``pos`` are masked (None: every position is read, a
+    cross-attention's encoder positions)."""
     B, Sq, H, hd = q.shape
     KV = kc.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), kc.float()) * (
         1.0 / math.sqrt(hd))
-    j = start + torch.arange(kc.shape[1], device=q.device)
-    s = torch.where(j <= pos, s, torch.full_like(s, NEG_INF))
+    if pos is not None:
+        j = start + torch.arange(kc.shape[1], device=q.device)
+        s = torch.where(j <= pos, s, torch.full_like(s, NEG_INF))
     mx = coll.all_reduce(s.amax(dim=-1), "model", "max")
     e = torch.exp(s - mx[..., None])
     den = coll.all_reduce(e.sum(dim=-1), "model")
@@ -492,35 +521,82 @@ def _sdpa_seq_sharded(q, kc, vc, start: int, pos: int):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, -1).to(q.dtype)
 
 
-def tp_gqa_decode(params, x, cfg, cache, pos: int):
+def tp_gqa_decode(params, x, cfg, cache, pos: int, slot: Optional[int] = None):
     """``gqa_decode`` under the mesh: the step's K/V written in place into
     the rank that holds them (its KV heads, or the rank whose cache block
     holds position ``pos``), then the attention: this rank's heads over
     its heads' cache, or every head over the sequence-sharded cache (the
     softmax over 'model', ``_sdpa_seq_sharded``); then ``wo``.  Returns
-    ``(y, split)``."""
+    ``(y, split)``.  ``slot`` (an ``attn_local`` ring, ``lm._local_decode``):
+    the K/V go to that index instead, and every index ``<= pos`` is read."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
     (q, qs), (k, ks), (v, vs) = _tp_qkv(params, x, cfg)
     kc, vc = cache
+    at = pos if slot is None else slot
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    if kv_heads_sharded(cfg):
-        q = _heads(q, qs, H, cfg, True)
-        k, v = _heads(k, ks, KV, cfg, True), _heads(v, vs, KV, cfg, True)
-        q, k, v = _rope_rt(q, k, v, positions, cfg, True)
-        kc[:, pos:pos + 1] = k.to(kc.dtype)
-        vc[:, pos:pos + 1] = v.to(vc.dtype)
+    on_heads = kv_heads_sharded(cfg)
+    q = _heads(q, qs, H, cfg, on_heads)
+    k, v = _heads(k, ks, KV, cfg, on_heads), _heads(v, vs, KV, cfg, on_heads)
+    q, k, v = _rope_rt(q, k, v, positions, cfg, True)
+    if on_heads:
+        kc[:, at:at + 1] = k.to(kc.dtype)
+        vc[:, at:at + 1] = v.to(vc.dtype)
         j = torch.arange(kc.shape[1], device=x.device)[None, :]
         out = _sdpa(q, kc, vc, j <= pos, cfg)
         return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, -1), cfg,
                                   split=True)
-    q = _heads(q, qs, H, cfg, False)
-    k, v = _heads(k, ks, KV, cfg, False), _heads(v, vs, KV, cfg, False)
-    q, k, v = _rope_rt(q, k, v, positions, cfg, True)
-    _store_positions(kc, k, pos)
-    _store_positions(vc, v, pos)
+    _store_positions(kc, k, at)
+    _store_positions(vc, v, at)
     out = _sdpa_seq_sharded(q, kc, vc, coll.index("model") * kc.shape[1],
                             pos)
+    return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, H * hd), cfg)
+
+
+def tp_cross_prefill(params, x, enc_out, cfg, cache=None):
+    """``gqa_train`` with ``cross_kv`` (a ``dec_cross`` block's prefill)
+    under the mesh: the cross K/V of the encoder's output (``lm._cross_kv``,
+    column-parallel ``wk``/``wv``) on this rank's KV heads or all of them,
+    stored in place as this rank's block of ``xk``/``xv`` (its KV heads, or
+    its encoder positions of every head); the unmasked attention of this
+    rank's query heads; then ``wo``.  The block's own ``wk``/``wv`` of
+    ``x``, whose output the reference drops, are not run (its compiled
+    graph has none).  Returns ``(y, split)``."""
+    qkv = [nn.tp_linear_apply(params[n], t, cfg, use_bias=cfg.qkv_bias)
+           for n, t in (("wq", x), ("wk", enc_out), ("wv", enc_out))]
+    q, k, v, local = _tp_heads(qkv, cfg)
+    kl, vl = _read_groups(k, v, cfg, local)
+    out = sdpa(q, kl, vl, cfg, causal=False)
+    if cache is not None:
+        for name, t in (("xk", k), ("xv", v)):
+            if kv_heads_sharded(cfg):
+                cache[name].copy_(t)
+            else:
+                _store_positions(cache[name], t, 0)
+    return nn.tp_linear_apply(params["wo"], out, cfg, split=local)
+
+
+def tp_cross_decode(params, x, cfg, cache):
+    """``gqa_decode`` with ``cross_kv`` under the mesh: this rank's query
+    heads over its KV heads' ``xk``/``xv`` (every encoder position), or
+    every head over its block of encoder positions (the softmax over
+    'model', ``_sdpa_seq_sharded``); then ``wo``.  The step's ``wk``/``wv``
+    are not run (dropped in the reference's compiled graph).  Returns
+    ``(y, split)``."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.kv_head_dim
+    xk, xv = cache
+    q, qs = nn.tp_linear_apply(params["wq"], x, cfg, use_bias=cfg.qkv_bias)
+    if kv_heads_sharded(cfg):
+        q = _heads(q, qs, H, cfg, True)
+        mask = torch.ones((1, xk.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, xk, xv, mask, cfg)
+        return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, -1), cfg,
+                                  split=True)
+    q = _heads(q, qs, H, cfg, False)
+    out = _sdpa_seq_sharded(q, xk, xv, coll.index("model") * xk.shape[1],
+                            None)
     return nn.tp_linear_apply(params["wo"], out.reshape(B, 1, H * hd), cfg)
 
 

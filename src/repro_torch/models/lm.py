@@ -43,8 +43,11 @@ loop over layers replaces the scans.  Differences from JAX, on purpose:
   the ``[1, C]`` chunk serves every chunk of every prompt, as one jit
   trace does in JAX; ``verify_step_paged`` takes ``positions`` and
   ``n_writes`` as device tensors for the same reason;
-- ``prefill`` takes the token tensor (and an enc-dec model's frames), not
-  a batch dict: the serve loops never pass a frontend's embeddings;
+- ``prefill`` takes the token tensor and, as keywords, an enc-dec
+  model's ``frames`` and a VLM's ``front`` (the reference's batch dict
+  entries), not a batch dict; its ``S_max`` defaults to the front's rows
+  and the tokens, where the reference's is the tokens alone (a cache its
+  store of the front's rows overflows);
 - the ``jax.named_scope`` labels of the forwards are
   ``torch.profiler.record_function`` ranges (host ranges: inside a
   captured graph they are recorded at capture, not at replay).
@@ -54,24 +57,29 @@ that makes it (``param_axes`` reads them; ``cache_axes_tree`` gives the
 caches'), and the reference's eight ``shard_hint`` sites are kept.
 
 Sharded serving: under ``launch.mesh.mesh_context(mesh)`` the dense-cache
-forwards ``prefill`` and ``decode_step`` of a GQA or MLA decoder and of a
-MoE model (``attn`` and ``attn_moe`` blocks: the dense GQA decoders,
-deepseek-v3, kimi-k2, a MoE model with GQA attention) run on this rank's
-blocks, as the reference's ``jax.jit`` runs them under the shardings of
-its specs: params from ``convert.params_from_jax(..., mesh=, cfg=)`` or
-``parallel.sharding.local_tree(tree, param_axes(cfg), mesh)``, this
-rank's rows of the batch (``sharding.batch_entry``), caches made by
-``init_caches(..., mesh=)`` (or by ``prefill``).  The linears are tensor
-parallel over 'model' (``nn.tp_linear_apply``), the attention runs on
-this rank's heads or its cache positions (``attention.tp_gqa_prefill``,
-``tp_gqa_decode``; MLA's ``tp_mla_prefill``, ``tp_mla_decode`` on its
-heads and its positions of the latent cache), a MoE FFN is expert
-parallel (each rank's block of experts, one launch a stack, the combine
-summed over 'model'; ``moe.moe_apply``), the embedding and the logits are
-vocab-parallel and ``greedy`` is their argmax over 'model'; every
-collective goes through ``parallel.collectives``.  The residual stream is
-whole on every rank of 'model'.  The returned logits are this rank's
-block of the padded vocab.
+forwards ``prefill`` and ``decode_step`` of every family run on this
+rank's blocks, as the reference's ``jax.jit`` runs them under the
+shardings of its specs: params from ``convert.params_from_jax(..., mesh=,
+cfg=)`` or ``parallel.sharding.local_tree(tree, param_axes(cfg), mesh)``,
+this rank's rows of the batch (``sharding.batch_entry``; with them its
+rows of ``frames`` or ``front``), caches made by ``init_caches(...,
+mesh=)`` (or by ``prefill``).  The linears are tensor parallel over
+'model' (``nn.tp_linear_apply``); the attention runs on this rank's heads
+or its cache positions (``attention.tp_gqa_prefill``, ``tp_gqa_decode``;
+an ``attn_local`` ring on its slots; the encoder's bidirectional
+attention and the cross-attention, ``tp_cross_prefill``,
+``tp_cross_decode``, on its heads or encoder positions; MLA's
+``tp_mla_prefill``, ``tp_mla_decode`` on its heads and its positions of
+the latent cache); the recurrent blocks on this rank's blocks of their
+states (``rglru.tp_rglru_block_apply``, ``xlstm.tp_mlstm_apply``,
+``tp_slstm_apply``); a MoE FFN is expert parallel (each rank's block of
+experts, one launch a stack, the combine summed over 'model';
+``moe.moe_apply``); a VLM's front is the train-path linear, its FSDP
+weight gathered at use; the embedding and the logits are vocab-parallel
+and ``greedy`` is their argmax over 'model'; every collective goes
+through ``parallel.collectives``.  The residual stream is whole on every
+rank of 'model'.  The returned logits are this rank's block of the padded
+vocab.
 
 Sharded training: under the mesh the train ``forward`` of those decoders
 (the dense GQA decoders, deepseek-v3, kimi-k2, a MoE model with GQA
@@ -83,8 +91,8 @@ with its specs' shardings runs it: tensor and sequence parallel over
 its aux loss over the global batch (``moe.moe_apply``), the embedding,
 logits and loss vocab-parallel, FSDP weights gathered at use; or under
 ``pure_fsdp`` the plain blocks on the rows, every weight gathered at use.
-The paged forwards, the recurrent and enc-dec block kinds and a VLM's
-front raise under a mesh of more than one device.
+The paged forwards, and the train forward of the recurrent and enc-dec
+block kinds and of a VLM's front, raise under a mesh.
 """
 
 from __future__ import annotations
@@ -279,7 +287,7 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
     if current_mesh() is not None:
         if apply_fn is nn.serve_linear_apply:
             return _tp_block(kind, params, x, cfg, apply_fn, cache, pos,
-                             decode, paged_ctx)
+                             decode, paged_ctx, enc_out)
         check_sharded_train(cfg, kind)
         if not cfg.pure_fsdp:
             return _tp_train_block(kind, params, x, cfg, x32)
@@ -367,40 +375,90 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
 
 
 def _tp_block(kind: str, params, x, cfg, apply_fn, cache, pos, decode,
-              paged_ctx):
-    """``apply_block`` under the active mesh, on this rank's blocks: the
-    dense-cache serve block of a GQA or MLA decoder (``attn``) or of a MoE
-    model (``attn_moe``), its linears tensor-parallel over 'model'
-    (``nn.tp_linear_apply``), its attention on this rank's heads or cache
-    positions (``attention.tp_gqa_prefill``/``tp_gqa_decode``,
-    ``tp_mla_prefill``/``tp_mla_decode``), a MoE FFN expert-parallel over
-    'model' (``moe.moe_apply``), the residual stream whole on every rank of
-    'model' and this rank's rows of the batch.  The other block kinds and
-    the paged forwards do not run sharded yet (the train forward is
-    ``_tp_train_block``'s)."""
-    if paged_ctx is not None or kind not in ("attn", "attn_moe"):
+              paged_ctx, enc_out=None):
+    """``apply_block`` of a dense-cache serve forward under the active
+    mesh, on this rank's blocks, the residual stream whole on every rank
+    of 'model' and this rank's rows of the batch.  Its linears are tensor
+    parallel over 'model' (``nn.tp_linear_apply``) and, by kind:
+
+    - ``attn``/``attn_moe``: the attention on this rank's heads or cache
+      positions (``attention.tp_gqa_prefill``/``tp_gqa_decode``,
+      ``tp_mla_prefill``/``tp_mla_decode``), a MoE FFN expert-parallel
+      (``moe.moe_apply``);
+    - ``attn_local``: the same on the ring of the last ``W`` keys, cut on
+      its slots where the KV heads do not divide 'model'
+      (``lm._local_decode``'s slot ``pos % W``);
+    - ``enc_attn``: the encoder's bidirectional attention on this rank's
+      heads, no cache;
+    - ``dec_cross``: the self-attention as ``attn``, then the
+      cross-attention over the encoder's K/V (``attention.tp_cross_prefill``
+      makes and stores them, ``tp_cross_decode`` reads them);
+    - ``rglru``, ``mlstm``, ``slstm``: the recurrent blocks on this rank's
+      blocks of their states (``rglru.tp_rglru_block_apply``,
+      ``xlstm.tp_mlstm_apply``, ``tp_slstm_apply``).
+
+    The paged forwards do not run sharded (the reference's paged loop
+    runs unsharded; the train forward is ``_tp_train_block``'s)."""
+    if paged_ctx is not None:
         raise NotImplementedError(
-            f"block {kind!r} (attn_kind {cfg.attn_kind!r}, "
-            f"{'paged' if paged_ctx is not None else 'dense'}) under a "
-            "mesh: only the dense-cache serve forwards of the GQA, MLA and "
-            "MoE decoders run sharded; the recurrent and enc-dec families "
-            "and the paged loop are ROADMAP queue 1's later items")
+            f"block {kind!r} (attn_kind {cfg.attn_kind!r}) of a paged "
+            "forward under a mesh: the paged forwards do not run sharded "
+            "(the reference's PagedServeLoop runs them unsharded); the "
+            "dense-cache forwards lm.prefill and lm.decode_step do")
     h = nn.rmsnorm_apply(params["norm1"], x)
+    if kind in ("mlstm", "slstm"):
+        fn = xlstm.tp_mlstm_apply if kind == "mlstm" else xlstm.tp_slstm_apply
+        y, state = fn(params["cell"], h, cfg, cache)
+        _write_state(cache, state)
+        return x + y, cache, 0.0, None
+    if kind == "rglru":
+        y, state = rglru.tp_rglru_block_apply(params["cell"], h, cfg, cache)
+        _write_state(cache, state)
+        x, s = _residual(x, y)
+        hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
+        y = _tp_ffn(params["ffn"], hf, cfg)
+        return x + y, cache, 0.0, (x, y)
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"block kind {kind!r}")
     mla = cfg.attn_kind == "mla"
-    if decode:
+    window = cfg.local_window if kind == "attn_local" else None
+    if kind == "enc_attn":
+        y, split = attn.tp_gqa_prefill(params["attn"], h, cfg, bidir=True)
+    elif decode:
         fn = attn.tp_mla_decode if mla else attn.tp_gqa_decode
         kv = (cache["ckv"], cache["kr"]) if mla else (cache["k"], cache["v"])
-        y, split = fn(params["attn"], h, cfg, kv, pos)
+        if kind == "attn_local":
+            W = cache["k"].shape[1] * _ring_shards(cfg)
+            y, split = fn(params["attn"], h, cfg, kv, pos, slot=pos % W)
+        else:
+            y, split = fn(params["attn"], h, cfg, kv, pos)
+    elif mla:
+        y, split = attn.tp_mla_prefill(params["attn"], h, cfg, cache)
     else:
-        fn = attn.tp_mla_prefill if mla else attn.tp_gqa_prefill
-        y, split = fn(params["attn"], h, cfg, cache)
+        y, split = attn.tp_gqa_prefill(params["attn"], h, cfg, cache,
+                                       window=window)
     x, s = _residual(x, nn.gather_cols(y, split))
+    if kind == "dec_cross":
+        h2 = nn.rmsnorm_apply(params["norm3"], s, dtype=x.dtype)
+        if decode:
+            y2, split = attn.tp_cross_decode(params["xattn"], h2, cfg,
+                                             (cache["xk"], cache["xv"]))
+        else:
+            y2, split = attn.tp_cross_prefill(params["xattn"], h2, enc_out,
+                                              cfg, cache)
+        x, s = _residual(x, nn.gather_cols(y2, split))
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
     if kind == "attn_moe":
         y, _ = moe.moe_apply(params["moe"], hf, cfg)
     else:
         y = _tp_ffn(params["ffn"], hf, cfg)
     return x + y, cache, 0.0, (x, y)
+
+
+def _ring_shards(cfg) -> int:
+    """Over how many ranks an ``attn_local`` ring's slots are cut: 'model'
+    where the KV heads do not divide it (``cache_axes``), else none."""
+    return 1 if attn.kv_heads_sharded(cfg) else coll.size("model")
 
 
 def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
@@ -416,8 +474,9 @@ def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
             f"the train forward of {cfg.name!r} (blocks {sorted(kinds)}, "
             f"attn_kind {cfg.attn_kind!r}, frontend {cfg.frontend!r}) does "
             "not run sharded: the GQA, MLA and MoE decoders train under a "
-            "mesh; the recurrent and enc-dec families and a VLM's front are "
-            "ROADMAP queue 1's later items")
+            "mesh; the recurrent and enc-dec families and a VLM's front "
+            "serve sharded, and their train step under the mesh is the "
+            "next slice (ROADMAP queue 1)")
     if "attn_moe" in kinds and cfg.pure_fsdp:
         raise NotImplementedError(
             f"the MoE FFN of {cfg.name!r} under pure_fsdp: experts are "
@@ -718,9 +777,11 @@ def init_caches(cfg, paged: Optional[paged_kernels.PageSpec] = None,
     if mesh is not None:
         if paged is not None:
             raise NotImplementedError("paged pools under a mesh: the paged "
-                                      "forwards do not run sharded yet")
+                                      "forwards do not run sharded (the "
+                                      "reference's paged loop runs them "
+                                      "unsharded)")
         rows = block_range(B, batch_entry(B, mesh), mesh)[1]
-        return _local_caches(cfg, rows, S_max, device, mesh)
+        return _local_caches(cfg, rows, S_max, device, mesh, enc_len)
     if paged is None:
         return [{f"b{bi}": zero_cache(kind, cfg, B, S_max, seg.n, device,
                                       enc_len)
@@ -781,20 +842,34 @@ def cache_axes(kind: str, cfg, paged=None):
     raise ValueError(f"block kind {kind!r} has no cache")
 
 
-def _local_caches(cfg, rows: int, S_max: int, device, mesh):
+def _local_caches(cfg, rows: int, S_max: int, device, mesh,
+                  enc_len: int = 0):
     """Zeroed dense caches of ``rows`` batch rows (this rank's already),
-    every other dim cut to this rank's block of ``cache_axes_tree``."""
-    shapes = init_caches(cfg, device="meta", B=rows, S_max=S_max)
+    every other dim cut to this rank's block of ``cache_axes_tree`` (a
+    ``dec_cross`` block's ``xk``/``xv`` of ``enc_len`` positions); a
+    recurrent block's state takes its zero state's values (``n`` of an
+    sLSTM and ``m`` of an mLSTM are not zeros)."""
+    shapes = init_caches(cfg, device="meta", B=rows, S_max=S_max,
+                         enc_len=enc_len)
 
-    def local(meta, spec):
+    def local(meta, spec, fill):
         shape = [n if d == 1 else block_range(n, e, mesh)[1]
                  for d, (n, e) in enumerate(zip(meta.shape, (*spec, *(
                      None,) * (meta.dim() - len(spec)))))]
-        return torch.zeros(shape, dtype=meta.dtype, device=device)
+        return torch.full(shape, fill, dtype=meta.dtype, device=device)
 
     specs = cache_axes_tree(cfg)
-    return [{b: {k: local(leaf, specs[si][b][k]) for k, leaf in blk.items()}
-             for b, blk in seg.items()} for si, seg in enumerate(shapes)]
+    out = []
+    for si, (seg, blocks) in enumerate(zip(segments_for(cfg), shapes)):
+        out.append({})
+        for bi, kind in enumerate(seg.pattern):
+            b = f"b{bi}"
+            # every zero state is one value a leaf
+            fills = {k: v.reshape(-1)[0].item() for k, v in zero_cache(
+                kind, cfg, 1, 1, device="cpu", enc_len=1).items()}
+            out[si][b] = {k: local(leaf, specs[si][b][k], fills[k])
+                          for k, leaf in blocks[b].items()}
+    return out
 
 
 def cache_axes_tree(cfg, paged=None):
@@ -1028,14 +1103,19 @@ def encode(params, frames, cfg):
 
 
 @torch.no_grad()
-def prefill(params, tokens, cfg, S_max: Optional[int] = None, frames=None):
+def prefill(params, tokens, cfg, S_max: Optional[int] = None, frames=None,
+            front=None):
     """Dense-cache prefill of the oracle loop: tokens ``[B, S]`` from
     position 0 (left-padded by the loop).  Returns ``(logits [B,
-    vocab], caches)``, fresh dense caches of ``S_max`` (default ``S``)
-    positions holding the prompt's K/V (a recurrent block's final
-    state).  An enc-dec config needs ``frames [B, Se, d_front]``: they
-    are encoded first and each ``dec_cross`` block caches their
-    cross-attention K/V."""
+    vocab], caches)``, fresh dense caches of ``S_max`` positions holding
+    the prompt's K/V (a recurrent block's final state).  An enc-dec
+    config needs ``frames [B, Se, d_front]``: they are encoded first and
+    each ``dec_cross`` block caches their cross-attention K/V.  A VLM's
+    ``front [B, F, d_front]`` (the reference's ``batch['front']``) is
+    projected by the frontend's train-path linear, as the reference
+    projects it when serving too, and its ``F`` rows go before the token
+    embeddings: the cache holds ``F + S`` positions (``S_max`` defaults to
+    that) and decoding goes on at position ``F + S``."""
     with torch.profiler.record_function("repro_torch.lm.prefill"):
         B, S = tokens.shape
         dev = params.embed.emb.device
@@ -1045,14 +1125,21 @@ def prefill(params, tokens, cfg, S_max: Optional[int] = None, frames=None):
                 raise KeyError("frames: an encoder-decoder config needs "
                                "frames [B, Se, d_front] to prefill")
             enc_out = encode(params, frames, cfg)
+        x = nn.embed_apply(params.embed.tree(), tokens)
+        if front is not None:
+            if cfg.frontend == "none" or cfg.n_enc_layers:
+                raise ValueError(f"front: {cfg.name!r} has no VLM frontend "
+                                 f"(frontend {cfg.frontend!r})")
+            fx = nn.linear_apply(params.front.tree(), front, cfg)
+            x = torch.cat([fx.to(x.dtype), x], dim=1)
+        S_max = S_max or x.shape[1]
+        enc_len = 0 if enc_out is None else enc_out.shape[1]
         mesh = current_mesh()
         if mesh is not None:
-            caches = _local_caches(cfg, B, S_max or S, dev, mesh)
+            caches = _local_caches(cfg, B, S_max, dev, mesh, enc_len)
         else:
-            caches = init_caches(cfg, device=dev, B=B, S_max=S_max or S,
-                                 enc_len=0 if enc_out is None
-                                 else enc_out.shape[1])
-        x = nn.embed_apply(params.embed.tree(), tokens)
+            caches = init_caches(cfg, device=dev, B=B, S_max=S_max,
+                                 enc_len=enc_len)
         x = _run_layers(params, caches, x, cfg, decode=False,
                         enc_out=enc_out)
         logits = _logits(params, x[:, -1:], cfg)

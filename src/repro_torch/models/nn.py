@@ -817,6 +817,13 @@ def gather_cols(t, split: bool):
     return coll.all_gather(t, "model", dim=-1) if split else t
 
 
+def own_cols(t, split: bool):
+    """This rank's block of 'model' columns of an activation that may be
+    whole (a column-parallel linear's output, cut where its tiles were
+    not)."""
+    return t if split else _cut_cols(t, t.shape[-1] // coll.size("model"))
+
+
 # ---------------------------------------------------------------------------
 # Norms / embeddings / rotary
 # ---------------------------------------------------------------------------

@@ -23,8 +23,9 @@ import torch
 
 from repro_torch.core.quant.quantizers import _softplus
 from repro_torch.models import nn
-from repro_torch.parallel.sharding import P, with_spec
 from repro_torch.models.xlstm import _conv_step, _winit
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import P, with_spec
 
 _C = 8.0
 
@@ -65,11 +66,14 @@ def rglru_zero_state(B, lru, conv_width=4, device="cuda",
                                 dtype=dtype, device=device)}
 
 
-def _gates(params, u):
-    """u ``[B, S, lru]`` (after the conv) -> ``(log_a, bx)`` in f32."""
+def _gates(params, u, reduce=None):
+    """u ``[B, S, lru]`` (after the conv) -> ``(log_a, bx)`` in f32.
+    ``reduce``: applied to each gate's product first (under the mesh the
+    sum of its partials over 'model', this rank's channels of it)."""
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ params["wr"]["w"])
-    i = torch.sigmoid(uf @ params["wi"]["w"])
+    mm = (lambda w: uf @ w) if reduce is None else (lambda w: reduce(uf @ w))
+    r = torch.sigmoid(mm(params["wr"]["w"]))
+    i = torch.sigmoid(mm(params["wi"]["w"]))
     log_a = -_C * _softplus(params["lam"]["l"]) * r
     a2 = torch.exp(2.0 * log_a)
     # jnp.maximum (a tie splits the gradient), not torch.clamp
@@ -118,18 +122,14 @@ def associative_scan(fn, elems, dim: int):
     return tuple(out)
 
 
-def rglru_block_apply(params, x, cfg, state=None,
-                      apply_fn=nn.serve_linear_apply):
-    """x ``[B, S, d]`` -> ``(y, state)``; S == 1 is a decode step."""
-    B, S, d = x.shape
-    u_in = apply_fn(params["win"], x, cfg).to(torch.float32)
-    if state is None:
-        state = rglru_zero_state(B, u_in.shape[-1], cfg.conv_width,
-                                 device=x.device)
+def _recur(params, u_in, state, cfg, reduce=None):
+    """The conv and the RG-LRU over ``u_in [B, S, lru]`` (f32) from
+    ``state``: ``(hs [B, S, lru], new state)``."""
+    S = u_in.shape[1]
     h0 = state["h"]
     u, new_conv = _conv_step(state["conv"], u_in, params["conv"]["w"], S,
                              cfg.conv_width)
-    log_a, bx = _gates(params, u)
+    log_a, bx = _gates(params, u, reduce)
     if S == 1:
         h = torch.exp(log_a[:, 0]) * h0 + bx[:, 0]
         hs = h[:, None, :]
@@ -139,8 +139,40 @@ def rglru_block_apply(params, x, cfg, state=None,
                         bx[:, 1:]], dim=1)
         _, hs = associative_scan(_comb, (log_a, bx), dim=1)
         h = hs[:, -1]
+    return hs, {"h": h, "conv": new_conv}
+
+
+def rglru_block_apply(params, x, cfg, state=None,
+                      apply_fn=nn.serve_linear_apply):
+    """x ``[B, S, d]`` -> ``(y, state)``; S == 1 is a decode step."""
+    B, S, d = x.shape
+    u_in = apply_fn(params["win"], x, cfg).to(torch.float32)
+    if state is None:
+        state = rglru_zero_state(B, u_in.shape[-1], cfg.conv_width,
+                                 device=x.device)
+    hs, state = _recur(params, u_in, state, cfg)
     g = nn.silu(apply_fn(params["wgate"], x, cfg))
     # the gated product reaches wout's quantiser in f32, unrounded, as XLA
     # fuses it (models.lm.ffn_apply)
     y = apply_fn(params["wout"], hs.to(x.dtype).float() * g, cfg)
-    return y, {"h": h, "conv": new_conv}
+    return y, state
+
+
+def tp_rglru_block_apply(params, x, cfg, state):
+    """``rglru_block_apply`` of a serve forward under the mesh, on this
+    rank's block of the lru channels: ``win``/``wgate`` column-parallel
+    (``nn.tp_linear_apply``), the conv, ``lam``, the recurrence and the
+    state ``h``/``conv`` (``state``, this rank's blocks) on its channels.
+    ``wr``/``wi`` are cut on their input dim (P('model', None)), so each
+    gate's f32 product is a partial sum over 'model': all-reduced whole,
+    then this rank's channels kept, as the reference's compiled graph
+    all-reduces both gates' f32 partials.  ``wout`` is row-parallel.
+    Returns ``(y whole, state)``."""
+    u_in = nn.own_cols(*nn.tp_linear_apply(params["win"], x, cfg))
+    hs, state = _recur(params, u_in.to(torch.float32), state, cfg,
+                       lambda p: coll.split(coll.all_reduce(p, "model"),
+                                            "model"))
+    g = nn.silu(nn.own_cols(*nn.tp_linear_apply(params["wgate"], x, cfg)))
+    y, split = nn.tp_linear_apply(params["wout"], hs.to(x.dtype).float() * g,
+                                  cfg, split=True)
+    return nn.gather_cols(y, split), state

@@ -29,6 +29,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.quant.quantizers import _softplus
 from repro_torch.models import nn
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import P, with_spec
 
 
@@ -135,6 +136,10 @@ def mlstm_zero_state(B, H, hd, conv_width=4, device="cuda",
 
 
 def _mlstm_cell(state, qkvif):
+    """One mLSTM step.  ``C [B, H, i, j]`` takes ``v`` on its rows ``i``
+    and ``k`` on its columns ``j``: under the mesh ``v`` and ``C`` are
+    this rank's rows, ``q``, ``k``, ``n`` and ``m`` whole, so every sum
+    (``C q`` over ``j``, ``n . q``) is whole on the rank."""
     q, k, v, it, ft = qkvif           # q/k/v [B, H, hd]; it/ft [B, H]
     C, n, m = state["C"], state["n"], state["m"]
     m_new = torch.maximum(ft + m, it)
@@ -194,6 +199,72 @@ def mlstm_apply(params, x, cfg, state=None, apply_fn=nn.serve_linear_apply):
     return y, dict(cell_state, conv=new_conv)
 
 
+def _check_tp_heads(cfg) -> None:
+    """Refuse the mLSTM layout in which the heads divide the production
+    'model' axis (``lm.cache_axes``' ``h_ok`` branch: ``C``, ``n`` and
+    ``m`` cut on heads), which no reference config has."""
+    if cfg.n_heads % nn.MODEL_AXIS == 0:
+        raise NotImplementedError(
+            f"the mLSTM of {cfg.name!r} under a mesh with {cfg.n_heads} "
+            f"heads: heads that divide the 'model' axis ({nn.MODEL_AXIS}) "
+            "cut the state on heads (cache_axes' h_ok layout), which no "
+            "reference config serves; the port serves the value-dim cut "
+            "only")
+
+
+def tp_mlstm_apply(params, x, cfg, state):
+    """``mlstm_apply`` of a serve forward under the mesh, the state cut as
+    the reference's ``cache_axes`` cuts it where the heads do not divide
+    the 'model' axis: ``C [B, H, i, j]`` on its value dim ``i``, ``n [B,
+    H, j]`` on its key dim ``j``, ``m`` whole, the conv tail on the inner
+    channels.  ``up`` is column-parallel, its output gathered (``xi`` and
+    ``z`` are its two halves); the conv and silu run on this rank's inner
+    channels; the row-parallel ``wq``/``wk`` read them, ``wv`` the whole
+    ``xi``, and q, k, v are gathered whole; the gate products over the
+    channels (``wi``/``wf`` cut on their input dim) are f32 partial sums
+    all-reduced over 'model', as the reference's compiled graph sums
+    them.  ``n`` is gathered whole for the call and cut again at its end,
+    so each step updates this rank's rows ``i`` of ``C`` and takes ``C
+    q`` and ``n . q`` whole on the rank (the reference's graph moves ``n``
+    and ``q`` by all-to-all and sums ``n . q`` whole too); the output rows
+    are gathered into the row-parallel ``down``.  Returns ``(y whole,
+    state)``."""
+    _check_tp_heads(cfg)
+    B, S, d = x.shape
+    inner, H = 2 * d, cfg.n_heads
+    hd = inner // H
+    u = nn.gather_cols(*nn.tp_linear_apply(params["up"], x, cfg))
+    xi, z = u[..., :inner], u[..., inner:]
+    c, new_conv = _conv_step(state["conv"],
+                             coll.split(xi, "model").to(torch.float32),
+                             params["conv"]["w"], S, cfg.conv_width)
+    c = nn.silu(c).to(x.dtype)
+
+    def whole(name, t, split):
+        y, ys = nn.tp_linear_apply(params[name], t, cfg, split=split)
+        return nn.gather_cols(y, ys).reshape(B, S, H, hd)
+
+    q = whole("wq", c, True)
+    k = whole("wk", c, True) / _sqrt_f32(hd)
+    v = coll.split(whole("wv", xi, False), "model")
+    c32 = c.to(torch.float32)
+    it = coll.all_reduce(torch.einsum("bsk,kh->bsh", c32, params["wi"]["w"]),
+                         "model")
+    ft = coll.all_reduce(torch.einsum("bsk,kh->bsh", c32, params["wf"]["w"]),
+                         "model")
+    ft = log_sigmoid(ft + params["wf"]["b"])
+    t32 = lambda a: a.transpose(0, 1).to(torch.float32)
+    xs = (t32(q), t32(k), t32(v), it.transpose(0, 1), ft.transpose(0, 1))
+    cell_state = {"C": state["C"], "m": state["m"],
+                  "n": coll.all_gather(state["n"], "model")}
+    cell_state, hs = chunked_scan(_mlstm_cell, cell_state, xs, S)
+    cell_state["n"] = coll.split(cell_state["n"], "model")
+    h = coll.all_gather(hs.transpose(0, 1).to(x.dtype), "model")
+    y, split = nn.tp_linear_apply(params["down"], h.reshape(B, S, inner)
+                                  .float() * nn.silu(z), cfg)
+    return nn.gather_cols(y, split), dict(cell_state, conv=new_conv)
+
+
 def _sqrt_f32(n: int) -> float:
     """``jnp.sqrt(n)`` of an int: the f32 square root."""
     return float(torch.tensor(float(n), dtype=torch.float32).sqrt())
@@ -243,6 +314,12 @@ def _slstm_cell(params, state, x4, H: int):
         4, B, d)
     pre = (x4.reshape(B, 4, d).transpose(0, 1) + rec
            + params["bias"]["b"].reshape(4, d)[:, None, :])
+    return _slstm_gates(state, pre)
+
+
+def _slstm_gates(state, pre):
+    """The sLSTM state update from the pre-activations ``pre [4, B, d]``
+    (z, i, f, o)."""
     z, i, f, o = pre.unbind(0)
     z = torch.tanh(z)
     o = torch.sigmoid(o)
@@ -256,6 +333,57 @@ def _slstm_cell(params, state, x4, H: int):
     # gradient in half, where torch.clamp would pass all of it
     h = o * c / torch.maximum(n, n.new_ones(()))
     return {"c": c, "n": n, "h": h, "m": m_new}, h
+
+
+def _own_heads(d: int, H: int):
+    """This rank's block of the sLSTM's ``d`` (head-major, cut over
+    'model') as ``(heads, cols)`` slices of ``[H, hd]``: whole heads, or
+    the columns of one head."""
+    hd, n = d // H, coll.size("model")
+    db = d // n
+    lo = coll.index("model") * db
+    if db % hd == 0:
+        return slice(lo // hd, (lo + db) // hd), slice(None)
+    if hd % db:
+        raise NotImplementedError(
+            f"the sLSTM under a mesh: a rank's {db} of d {d} neither holds "
+            f"whole heads of {hd} nor part of one")
+    return slice(lo // hd, lo // hd + 1), slice(lo % hd, lo % hd + db)
+
+
+def tp_slstm_apply(params, x, cfg, state):
+    """``slstm_apply`` of a serve forward under the mesh, the state ``c``,
+    ``n``, ``h``, ``m [B, d]`` cut on ``d`` (head-major), as the
+    reference's ``cache_axes`` cuts it: ``wx`` is column-parallel, its
+    output gathered and each gate's block of ``d`` kept.  The recurrences
+    ``r [4, H, hd, hd]`` are cut on their input dim ``i``; they are
+    gathered once a call and this rank keeps their output columns of its
+    block of ``d`` (``_own_heads``), every ``i``.  Each step gathers ``h``
+    whole and takes the rank's recurrent products whole over ``i``, as the
+    reference's compiled graph does after it reshards ``r`` by all-to-all
+    (its sLSTM state is its one-device state bit for bit); ``up_gate`` and
+    ``down`` are column-parallel.  Returns ``(y whole, state)``."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    x4 = nn.gather_cols(*nn.tp_linear_apply(params["wx"], x, cfg))
+    x4 = coll.split(x4.to(torch.float32).reshape(B, S, 4, d), "model")
+    bias = coll.split(params["bias"]["b"].reshape(4, d), "model")
+    heads, cols = _own_heads(d, H)
+    rw = coll.all_gather(params["r"]["w"], "model", dim=2, param=True)
+    rw = rw[:, heads, :, cols].contiguous()
+
+    def cell(st, xt):
+        hprev = coll.all_gather(st["h"], "model").reshape(B, H, d // H)
+        rec = torch.einsum("bhi,ghij->gbhj", hprev[:, heads], rw)
+        pre = xt.transpose(0, 1) + rec.reshape(4, B, -1) + bias[:, None, :]
+        return _slstm_gates(st, pre)
+
+    state, hs = chunked_scan(cell, state, x4.transpose(0, 1), S)
+    h = hs.transpose(0, 1).to(x.dtype)
+    g = nn.silu(nn.own_cols(*nn.tp_linear_apply(params["up_gate"], x, cfg)))
+    y, split = nn.tp_linear_apply(params["down"], h.float() * g, cfg,
+                                  split=True)
+    return nn.gather_cols(y, split), state
 
 
 def slstm_apply(params, x, cfg, state=None, apply_fn=nn.serve_linear_apply):

@@ -218,11 +218,11 @@ def shard_hint(x, spec: P):
       and its block of the vocab (under ``pure_fsdp``, which has no
       tensor parallelism, the whole vocab of its rows).
 
-    The MoE and MLA forwards, serve and train, pass no hint of their own
-    (the reference's pass none: GSPMD places their experts and latents by
-    the params' and caches' specs), so the hints above cover them.  Any
-    other hint raises: the paged forwards and the recurrent and enc-dec
-    families do not run sharded yet (ROADMAP queue 1)."""
+    The MoE and MLA forwards, serve and train, and the recurrent, enc-dec
+    and VLM serve forwards pass no hint of their own (the reference's pass
+    none: GSPMD places their experts, latents and states by the params'
+    and caches' specs), so the hints above cover them.  Any other hint
+    raises: the paged forwards do not run sharded."""
     mesh = _active
     if mesh is None or mesh.size() == 1:
         return x
@@ -233,9 +233,8 @@ def shard_hint(x, spec: P):
     raise NotImplementedError(
         f"shard_hint{tuple(spec)} under a mesh of {mesh.size()} devices: "
         "the port's model does not run sharded here (the paged forwards "
-        "and the recurrent and enc-dec families are ROADMAP queue 1's "
-        "later items); the dense forwards hold their rows, the train "
-        "forward its sequence and vocab blocks")
+        "do not); the dense forwards hold their rows, the train forward "
+        "its sequence and vocab blocks")
 
 
 _TRAIN_HINTS = (P(("pod", "data"), "model", None),

@@ -10,6 +10,7 @@ so parallel test workers cannot collide) and run ``fn(rank, world, tmp,
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import pickle
 import time
@@ -84,10 +85,13 @@ def parallel_rank(rank, world, tmp, inputs):
 def sharded_serve_rank(rank, world, tmp, names):
     """The sharded dense serve path on this rank for each case of
     ``names`` (``tmp/{name}.pkl``: arch, config overrides, mesh shape, the
-    reference's params as numpy, tokens, ``S_max``, steps): this rank's
+    reference's params as numpy, tokens, ``S_max``, steps; an enc-dec
+    case's ``frames``, a VLM case's ``front`` and its first decode
+    position ``pos0``, a teacher-forced case's ``feed``; a ``ring`` case
+    also keeps its caches after prefill): this rank's
     param blocks (``convert.params_from_jax(mesh=)``), ``lm.prefill`` of
-    its batch rows, then greedy ``lm.decode_step``s, each step under
-    ``record_collectives``.  A single-linear case runs
+    its batch rows, then greedy (or fed) ``lm.decode_step``s, the prefill
+    and each step under ``record_collectives``.  A single-linear case runs
     ``nn.tp_linear_apply`` on its blocks instead.  Returns numpy results
     by case."""
     import dataclasses
@@ -131,17 +135,27 @@ def sharded_serve_rank(rank, world, tmp, names):
         B, S = tokens.shape
         r0, nr = block_range(B, batch_entry(B, mesh), mesh)
         routes = res["routes"] = []
+        extra = {k: torch.from_numpy(case[k][r0:r0 + nr])
+                 for k in ("frames", "front") if k in case}
+        feed = case.get("feed")
         with mesh_context(mesh), _recorded_routes(routes):
-            logits, caches = lm.prefill(params, tokens[r0:r0 + nr], cfg,
-                                        S_max=case["S_max"])
+            with record_collectives() as st:
+                logits, caches = lm.prefill(params, tokens[r0:r0 + nr], cfg,
+                                            S_max=case["S_max"], **extra)
+            res["prefill_stats"] = st
             res["prefill_logits"] = convert.to_numpy(logits)
+            if case.get("ring"):    # copied: decode writes into the caches
+                res["prefill_caches"] = copy.deepcopy(
+                    convert.to_numpy(caches))
             t = lm.greedy(logits)
             toks, stats = [t], []
             for i in range(case["steps"]):
+                if feed is not None:    # teacher-forced: the case's tokens
+                    t = torch.from_numpy(feed[i][r0:r0 + nr]).long()
                 with record_collectives() as st:
                     logits, caches = lm.decode_step(
-                        params, caches, t[:, None].to(torch.int32), S + i,
-                        cfg)
+                        params, caches, t[:, None].to(torch.int32),
+                        case.get("pos0", S) + i, cfg)
                     t = lm.greedy(logits)
                 toks.append(t)
                 stats.append(st)
@@ -149,8 +163,9 @@ def sharded_serve_rank(rank, world, tmp, names):
         res["init_caches"] = [
             {b: {k: tuple(v.shape) for k, v in blk.items()}
              for b, blk in seg.items()}
-            for seg in lm.init_caches(cfg, device="cpu", B=B,
-                                      S_max=case["S_max"], mesh=mesh)]
+            for seg in lm.init_caches(
+                cfg, device="cpu", B=B, S_max=case["S_max"], mesh=mesh,
+                enc_len=case["frames"].shape[1] if "frames" in case else 0)]
         res.update(rows=(r0, nr), tokens=torch.stack(toks).numpy(),
                    last_logits=convert.to_numpy(logits), stats=stats,
                    caches=convert.to_numpy(caches),

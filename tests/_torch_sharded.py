@@ -105,27 +105,37 @@ for name in names:
     else:
         tokens = jnp.asarray(case["tokens"])
         B, S = tokens.shape
+        batch = {k: jnp.asarray(case[k]) for k in ("tokens", "frames",
+                                                   "front") if k in case}
+        enc_len = case["frames"].shape[1] if "frames" in case else 0
+        pos0 = case.get("pos0", S)
+        feed = case.get("feed")
         _, axes = abstract_init(cfg, "serve")
-        _, cax = abstract_caches(cfg, B, case["S_max"])
+        _, cax = abstract_caches(cfg, B, case["S_max"], enc_len)
         cax = _fix_batch_axes(cax, B, mesh)
         be = _batch_entry(B, mesh)
         sh_p, sh_c = make_shardings(mesh, axes), make_shardings(mesh, cax)
         sh_t, rep = NamedSharding(mesh, P(be, None)), NamedSharding(mesh, P())
+        sh_b = {k: NamedSharding(mesh, P(be, *[None] * (v.ndim - 1)))
+                for k, v in batch.items()}
         params = jax.device_put(jax.tree.map(jnp.asarray, case["params"]),
                                 sh_p)
-        pre = jax.jit(lambda p, t: lm.prefill(p, {"tokens": t}, cfg,
+        pre = jax.jit(lambda p, b: lm.prefill(p, b, cfg,
                                               S_max=case["S_max"]),
-                      in_shardings=(sh_p, sh_t))
+                      in_shardings=(sh_p, sh_b))
         dec = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
                       in_shardings=(sh_p, sh_c, sh_t, rep))
-        logits, caches = pre(params, tokens)
+        logits, caches = pre(params, batch)
         out["prefill_logits"] = bits(logits)
         t = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-        toks = [t]
+        toks, fed = [t], []
         for i in range(case["steps"]):
             caches = jax.device_put(caches, sh_c)
+            if feed is not None:    # teacher-forced: the case's tokens
+                t = jnp.asarray(feed[i])
+            fed.append(np.asarray(t))
             logits, caches = dec(params, caches, t[:, None],
-                                 jnp.int32(S + i))
+                                 jnp.int32(pos0 + i))
             t = jnp.argmax(logits, axis=-1).astype(jnp.int32)
             toks.append(t)
         out["tokens"] = np.stack([np.asarray(t) for t in toks])
@@ -133,23 +143,24 @@ for name in names:
         for (path, leaf) in jax.tree_util.tree_flatten_with_path(caches)[0]:
             out["cache" + jax.tree_util.keystr(path)] = bits(leaf)
         if case.get("spread"):      # the same forwards on one device
-            pre1 = jax.jit(lambda p, t: lm.prefill(p, {"tokens": t}, cfg,
+            pre1 = jax.jit(lambda p, b: lm.prefill(p, b, cfg,
                                                    S_max=case["S_max"]))
             dec1 = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos,
                                                                cfg))
             p1 = jax.tree.map(jnp.asarray, case["params"])
-            lg1, c1 = pre1(p1, tokens)
+            lg1, c1 = pre1(p1, batch)
             out["one_prefill_logits"] = bits(lg1)
-            for i, t1 in enumerate(out["tokens"][:-1]):
+            for i, t1 in enumerate(fed):
                 lg1, c1 = dec1(p1, c1, jnp.asarray(t1)[:, None],
-                               jnp.int32(S + i))
+                               jnp.int32(pos0 + i))
             out["one_last_logits"] = bits(lg1)
             for (path, leaf) in jax.tree_util.tree_flatten_with_path(c1)[0]:
                 out["one_cache" + jax.tree_util.keystr(path)] = bits(leaf)
         meta = {"param_blocks": blocks(case["params"], sh_p, mesh),
                 "cache_blocks": blocks(caches, sh_c, mesh)}
         if case.get("hlo"):
-            txt = dec.lower(params, caches, jax.ShapeDtypeStruct(
+            txt = dec.lower(params, jax.device_put(caches, sh_c),
+                            jax.ShapeDtypeStruct(
                 (B, 1), jnp.int32), jax.ShapeDtypeStruct(
                 (), jnp.int32)).compile().as_text()
             st = parse_collectives(txt)
@@ -175,6 +186,14 @@ def _jax_params(arch, over, int8_steps: bool):
     return _np(p)
 
 
+def inputs(case, rows=None):
+    """The case's ``frames``/``front`` (this rank's ``rows``, ``(start,
+    n)``, where given) as ``lm.prefill``'s keywords."""
+    r = slice(None) if rows is None else slice(rows[0], rows[0] + rows[1])
+    return {k: torch.from_numpy(case[k][r]) for k in ("frames", "front")
+            if k in case}
+
+
 def _plain_run(case, forced=None):
     """The port unsharded on the whole params: prefill, greedy steps; with
     ``forced`` (tokens ``[steps + 1, B]``) step ``i`` is fed ``forced[i]``
@@ -183,15 +202,17 @@ def _plain_run(case, forced=None):
     cfg = dataclasses.replace(tsmoke(case["arch"]), **case["over"])
     params = convert.params_from_jax(case["params"], "cpu")
     tokens = torch.from_numpy(case["tokens"])
-    logits, caches = lm.prefill(params, tokens, cfg, S_max=case["S_max"])
+    logits, caches = lm.prefill(params, tokens, cfg, S_max=case["S_max"],
+                                **inputs(case))
     out = {"prefill_logits": convert.to_numpy(logits)}
     t = lm.greedy(logits)
     toks = [t]
+    forced = case.get("feed") if forced is None else forced
     for i in range(case["steps"]):
         if forced is not None:
             t = torch.from_numpy(forced[i]).long()
         logits, caches = lm.decode_step(params, caches, t[:, None].to(
-            torch.int32), S + i, cfg)
+            torch.int32), case.get("pos0", S) + i, cfg)
         t = lm.greedy(logits)
         toks.append(t)
     out.update(tokens=torch.stack(toks).numpy(),
@@ -217,7 +238,8 @@ def run(tmp, cases: dict, rank_timeout: float = _torch_ranks.TIMEOUT_S
         drawn = {n: f.result() for n, f in drawn.items()}
     full = {}
     for i, (name, c) in enumerate(cases.items()):
-        case = dict(c, steps=STEPS, S_max=S_MAX)
+        case = dict(c, steps=c.get("steps", STEPS), S_max=c.get("S_max",
+                                                                 S_MAX))
         if c.get("collectives"):
             pass
         elif "linear" in c:
@@ -233,8 +255,19 @@ def run(tmp, cases: dict, rank_timeout: float = _torch_ranks.TIMEOUT_S
         else:
             case["params"] = drawn[name]
             vocab = jsmoke(c["arch"]).vocab
-            case["tokens"] = np.random.default_rng(i).integers(
-                0, vocab, (B, S)).astype(np.int32)
+            rng = np.random.default_rng(i)
+            case["tokens"] = rng.integers(0, vocab, (B, S)).astype(np.int32)
+            if c.get("frames"):     # an enc-dec case: Se frames
+                case["frames"] = rng.standard_normal(
+                    (B, c["frames"], 1024)).astype(np.float32)
+            if c.get("front"):      # a VLM case: its frontend_len rows
+                F = jsmoke(c["arch"]).frontend_len
+                case["front"] = rng.standard_normal(
+                    (B, F, 1152)).astype(np.float32)
+                case["pos0"] = F + S
+            if c.get("teacher"):    # decode fed these tokens, not argmax
+                case["feed"] = rng.integers(
+                    0, vocab, (case["steps"], B)).astype(np.int32)
         with open(os.path.join(tmp, f"{name}.pkl"), "wb") as f:
             pickle.dump(case, f)
         full[name] = case
