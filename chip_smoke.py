@@ -29,6 +29,9 @@
                                           # recurrent, enc-dec and VLM
                                           # families served sharded (phase
                                           # 16), one JSON line
+    python3 chip_smoke.py --only sharded-train-families  # kernel 1 built:
+                                          # their QAT train step sharded
+                                          # (phase 17), one JSON line
 
 ``--only k12`` builds kernels 1-2 alone and times kernel 1's decode layer
 (``phase_gemm``) and kernel 2's main-path shape (``flash_main_timing``):
@@ -214,8 +217,8 @@ Phases, in order; any failure raises and exits non-zero:
    seamless-m4t-medium with frames, deepseek-v3-671b with MLA + MoE and
    int8 moments, moe-gqa, kimi-k2-1t-a32b, internvl2-76b with ``front``);
    (g) recurrentgemma-2b cut to 6 of 26 layers (batch 2 x 1024, the
-   last of 4 steps profiled), xlstm-350m cut to 8 of 24 layers (4 x 256:
-   four of the scan's 64-step chunks) and seamless-m4t-medium (4 x 1024
+   last of 4 steps profiled), xlstm-350m cut to 8 of 24 layers (4 x 128:
+   two of the scan's 64-step chunks) and seamless-m4t-medium (4 x 1024
    tokens, 512 frames) at full width through the train CLI (deepseek-v3's
    3 dense MLA layers train in phase 15), each with its memory
    reckoning, init and run peaks, first and median step, tokens a
@@ -270,7 +273,7 @@ Phases, in order; any failure raises and exits non-zero:
     per visible card, a (data 1, model world) mesh (world 1 on one card);
     minicpm-2b at full width cut to 10 of 40 layers (``pure_fsdp``: every
     linear ZeRO-3-sharded over ('data', 'model') and gathered at use) and
-    codeqwen1.5-7b at full width cut to 8 of 32 layers (tensor, sequence
+    codeqwen1.5-7b at full width cut to 4 of 32 layers (tensor, sequence
     and vocab parallel over 'model', FSDP over ('pod', 'data')), each
     from phase 8's seeded params and batches (4 x 1024, WSD): two
     unsharded ``make_train_step``s, freed, then two sharded ones from the
@@ -322,7 +325,7 @@ Phases, in order; any failure raises and exits non-zero:
     patterns), the same with a B 1 x 2304 prompt past its 2048-slot
     window (the ring wraps), xlstm-350m cut to 8 of 24 (one 7 + 1
     pattern), seamless-m4t-medium whole with 512 frames and internvl2-76b
-    cut to 4 of 80 with its 256-row front, each B 4 x 256 + 16 greedy
+    cut to 2 of 80 with its 256-row front, each B 4 x 256 + 16 greedy
     steps through ``lm.prefill``/``lm.decode_step`` unsharded and then
     under the mesh on this rank's blocks (the recurrent states, the ring's
     slots, the encoder and the cross caches), held bit-equal (tokens,
@@ -333,6 +336,20 @@ Phases, in order; any failure raises and exits non-zero:
     every distinct lookup linear shape of the four families, M 4,
     int32-equal to its plain twin and timed beside it, the bound and the
     one-hot ``_int_mm``.
+17. the enc-dec, VLM and recurrent families' QAT train step sharded
+    (``phase_sharded_train_families``): one NCCL rank per visible card, a
+    (data 1, model world) mesh (world 1 on one card); seamless-m4t-medium
+    whole, 2 x (512 frames + 512 tokens), internvl2-76b cut to 1 of 80
+    layers, 1 x (256 front rows + 768 tokens), recurrentgemma-2b cut to 6
+    of 26, 2 x 1024, xlstm-350m cut to 8 of 24, 2 x 128, at full width,
+    WSD: two unsharded steps, then two sharded ones, the loss, norm,
+    gradients, params and moments compared bit for bit, the collectives
+    of a step, both steps' ms and peaks beside the reckoning; then the
+    trained layer 0 ``attn.wq`` of internvl2 and decoder layer 0
+    ``xattn.wq`` of seamless, each cut to one rank's block of a 16-way
+    'model' axis, compiled and run on kernel 1 at M 4 and 64, int32-equal
+    to their plain twins and ``dense_int_matmul``, timed beside them, the
+    one-hot ``_int_mm`` and the bound.
 
 The line before the last is the kernel JSON (all six ported kernels and
 the int8 expert kernel, launches counted on the main paths: the serve
@@ -342,7 +359,8 @@ rows also carry ``launches_by_path``, each counted on one of the
 families' runs with the counters set to 0 just before it, kernel 1's
 and kernels 3-4's also the trained weights' launches in phase 8 and
 kernel 1's the sharded runs of phases 12, 14 and 16 and the sharded
-trained ``ffn.wi`` of phase 13, with its 16-way shard-shape times under
+trained linears of phases 13, 15 and 17 (their times under
+``trained_shards``), with its 16-way shard-shape times under
 ``shard_shapes`` and ``family_shard_shapes`` and its 16-way expert-block
 times under ``expert_block_shapes``, the int8 expert kernel's phase 14's); the
 last line is the device JSON.  Needs one CUDA card; exits non-zero without
@@ -352,6 +370,7 @@ one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4516,9 +4535,11 @@ TRAIN_SMOKES = (
 TRAIN_FULL = (
     # recurrentgemma and xlstm cut in depth to keep the whole script well
     # inside its time limit: both are host bound (~1.7 and ~30 s a step at
-    # full depth), and their time grows with the layers
+    # full depth), and their time grows with the layers; xlstm's sequence
+    # halved to 128 (its scans are a loop over time) when phase 17 added
+    # its sharded step
     ("recurrentgemma-2b", 2, 1024, 4, 3, 6),
-    ("xlstm-350m", 4, 256, 2, None, 8),
+    ("xlstm-350m", 4, 128, 2, None, 8),
     ("seamless-m4t-medium", 4, 1024, 3, None, None),
 )
 
@@ -5923,7 +5944,8 @@ SFAM_WRAP = 2304     # a prompt past recurrentgemma-2b's 2048-slot ring
 # recurrentgemma-2b two whole (rglru, rglru, attn_local) patterns, and a
 # B 1 prompt longer than its window so that the ring wraps on the card;
 # xlstm-350m one 7 + 1 pattern; seamless-m4t-medium whole with 512 frames;
-# internvl2-76b 4 of 80 layers with its 256-row front
+# internvl2-76b 2 of 80 layers with its 256-row front (4 before phase 17
+# was added: cut for the script's time limit)
 SFAM_MODELS = {
     "recurrentgemma-2b": ("recurrentgemma-2b", 6, {}),
     "recurrentgemma-2b ring wrap": ("recurrentgemma-2b", 6, {}, dict(
@@ -5931,7 +5953,7 @@ SFAM_MODELS = {
     "xlstm-350m": ("xlstm-350m", 8, {}),
     "seamless-m4t-medium": ("seamless-m4t-medium", None, {}, dict(
         frames=512)),
-    "internvl2-76b": ("internvl2-76b", 4, {}, dict(front=True)),
+    "internvl2-76b": ("internvl2-76b", 2, {}, dict(front=True)),
 }
 SFAM_PHASE = ("sharded recurrent, enc-dec and VLM serve: recurrent states, "
               "rings, encoders and a front under a (data, model) mesh")
@@ -5967,14 +5989,71 @@ def phase_sharded_families(world: int = 0,
 # layers kept (None: full depth); widths are never cut.  codeqwen1.5-7b's
 # f32 params, gradients and moments take 16 bytes a parameter: 3.7 GB a
 # layer and 12.1 GB for its untied tables, so 8 of its 32 layers (41.8 GB)
-# fit beside the step's activations; minicpm-2b takes train (b)'s depth,
-# cut to keep the whole script inside its time limit
-STRAIN_CUTS = {TRAIN_ARCH: TRAIN_LAYERS, "codeqwen1.5-7b": 8}
+# would fit beside the step's activations; 4 (27.0 GB) are kept, cut with
+# minicpm-2b (train (b)'s depth) to keep the whole script inside its time
+# limit
+STRAIN_CUTS = {TRAIN_ARCH: TRAIN_LAYERS, "codeqwen1.5-7b": 4}
 STRAIN_STEPS = 2
 # tests/_torch_train.py's tolerances, for an op the card cannot keep
 # bit-equal: gradients by cosine and max error over the leaf's largest
 # (the N2UQ ``aq`` leaves over the largest of their kind), the loss
 GRAD_COS, GRAD_REL, AQ_REL, LOSS_RTOL = 0.9999, 2e-2, 5e-2, 1e-6
+
+
+@contextlib.contextmanager
+def _train_rank(rank: int, world: int, tmp: str, dev_type: str,
+                deterministic: bool = False):
+    """A spawned rank of a sharded train phase: this module's ``DEV``, the
+    rank's card (TF32 off), one process group over ``world`` ranks (NCCL
+    on cards, gloo on the CPU) on a file store under ``tmp``; yields
+    ``(device, mesh)``, the mesh (data 1, model world), and destroys the
+    group after.  ``deterministic``: no atomics-ordered sums (runs that
+    compare bit for bit)."""
+    global DEV
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    DEV = dev_type
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        yield dev, make_mesh_compat((1, world), ("data", "model"), dev_type)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_train(fn, world: int, *args, grow: bool = False) -> dict:
+    """``fn(rank, world, tmp, DEV, *args)`` on ``world`` spawned ranks;
+    returns what rank 0 wrote to ``tmp/rank0.json``.  ``grow``: the ranks'
+    allocator grows its segments in place (a run that peaks near the
+    card's size, where fixed segments left 13 GiB unusable)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if grow:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(fn, args=(world, tmp, DEV, *args),
+                               nprocs=world, start_method="spawn")
+            with open(os.path.join(tmp, "rank0.json")) as f:
+                return json.load(f)
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
 
 
 def _leaf_marks(tree) -> list:
@@ -6054,11 +6133,15 @@ def _named_leaves(tree, pre=""):
 
 
 def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
-                         strict: bool = False, of_layers=None):
+                         strict: bool = False, of_layers=None,
+                         B: int = TRAIN_BATCH, S: int = TRAIN_SEQ,
+                         frames: int = 0):
     """One model's QAT train step unsharded, then sharded under ``mesh`` on
     this rank's blocks, from the same seeded params (phase 8's: the train
     CLI's ``init``, seed 0) and batches (its
-    ``SyntheticLMData``, batch ``TRAIN_BATCH x TRAIN_SEQ``), WSD,
+    ``SyntheticLMData``, batch ``B x S`` tokens, default ``TRAIN_BATCH x
+    TRAIN_SEQ``; an enc-dec model's ``frames`` frames, a VLM's
+    ``frontend_len`` front rows), WSD,
     ``STRAIN_STEPS`` steps each (``tc``: the step's config, by default
     ``cfg``'s moments, no accumulation, no compression; the compression's
     uniforms from one generator seed a step in both runs): the loss, the
@@ -6067,8 +6150,9 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
     Where step 0's gradients differ (every step at world > 1: the blocks
     are not the whole), the loss is held within ``LOSS_RTOL`` and each
     gradient leaf within the CPU tests' tolerances of the unsharded one's
-    block; under ``strict`` a difference in the loss, the norm, a param
-    or a moment raises.  Returns the figures
+    block (host copies of the unsharded gradient, kept only when not
+    ``strict``); under ``strict`` a difference in the loss, the norm, a
+    param or a moment raises, after the leaves that differ are named.  Returns the figures
     and ``pick(local params)`` (a trained linear on the host).
     ``of_layers``: the depth ``cfg`` was cut from (default: its full
     config's)."""
@@ -6083,9 +6167,11 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
     from repro_torch.parallel.sharding import block_range, local_tree
     from repro_torch.train import trainer as T
 
-    reck = train_reckoning(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                           global_batch=TRAIN_BATCH, seed=SEED)
+    front = cfg.frontend_len if cfg.frontend == "patch" else 0
+    reck = train_reckoning(cfg, B, S, frames, front)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                           seed=SEED, frontend=cfg.frontend,
+                           frontend_len=front, enc_len=frames)
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch(i).items()}
                for i in range(STRAIN_STEPS)]
@@ -6107,9 +6193,11 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
             first = "loss" not in seen
             seen.update(loss=float(loss), grads=_leaf_marks(g))
             if first and plain is None:
-                seen["host"] = [t.detach().to("cpu", copy=True)
-                                for t in tree_leaves(g)]
-            elif first and seen["grads"] != plain["steps"][0]["grads"]:
+                if not strict:      # a strict run must not differ: no copy
+                    seen["host"] = [t.detach().to("cpu", copy=True)
+                                    for t in tree_leaves(g)]
+            elif (first and plain["host"] is not None
+                  and seen["grads"] != plain["steps"][0]["grads"]):
                 want = plain["steps"][0]["loss"]
                 if abs(seen["loss"] - want) > LOSS_RTOL * abs(want):
                     raise AssertionError(f"{cfg.name}: loss {seen['loss']} "
@@ -6156,7 +6244,7 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
 
     _free()
     _reset_peak()
-    plain, params = run(init_params(), (0, TRAIN_BATCH))
+    plain, params = run(init_params(), (0, B))
     del params
     _free()
     _reset_peak()
@@ -6164,7 +6252,7 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
     local = nn.ParamTree(local_tree(whole.tree(), lm.param_axes(
         cfg, "train"), mesh), trainable=True)
     del whole
-    rows = block_range(TRAIN_BATCH, nn.train_batch_axes(cfg), mesh)
+    rows = block_range(B, nn.train_batch_axes(cfg), mesh)
     picked = None
     with mesh_context(mesh):
         sh, local = run(local, rows, plain)
@@ -6176,20 +6264,18 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
         "gnorm"], grads=a["grads"] == b["grads"], params=a["params"] == b[
         "params"], moments=a["moments"] == b["moments"])
         for a, b in zip(plain["steps"], sh["steps"])]
-    if strict and not all(e[k] for e in equal
-                          for k in ("loss", "gnorm", "params", "moments")):
-        raise AssertionError(f"{cfg.name}: sharded vs unsharded {equal}")
-    if sh["held"] is not None and mesh.size() == 1:
+    if not equal[0]["grads"] and mesh.size() == 1:
         diff = [n for (n, _), x, y in zip(
             _named_leaves(lm.param_axes(cfg, "train")), plain["steps"][0][
                 "grads"], sh["steps"][0]["grads"]) if x != y]
         log(f"  {cfg.name}: step 0 not bit-equal at world 1 ({equal[0]}); "
             f"gradient leaves that differ: {diff[:6]}"
-            f"{' ...' if len(diff) > 6 else ''}; the op: the row-parallel "
-            "wo products (the bf16 GEMM's f32 output, rounded to bf16 after "
-            "the sum over 'model', where the unsharded step's bf16 GEMM "
-            "rounds in cuBLAS); held within the CPU tests' tolerances "
-            f"{sh['held']}")
+            f"{' ...' if len(diff) > 6 else ''}"
+            + (f"; held within the CPU tests' tolerances {sh['held']}"
+               if sh["held"] is not None else ""))
+    if strict and not all(e[k] for e in equal
+                          for k in ("loss", "gnorm", "params", "moments")):
+        raise AssertionError(f"{cfg.name}: sharded vs unsharded {equal}")
 
     def kinds(st):
         return {k: dict(count=st.count_by_kind[k], bytes=st.bytes_by_kind[k],
@@ -6216,15 +6302,24 @@ def _sharded_train_model(cfg, mesh, dev, pick=None, tc=None,
         compress_collectives=kinds(cst) if cst else None), picked
 
 
-def _ffn_wi_layer0(tree, cfg) -> dict:
-    """Layer 0's trained ``ffn.wi`` gathered over its axes, on the host."""
-    from repro_torch.models import lm, nn
+def _layer0_linear(path, cut: int = 1):
+    """A ``pick`` of ``_sharded_train_model``: layer 0 of the stacked train
+    linear at ``path`` (keys from the param tree's root), ``w`` and
+    ``w_step`` gathered over their FSDP axes, on the host; ``cut``: only
+    their first ``N / cut`` columns (one rank's block of a ``cut``-way
+    'model' axis)."""
+    def pick(tree, cfg) -> dict:
+        from repro_torch.models import lm, nn
 
-    stacked = tree["segments"][0]["b0"]["ffn"]["wi"]
-    layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
-                         cfg.n_layers)[0]
-    return {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
-            for k, v in layer0.items()}
+        stacked = tree
+        for k in path:
+            stacked = stacked[k]
+        layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
+                             stacked["w"].shape[0])[0]
+        n = layer0["w_step"].shape[-1] // cut
+        return {k: nn.gather_fsdp(v, cfg)[..., :n].detach().float().cpu()
+                .numpy() for k, v in layer0.items()}
+    return pick
 
 
 def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
@@ -6233,28 +6328,14 @@ def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
     sharded under a (1, world) mesh; then (rank 0) the first model's
     trained layer 0 ``ffn.wi`` on kernel 1; rank 0 writes the figures to
     ``tmp/rank0.json``."""
-    global DEV
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_mesh_compat
-
-    DEV = dev_type
-    if dev_type == "cuda":
-        torch.cuda.set_device(rank)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
-    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
-                            init_method=f"file://{tmp}/store", rank=rank,
-                            world_size=world)
-    try:
-        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+    with _train_rank(rank, world, tmp, dev_type) as (dev, mesh):
         out = {"world": world, "mesh": [1, world], "models": {}}
         wi = None
         for arch, layers in cuts.items():
             cfg = _cut_config(arch, layers)
             out["models"][arch], w = _sharded_train_model(
-                cfg, mesh, dev, pick=_ffn_wi_layer0 if wi is None else None)
+                cfg, mesh, dev, pick=None if wi is not None else
+                _layer0_linear(("segments", 0, "b0", "ffn", "wi")))
             wi = wi if wi is not None else w
         if rank == 0:
             gpu = gpu_line() if dev_type == "cuda" else "cpu"
@@ -6262,8 +6343,6 @@ def _sharded_train_rank(rank: int, world: int, tmp: str, dev_type: str,
                 wi, gpu)
             with open(os.path.join(tmp, "rank0.json"), "w") as f:
                 json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
 
 
 def phase_sharded_train(world: int = 0, cuts: dict = STRAIN_CUTS) -> dict:
@@ -6271,21 +6350,14 @@ def phase_sharded_train(world: int = 0, cuts: dict = STRAIN_CUTS) -> dict:
     a (1, world) mesh, one NCCL rank per visible card (world 1 on one
     card: every collective is still issued, over one-rank groups).
     Returns rank 0's figures."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     world = world or torch.cuda.device_count()
     gpu = gpu_line() if DEV == "cuda" else "cpu"
     t0 = time.perf_counter()
     log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
         f"rank per visible card, mesh (data 1, model {world})")
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_sharded_train_rank, args=(world, tmp, DEV, cuts),
-                           nprocs=world, start_method="spawn")
-        with open(os.path.join(tmp, "rank0.json")) as f:
-            out = json.load(f)
+    out = _spawn_train(_sharded_train_rank, world, cuts)
     for arch, r in out["models"].items():
         depth = ("full depth" if r["layers"] == r["of_layers"] else
                  f"{r['layers']} of {r['of_layers']} layers")
@@ -6341,18 +6413,6 @@ def _moe_train_config(cfg):
     return T.TrainConfig(lr=3e-4, total_steps=TRAIN_STEPS, schedule="wsd",
                          accum_steps=STRAIN_MOE_ACCUM, compress=True,
                          adamw=AdamWConfig(state_dtype=cfg.opt_state_dtype))
-
-
-def _mla_wq_a_layer0(tree, cfg) -> dict:
-    """Layer 0's trained ``attn.wq_a`` gathered over its axes, on the
-    host."""
-    from repro_torch.models import lm, nn
-
-    stacked = tree["segments"][0]["b0"]["attn"]["wq_a"]
-    layer0 = lm._unstack({k: stacked[k] for k in ("w", "w_step")},
-                         stacked["w"].shape[0])[0]
-    return {k: nn.gather_fsdp(v, cfg).detach().float().cpu().numpy()
-            for k, v in layer0.items()}
 
 
 def _expert0_wi(tree, cfg) -> dict:
@@ -6460,29 +6520,15 @@ def _sharded_train_moe_rank(rank: int, world: int, tmp: str,
     world) mesh, bit for bit; then (rank 0) the MoE smoke's step card vs
     CPU and the two trained shards on kernel 1; rank 0 writes the figures
     to ``tmp/rank0.json``."""
-    global DEV
-    import torch
-    import torch.distributed as dist
-
     from repro_torch.configs import smoke_config
-    from repro_torch.launch.mesh import make_mesh_compat
 
-    DEV = dev_type
-    if dev_type == "cuda":
-        torch.cuda.set_device(rank)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    # the two runs compare bit for bit: no atomics-ordered sums
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
-    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
-                            init_method=f"file://{tmp}/store", rank=rank,
-                            world_size=world)
-    try:
-        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+    with _train_rank(rank, world, tmp, dev_type, deterministic=True) as (
+            dev, mesh):
         out = {"world": world, "mesh": [1, world], "models": {}}
         mla = _cut_config(STRAIN_MOE_ARCH, STRAIN_MOE_LAYERS)
         out["models"]["deepseek-v3-671b MLA"], wq_a = _sharded_train_model(
-            mla, mesh, dev, pick=_mla_wq_a_layer0,
+            mla, mesh, dev,
+            pick=_layer0_linear(("segments", 0, "b0", "attn", "wq_a")),
             tc=_moe_train_config(mla), strict=True)
         moe = dataclasses.replace(smoke_config("deepseek-v3-671b"),
                                   **MOE_TRAIN_WIDE)
@@ -6502,8 +6548,6 @@ def _sharded_train_moe_rank(rank: int, world: int, tmp: str,
             out["launches"] = n
             with open(os.path.join(tmp, "rank0.json"), "w") as f:
                 json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
 
 
 def phase_sharded_train_moe(world: int = 0) -> dict:
@@ -6512,32 +6556,15 @@ def phase_sharded_train_moe(world: int = 0) -> dict:
     heads, int8 moments by the reference's ``_opt_axes``, int8 gradient
     compression on each rank's block of the global gradient), one NCCL
     rank per visible card.  Returns rank 0's figures."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     world = world or torch.cuda.device_count()
     gpu = gpu_line() if DEV == "cuda" else "cpu"
     t0 = time.perf_counter()
     log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
         f"rank per visible card, mesh (data 1, model {world})")
-    # the ranks' allocator grows its segments in place: run 1 peaks near
-    # the card's size, where fixed segments left 13 GiB unusable
-    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            mp.start_processes(_sharded_train_moe_rank,
-                               args=(world, tmp, DEV), nprocs=world,
-                               start_method="spawn")
-            with open(os.path.join(tmp, "rank0.json")) as f:
-                out = json.load(f)
-    finally:
-        if conf is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    # run 1 peaks near the card's size
+    out = _spawn_train(_sharded_train_moe_rank, world, grow=True)
     for label, r in out["models"].items():
         depth = ("full depth" if r["layers"] == r["of_layers"] else
                  f"{r['layers']} of {r['of_layers']} layers")
@@ -6573,6 +6600,134 @@ def phase_sharded_train_moe(world: int = 0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded QAT train step of the enc-dec, VLM and recurrent
+# families
+# ---------------------------------------------------------------------------
+
+# label: (arch, layers kept (None: full depth), batch, tokens, frames);
+# widths are never cut.  seamless-m4t-medium whole (12 + 12) with 512
+# frames; internvl2-76b 1 of 80 layers with its 256-row front (16 bytes a
+# parameter at f32 moments: its two vocab tables 33.6 GB, a layer 13.7 GB;
+# 2 layers peaked at 76.59 GiB alone on the card and ran out of memory
+# after the earlier phases, AdamW's temporaries of the 4.2 GB tables
+# past the reckoning); recurrentgemma-2b two whole
+# (rglru, rglru, attn_local) patterns; xlstm-350m one 7 + 1 pattern (fewer
+# layers hold no sLSTM) at 128 tokens (its scans are a loop over time)
+SFAM_TRAIN_PHASE = ("sharded enc-dec, VLM and recurrent train: the QAT "
+                    "step under a (data, model) mesh")
+SFAM_TRAIN = {
+    "seamless-m4t-medium": ("seamless-m4t-medium", None, 2, 512, 512),
+    "internvl2-76b": ("internvl2-76b", 1, 1, 768, 0),
+    "recurrentgemma-2b": ("recurrentgemma-2b", 6, 2, 1024, 0),
+    "xlstm-350m": ("xlstm-350m", 8, 2, 128, 0),
+}
+# the trained linears compiled back onto kernel 1, each one rank's block of
+# the production meshes' 16-way 'model' axis (its first SHARD_WAY-th of the
+# columns): label: (model, path of the stacked leaf, dp of the plan)
+SFAM_TRAINED = {
+    "internvl2-76b layer 0 attn.wq": (
+        "internvl2-76b", ("segments", 0, "b0", "attn", "wq"), 128),
+    "seamless-m4t-medium decoder layer 0 xattn.wq": (
+        "seamless-m4t-medium", ("segments", 0, "b0", "xattn", "wq"), 64),
+}
+
+
+def _sharded_train_families_rank(rank: int, world: int, tmp: str,
+                                 dev_type: str, models: dict) -> None:
+    """One rank of phase 17: every model of ``models`` (``SFAM_TRAIN``'s
+    form) trained unsharded and sharded under a (1, world) mesh, bit for
+    bit; then (rank 0) ``SFAM_TRAINED``'s trained shards on kernel 1; rank
+    0 writes the figures to ``tmp/rank0.json``."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    with _train_rank(rank, world, tmp, dev_type, deterministic=True) as (
+            dev, mesh):
+        out = {"world": world, "mesh": [1, world], "models": {},
+               "trained": {}}
+        picked = {}
+        for label, (arch, layers, B, S, frames) in models.items():
+            cfg = _cut_config(arch, layers)
+            picks = {k: _layer0_linear(path, SHARD_WAY)
+                     for k, (a, path, _) in SFAM_TRAINED.items()
+                     if a == arch}
+            fig, got = _sharded_train_model(
+                cfg, mesh, dev, strict=True, B=B, S=S, frames=frames,
+                of_layers=get_config(arch).n_layers,
+                pick=(lambda tree, c: {k: f(tree, c)
+                                       for k, f in picks.items()})
+                if picks else None)
+            out["models"][label] = dict(fig, batch=[B, S], frames=frames)
+            picked.update(got or {})
+            gc.collect()
+            if dev_type == "cuda":
+                torch.cuda.empty_cache()
+        if rank == 0:
+            gpu = gpu_line() if dev_type == "cuda" else "cpu"
+            n = 0
+            for label, trained in picked.items():
+                out["trained"][label], k = _trained_shard_on_kernel1(
+                    label, trained, gpu, SFAM_TRAINED[label][2])
+                n += k
+            out["launches"] = n
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+
+
+def phase_sharded_train_families(world: int = 0,
+                                 models: dict = SFAM_TRAIN) -> dict:
+    """Phase 17: the QAT train step of the enc-dec, VLM and recurrent
+    families sharded under a (1, world) mesh (the encoder sequence-sharded
+    and gathered once for every decoder block's cross K/V, a VLM's front
+    rows before the tokens in the sequence cut, the RG-LRU on each rank's
+    channels and the xLSTM cells in the serve layout, over the whole
+    sequence), one NCCL rank per visible card (world 1 on one card: every
+    collective is issued over its one-rank group), each bit for bit with
+    its unsharded step; then two trained 16-way shards on kernel 1.
+    Returns rank 0's figures."""
+    import torch
+
+    world = world or torch.cuda.device_count()
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    log(f"  world size {world}: one {'NCCL' if DEV == 'cuda' else 'gloo'} "
+        f"rank per visible card, mesh (data 1, model {world})")
+    # internvl2's run peaks near the card's size
+    out = _spawn_train(_sharded_train_families_rank, world, models,
+                       grow=True)
+    for label, r in out["models"].items():
+        depth = ("full depth" if r["layers"] == r["of_layers"] else
+                 f"{r['layers']} of {r['of_layers']} layers")
+        B, S = r["batch"]
+        extra = f" + {r['frames']} frames" if r["frames"] else ""
+        log(f"  {label} ({depth}, full width, {r['layout']}), batch {B} x "
+            f"{S}{extra}, WSD, {STRAIN_STEPS} steps: sharded vs unsharded "
+            f"{r['equal']}")
+        log(f"    loss {r['loss']} |g| {r['gnorm']} (unsharded "
+            f"{r['plain_loss']}, {r['plain_gnorm']}); a step: sharded "
+            f"{[round(x, 1) for x in r['step_ms']]} ms, unsharded "
+            f"{[round(x, 1) for x in r['plain_step_ms']]} ms; "
+            f"{r['reckoning']['params'] / 1e9:.3f} B params; peak "
+            f"{r['peak_gib']:.2f} GiB sharded, {r['plain_peak_gib']:.2f} GiB "
+            f"unsharded, reckoned {r['reckoning']['peak_gb']:.1f} GB [{gpu}]")
+        log("    collectives step 0 (kind: count/bytes, of them backward) "
+            + "; ".join(f"{k} {c['count']}/{c['bytes']} ({c['backward_count']}"
+                        f"/{c['backward_bytes']})"
+                        for k, c in r["collectives"].items())
+            + f"; parameter collectives {r['param_collectives']}")
+        for i, e in enumerate(r["equal"]):
+            if not all(e.values()):
+                raise AssertionError(f"{label} step {i}: {e}")
+            if not (math.isfinite(r["loss"][i])
+                    and math.isfinite(r["gnorm"][i])):
+                raise AssertionError(f"{label} step {i}: loss {r['loss']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("all", "kernels", "k12",
@@ -6580,7 +6735,8 @@ def main() -> int:
                                        "parallel", "sharded",
                                        "sharded-train", "sharded-moe",
                                        "sharded-train-moe",
-                                       "sharded-families"),
+                                       "sharded-families",
+                                       "sharded-train-families"),
                     default="all",
                     help="all (default); kernels (build + kernel phases); "
                          "k12 (kernels 1-2 timed, one JSON line); "
@@ -6608,7 +6764,11 @@ def main() -> int:
                          "recurrentgemma-2b, xlstm-350m, seamless-m4t-medium "
                          "and internvl2-76b with its front served under a "
                          "(1, cards) mesh, kernel 1 at their 16-way shard "
-                         "shapes, one JSON line)")
+                         "shapes, one JSON line); sharded-train-families "
+                         "(kernel 1 built: the QAT train step of those four "
+                         "under a (1, cards) mesh, the trained internvl2 "
+                         "wq and seamless xattn.wq shards on kernel 1, one "
+                         "JSON line)")
     args = ap.parse_args()
 
     import torch
@@ -6632,6 +6792,7 @@ def main() -> int:
                "sharded-train": SOURCES[:1],
                "sharded-train-moe": SOURCES[:1],
                "sharded-families": SOURCES[:1],
+               "sharded-train-families": SOURCES[:1],
                "sharded-moe": (SOURCES[0], SOURCES[-1])}.get(
         args.only, SOURCES)
     logs = _build.build(sources)
@@ -6662,6 +6823,11 @@ def main() -> int:
     if args.only == "sharded-families":
         phase(SFAM_PHASE)
         log(json.dumps({"sharded_families": phase_sharded_families()}))
+        return 0
+    if args.only == "sharded-train-families":
+        phase(SFAM_TRAIN_PHASE)
+        log(json.dumps({"sharded_train_families":
+                        phase_sharded_train_families()}))
         return 0
     if args.only == "train":
         train, _ = phase_train()
@@ -6806,6 +6972,17 @@ def main() -> int:
             {f"sharded {a}": r["launches"]
              for a, r in sfam["models"].items()})
         gemm["family_shard_shapes"] = sfam["shard_gemms"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(SFAM_TRAIN_PHASE)
+        sft = phase_sharded_train_families()
+        gemm["launches_by_path"][
+            "sharded-train-families trained wq and xattn.wq"] = sft[
+                "launches"]
+        gemm["trained_shards"].update({
+            label: dict(shape=t["shape"], **{f"M{M}": row for M, row in
+                                              t["rows"].items()})
+            for label, t in sft["trained"].items()})
     kernels = [gemm, flash, *lookup.values()]
     for k in kernels:
         k["launches"] = counts[k["name"]]

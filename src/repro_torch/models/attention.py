@@ -21,7 +21,8 @@ caches only, as the reference serves it.  The train forward runs
 autograd: these functions make no in-place update of a tensor the graph
 reads.  Under a mesh the dense prefill and decode of a GQA block are
 ``tp_gqa_prefill`` and ``tp_gqa_decode``, on this rank's heads or cache
-positions, and its train forward ``tp_gqa_train``; an MLA block's are
+positions, and its train forward ``tp_gqa_train`` (causal, windowed or
+bidirectional) and ``tp_cross_train``; an MLA block's are
 ``tp_mla_prefill`` and ``tp_mla_decode``, on this rank's heads and its
 positions of the latent cache."""
 
@@ -460,39 +461,86 @@ def tp_gqa_prefill(params, x, cfg, cache=None, window: Optional[int] = None,
     return nn.tp_linear_apply(params["wo"], out, cfg, split=local)
 
 
-def tp_gqa_train(params, x, cfg):
+def _train_heads(q, k, v, cfg):
+    """The column-parallel wq/wk/wv's outputs on this rank (``[B, S,
+    cols]``, ``[B, Sk, cols]``) as the heads its attention runs: its block
+    of query heads and the KV groups they read, where the heads divide
+    over 'model' (k and v gathered over 'model' where its columns are not
+    whole KV groups: fewer KV heads than ranks, or half a head); else
+    every head, q, k and v gathered whole (the serve path's
+    ``_tp_heads``).  A gather's backward reduce-scatters the gradient,
+    each rank's a partial sum.  Returns ``(q, k, v, local)``."""
+    H, KV, hd, m = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim, coll.size("model")
+    heads = lambda t, n: t.reshape(*t.shape[:2], n, hd)
+    local = H % m == 0
+    if not local:
+        return (*(heads(coll.all_gather_ad(t, "model"), n)
+                  for t, n in ((q, H), (k, KV), (v, KV))), False)
+    q = heads(q, H // m)
+    if KV % m == 0:
+        return q, heads(k, KV // m), heads(v, KV // m), True
+    k, v = (_local_groups(heads(coll.all_gather_ad(t, "model"), KV), cfg)
+            for t in (k, v))
+    return q, k, v, True
+
+
+def _train_wo(params, out, cfg, local: bool):
+    """The row-parallel ``wo`` on this rank's rows: ``out`` its heads'
+    columns, or (``local`` False: every head ran on every rank) its block
+    of them cut from the whole (the other blocks' gradient is the other
+    ranks')."""
+    if not local:
+        out = coll.split(out, "model")
+    return nn.linear_apply(params["wo"], out, cfg)
+
+
+def tp_gqa_train(params, x, cfg, window: Optional[int] = None,
+                 bidir: bool = False):
     """``gqa_train`` of the sharded train step under tensor parallelism
     (causal self-attention from position 0, with gradients): ``x [B, S,
     d]`` the whole sequence of this rank's batch rows (gathered by the
     block, ``models.lm._tp_train_block``).  The column-parallel wq/wk/wv
-    (``nn.linear_apply`` on this rank's columns) give its block of query
-    heads and of KV heads; where its k/v columns are not whole KV groups
-    (fewer KV heads than 'model' ranks, or half a head), k and v are
-    gathered over 'model' (backward: reduce-scatter) and it reads the
-    groups of its query heads.  Returns the row-parallel ``wo``'s partial
-    sum ``[B, S, d]`` over this rank's heads (the block reduce-scatters
-    it over 'model')."""
+    (``nn.linear_apply`` on this rank's columns) give its heads
+    (``_train_heads``: its block of query heads and their KV groups, or
+    every head where the heads do not divide over 'model').  ``window``
+    (``attn_local``): the windowed causal attention; ``bidir``
+    (``enc_attn``, the encoder's ``lm._bidir_attn``): every key visible
+    through the direct masked softmax.  Returns the row-parallel ``wo``'s
+    partial sum ``[B, S, d]`` over this rank's heads or rows (the block
+    reduce-scatters it over 'model')."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.kv_head_dim
-    m = coll.size("model")
-    if H % m:
-        raise NotImplementedError(f"{H} query heads do not divide over "
-                                  f"'model' ({m} ranks)")
     lin = nn.linear_apply
-    q = lin(params["wq"], x, cfg, use_bias=cfg.qkv_bias).reshape(
-        B, S, H // m, hd)
-    k = lin(params["wk"], x, cfg, use_bias=cfg.qkv_bias)
-    v = lin(params["wv"], x, cfg, use_bias=cfg.qkv_bias)
-    if KV % m == 0:
-        k, v = k.reshape(B, S, KV // m, hd), v.reshape(B, S, KV // m, hd)
-    else:
-        k, v = (_local_groups(coll.all_gather_ad(t, "model").reshape(
-            B, S, KV, hd), cfg) for t in (k, v))
+    q, k, v, local = _train_heads(
+        *(lin(params[n], x, cfg, use_bias=cfg.qkv_bias)
+          for n in ("wq", "wk", "wv")), cfg)
     positions = torch.arange(S, device=x.device)[None, :]
-    sin, cos = nn.rotary_embedding(positions, hd)
+    sin, cos = nn.rotary_embedding(positions, cfg.kv_head_dim)
     q = nn.apply_rotary(q, sin, cos)
     k = nn.apply_rotary(k, sin, cos)
-    return lin(params["wo"], sdpa(q, k, v, cfg, causal=True), cfg)
+    if bidir:
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg).reshape(B, S, -1)
+    else:
+        out = sdpa(q, k, v, cfg, causal=True, window=window)
+    return _train_wo(params, out, cfg, local)
+
+
+def tp_cross_train(params, x, enc_out, cfg):
+    """``gqa_train`` with ``cross_kv`` (a ``dec_cross`` block's
+    cross-attention) in the sharded train step: ``x [B, S, d]`` the whole
+    decoder sequence of this rank's rows, ``enc_out [B, Se, d]`` the
+    encoder's output gathered whole (once a forward, ``lm._encode_train``).
+    q from ``x`` and the cross K/V from ``enc_out`` through the
+    column-parallel wq/wk/wv (``lm._cross_kv`` on this rank's columns),
+    arranged as ``tp_gqa_train`` arranges them; no rotary, no mask.  The
+    block's own ``wk``/``wv`` of ``x``, whose output the reference drops,
+    are not run (the serve path's ``tp_cross_prefill``).  Returns the
+    row-parallel ``wo``'s partial sum ``[B, S, d]``."""
+    lin = nn.linear_apply
+    q, k, v, local = _train_heads(
+        *(lin(params[n], t, cfg, use_bias=cfg.qkv_bias)
+          for n, t in (("wq", x), ("wk", enc_out), ("wv", enc_out))), cfg)
+    return _train_wo(params, sdpa(q, k, v, cfg, causal=False), cfg, local)
 
 
 def _sdpa_seq_sharded(q, kc, vc, start: int, pos: Optional[int]):

@@ -81,23 +81,27 @@ through ``parallel.collectives``.  The residual stream is whole on every
 rank of 'model'.  The returned logits are this rank's block of the padded
 vocab.
 
-Sharded training: under the mesh the train ``forward`` of those decoders
-(the dense GQA decoders, deepseek-v3, kimi-k2, a MoE model with GQA
-attention) runs on this rank's param blocks and batch rows
-(``_forward_sharded``), as the reference's ``make_train_step`` jitted
-with its specs' shardings runs it: tensor and sequence parallel over
-'model' (``_tp_train_block``, Megatron-SP; MLA on this rank's heads,
-``attention.tp_mla_train``), a MoE FFN expert parallel over 'model' with
-its aux loss over the global batch (``moe.moe_apply``), the embedding,
-logits and loss vocab-parallel, FSDP weights gathered at use; or under
-``pure_fsdp`` the plain blocks on the rows, every weight gathered at use.
-The paged forwards, and the train forward of the recurrent and enc-dec
-block kinds and of a VLM's front, raise under a mesh.
+Sharded training: under the mesh the train ``forward`` of every family
+runs on this rank's param blocks and batch rows (``_forward_sharded``),
+as the reference's ``make_train_step`` jitted with its specs' shardings
+runs it: tensor and sequence parallel over 'model' (``_tp_train_block``,
+Megatron-SP; MLA on this rank's heads, ``attention.tp_mla_train``; the
+recurrent blocks on this rank's channels or state blocks over the whole
+sequence), a MoE FFN expert parallel over 'model' with its aux loss over
+the global batch (``moe.moe_apply``), an enc-dec model's encoder
+sequence-sharded and its output gathered once for every ``dec_cross``
+block (``_encode_train``), a VLM's front rows before the tokens in the
+sequence cut (``_sequence_block``), the embedding, logits and loss
+vocab-parallel, FSDP weights gathered at use; or under ``pure_fsdp`` the
+plain blocks on the rows, every weight gathered at use.  What no
+reference config trains raises under a mesh (``check_sharded_train``),
+and so do the paged forwards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -109,7 +113,8 @@ from repro_torch.models import moe, nn, rglru, xlstm
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (_SPEC_ATTR, P, batch_entry,
                                            block_range, current_mesh,
-                                           shard_hint, spec_tree, with_spec)
+                                           shard_hint, spec_of, spec_tree,
+                                           with_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,7 +295,7 @@ def apply_block(kind: str, params, x, cfg, apply_fn, cache=None, pos=None,
                              decode, paged_ctx, enc_out)
         check_sharded_train(cfg, kind)
         if not cfg.pure_fsdp:
-            return _tp_train_block(kind, params, x, cfg, x32)
+            return _tp_train_block(kind, params, x, cfg, x32, enc_out)
         # pure_fsdp: the plain block on this rank's batch rows, each linear
         # gathering its FSDP blocks (nn.linear_apply)
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
@@ -462,62 +467,98 @@ def _ring_shards(cfg) -> int:
 
 
 def check_sharded_train(cfg, kind: Optional[str] = None) -> None:
-    """Raise for what the sharded train step does not cover: a block kind
-    other than ``attn`` and ``attn_moe`` (``kind``, or every kind of the
-    config), an enc-dec model, a VLM's frontend, a MoE FFN under
-    ``pure_fsdp`` (no reference config trains one)."""
+    """Raise for what the sharded train step does not cover (``kind``, or
+    every kind of the config), none of which a reference config trains: a
+    MoE FFN under ``pure_fsdp``; a recurrent block under ``pure_fsdp``
+    (its plain gate, conv and recurrence leaves are cut on 'model', which
+    ``pure_fsdp`` gives the batch); an mLSTM whose heads divide the
+    'model' axis (``xlstm._check_tp_heads``)."""
     kinds = ({kind} if kind is not None else
              {k for seg in segments_for(cfg) for k in seg.pattern})
-    if (not kinds <= {"attn", "attn_moe"} or cfg.n_enc_layers
-            or cfg.frontend != "none"):
-        raise NotImplementedError(
-            f"the train forward of {cfg.name!r} (blocks {sorted(kinds)}, "
-            f"attn_kind {cfg.attn_kind!r}, frontend {cfg.frontend!r}) does "
-            "not run sharded: the GQA, MLA and MoE decoders train under a "
-            "mesh; the recurrent and enc-dec families and a VLM's front "
-            "serve sharded, and their train step under the mesh is the "
-            "next slice (ROADMAP queue 1)")
     if "attn_moe" in kinds and cfg.pure_fsdp:
         raise NotImplementedError(
             f"the MoE FFN of {cfg.name!r} under pure_fsdp: experts are "
             "parallel over 'model', which pure_fsdp gives the batch (no "
             "reference config trains it; ROADMAP queue 1)")
+    recurrent = sorted(kinds & {"rglru", "mlstm", "slstm"})
+    if recurrent and cfg.pure_fsdp:
+        raise NotImplementedError(
+            f"the {recurrent} blocks of {cfg.name!r} under pure_fsdp: their "
+            "plain leaves are cut on 'model', which pure_fsdp gives the "
+            "batch (no reference config trains them)")
+    if "mlstm" in kinds:
+        xlstm._check_tp_heads(cfg)
 
 
-def _tp_train_block(kind: str, params, x, cfg, x32=None):
-    """An ``attn`` or ``attn_moe`` block of the train forward under the
-    mesh with tensor and sequence parallelism over 'model' (Megatron-SP):
-    ``x [B, S_l, d]`` is this rank's sequence block of its batch rows
-    (``x32`` the same block's f32 sum, where the layer body passes one).
-    The norms run on the block; the block's sequence is all-gathered
-    (backward: reduce-scatter) into the column-parallel wq/wk/wv (MLA:
-    wq_b, wkv_b) and wi/wg; the attention runs on this rank's heads
-    (``attention.tp_gqa_train``, ``tp_mla_train``); the row-parallel
-    ``wo``s' f32 partial sums are reduce-scattered back onto the sequence
-    block and rounded to bf16 once (backward: all-gather).  A MoE FFN is
-    expert parallel (``moe.moe_apply`` on the block, which gathers and
-    scatters the sequence itself); its aux loss is returned."""
+def _tp_train_block(kind: str, params, x, cfg, x32=None, enc_out=None):
+    """A block of the train forward under the mesh with tensor and
+    sequence parallelism over 'model' (Megatron-SP): ``x [B, S_l, d]`` is
+    this rank's sequence block of its batch rows (``x32`` the same block's
+    f32 sum, where the layer body passes one).  The norms run on the
+    block; the block's sequence is all-gathered (backward: reduce-scatter)
+    into the column-parallel linears; the row-parallel ones' f32 partial
+    sums are reduce-scattered back onto the sequence block and rounded to
+    bf16 once (backward: all-gather).  By kind:
+
+    - ``attn``, ``attn_local``, ``enc_attn``: the attention on this rank's
+      heads (``attention.tp_gqa_train``: causal, windowed or
+      bidirectional; MLA's ``tp_mla_train``), then the FFN;
+    - ``attn_moe``: the same with a MoE FFN expert parallel
+      (``moe.moe_apply`` on the block, which gathers and scatters the
+      sequence itself); its aux loss is returned;
+    - ``dec_cross``: the self-attention, then the cross-attention of this
+      rank's heads over ``enc_out`` (the encoder's output, whole:
+      ``attention.tp_cross_train``), then the FFN;
+    - ``rglru``: the recurrent block on this rank's lru channels over the
+      whole sequence (``rglru.tp_rglru_train``), then the FFN;
+    - ``mlstm``, ``slstm``: the xLSTM cells in the serve path's layout
+      (``xlstm.tp_mlstm_train``, ``tp_slstm_train``); the sLSTM's
+      column-parallel ``down`` is gathered whole and its sequence block
+      kept."""
     h = nn.rmsnorm_apply(params["norm1"], x if x32 is None else x32,
                          dtype=x.dtype)
     h = coll.all_gather_ad(h, "model", dim=1)
-    fwd = attn.tp_mla_train if cfg.attn_kind == "mla" else attn.tp_gqa_train
-    y = _seq_reduce_scatter(fwd(params["attn"], h, cfg))
-    x, s = _residual(x, y)
+    # the reference's enc-dec decoder has no sequence-parallel hint, and its
+    # partitioned graph rounds each rank's row-parallel product to bf16
+    # before the f32 sum over 'model' (read in its compiled train HLO)
+    rs = functools.partial(_seq_reduce_scatter, bf16=kind == "dec_cross")
+    if kind == "mlstm":
+        y = _seq_reduce_scatter(xlstm.tp_mlstm_train(params["cell"], h, cfg))
+        return x + y, None, 0.0, None
+    if kind == "slstm":
+        y = coll.split(xlstm.tp_slstm_train(params["cell"], h, cfg), "model",
+                       dim=1)
+        return x + y, None, 0.0, None
+    if kind == "rglru":
+        y = rglru.tp_rglru_train(params["cell"], h, cfg)
+    elif cfg.attn_kind == "mla":
+        y = attn.tp_mla_train(params["attn"], h, cfg)
+    else:
+        y = attn.tp_gqa_train(
+            params["attn"], h, cfg, bidir=kind == "enc_attn",
+            window=cfg.local_window if kind == "attn_local" else None)
+    x, s = _residual(x, rs(y))
+    if kind == "dec_cross":
+        h2 = nn.rmsnorm_apply(params["norm3"], s, dtype=x.dtype)
+        h2 = coll.all_gather_ad(h2, "model", dim=1)
+        y2 = attn.tp_cross_train(params["xattn"], h2, enc_out, cfg)
+        x, s = _residual(x, rs(y2))
     hf = nn.rmsnorm_apply(params["norm2"], s, dtype=x.dtype)
     if kind == "attn_moe":
         y, aux = moe.moe_apply(params["moe"], hf, cfg,
                                apply_fn=nn.linear_apply)
         return x + y, None, aux, (x, y)
     hf = coll.all_gather_ad(hf, "model", dim=1)
-    y = _seq_reduce_scatter(ffn_apply(params["ffn"], hf, cfg,
-                                      nn.linear_apply))
+    y = rs(ffn_apply(params["ffn"], hf, cfg, nn.linear_apply))
     return x + y, None, 0.0, (x, y)
 
 
-def _seq_reduce_scatter(y):
+def _seq_reduce_scatter(y, bf16: bool = False):
     """A row-parallel linear's f32 partial sums ``[B, S, d]`` onto this
     rank's sequence block: summed over 'model' in f32, rounded to bf16
-    once."""
+    once (``bf16``: each partial rounded to bf16 first)."""
+    if bf16:
+        y = y.to(nn.COMPUTE_DTYPE).float()
     return coll.reduce_scatter_ad(y, "model", dim=1).to(nn.COMPUTE_DTYPE)
 
 
@@ -1009,11 +1050,51 @@ def _encode_train(p: dict, frames, cfg):
     """The encoder under autograd (the reference's ``encode``, purpose
     'train'): the ``front`` projection of ``frames [B, Se, d_front]``, the
     ``enc_attn`` segment (recomputed per layer under ``cfg.remat``) and
-    ``enc_norm``."""
+    ``enc_norm``.  Under the mesh with tensor parallelism (the sharded
+    train step) each rank projects its sequence block of the frames
+    (``Se`` must divide over 'model'), the segment runs sequence-sharded
+    as the decoder's does, and the normed output is gathered over 'model'
+    once (backward: reduce-scattered) for every ``dec_cross`` block's
+    cross K/V."""
+    tp = current_mesh() is not None and not cfg.pure_fsdp
+    if tp:
+        _divides(frames.shape[1], "frame")
+        frames = coll.split(frames, "model", dim=1)
     x = nn.linear_apply(p["front"], frames, cfg)
     x, _ = _segment_scan(_encoder_segment(cfg), p["encoder"][0], x, cfg,
                          nn.linear_apply, cfg.remat == "layer")
-    return nn.rmsnorm_apply(p["enc_norm"], x)
+    x = nn.rmsnorm_apply(p["enc_norm"], x)
+    return coll.all_gather_ad(x, "model", dim=1) if tp else x
+
+
+def _divides(n: int, what: str) -> None:
+    """Raise where ``n`` rows of a sequence do not divide over 'model'
+    (the layer boundary is sequence-sharded there)."""
+    m = coll.size("model")
+    if n % m:
+        raise ValueError(
+            f"{what} length {n} does not divide over 'model' ({m} ranks): "
+            "the layer boundary is sequence-sharded, which the reference's "
+            "GSPMD pads and the port refuses")
+
+
+def _sequence_block(x, fx):
+    """This rank's block on 'model' of the decoder's input sequence: the
+    token embeddings ``x [B, S, d]`` (whole on every rank of 'model'; the
+    backward gathers the blocks' gradients), after a VLM's projected
+    front rows ``fx [B, F, d]`` where given (``F + S`` cut; each rank keeps
+    its front rows of the projection, so the ``front`` leaf's gradient is
+    a partial sum over 'model', summed by ``trainer.grad_axes``)."""
+    F = 0 if fx is None else fx.shape[1]
+    _divides(F + x.shape[1], "sequence")
+    if fx is None:
+        return coll.split_ad(x, "model", dim=1)
+    pad = x.new_zeros((x.shape[0], F, x.shape[2]))
+    tok = coll.split_ad(torch.cat([pad, x], dim=1), "model", dim=1)
+    n = tok.shape[1]
+    lo = coll.index("model") * n
+    nf = max(0, min(F - lo, n))
+    return torch.cat([fx[:, lo:lo + nf].to(x.dtype), tok[:, nf:]], dim=1)
 
 
 def forward(params, batch, cfg):
@@ -1030,7 +1111,7 @@ def forward(params, batch, cfg):
     tokens = batch["tokens"]
     remat = cfg.remat == "layer"
     if current_mesh() is not None:
-        return _forward_sharded(p, tokens, cfg, remat)
+        return _forward_sharded(p, batch, cfg, remat)
     x = nn.embed_apply(p["embed"], tokens)
     enc_out = None
     if cfg.n_enc_layers:
@@ -1055,35 +1136,48 @@ def forward(params, batch, cfg):
     return loss + 0.01 * aux_total, logits[..., : cfg.vocab]
 
 
-def _forward_sharded(p: dict, tokens, cfg, remat: bool):
+def _forward_sharded(p: dict, batch, cfg, remat: bool):
     """``forward`` under the active mesh, on this rank's param blocks and
     batch rows (the reference's ``make_train_step`` jitted with its specs'
-    shardings): the embedding (``nn.train_embed_apply``), then under
-    tensor parallelism this rank's sequence block on 'model' into the
-    layers (``_tp_train_block``), the final norm on the block, the
-    sequence gathered into the vocab-parallel logits
-    (``nn.train_logits_apply``) and loss (``next_token_loss``).  Under
-    ``pure_fsdp`` the plain layers on the rows, each linear gathering its
-    blocks.  Returns ``(loss, logits)``: the global loss on every rank,
-    this rank's rows and (TP) its block of the vocab's real columns."""
+    shardings): the embedding (``nn.train_embed_apply``), an enc-dec
+    model's encoder (``_encode_train``), then under tensor parallelism
+    this rank's sequence block on 'model' (a VLM's front rows before the
+    tokens, ``_sequence_block``) into the layers (``_tp_train_block``), the
+    final norm on the block, the sequence gathered and the tokens' rows
+    kept for the vocab-parallel logits (``nn.train_logits_apply``) and
+    loss (``next_token_loss``).  Under ``pure_fsdp`` the plain layers on
+    the rows, each linear gathering its blocks.  Returns ``(loss,
+    logits)``: the global loss on every rank, this rank's rows and (TP)
+    its block of the vocab's real columns."""
     check_sharded_train(cfg)
+    tokens = batch["tokens"]
     x = nn.train_embed_apply(p["embed"], tokens, cfg)
-    x = shard_hint(x, P(("pod", "data"), None, None))
-    if not cfg.pure_fsdp:
-        m, S = coll.size("model"), x.shape[1]
-        if S % m:
-            raise ValueError(
-                f"sequence length {S} does not divide over 'model' ({m} "
-                "ranks): the layer boundary is sequence-sharded, which the "
-                "reference's GSPMD pads and the port refuses")
-        x = coll.split_ad(x, "model", dim=1)
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = _encode_train(p, batch["frames"], cfg)
+    fx = None
+    if cfg.frontend != "none" and "front" in batch and not cfg.n_enc_layers:
+        # an FSDP-cut front weight: the reference's partitioned graph
+        # re-cuts its rows over 'model' and sums the bf16 partial products
+        # there (read in its compiled train HLO of the internvl2 smoke)
+        fsdp = not cfg.pure_fsdp and any(spec_of(p["front"]["w"]))
+        fx = nn.linear_apply(p["front"], batch["front"], cfg, k_split=fsdp)
+    if cfg.pure_fsdp:
+        if fx is not None:
+            x = torch.cat([fx.to(x.dtype), x], dim=1)
+        x = shard_hint(x, P(("pod", "data"), None, None))
+    else:
+        x = _sequence_block(x, fx)
     aux_total = 0.0
     for seg, sp in zip(segments_for(cfg), p["segments"]):
-        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat)
+        x, aux = _segment_scan(seg, sp, x, cfg, nn.linear_apply, remat,
+                               enc_out)
         aux_total = aux_total + aux
     x = nn.rmsnorm_apply(p["final_norm"], x)
     if not cfg.pure_fsdp:
         x = coll.all_gather_ad(x, "model", dim=1)
+    if fx is not None:
+        x = x[:, -tokens.shape[1]:]
     logits, start = nn.train_logits_apply(p.get("head", p["embed"]), x, cfg)
     logits = shard_hint(logits, P(("pod", "data"), None, "model"))
     loss = next_token_loss(logits, tokens, cfg, start)

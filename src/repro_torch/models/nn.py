@@ -228,14 +228,21 @@ def init_linear(gen: torch.Generator, K: int, N: int, cfg,
     return p
 
 
-def linear_apply(params, x, cfg, use_bias: bool = False):
+def linear_apply(params, x, cfg, use_bias: bool = False,
+                 k_split: bool = False):
     """The reference's train-path linear, with gradients: with ``aq`` in
     the params (``linear_impl='qdq'``), the N2UQ activation quantiser and
     the LSQ weight quantiser (``core.quant.quantizers``) fake-quantise
     both operands, then a bf16 product; else the bf16 product of ``x``
     and ``w``.  Expert weights ``[E, K, N]`` take ``x [..., E, cap, K]``
     to ``[..., E, cap, N]``.  The serve path also reaches it through an
-    enc-dec model's ``front`` projection (``models.lm.encode``)."""
+    enc-dec model's ``front`` projection (``models.lm.encode``).
+
+    ``k_split`` (under a mesh; a weight replicated on 'model'): the
+    product of this rank's block of the reduction dim over 'model',
+    rounded to bf16, the partials summed over 'model' in f32 and rounded
+    once (``collectives.sum_partials_ad``), as the reference's
+    partitioned graph runs a VLM's FSDP-cut front (``models.lm``)."""
     numel, partial = None, False
     if current_mesh() is not None:
         partial = _row_parallel(params["w"], cfg)
@@ -251,6 +258,10 @@ def linear_apply(params, x, cfg, use_bias: bool = False):
         x_, w_ = xq.to(COMPUTE_DTYPE), wq.to(COMPUTE_DTYPE)
     else:
         x_, w_ = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
+    if k_split:
+        y = _bf16_matmul(coll.split(x_, "model"),
+                         coll.split(w_, "model", dim=-2))
+        return coll.sum_partials_ad(y.float(), "model").to(COMPUTE_DTYPE)
     # [..., E, cap, K] @ [E, K, N] broadcasts
     y = _bf16_matmul(x_, w_, f32_out=partial)
     if use_bias:

@@ -14,7 +14,9 @@ vectorised levels); a sequential loop would round differently.  Decode
 is the one-step cell.  The gates are f32 products of plain weights, as
 in the reference.  The train forward runs the same functions under
 autograd (``apply_fn=nn.linear_apply``): the scan's interleave writes
-only into tensors it makes.
+only into tensors it makes.  Under a mesh the serve forward is
+``tp_rglru_block_apply`` and the train forward ``tp_rglru_train``, both on
+this rank's block of the lru channels.
 """
 
 from __future__ import annotations
@@ -176,3 +178,26 @@ def tp_rglru_block_apply(params, x, cfg, state):
     y, split = nn.tp_linear_apply(params["wout"], hs.to(x.dtype).float() * g,
                                   cfg, split=True)
     return nn.gather_cols(y, split), state
+
+
+def tp_rglru_train(params, x, cfg):
+    """``rglru_block_apply`` of the sharded train step (from the zero
+    state, with gradients) on this rank's block of the lru channels:
+    ``x [B, S, d]`` the whole sequence of this rank's rows (gathered by
+    the block, ``models.lm._tp_train_block``), so the conv and the
+    recurrence run over the whole sequence on its channels (never across
+    ranks).  ``win``/``wgate`` are column-parallel (``nn.linear_apply`` on
+    this rank's columns); each gate's f32 product over ``wr``/``wi``'s
+    rows (P('model', None)) is a partial sum, all-reduced over 'model'
+    (backward: the gradient passed through) and cut to this rank's
+    channels (backward: gathered), as the serve path reduces it.  Returns
+    the row-parallel ``wout``'s f32 partial sum ``[B, S, d]`` (the block
+    reduce-scatters it)."""
+    lin = nn.linear_apply
+    u_in = lin(params["win"], x, cfg).to(torch.float32)
+    state = rglru_zero_state(x.shape[0], u_in.shape[-1], cfg.conv_width,
+                             device=x.device)
+    hs, _ = _recur(params, u_in, state, cfg, lambda p: coll.split_ad(
+        coll.all_reduce_ad(p, "model"), "model"))
+    g = nn.silu(lin(params["wgate"], x, cfg))
+    return lin(params["wout"], hs.to(x.dtype).float() * g, cfg)

@@ -19,7 +19,9 @@ chunk's steps, not every step's ``[B, H, hd, hd]`` matrix memory.  The
 linears are ``apply_fn``'s (lookup GEMMs serving under TLMAC, the
 train linear under QAT); the gate projections ``wi``/``wf`` and the
 sLSTM recurrence are f32 products of plain weights, as in the
-reference.
+reference.  Under a mesh the serve forwards are ``tp_mlstm_apply`` and
+``tp_slstm_apply`` and the train forwards ``tp_mlstm_train`` and
+``tp_slstm_train``, in one layout.
 """
 
 from __future__ import annotations
@@ -208,8 +210,8 @@ def _check_tp_heads(cfg) -> None:
             f"the mLSTM of {cfg.name!r} under a mesh with {cfg.n_heads} "
             f"heads: heads that divide the 'model' axis ({nn.MODEL_AXIS}) "
             "cut the state on heads (cache_axes' h_ok layout), which no "
-            "reference config serves; the port serves the value-dim cut "
-            "only")
+            "reference config has; the port serves and trains the "
+            "value-dim cut only")
 
 
 def tp_mlstm_apply(params, x, cfg, state):
@@ -263,6 +265,55 @@ def tp_mlstm_apply(params, x, cfg, state):
     y, split = nn.tp_linear_apply(params["down"], h.reshape(B, S, inner)
                                   .float() * nn.silu(z), cfg)
     return nn.gather_cols(y, split), dict(cell_state, conv=new_conv)
+
+
+def tp_mlstm_train(params, x, cfg):
+    """``mlstm_apply`` of the sharded train step (from the zero state,
+    with gradients) in the serve path's layout (``tp_mlstm_apply``): ``x
+    [B, S, d]`` the whole sequence of this rank's rows (gathered by the
+    block, ``models.lm._tp_train_block``).  ``up`` column-parallel, its
+    output gathered (backward: reduce-scattered); the conv and silu on
+    this rank's inner channels; the row-parallel ``wq``/``wk`` and the
+    gates' f32 products over ``wi``/``wf``'s rows are partial sums, taken
+    whole on every rank (``collectives.sum_partials_ad``: each rank
+    uses them for its rows of ``C`` only); ``wv`` on this rank's rows of
+    ``xi``, reduce-scattered onto its value dim ``i``.  The scan keeps this
+    rank's rows ``i`` of ``C`` and ``n``, ``m`` whole (the zero state is
+    whole: nothing to gather), so ``C q`` and ``n . q`` are whole on the
+    rank; its rows of ``h`` are gathered into the row-parallel ``down``.
+    Returns ``down``'s f32 partial sum ``[B, S, d]`` (the block
+    reduce-scatters it)."""
+    _check_tp_heads(cfg)
+    B, S, d = x.shape
+    inner, H = 2 * d, cfg.n_heads
+    hd = inner // H
+    lin = nn.linear_apply
+    u = coll.all_gather_ad(lin(params["up"], x, cfg), "model")
+    xi, z = u[..., :inner], u[..., inner:]
+    xi_own = coll.split(xi, "model")
+    zero = mlstm_zero_state(B, H, hd, cfg.conv_width, device=x.device)
+    c, _ = _conv_step(coll.split(zero["conv"], "model"),
+                      xi_own.to(torch.float32), params["conv"]["w"], S,
+                      cfg.conv_width)
+    c = nn.silu(c).to(x.dtype)
+    whole = lambda t: coll.sum_partials_ad(t, "model")
+    q = whole(lin(params["wq"], c, cfg)).to(x.dtype).reshape(B, S, H, hd)
+    k = whole(lin(params["wk"], c, cfg)).to(x.dtype).reshape(
+        B, S, H, hd) / _sqrt_f32(hd)
+    v = coll.reduce_scatter_ad(lin(params["wv"], xi_own, cfg).reshape(
+        B, S, H, hd), "model", dim=-1).to(x.dtype)
+    c32 = c.to(torch.float32)
+    it = whole(torch.einsum("bsk,kh->bsh", c32, params["wi"]["w"]))
+    ft = whole(torch.einsum("bsk,kh->bsh", c32, params["wf"]["w"]))
+    ft = log_sigmoid(ft + params["wf"]["b"])
+    t32 = lambda a: a.transpose(0, 1).to(torch.float32)
+    xs = (t32(q), t32(k), t32(v), it.transpose(0, 1), ft.transpose(0, 1))
+    cell_state = {"C": coll.split(zero["C"], "model", dim=2), "n": zero["n"],
+                  "m": zero["m"]}
+    _, hs = chunked_scan(_mlstm_cell, cell_state, xs, S)
+    h = coll.all_gather_ad(hs.transpose(0, 1).to(x.dtype), "model")
+    hz = h.reshape(B, S, inner).float() * nn.silu(z)
+    return lin(params["down"], coll.split(hz, "model"), cfg)
 
 
 def _sqrt_f32(n: int) -> float:
@@ -384,6 +435,43 @@ def tp_slstm_apply(params, x, cfg, state):
     y, split = nn.tp_linear_apply(params["down"], h.float() * g, cfg,
                                   split=True)
     return nn.gather_cols(y, split), state
+
+
+def tp_slstm_train(params, x, cfg):
+    """``slstm_apply`` of the sharded train step (from the zero state,
+    with gradients) in the serve path's layout (``tp_slstm_apply``): ``x
+    [B, S, d]`` the whole sequence of this rank's rows (gathered by the
+    block, ``models.lm._tp_train_block``), the state on this rank's block
+    of ``d``.  ``wx`` column-parallel, gathered and each gate's block kept;
+    ``r`` gathered once a call (a parameter gather: its backward
+    reduce-scatters the gradient) and its output columns of the block
+    kept; each step gathers ``h`` whole (``all_gather_ad``).  ``up_gate``
+    and ``down`` are column-parallel: the gated product's blocks are
+    gathered into ``down``, and its columns gathered again.  Returns the
+    whole ``down`` output ``[B, S, d]`` bf16 (the block keeps its sequence
+    block)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    lin = nn.linear_apply
+    x4 = coll.all_gather_ad(lin(params["wx"], x, cfg), "model")
+    x4 = coll.split(x4.to(torch.float32).reshape(B, S, 4, d), "model")
+    bias = coll.split(params["bias"]["b"].reshape(4, d), "model")
+    heads, cols = _own_heads(d, H)
+    rw = coll.all_gather_ad(params["r"]["w"], "model", dim=2, param=True)
+    rw = rw[:, heads, :, cols]
+
+    def cell(st, xt):
+        hprev = coll.all_gather_ad(st["h"], "model").reshape(B, H, d // H)
+        rec = torch.einsum("bhi,ghij->gbhj", hprev[:, heads], rw)
+        pre = xt.transpose(0, 1) + rec.reshape(4, B, -1) + bias[:, None, :]
+        return _slstm_gates(st, pre)
+
+    state = slstm_zero_state(B, d // coll.size("model"), device=x.device)
+    _, hs = chunked_scan(cell, state, x4.transpose(0, 1), S)
+    h = hs.transpose(0, 1).to(x.dtype)
+    g = nn.silu(lin(params["up_gate"], x, cfg))
+    y = lin(params["down"], coll.all_gather_ad(h.float() * g, "model"), cfg)
+    return coll.all_gather_ad(y, "model")
 
 
 def slstm_apply(params, x, cfg, state=None, apply_fn=nn.serve_linear_apply):

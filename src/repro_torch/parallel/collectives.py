@@ -35,6 +35,9 @@ follows what the forward's output feeds, as Megatron-LM's regions do:
 - ``grad_all_reduce``: the identity forward of a replicated tensor whose
   users each give a partial gradient; the backward sums them
   (Megatron's ``f``);
+- ``sum_partials_ad``: the sum of partials, replicated, where each rank
+  then uses only its part of the sum (its rows, its channels): the
+  backward sums the ranks' gradients (an all-reduce each way);
 - ``split_ad``: this rank's block of a replicated tensor; the backward
   all-gathers the blocks' gradients;
 - ``all_reduce_max``: a max with no gradient (the loss's max, held
@@ -231,6 +234,12 @@ def all_reduce_ad(t: torch.Tensor, axes) -> torch.Tensor:
 def grad_all_reduce(t: torch.Tensor, axes) -> torch.Tensor:
     """``t`` itself; the backward sums the gradient over ``axes``."""
     return _GradAllReduce.apply(t, axes) if _live(axes) else t
+
+
+def sum_partials_ad(t: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over ``axes`` of partials whose sum each rank uses only in
+    part; the backward sums the gradient over ``axes`` too."""
+    return grad_all_reduce(all_reduce_ad(t, axes), axes)
 
 
 def split_ad(t: torch.Tensor, axes, dim: int = -1) -> torch.Tensor:

@@ -15,8 +15,11 @@ moments by ``optim.adamw.opt_axes`` (``adamw_init`` under the mesh, or
 ``adamw_state_from_jax(..., mesh=)``), the batch this rank's rows (over
 ('pod', 'data'), or ('data', 'model') under ``pure_fsdp``).  The forward
 is ``models.lm.forward``'s sharded one (a MoE FFN expert parallel, MLA
-on this rank's heads); each of the ``accum_steps`` microbatches is this
-rank's share of the global batch's (``_sharded_microbatches``).  After
+on this rank's heads, the recurrent blocks on this rank's channels, an
+encoder or a VLM's front rows in the sequence cut); each of the
+``accum_steps`` microbatches is this rank's share of the global batch's
+(``_sharded_microbatches``: every entry of the batch, ``frames`` and
+``front`` too).  After
 the backward each gradient leaf is summed over the mesh axes on which its
 uses saw different data (``_reduce_grads``); the compression runs on
 this rank's block of the global gradient and gives that block of the

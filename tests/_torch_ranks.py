@@ -261,7 +261,8 @@ def fed_uniforms(case, record: list = None):
 def sharded_train_rank(rank, world, tmp, names):
     """The sharded train step on this rank for each case of ``names``
     (``tmp/{name}.pkl``: arch, config overrides, mesh shape, accumulation,
-    the reference's train params as numpy, tokens, the ``TrainConfig``
+    the reference's train params as numpy, tokens (and an enc-dec case's
+    ``frames``, a VLM case's ``front``), the ``TrainConfig``
     fields, the moments' dtype, compression and its uniforms, a seeded
     AdamW state): this rank's param blocks
     (``convert.train_params_from_jax`` with ``mesh=``) and moments
@@ -294,9 +295,10 @@ def sharded_train_rank(rank, world, tmp, names):
         params = convert.train_params_from_jax(case["params"], "cpu",
                                                mesh=mesh, cfg=cfg)
         p0 = _copied(convert.to_numpy(params))   # the step works in place
-        tokens = torch.from_numpy(case["tokens"])
-        r0, nr = block_range(tokens.shape[0], nn.train_batch_axes(cfg), mesh)
-        batch = {"tokens": tokens[r0:r0 + nr]}
+        r0, nr = block_range(case["tokens"].shape[0],
+                             nn.train_batch_axes(cfg), mesh)
+        batch = {k: torch.from_numpy(case[k][r0:r0 + nr])
+                 for k in ("tokens", "frames", "front") if k in case}
         step = make_train_step(cfg, tc)
         res = out[name] = {}
         with mesh_context(mesh):

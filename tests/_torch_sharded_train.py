@@ -1,6 +1,5 @@
 """The sharded QAT train step on 4 gloo ranks against the reference's
-4-device step (shared by ``test_torch_sharded_train.py`` and
-``test_torch_sharded_train_fsdp.py``).
+4-device step (shared by the ``test_torch_sharded_train*.py`` files).
 
 ``run(tmp, cases)`` builds each case's reference train params once (a
 jitted ``init_lm``, every N2UQ quantiser calibrated:
@@ -26,7 +25,11 @@ saves them under ``tmp``, then runs:
 
 Each case: ``arch`` (a smoke config), ``over`` (config overrides),
 ``mesh`` ``(data, model)``, ``accum`` (``accum_steps``), optionally
-``hlo``, ``state_dtype`` (the moments': f32, bf16 or int8), ``compress``
+``S`` (tokens a row, default 32), ``frames`` (an enc-dec case's frames a
+row) or ``front`` (a VLM case's front rows), ``captured`` (one reference
+program a mesh: the step alone, its gradient read where it is clipped,
+the 4-device and one-device programs each compiled in a subprocess of
+its own), ``hlo``, ``state_dtype`` (the moments': f32, bf16 or int8), ``compress``
 (int8 gradient compression: the port fed the reference's uniforms, one
 ``jax.random.uniform`` draw over each global leaf's blocks, key
 ``PRNGKey(0)`` split per leaf) and ``aux`` (the MoE aux loss of the
@@ -72,9 +75,11 @@ from repro.launch.hlo_analysis import parse_collectives
 from repro.models import lm as L
 from repro.optim.adamw import AdamWConfig, adamw_init
 from repro.parallel.sharding import make_shardings
+from repro.train import trainer as TR
 from repro.train.trainer import TrainConfig, make_train_step
 
 tmp, names = sys.argv[1], sys.argv[2].split(",")
+part = sys.argv[3]      # all | mesh (the 4-device step) | one (1 device)
 
 def flat(tree, pre):
     out = {}
@@ -123,13 +128,15 @@ for name in names:
 
     params = jax.tree.map(jnp.asarray, case["params"])
     opt = adamw_init(params, tc.adamw)
-    batch = {"tokens": jnp.asarray(case["tokens"])}
+    batch = {k: jnp.asarray(case[k]) for k in ("tokens", "frames", "front")
+             if k in case}
     _, axes = abstract_init(cfg, "train")
     opt_axes = _opt_axes(axes, opt, dtype, mesh)
     be = (("data", "model") if cfg.pure_fsdp
           else _batch_entry(case["tokens"].shape[0], mesh))
     sh_p, sh_o = make_shardings(mesh, axes), make_shardings(mesh, opt_axes)
-    sh_b = {"tokens": NamedSharding(mesh, P(be, None))}
+    sh_b = {k: NamedSharding(mesh, P(be, *([None] * (v.ndim - 1))))
+            for k, v in batch.items()}
     rep = NamedSharding(mesh, P())
     args = (jnp.int32(0), jax.random.PRNGKey(0))
     def aux_of(p, b):      # 0.01 x the aux loss: the CE taken out
@@ -144,25 +151,49 @@ for name in names:
         return (step(p, o, b, s, k), grads(p, b),
                 aux_of(p, b) if case.get("aux") else jnp.float32(0))
 
+    def captured(p, o, b, s, k):    # the step alone, its gradient read
+        seen, real = [], TR.clip_by_global_norm    # where it is clipped
+        def clip(g, c):
+            seen.append(g)
+            return real(g, c)
+        TR.clip_by_global_norm = clip
+        try:
+            p1, o1, met = step(p, o, b, s, k)
+        finally:
+            TR.clip_by_global_norm = real
+        return (p1, o1, met), (met["loss"], seen[0]), jnp.float32(0)
+
+    if case.get("captured"):
+        assert not (case.get("compress") or case.get("aux")), name
+        both = captured
+    one = ((lambda p, o, b, s, k: captured(p, o, b, s, k)[:2])
+           if case.get("captured") else
+           (lambda p, o, b, s, k: (step(p, o, b, s, k), grads(p, b))))
+    if part != "mesh":
+        (p1_one, o1_one, met1), (loss1, g1) = jax.jit(one)(params, opt,
+                                                           batch, *args)
+        out1 = dict(flat(g1, "g1"), **flat(p1_one, "q1"))
+        out1.update(flat(o1_one["m"], "n1"), **flat(o1_one["v"], "w1"))
+        out1.update(loss1=np.asarray(loss1), gnorm1=np.asarray(met1["gnorm"]))
+        np.savez(f"{tmp}/{name}_ref1.npz", **out1)
+    if part == "one":
+        continue
     out = {}
     with mesh_context(mesh):
-        if case.get("hlo"):
+        if case.get("hlo") and not case.get("captured"):
             jstep = jax.jit(step, in_shardings=(sh_p, sh_o, sh_b, rep, rep))
             txt = jstep.lower(params, opt, batch, *args).compile().as_text()
+        prog = jax.jit(both, in_shardings=(sh_p, sh_o, sh_b, rep, rep)).lower(
+            params, opt, batch, *args).compile()
+        if case.get("hlo"):
+            txt = prog.as_text() if case.get("captured") else txt
             st = parse_collectives(txt, loop_multiplier=cfg.n_layers)
             hlo = {"count": st.count_by_kind, "bytes": st.bytes_by_kind}
-        (p1, o1, met), (loss, g), aux = jax.jit(both, in_shardings=(
-            sh_p, sh_o, sh_b, rep, rep))(params, opt, batch, *args)
+        (p1, o1, met), (loss, g), aux = prog(params, opt, batch, *args)
     out.update(flat(p1, "p1"), **flat(g, "g"))
     out.update(flat(o1["m"], "m1"), **flat(o1["v"], "v1"))
     out.update(loss=np.asarray(loss), step_loss=np.asarray(met["loss"]),
                gnorm=np.asarray(met["gnorm"]), aux=np.asarray(aux))
-    one = lambda p, o, b, s, k: (step(p, o, b, s, k), grads(p, b))
-    (p1_one, o1_one, met1), (loss1, g1) = jax.jit(one)(params, opt, batch,
-                                                       *args)
-    out.update(flat(g1, "g1"), **flat(p1_one, "q1"))
-    out.update(flat(o1_one["m"], "n1"), **flat(o1_one["v"], "w1"))
-    out.update(loss1=np.asarray(loss1), gnorm1=np.asarray(met1["gnorm"]))
     meta = {"param_blocks": blocks(params, sh_p, mesh),
             "moment_blocks": blocks(opt["m"], sh_o["m"], mesh)}
     if case.get("hlo"):
@@ -180,8 +211,10 @@ def run(tmp, cases: dict) -> dict:
     for name, c in cases.items():
         jcfg, _, p = T.model(c["arch"], **c["over"])
         case = dict(c, params=p, tc=TC_KW,
-                    tokens=T.tokens(jcfg.vocab, seed=1, b=B, s=S),
+                    tokens=T.tokens(jcfg.vocab, seed=1, b=B,
+                                    s=c.get("S", S)),
                     state=seeded_state(p, c.get("state_dtype", "f32")))
+        case.update(extra_batch(c, jcfg))
         if c.get("compress"):
             case["uniforms"] = ref_uniforms(p)
         with open(os.path.join(tmp, f"{name}.pkl"), "wb") as f:
@@ -190,12 +223,17 @@ def run(tmp, cases: dict) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}")
-    names = list(cases)     # two subprocesses: XLA compiles on one core
+    names = list(cases)     # XLA compiles on one core: two subprocesses,
+    # and a captured case's two programs each in its own
+    single = [n for n in names if not cases[n].get("captured")]
+    jobs = [(",".join(part), "all") for part in (single[::2], single[1::2])
+            if part]
+    jobs += [(n, part) for n in names if cases[n].get("captured")
+             for part in ("mesh", "one")]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(REF_SCRIPT), str(tmp),
-         ",".join(part)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-        for part in (names[::2], names[1::2]) if part]
+        [sys.executable, "-c", textwrap.dedent(REF_SCRIPT), str(tmp), job,
+         part], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for job, part in jobs]
     try:
         ranks = _torch_ranks.spawn_ranks(_torch_ranks.sharded_train_rank,
                                          WORLD, tmp, names)
@@ -210,11 +248,33 @@ def run(tmp, cases: dict) -> dict:
     for name in cases:
         with open(os.path.join(tmp, f"{name}_ref.json")) as f:
             meta = json.load(f)
+        ref = {k: v for f in ("ref", "ref1") for k, v in np.load(
+            os.path.join(tmp, f"{name}_{f}.npz")).items()}
         out[name] = dict(case=full[name], meta=meta, plain=plain[name],
-                         ranks=[r[name] for r in ranks],
-                         ref=dict(np.load(os.path.join(
-                             tmp, f"{name}_ref.npz"))))
+                         ranks=[r[name] for r in ranks], ref=ref)
     return out
+
+
+def extra_batch(c, cfg) -> dict:
+    """A case's batch entries beside its tokens, seeded: an enc-dec case's
+    ``frames [B, c['frames'], 1024]``, a VLM case's ``front [B, F, 1152]``
+    (its config's ``frontend_len`` rows), f32 as the reference's
+    ``data/pipeline.py`` makes them."""
+    rng = np.random.default_rng(2)
+    out = {}
+    if c.get("frames"):
+        out["frames"] = rng.standard_normal((B, c["frames"], 1024)).astype(
+            np.float32)
+    if c.get("front"):
+        out["front"] = rng.standard_normal(
+            (B, cfg.frontend_len, 1152)).astype(np.float32)
+    return out
+
+
+def batch_of(case, rows=slice(None)) -> dict:
+    """The case's batch as tensors (``rows`` of each entry)."""
+    return {k: torch.from_numpy(case[k][rows])
+            for k in ("tokens", "frames", "front") if k in case}
 
 
 def seeded_state(params, dtype: str):
@@ -262,7 +322,7 @@ def plain_step(case) -> dict:
     tc = train_config(case)
     step = make_train_step(cfg, tc)
     params = convert.train_params_from_jax(case["params"], "cpu")
-    batch = {"tokens": torch.from_numpy(case["tokens"])}
+    batch = batch_of(case)
     loss, grads = step.grads(params, batch)
     with fed_uniforms(case):
         params, opt, met = step(params, adamw_init(params, tc.adamw), batch,
@@ -322,12 +382,12 @@ def _kind_scale(want: dict) -> dict:
 
 def hold_grads(want: dict, got: dict, spread: dict = None,
                rel: float = T.GRAD_REL, spread_of: dict = None,
-               outliers: dict = None) -> dict:
+               outliers: dict = None, cos: float = T.GRAD_COS) -> dict:
     """Every gradient leaf ``got`` (by path) against ``want``: zero where
     it is zero; an ``aq`` leaf by its max error over the largest gradient
     of its kind (``AQ_REL``), every other by its cosine and its max error
-    over its largest entry (``GRAD_COS``, ``rel``: ``GRAD_REL``, or the
-    model's own where its unsharded tests set one).  ``spread`` (the reference's own
+    over its largest entry (``cos``, ``rel``: ``GRAD_COS``, ``GRAD_REL``,
+    or the model's own where its unsharded tests set them).  ``spread`` (the reference's own
     one-device gradient): where the reference's two partitionings of one
     step already differ beyond those tolerances on a leaf (N2UQ codes that
     flip on a rounding), the leaf is held to twice that difference
@@ -342,7 +402,7 @@ def hold_grads(want: dict, got: dict, spread: dict = None,
         if not np.abs(w).max():
             assert not np.abs(g).max(), path
             continue
-        cos_min, rel_max = T.GRAD_COS, rel
+        cos_min, rel_max = cos, rel
         if "['aq']" in path:
             scale = kinds[path.rsplit("[", 1)[1]]
             err = np.abs(w - g).max() / scale
@@ -353,13 +413,13 @@ def hold_grads(want: dict, got: dict, spread: dict = None,
                 rel_max = T.AQ_REL
             assert err < rel_max, (path, err, rel_max)
         else:
-            cos, err = _errors(w, g, (outliers or {}).get(path, 0))
+            c, err = _errors(w, g, (outliers or {}).get(path, 0))
             if spread is not None:
                 cos1, err1 = _errors(spread_of[path], spread[path])
                 cos_min = min(cos_min, 1 - 2 * (1 - cos1))
                 rel_max = max(rel_max, 2 * err1)
-            assert cos > cos_min and err < rel_max, (path, cos, cos_min,
-                                                     err, rel_max)
+            assert c > cos_min and err < rel_max, (path, c, cos_min, err,
+                                                   rel_max)
         worst[path] = err
     return worst
 
@@ -428,23 +488,29 @@ def _agree(p0, want, got) -> float:
     return agree / n
 
 
-def hold_updates(out):
+def hold_updates(out, own_spread: bool = False):
     """The step's update ``p1 - p0``, gathered from the ranks' blocks: by
     ``hold_update``'s share (``UPDATE_AGREE``) against the port's
     unsharded step; against the reference's 4-device step by that share
     or, where the reference's own one-device update already agrees with
     its 4-device one on fewer elements (a first AdamW step is about ``lr
     * sign(g)``, so every gradient at its rounding level may flip), with
-    at most twice as many disagreeing."""
+    at most twice as many disagreeing.  ``own_spread``: the hold against
+    the port's unsharded step takes that allowance too (the recurrent,
+    enc-dec and VLM cases, whose sharded step departs from the unsharded
+    one as the reference's own two steps do: sums in other orders, and
+    the partitioned graph's roundings copied)."""
     got = assemble(out, "p1")
     p0 = {p: np.asarray(v, np.float64)
           for p, v in keystr_leaves(out["case"]["params"])}
-    assert _agree(p0, out["plain"]["p1"], got) >= T.UPDATE_AGREE
     ref = out["ref"]
     want = {p: ref["p1" + p] for p in p0}
     own = _agree(p0, want, {p: ref["q1" + p] for p in p0})
+    least = min(T.UPDATE_AGREE, 1 - 2 * (1 - own))
+    plain = _agree(p0, out["plain"]["p1"], got)
+    assert plain >= (least if own_spread else T.UPDATE_AGREE), (plain, own)
     share = _agree(p0, want, got)
-    assert share >= min(T.UPDATE_AGREE, 1 - 2 * (1 - own)), (share, own)
+    assert share >= least, (share, own)
 
 
 def ref_grads(out, prefix: str = "g") -> dict:
@@ -472,15 +538,16 @@ def check_blocks(out):
             assert shape == want, (path, shape, want)
 
 
-def check_moments(out):
+def check_moments(out, own_spread: bool = False):
     """The moments: the seeded state's blocks that each rank converts
     (``adamw_state_from_jax(..., mesh=)``) are the reference's per-device
     blocks of it, the step whole; after the step each moment leaf
     (``m`` and ``v``; an int8 moment's ``q`` and ``scale``), gathered from
     the ranks' blocks, is held as ``hold_updates`` holds the params:
-    against the port's unsharded step by ``UPDATE_AGREE`` (``m``), and
-    against the reference's 4-device step by that share or twice the
-    reference's own 4-vs-1 disagreement."""
+    against the port's unsharded step by ``UPDATE_AGREE`` (``m``; under
+    ``own_spread`` by ``hold_updates``' allowance), and against the
+    reference's 4-device step by that share or twice the reference's own
+    4-vs-1 disagreement."""
     mb, state = out["meta"]["moment_blocks"], out["case"]["state"]
     for rank, r in enumerate(out["ranks"]):
         for k in ("m", "v"):
@@ -499,14 +566,16 @@ def check_moments(out):
         got = assemble(out, k, "moment_blocks", shapes)
         zero = {p: np.zeros(shapes[p]) for p in mb}
         want = {p: ref[k + p] for p in mb}
+        spread = _agree(zero, want, {p: ref[own + p] for p in mb})
+        least = min(T.UPDATE_AGREE, 1 - 2 * (1 - spread))
         if k == "m1":
             plain = {p: (bf16(v) if v.dtype == np.uint16 else v)
                      for p, v in out["plain"]["m1"].items()}
-            assert _agree(zero, plain, got) >= T.UPDATE_AGREE, k
-        spread = _agree(zero, want, {p: ref[own + p] for p in mb})
+            share = _agree(zero, plain, got)
+            assert share >= (least if own_spread else T.UPDATE_AGREE), (
+                k, share, spread)
         share = _agree(zero, want, got)
-        assert share >= min(T.UPDATE_AGREE, 1 - 2 * (1 - spread)), (
-            k, share, spread)
+        assert share >= least, (k, share, spread)
 
 
 def step_stats(out):
@@ -559,3 +628,69 @@ def fsdp_gathers(cfg, mesh, remat: bool) -> int:
             uses = 1 if "head" in axes else 2
             n += uses * 2
     return n
+
+
+def print_collectives(out, label: str, capsys):
+    """The case's step collectives on rank 0 (``step_stats``) beside the
+    reference's compiled HLO (``parse_collectives``), printed with
+    ``-s``: kind, count and bytes, backward and parameter ones apart."""
+    hlo = out["meta"]["hlo"]
+    st = step_stats(out)
+    with capsys.disabled():
+        print(f"\ncollectives a train step, {label}: kind: reference HLO "
+              "count/bytes | port count/bytes (of them backward)")
+        for k in hlo["count"]:
+            print(f"  {k}: {hlo['count'][k]}/{hlo['bytes'][k]} | "
+                  f"{st.count_by_kind[k]}/{st.bytes_by_kind[k]} "
+                  f"({st.backward_count_by_kind[k]}/"
+                  f"{st.backward_bytes_by_kind[k]})")
+        print(f"  port parameter collectives {st.param_count}/"
+              f"{st.param_bytes}")
+
+
+def hold_world1(arch: str, over: dict, accum: int, extra: dict = None,
+                dtype: str = "f32", compress: bool = False):
+    """On a one-rank gloo mesh (1, 1) the sharded step (every collective
+    issued over one rank) equals the unsharded step bit for bit: the loss,
+    the norm, every gradient leaf, every param and every moment leaf
+    after the step (the moments in ``dtype``; under ``compress`` the
+    uniforms drawn from one seed in both).  ``extra``: a case's
+    ``frames``/``front``, the batch's other entries."""
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.launch.mesh import make_host_mesh, mesh_context
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train.trainer import make_train_step
+
+    jcfg, tcfg, p = T.model(arch, **over)
+    tc = train_config(dict(accum=accum, tc=TC_KW, state_dtype=dtype,
+                           compress=compress))
+    step = make_train_step(tcfg, tc)
+    batch = batch_of(dict(extra_batch(extra or {}, jcfg),
+                          tokens=T.tokens(tcfg.vocab, b=B, s=S)))
+    runs = []
+    for sharded in (False, True):
+        mesh = make_host_mesh() if sharded else None
+        try:
+            with mesh_context(mesh):
+                params = convert.train_params_from_jax(p, "cpu", mesh=mesh,
+                                                       cfg=tcfg)
+                opt = adamw_init(params, tc.adamw)
+                loss, grads = step.grads(params, batch)
+                params, opt, met = step(params, opt, batch, 0,
+                                        torch.Generator().manual_seed(7))
+                runs.append((loss, tree_leaves(grads), met,
+                             tree_leaves(params), tree_leaves(opt)))
+        finally:
+            if mesh is not None:
+                dist.destroy_process_group()
+    (l0, g0, m0, p0, o0), (l1, g1, m1, p1, o1) = runs
+    assert torch.equal(l0, l1) and torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["gnorm"], m1["gnorm"])
+    assert len(g0) == len(g1) and len(o0) == len(o1)
+    if dtype != "f32":
+        assert {t.dtype for t in o1} >= {getattr(torch, {
+            "int8": "int8", "bf16": "bfloat16"}[dtype])}
+    for a, b in [*zip(g0, g1), *zip(p0, p1), *zip(o0, o1)]:
+        assert torch.equal(a, b)

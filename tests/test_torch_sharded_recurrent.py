@@ -412,9 +412,12 @@ def test_front_prefill_matches_reference():
 
 def test_paged_and_train_still_refused_under_a_mesh():
     """Under a mesh of 4 ranks: the paged pools and the paged forwards of
-    recurrentgemma's ``attn_local`` blocks, and the sharded train step of
-    each of the four families, raise ``NotImplementedError`` naming what
-    runs sharded instead."""
+    recurrentgemma's ``attn_local`` blocks raise ``NotImplementedError``
+    naming what runs sharded instead.  The four families' sharded train
+    step is admitted (``test_torch_sharded_train_recurrent.py``,
+    ``test_torch_sharded_train_encdec.py``); what of it no reference config
+    trains still raises: the recurrent blocks under ``pure_fsdp``, an
+    mLSTM whose heads divide the 'model' axis."""
     from repro_torch.kernels.paged import PageSpec
 
     cfg = dataclasses.replace(smoke_config("recurrentgemma-2b"),
@@ -434,6 +437,11 @@ def test_paged_and_train_still_refused_under_a_mesh():
                                    "block_table": None, "start": 0})
             for arch in ("recurrentgemma-2b", "xlstm-350m",
                          "seamless-m4t-medium", "internvl2-76b"):
+                lm.check_sharded_train(smoke_config(arch))
+            for arch, over in (("recurrentgemma-2b", {"pure_fsdp": True}),
+                               ("xlstm-350m", {"pure_fsdp": True}),
+                               ("xlstm-350m", {"n_heads": 16})):
                 with pytest.raises(NotImplementedError,
-                                   match="next slice"):
-                    lm.check_sharded_train(smoke_config(arch))
+                                   match="no reference config"):
+                    lm.check_sharded_train(dataclasses.replace(
+                        smoke_config(arch), **over))

@@ -32,8 +32,10 @@ unsharded one bit for bit (the MoE and MLA decoders too, with int8 and
 bf16 moments and compression).  Pieces of the MoE step on 4 ranks:
 compression under a mesh is the global leaf's, an expert stack's
 ``w_step`` is gathered whole at use; an int8 moment is decided on the
-global shape.  The recurrent and enc-dec families and a VLM's front
-raise under a mesh.
+global shape.  What no reference config trains raises under a mesh (the
+recurrent, enc-dec and VLM families are
+``test_torch_sharded_train_recurrent.py``'s and
+``test_torch_sharded_train_encdec.py``'s).
 """
 
 import dataclasses
@@ -119,20 +121,9 @@ def test_train_collectives_beside_reference_hlo(runs, capsys):
     reshards through all-to-alls; the port issues Megatron-style
     gathers and reduce-scatters."""
     out = runs["codeqwen-fsdp-2x2"]
-    hlo = out["meta"]["hlo"]
+    H.print_collectives(out, "codeqwen smoke fsdp, mesh (2, 2)", capsys)
     st = H.step_stats(out)
-    with capsys.disabled():
-        print("\ncollectives a train step, codeqwen smoke fsdp, mesh (2, 2):"
-              " kind: reference HLO count/bytes | port count/bytes (of "
-              "them backward)")
-        for k in hlo["count"]:
-            print(f"  {k}: {hlo['count'][k]}/{hlo['bytes'][k]} | "
-                  f"{st.count_by_kind[k]}/{st.bytes_by_kind[k]} "
-                  f"({st.backward_count_by_kind[k]}/"
-                  f"{st.backward_bytes_by_kind[k]})")
-        print(f"  port parameter collectives {st.param_count}/"
-              f"{st.param_bytes}")
-    assert hlo["count"]["all-gather"] > 0
+    assert out["meta"]["hlo"]["count"]["all-gather"] > 0
     assert st.count_by_kind["all-gather"] > 0
 
 
@@ -159,36 +150,7 @@ def test_one_rank_mesh_is_unsharded_step_bit_for_bit(name):
     every gradient leaf, every param and every moment leaf after the step
     (the compression's uniforms drawn from one seed in both)."""
     arch, over, accum, dtype, compress = WORLD1[name]
-    _, tcfg, p = T.model(arch, **over)
-    tc = TrainConfig(accum_steps=accum, compress=compress,
-                     adamw=AdamWConfig(state_dtype=dtype), **H.TC_KW)
-    step = make_train_step(tcfg, tc)
-    batch = {"tokens": torch.from_numpy(T.tokens(tcfg.vocab, b=4, s=32))}
-    runs = []
-    for sharded in (False, True):
-        mesh = make_host_mesh() if sharded else None
-        try:
-            with (mesh_context(mesh) if mesh else mesh_context(None)):
-                params = convert.train_params_from_jax(p, "cpu", mesh=mesh,
-                                                       cfg=tcfg)
-                opt = adamw_init(params, tc.adamw)
-                loss, grads = step.grads(params, batch)
-                params, opt, met = step(params, opt, batch, 0,
-                                        torch.Generator().manual_seed(7))
-                runs.append((loss, tree_leaves(grads), met,
-                             tree_leaves(params), tree_leaves(opt)))
-        finally:
-            if mesh is not None:
-                dist.destroy_process_group()
-    (l0, g0, m0, p0, o0), (l1, g1, m1, p1, o1) = runs
-    assert torch.equal(l0, l1) and torch.equal(m0["loss"], m1["loss"])
-    assert torch.equal(m0["gnorm"], m1["gnorm"])
-    assert len(o0) == len(o1)
-    if dtype != "f32":
-        assert {t.dtype for t in o1} >= {getattr(torch, {
-            "int8": "int8", "bf16": "bfloat16"}[dtype])}
-    for a, b in [*zip(g0, g1), *zip(p0, p1), *zip(o0, o1)]:
-        assert torch.equal(a, b)
+    H.hold_world1(arch, over, accum, dtype=dtype, compress=compress)
 
 
 def test_backward_on_another_thread_sees_the_mesh():
@@ -243,22 +205,35 @@ def test_sequence_that_does_not_divide_is_refused():
                            cfg)
 
 
-@pytest.mark.parametrize("what", ["xlstm", "encdec", "vlm"])
-def test_out_of_scope_under_a_mesh_raises(what):
-    """The recurrent and enc-dec families and a VLM's front raise under a
-    mesh, naming the later items."""
-    arch = {"xlstm": "xlstm-350m", "encdec": "seamless-m4t-medium",
-            "vlm": "internvl2-76b"}[what]
-    cfg = smoke_config(arch)
+# what: (arch, config overrides, the refusal's words)
+REFUSED = {
+    "moe-pure-fsdp": ("deepseek-v3-671b", {"attn_kind": "gqa",
+                                           "pure_fsdp": True}, "ROADMAP"),
+    "recurrent-pure-fsdp": ("recurrentgemma-2b", {"pure_fsdp": True},
+                            "no reference config"),
+    "mlstm-heads-on-model": ("xlstm-350m", {"n_heads": 16},
+                             "no reference config"),
+}
+
+
+@pytest.mark.parametrize("what", REFUSED)
+def test_what_no_reference_config_trains_raises_under_a_mesh(what):
+    """Under a mesh the train step refuses what no reference config
+    trains: a MoE FFN under ``pure_fsdp`` (its experts would be parallel
+    over 'model', which ``pure_fsdp`` gives the batch), a recurrent block
+    under ``pure_fsdp`` (its plain leaves are cut on 'model'), an mLSTM
+    whose heads divide the 'model' axis (the state's ``h_ok`` layout)."""
+    arch, over, words = REFUSED[what]
+    cfg = dataclasses.replace(smoke_config(arch), **over)
     step = make_train_step(cfg, TrainConfig())
     tokens = torch.zeros((2, 8), dtype=torch.int32)
     with fake_world(4):
         with mesh_context(_fake_mesh((2, 2))):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match=words):
                 step({}, {}, {"tokens": tokens}, 0)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match=words):
                 lm.check_sharded_train(cfg)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError, match=words):
                 lm.forward({}, {"tokens": tokens}, cfg)
 
 

@@ -153,21 +153,11 @@ def test_collectives_beside_reference_hlo(runs, capsys):
     reduce-scatters (no FSDP here): 3 stacks x 2 MoE layers, gathered
     again in the remat recompute."""
     out = runs["deepseek-1x4"]
+    H.print_collectives(out, "deepseek smoke, mesh (1, 4)", capsys)
     hlo = out["meta"]["hlo"]
     st = H.step_stats(out)
     cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"))
     moe_layers = cfg.n_layers - cfg.moe_layer_start
-    with capsys.disabled():
-        print("\ncollectives a train step (PER_STEP), deepseek smoke, mesh "
-              "(1, 4): kind: reference HLO count/bytes | port count/bytes "
-              "(of them backward)")
-        for k in hlo["count"]:
-            print(f"  {k}: {hlo['count'][k]}/{hlo['bytes'][k]} | "
-                  f"{st.count_by_kind[k]}/{st.bytes_by_kind[k]} "
-                  f"({st.backward_count_by_kind[k]}/"
-                  f"{st.backward_bytes_by_kind[k]})")
-        print(f"  port parameter collectives {st.param_count}/"
-              f"{st.param_bytes}")
     assert st.param_count == 3 * moe_layers * (3 if cfg.remat == "layer"
                                                else 2)
     assert st.count_by_kind["all-to-all"] == 0

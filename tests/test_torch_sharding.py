@@ -233,10 +233,10 @@ def test_shard_hint_noop_without_mesh_and_on_a_host_mesh():
 
 def test_shard_hint_refuses_plain_tensors_under_a_larger_mesh():
     """A hint the sharded code does not hold raises under a mesh of more
-    than one device, and so does the train forward of a model that does
-    not run sharded (xlstm's: only the dense GQA decoders train under a
-    mesh)."""
-    cfg = smoke_config("xlstm-350m")
+    than one device, and so does the train forward of a model the sharded
+    step does not cover (xlstm's mLSTM with heads that divide the 'model'
+    axis: the state's ``h_ok`` layout, which no reference config has)."""
+    cfg = dataclasses.replace(smoke_config("xlstm-350m"), n_heads=16)
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), "train",
                         device="cpu")
     with fake_world(4):
