@@ -12,8 +12,9 @@
                                           # training stack (phase 8,
                                           # (a)-(g)), one
                                           # JSON line
-    python3 chip_smoke.py --only parallel # no kernel built: the parallel
-                                          # layer and the dry run (phase
+    python3 chip_smoke.py --only parallel # kernel 1 built: the parallel
+                                          # layer and the dry run, its
+                                          # trace held on the card (phase
                                           # 11), one JSON line
     python3 chip_smoke.py --only sharded  # kernel 1 built: the dense
                                           # serve forwards sharded (phase
@@ -236,8 +237,9 @@ Phases, in order; any failure raises and exits non-zero:
     convs), each equal to the integer conv, with the launch counters of
     kernels 3-6 reset before and asserted after; and ``TLMACLinear`` at
     the quickstart's shape equal to the dense integer GEMM;
-11. the parallel layer (``phase_parallel``; no kernel: its products are
-    ``torch.matmul`` in f32, as the reference's are ``jnp.dot``): one
+11. the parallel layer (``phase_parallel``; the rings and the pipeline
+    use no kernel: their products are ``torch.matmul`` in f32, as the
+    reference's are ``jnp.dot``): one
     NCCL rank spawned per visible card (world size printed: 1 on one
     card, where a ring hop is the identity and no overlap can show),
     ``ring_ag_matmul`` and ``ring_rs_matmul`` at codeqwen1.5-7b's
@@ -248,9 +250,20 @@ Phases, in order; any failure raises and exits non-zero:
     collectives each issued, and their times beside ``all_gather`` +
     matmul (matmul + ``reduce_scatter``; the sequential stages); then
     the port's dry run (``python -m repro_torch.launch.dryrun --all
-    --mesh both``, no JAX on the machine) over every cell and both
-    meshes, each cell's per-device argument bytes printed against the
-    card's 80 GB.
+    --mesh both --skip-hlo``, no JAX on the machine) over every cell and
+    both meshes, each cell's per-device argument bytes printed against
+    the card's 80 GB; every ``decode_32k`` cell on the pod mesh traced
+    (rank 0's step on ``meta``: temp and total bytes against 80 GB,
+    flops against the analytic count) -- both dry runs use no card and
+    run in the background from the script's start, beside the kernels'
+    build (``start_dry_runs``); and the trace held on the card at
+    world 1 (``phase_dry_run_card``): phase 12's codeqwen1.5-7b decode
+    step (8 of 32 layers, B 4) and phase 13's train step (4 of 32
+    layers, B 4 x 1024) traced on ``meta`` under a fake one-rank group,
+    then run on the card under the same trace: collectives, flops and
+    kernel 1's calls (against its launch counter) equal, the predicted
+    peak bytes within ``DRY_PEAK_TOL`` of the rise of
+    ``torch.cuda.max_memory_allocated()`` over the step.
 12. the dense serve forwards sharded (``phase_sharded``): one NCCL rank
     spawned per visible card, a (data 1, model world) mesh (world 1 on
     one card: every collective is still issued, over one-rank groups);
@@ -5232,11 +5245,72 @@ def _parallel_rank(rank: int, world: int, tmp: str, dev_type: str,
         dist.destroy_process_group()
 
 
-def phase_parallel(world: int = 0, shapes: dict = PAR_SHAPES,
-                   dry_run_args=("--all", "--mesh", "both")) -> dict:
+# phase 11's dry runs: their output folder under build/ and arguments
+DRY_RUNS = {"dry_run": ("--all", "--mesh", "both", "--skip-hlo"),
+            "dry_run_traced": ("--shape", "decode_32k", "--mesh", "pod")}
+_BACKGROUND = []        # the subprocesses started, stopped at exit
+
+
+class _DryRun:
+    """One dry run (``python -m repro_torch.launch.dryrun``, a subprocess
+    as a user runs it) started now into ``build/<name>``; a thread waits
+    for it and keeps its output and seconds."""
+
+    def __init__(self, name: str, args):
+        import shutil
+        import threading
+
+        self.args = args
+        self.out_dir = os.path.join(ROOT, "build", name)
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", self.out_dir],
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _BACKGROUND.append(self.proc)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        self.stdout, self.stderr = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+
+    def join(self, timeout: float = 900):
+        """Wait for the run to end (killed past ``timeout`` seconds from
+        its start); raises if it failed."""
+        self.waiter.join(max(0.0, timeout - (time.perf_counter() - self.t0)))
+        if self.waiter.is_alive():
+            self.proc.kill()
+            raise RuntimeError(f"the dry run {self.args} took over "
+                               f"{timeout} s")
+        if self.proc.returncode:
+            log(self.stderr[-4000:])
+            raise RuntimeError(f"the dry run exited {self.proc.returncode}")
+
+
+def start_dry_runs(runs: dict = DRY_RUNS) -> dict:
+    """Phase 11's dry runs started in the background (they use no card):
+    started before the kernels' build, they run beside it."""
+    return {name: _DryRun(name, args) for name, args in runs.items()}
+
+
+def stop_background():
+    """Kill whatever subprocess the script started and is still running."""
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_parallel(dry_runs: dict = None, world: int = 0,
+                   shapes: dict = PAR_SHAPES) -> dict:
     """Phase 11: the rings and the pipeline on one spawned rank per card
-    (NCCL), then the port's dry run over every cell.  Returns the
-    figures."""
+    (NCCL), then the port's dry runs (``dry_runs``, from
+    ``start_dry_runs``; started now if not given) read: every cell, and
+    the traced ``decode_32k`` cells (the trace's hold on the card follows:
+    ``phase_dry_run_card``).  Returns the figures."""
     import tempfile
 
     import torch
@@ -5273,28 +5347,21 @@ def phase_parallel(world: int = 0, shapes: dict = PAR_SHAPES,
         f"{NONTENSOR_OPS_S / 1e12:g} TFLOP/s); pipeline d {sh['D']}, "
         f"{sh['N_MB']} microbatches of {sh['MB']}, {out['pipeline']['slots']} "
         "slots")
-    out["dry_run"] = phase_dry_run(dry_run_args)
+    t0 = time.perf_counter()
+    for name, run in (dry_runs or start_dry_runs()).items():
+        out[name] = phase_dry_run(run)
+    log(f"  the dry runs (started with the build) kept phase 11 waiting "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
-def phase_dry_run(dry_run_args) -> dict:
-    """The port's dry run (a subprocess, as a user runs it) over every cell
-    and both production meshes; prints each cell's per-device argument
-    bytes against the card's memory and holds every cell ``ok``."""
-    import shutil
-
-    out_dir = os.path.join(ROOT, "build", "dryrun")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *dry_run_args,
-         "--out", out_dir],
-        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
-        timeout=900, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode:
-        log(proc.stderr[-4000:])
-        raise RuntimeError(f"the dry run exited {proc.returncode}")
+def phase_dry_run(run: _DryRun) -> dict:
+    """The port's dry run ``run`` waited for; prints each cell's
+    per-device argument bytes against the card's memory (a traced cell:
+    its temp and total bytes too, and its traced flops against the
+    analytic count) and holds every cell ``ok``."""
+    run.join()
+    out_dir = run.out_dir
     cells, skipped = {}, 0
     for name in sorted(os.listdir(out_dir)):
         with open(os.path.join(out_dir, name)) as f:
@@ -5311,10 +5378,174 @@ def phase_dry_run(dry_run_args) -> dict:
             f"{arg / 1e9:.3f} GB a device ({100 * arg / CARD_GB:.1f}% of "
             f"{CARD_GB / 1e9:g} GB; the port's own leaves {port / 1e9:.3f} "
             f"GB), roofline bound by {res['analytic']['bottleneck']}")
-    log(f"  dry run: {len(cells)} cells ok, {skipped} skipped by design, in "
-        f"{secs:.1f} s (no JAX imported)")
-    return dict(cells=len(cells), skipped=skipped, seconds=secs,
+        if res["trace_s"] is not None:
+            total, n = mem["total_nonalias_bytes"], res["analytic"]["n_chips"]
+            ratio = res["cost_analysis"]["flops"] * n / res["analytic"][
+                "flops"]
+            coll = res["hlo_collectives"]
+            log(f"    traced in {res['trace_s']:.1f} s: temp "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, total "
+                f"{total / 1e9:.3f} GB ({100 * total / CARD_GB:.1f}% of "
+                f"{CARD_GB / 1e9:g} GB); flops x {n} chips / analytic "
+                f"{ratio:.3f}; collectives {coll['count_by_kind']} "
+                f"({coll['total_bytes'] / 1e9:.3f} GB); kernel calls "
+                f"{res['kernel_calls']}")
+    log(f"  dry run {' '.join(run.args)}: {len(cells)} cells ok, "
+        f"{skipped} skipped by design, in {run.seconds:.1f} s (no JAX "
+        "imported)")
+    return dict(cells=len(cells), skipped=skipped, seconds=run.seconds,
                 max_gb=max(cells.values()) / 1e9)
+
+
+def _dry_card_cells() -> dict:
+    """The cells held on the card, ``name: (arch, layers, kind, S, B)``:
+    phase 12's codeqwen1.5-7b decode step (its cut, B 4, a cache of the
+    prompt and its steps) and phase 13's train step (its cut and batch)."""
+    arch = "codeqwen1.5-7b"
+    return {"decode": (arch, SHARD_CUTS[arch], "decode",
+                       SHARD_PROMPT + SHARD_STEPS, SHARD_B),
+            "train": (arch, STRAIN_CUTS[arch], "train", TRAIN_SEQ,
+                      TRAIN_BATCH)}
+
+
+# the predicted peak bytes (the trace's storages, exact) against the rise
+# of torch.cuda.max_memory_allocated() over the step: the caching
+# allocator rounds each block up to 512 bytes, and a library's buffers
+# made in the step come on top (cuBLAS's 32 MiB workspace for autograd's
+# device thread, made at the first backward product)
+DRY_PEAK_TOL = dict(rel=0.01, abs=64 * 2**20)
+
+
+def _dry_card_rank(rank: int, world: int, tmp: str, dev_type: str):
+    """The dry run's trace held on the card at world 1: each cell of
+    ``_dry_card_cells()`` traced on ``meta`` under a fake one-rank group (no
+    real group exists yet), then run on this rank's card under the same
+    trace (NCCL, world 1); rank 0 writes both and the card's measures."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import tlmac_fused as tf
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.comm_analysis import trace_step
+    from repro_torch.launch.mesh import (fake_world, make_mesh_compat,
+                                         mesh_context)
+    from repro_torch.models import nn
+
+    def fields(trace):
+        f = dryrun.traced_fields(trace)
+        return dict(f, peak_bytes=trace.peak_bytes, seconds=trace.seconds)
+
+    cells = {name: (_cut_config(arch, layers), ShapeConfig(name, S, B, kind))
+             for name, (arch, layers, kind, S, B) in _dry_card_cells().items()}
+    out = {}
+    with fake_world(world):
+        mesh = make_mesh_compat((1, world), ("data", "model"), "cpu")
+        with mesh_context(mesh):
+            for name, (cfg, shape) in cells.items():
+                args = dryrun.step_args(cfg, shape, mesh)
+                out[name] = {"meta": fields(dryrun.trace_cell(
+                    cfg, shape, mesh, args))}
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh_compat((1, world), ("data", "model"), dev_type)
+        # the libraries' lazy buffers made before any measure: a bf16
+        # product (cuBLAS's workspace) and one collective (NCCL's
+        # communicator)
+        x = torch.ones((64, 64), dtype=torch.bfloat16, device=dev)
+        (x @ x).float().sum().item()
+        dist.all_reduce(torch.ones(1, device=dev))
+        # the card's ops on every device (a CPU rehearsal runs them too)
+        with mesh_context(mesh), nn.card_ops():
+            for name, (cfg, shape) in cells.items():
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                fn, a, donated = dryrun.cell_step(
+                    cfg, shape, mesh, dryrun.step_args(cfg, shape, mesh, gen))
+                if dev_type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                launches = tf.launches
+                trace = trace_step(fn, *a, donated=donated)
+                card = fields(trace)
+                card["launches"] = tf.launches - launches
+                if dev_type == "cuda":
+                    torch.cuda.synchronize()
+                    card["rise_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base)
+                out[name]["card"] = card
+                del fn, a, trace
+                gc.collect()
+                if dev_type == "cuda":
+                    torch.cuda.empty_cache()
+        if rank == 0:
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dry_run_card() -> dict:
+    """The dry run's prediction held on the card at world 1 (one spawned
+    rank, ``_dry_card_rank``): per cell, the meta trace's collectives,
+    flops, kernel 1's calls and peak bytes beside the card's, printed with
+    the card's name and power limit; counts must be equal and the peak
+    within ``DRY_PEAK_TOL``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    gpu = gpu_line() if DEV == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_dry_card_rank, args=(1, tmp, DEV),
+                           nprocs=1, start_method="spawn")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            out = json.load(f)
+    cells = _dry_card_cells()
+    for name, r in out.items():
+        meta, card = r["meta"], r["card"]
+        arch, layers, kind, S, B = cells[name]
+        mc, cc = meta["hlo_collectives"], card["hlo_collectives"]
+        k_meta = meta["kernel_calls"].get("tlmac_gemm_fused", 0)
+        k_card = card["kernel_calls"].get("tlmac_gemm_fused", 0)
+        log(f"  {name}: {arch} {layers} layers, B {B} x {S}: predicted on "
+            f"meta (traced in {meta['seconds']:.1f} s) vs measured on the "
+            f"card [{gpu}]")
+        log(f"    collectives {mc['count_by_kind']} / {mc['total_bytes']} B "
+            f"vs {cc['count_by_kind']} / {cc['total_bytes']} B")
+        log(f"    flops {meta['cost_analysis']['flops']:.6e} vs "
+            f"{card['cost_analysis']['flops']:.6e}; bytes accessed "
+            f"{meta['cost_analysis']['bytes accessed']:.6e} vs "
+            f"{card['cost_analysis']['bytes accessed']:.6e}; "
+            f"transcendentals {meta['cost_analysis']['transcendentals']:.0f}"
+            f" vs {card['cost_analysis']['transcendentals']:.0f}")
+        log(f"    kernel 1 calls {k_meta} vs {k_card} (launch counter "
+            f"{card['launches']})")
+        assert mc == cc, (name, mc, cc)
+        assert meta["cost_analysis"]["flops"] == card["cost_analysis"][
+            "flops"], name
+        assert k_meta == k_card, (name, k_meta, k_card)
+        if DEV == "cuda":       # the CPU's plain twin counts no launch
+            assert card["launches"] == k_card, (name, card["launches"])
+            pred, rise = meta["peak_bytes"], card["rise_bytes"]
+            tol = DRY_PEAK_TOL["rel"] * pred + DRY_PEAK_TOL["abs"]
+            log(f"    peak bytes predicted {pred} (temp "
+                f"{meta['memory_analysis']['temp_size_in_bytes']}) vs rise "
+                f"of max_memory_allocated {rise} ({rise - pred:+d} B, "
+                f"{(rise - pred) / pred:+.3%}; tolerance {tol:.0f} B: "
+                f"{DRY_PEAK_TOL['rel']:.0%} + {DRY_PEAK_TOL['abs'] >> 20} "
+                f"MiB for allocator rounding and library buffers) [{gpu}]")
+            assert abs(rise - pred) <= tol, (name, pred, rise)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  the hold on the card took {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6743,8 +6974,9 @@ def main() -> int:
                          "serve-families (kernels 1-2 built, the dense-"
                          "forward families); train (kernels 1, 4 and 3 "
                          "built, the training stack (a)-(g), one JSON "
-                         "line); parallel (no kernel built: the rings, "
-                         "the pipeline and the dry run, one JSON line); "
+                         "line); parallel (kernel 1 built: the rings, "
+                         "the pipeline, the dry run and its trace held on "
+                         "the card, one JSON line); "
                          "sharded (kernel 1 built: the dense serve "
                          "forwards under a (1, cards) mesh and kernel 1 at "
                          "the 16-way shard shapes, one JSON line); "
@@ -6782,12 +7014,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     _fresh_autotune_cache()
     log(gpu_line())
-    if args.only == "parallel":
-        phase("parallel layer: rings, pipeline, dry run")
-        log(json.dumps({"parallel": phase_parallel()}))
-        return 0
     t0 = time.perf_counter()
     sources = {"k12": SOURCES[:2], "serve-families": SOURCES[:2],
+               "parallel": SOURCES[:1],
                "train": TRAIN_SOURCES, "sharded": SOURCES[:1],
                "sharded-train": SOURCES[:1],
                "sharded-train-moe": SOURCES[:1],
@@ -6795,6 +7024,8 @@ def main() -> int:
                "sharded-train-families": SOURCES[:1],
                "sharded-moe": (SOURCES[0], SOURCES[-1])}.get(
         args.only, SOURCES)
+    dry_runs = (start_dry_runs() if args.only in ("all", "parallel")
+                else None)
     logs = _build.build(sources)
     log(f"build: {' + '.join(n + '.cu' for n in sources)} with nvcc -arch "
         f"sm_90a in {time.perf_counter() - t0:.1f} s (parallel)")
@@ -6802,6 +7033,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.only == "parallel":
+        phase("parallel layer: rings, pipeline, dry run")
+        par = phase_parallel(dry_runs)
+        par["dry_run_card"] = phase_dry_run_card()
+        log(json.dumps({"parallel": par}))
+        return 0
     if args.only == "sharded":
         phase("sharded serve: the dense forwards under a (data, model) mesh")
         log(json.dumps({"sharded": phase_sharded()}))
@@ -6920,7 +7157,8 @@ def main() -> int:
         phase("paper path (ResNet-18 compile-and-execute)")
         counts.update(phase_paper_path(rcfg, rparams, plans))
         phase("parallel layer: rings, pipeline, dry run")
-        phase_parallel()
+        phase_parallel(dry_runs)
+        phase_dry_run_card()
         gc.collect()
         torch.cuda.empty_cache()
         phase("sharded serve: the dense forwards under a (data, model) mesh")
@@ -6998,4 +7236,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_background()

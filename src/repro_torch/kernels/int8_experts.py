@@ -6,7 +6,8 @@ Pallas kernel).
 ``int8_experts_matmul`` launches the CUDA kernel of
 ``csrc/int8_experts.cu`` once for the whole stack on CUDA tensors and runs
 ``int8_experts_matmul_plain`` (one batched int32 product) on CPU tensors
-only.  ``launches`` counts kernel launches.  ``int8_experts_loop`` is a
+only (``meta`` tensors get the output's shape and dtype, no values).
+``launches`` counts kernel launches.  ``int8_experts_loop`` is a
 per-expert ``torch._int_mm`` loop: a yardstick and a card-side oracle,
 never the serve path.
 """
@@ -18,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.comm_analysis import note_kernel
 
 launches = 0
 
@@ -70,24 +72,36 @@ def int8_experts_loop(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch._int_mm(ap[e], w[e])[:M] for e in range(E)])
 
 
-def int8_experts_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """int32 ``[E, M, N]`` = ``a [E, M, K] @ w [E, K, N]`` of int8 operands,
-    any E, M, K and N: one launch on the card."""
-    global launches
-    _check_args(a, w)
-    if a.device.type == "cpu":
-        return int8_experts_matmul_plain(a, w)
-    if not a.is_cuda:
-        raise ValueError(f"unsupported device {a.device}")
-    a, w = a.contiguous(), w.contiguous()
+def kernel_work(a: torch.Tensor, w: torch.Tensor) -> tuple:
+    """``(operations, bytes)`` of one call: ``2 E M K N``, both operands
+    read once and the int32 output written once."""
     E, M, K = a.shape
     N = w.shape[2]
-    out = torch.empty((E, M, N), dtype=torch.int32, device=a.device)
-    if out.numel() == 0:
+    return 2 * E * M * K * N, a.numel() + w.numel() + E * M * N * 4
+
+
+def int8_experts_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int32 ``[E, M, N]`` = ``a [E, M, K] @ w [E, K, N]`` of int8 operands,
+    any E, M, K and N: one launch on the card.  Each call notes its work
+    (``kernel_work``) to the open step traces; on ``meta`` tensors it
+    returns the output's shape only."""
+    global launches
+    _check_args(a, w)
+    dev = a.device.type
+    if dev not in ("cpu", "meta") and not a.is_cuda:
+        raise ValueError(f"unsupported device {a.device}")
+    with note_kernel("int8_experts_matmul", *kernel_work(a, w)):
+        if dev == "cpu":
+            return int8_experts_matmul_plain(a, w)
+        a, w = a.contiguous(), w.contiguous()
+        E, M, K = a.shape
+        N = w.shape[2]
+        out = torch.empty((E, M, N), dtype=torch.int32, device=a.device)
+        if out.numel() == 0 or dev == "meta":
+            return out
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _launcher()(a.data_ptr(), w.data_ptr(), out.data_ptr(), E, M,
+                          K, N, stream)
+        _build.check(err, "int8_experts_matmul")
+        launches += 1
         return out
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _launcher()(a.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, K, N,
-                      stream)
-    _build.check(err, "int8_experts_matmul")
-    launches += 1
-    return out

@@ -13,7 +13,8 @@ counterpart here:
                  (``kernels/autotune.py``), each winner int32-equal to
                  ``'ref'`` before it was timed; a miss tunes on concrete
                  operands when ``tune_on_miss`` and no CUDA graph is being
-                 captured, else dispatches ``auto_default``.
+                 captured, else (and always on ``meta``) dispatches
+                 ``auto_default``.
 
 The reference's ``'xla*'`` impls are TPU graph formulations with no
 counterpart here, and ``'pallas-onehot'`` is a TPU addressing variant of
@@ -127,10 +128,10 @@ def resolve_auto(a_codes, table, exec_idx, step_cluster, *, B_a: int,
     if config is None:
         capturing = dev.type == "cuda" and \
             torch.cuda.is_current_stream_capturing()
-        if tune_on_miss and not capturing:
+        if tune_on_miss and not capturing and dev.type != "meta":
             config = autotune.tune(a_codes, table, exec_idx, step_cluster,
                                    B_a=B_a, G=G, N=N)
-        else:   # capturing (cannot time) or tuning off: the cache stays
+        else:   # capturing or meta (cannot time), or tuning off
             config = {"impl": auto_default}
     # the restriction binds cached and freshly tuned winners alike
     if auto_allow is not None and config["impl"] not in auto_allow:

@@ -5,6 +5,7 @@
 for CUDA tensors and runs ``tlmac_gemm_fused_plain`` (the plain torch
 version, ported from ``ref.tlmac_matmul_ref``) for CPU tensors only.
 Both return the same exact int32.  ``launches`` counts kernel launches.
+On ``meta`` tensors it returns the output's shape and dtype, no values.
 
 With an expert axis (the reference's ``jax.vmap`` over an expert-stacked
 linear) every operand gains a leading E: ``a_codes [E, M, K]``,
@@ -34,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import pack_bitplanes_ref, tlmac_matmul_ref
+from repro_torch.launch.comm_analysis import note_kernel
 
 launches = 0
 expert_launches = 0
@@ -157,6 +159,18 @@ def tlmac_gemm_onehot_plain(a_codes, exec_idx, step_cluster, table, *,
     return torch.matmul(coef.double(), w.double()).to(torch.int32)
 
 
+def kernel_work(a_codes, exec_idx, step_cluster, table, G: int) -> tuple:
+    """``(operations, bytes)`` of one call: the one-hot product's ``2 E M
+    2^G kg N`` and each operand read once, the int32 output written once
+    (the work the card's bound is taken on)."""
+    n_tiles, kg, dp = exec_idx.shape[-3:]
+    rows = a_codes.shape[:-1].numel()           # E * M
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (a_codes, exec_idx, step_cluster, table))
+    return (2 * rows * 2**G * kg * n_tiles * dp,
+            nbytes + rows * n_tiles * dp * 4)
+
+
 def tlmac_gemm_fused(a_codes, exec_idx, step_cluster, table, *,
                      B_a: int, G: int) -> torch.Tensor:
     """Lookup GEMM from raw activation codes ``a_codes [M, K]`` int8 and
@@ -164,35 +178,46 @@ def tlmac_gemm_fused(a_codes, exec_idx, step_cluster, table, *,
     uint8/int16, ``step_cluster [n_tiles, kg]`` int8, ``table [n_clus,
     N_arr, 2^G]`` (on the card int8/int16 from ``narrow_table``).
     Returns int32 ``[M, n_tiles*dp]``.  An expert stack (a leading E on
-    every operand) runs as one launch and returns ``[E, M, n_tiles*dp]``."""
+    every operand) runs as one launch and returns ``[E, M, n_tiles*dp]``.
+
+    Each call notes its work (``kernel_work``) to the open step traces
+    (``launch.comm_analysis.note_kernel``).  On ``meta`` tensors (the dry
+    run's abstract step) it checks the operands as the card does and
+    returns the output's shape only."""
     global launches, expert_launches
     E = _check_args(a_codes, exec_idx, step_cluster, table, B_a, G)
-    if a_codes.device.type == "cpu":
-        return tlmac_gemm_fused_plain(a_codes, exec_idx, step_cluster, table,
-                                      B_a=B_a, G=G)
-    if not a_codes.is_cuda:
+    dev = a_codes.device.type
+    if dev not in ("cpu", "meta") and not a_codes.is_cuda:
         raise ValueError(f"unsupported device {a_codes.device}")
-    if table.dtype not in _ROW_BYTES:
-        raise ValueError(f"the kernel reads narrow table rows (int8/int16 "
-                         f"from narrow_table, made once with the params), "
-                         f"got {table.dtype}")
-    n_tiles, kg, dp = exec_idx.shape[-3:]
-    for name, t in (("a_codes", a_codes), ("exec_idx", exec_idx),
-                    ("step_cluster", step_cluster), ("table", table)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if table.data_ptr() % 16:
-        raise ValueError("table must start 16-byte aligned")
-    M, K = a_codes.shape[-2:]
-    out = torch.empty((*a_codes.shape[:-1], n_tiles * dp), dtype=torch.int32,
-                      device=a_codes.device)
-    stream = torch.cuda.current_stream(a_codes.device).cuda_stream
-    err = _launcher()(
-        a_codes.data_ptr(), exec_idx.data_ptr(), _IDX_BYTES[exec_idx.dtype],
-        step_cluster.data_ptr(), table.data_ptr(), _ROW_BYTES[table.dtype],
-        out.data_ptr(), M, K, n_tiles, kg, dp, table.shape[-3],
-        table.shape[-2], B_a, G, max(E, 1), stream)
-    _build.check(err, "tlmac_gemm_fused")
-    launches += 1
-    expert_launches += bool(E)
-    return out
+    with note_kernel("tlmac_gemm_fused",
+                     *kernel_work(a_codes, exec_idx, step_cluster, table, G)):
+        if dev == "cpu":
+            return tlmac_gemm_fused_plain(a_codes, exec_idx, step_cluster,
+                                          table, B_a=B_a, G=G)
+        if table.dtype not in _ROW_BYTES:
+            raise ValueError(f"the kernel reads narrow table rows "
+                             f"(int8/int16 from narrow_table, made once "
+                             f"with the params), got {table.dtype}")
+        n_tiles, kg, dp = exec_idx.shape[-3:]
+        for name, t in (("a_codes", a_codes), ("exec_idx", exec_idx),
+                        ("step_cluster", step_cluster), ("table", table)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        out = torch.empty((*a_codes.shape[:-1], n_tiles * dp),
+                          dtype=torch.int32, device=a_codes.device)
+        if dev == "meta":
+            return out
+        if table.data_ptr() % 16:
+            raise ValueError("table must start 16-byte aligned")
+        M, K = a_codes.shape[-2:]
+        stream = torch.cuda.current_stream(a_codes.device).cuda_stream
+        err = _launcher()(
+            a_codes.data_ptr(), exec_idx.data_ptr(),
+            _IDX_BYTES[exec_idx.dtype], step_cluster.data_ptr(),
+            table.data_ptr(), _ROW_BYTES[table.dtype], out.data_ptr(), M, K,
+            n_tiles, kg, dp, table.shape[-3], table.shape[-2], B_a, G,
+            max(E, 1), stream)
+        _build.check(err, "tlmac_gemm_fused")
+        launches += 1
+        expert_launches += bool(E)
+        return out

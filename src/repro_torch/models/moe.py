@@ -113,7 +113,7 @@ def _one_hot(idx, n: int, dtype):
 def _dot(eq: str, a, b):
     """A bf16 einsum: on the card cuBLAS (f32 sums); on the CPU the f32
     product of the bf16 operands rounded once, as XLA's CPU dot."""
-    if a.device.type == "cuda":
+    if not nn.xla_cpu(a):
         return torch.einsum(eq, a, b)
     return torch.einsum(eq, a.float(), b.float()).to(nn.COMPUTE_DTYPE)
 

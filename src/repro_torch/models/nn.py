@@ -14,10 +14,17 @@ spec (``parallel.sharding.with_spec``): the production mesh's axes
 over ``('pod', 'data')`` (``_fsdp_spec``).  ``models.lm.param_axes``
 reads the tags; a ``ParamTree`` keeps them on its leaves and on the
 per-layer views, and the serve linears under a mesh
-(``tp_linear_apply``) read them to pick their collectives."""
+(``tp_linear_apply``) read them to pick their collectives.
+
+A few ops have a CPU form that copies XLA's CPU roundings (the f32 dot of
+bf16 operands, the int32 product of int8 ones, libm's rotary, fused
+multiply-adds: ``xla_cpu``).  Every other device takes the card's ops,
+``meta`` included, so that a step traced on ``meta`` (the dry run) is
+the card's step; ``card_ops()`` makes the CPU take them too."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
 import functools
@@ -39,6 +46,27 @@ from repro_torch.parallel.sharding import (_SPEC_ATTR as SPEC_ATTR, P,
 
 COMPUTE_DTYPE = torch.bfloat16
 MODEL_AXIS = 16  # 'model' axis size in both production meshes; fixes dp
+
+_CARD_OPS_ON_CPU = [False]
+
+
+def xla_cpu(t: torch.Tensor) -> bool:
+    """Whether ``t``'s ops take their CPU form, XLA's CPU roundings: on
+    the CPU, outside ``card_ops()``."""
+    return t.device.type == "cpu" and not _CARD_OPS_ON_CPU[0]
+
+
+@contextlib.contextmanager
+def card_ops():
+    """Inside, CPU tensors take the card's ops (a bf16 ``matmul``,
+    ``torch.mm(out_dtype=)``, ``torch._int_mm``, torch's rotary): a CPU
+    run of the card's step, op for op, which a ``meta`` trace is held
+    against."""
+    _CARD_OPS_ON_CPU[0], was = True, _CARD_OPS_ON_CPU[0]
+    try:
+        yield
+    finally:
+        _CARD_OPS_ON_CPU[0] = was
 
 
 class ParamTree(nn.Module):
@@ -157,7 +185,7 @@ def _bf16_matmul(x, w, f32_out: bool = False):
     bf16 operands, which is XLA's CPU dot (a CPU bf16 GEMM orders its sums
     differently).  ``f32_out``: the f32 product, unrounded (on the card
     cuBLAS's bf16 GEMM with an f32 output, ``_MatmulF32Out``)."""
-    if x.device.type == "cuda":
+    if not xla_cpu(x):
         return _MatmulF32Out.apply(x, w) if f32_out else torch.matmul(x, w)
     y = torch.matmul(x.float(), w.float())
     return y if f32_out else y.to(COMPUTE_DTYPE)
@@ -508,7 +536,7 @@ def int8_matmul(aq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     card one ``torch._int_mm`` (cuBLASLt int8 GEMM: K and N come padded to
     multiples of 8 by ``pad_int8_weight``, and zero rows pad M past 16);
     on the CPU an int32 product (no rounding anywhere)."""
-    if aq.device.type != "cuda":
+    if xla_cpu(aq):
         return torch.matmul(aq.to(torch.int32), w8.to(torch.int32))
     M, K = aq.shape
     Mp = max(INT_MM_MIN_M, -(-M // 8) * 8)
@@ -949,7 +977,7 @@ def rotary_embedding(positions, dim: int, base: float = 10000.0):
     folds the reference's ``1 / base**e`` into ``base**(-e)``); torch's
     vectorised ``pow``, ``sin`` and ``cos`` differ from them by an ulp at
     a few percent of rotary arguments.  On the card, torch's."""
-    if positions.device.type == "cpu":
+    if xla_cpu(positions):
         return _libm_rotary(positions, dim, float(base))
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
@@ -1028,7 +1056,7 @@ def apply_rotary(x, sin, cos):
     s)``), the fused product taken exactly in f64."""
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     s, c = sin[..., None, :], cos[..., None, :]
-    if x.device.type == "cpu":
+    if xla_cpu(x):
         c64 = c.double()
         return torch.cat([(x1.double() * c64 - (x2 * s).double()).float(),
                           (x2.double() * c64 + (x1 * s).double()).float()],

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch.comm_analysis import note_collective
+from repro_torch.launch.comm_analysis import collective_call, note_collective
 from repro_torch.parallel.sharding import current_mesh
 
 # dtypes both NCCL and gloo move as they are; a gather moves any other as
@@ -92,7 +92,8 @@ def all_gather(t: torch.Tensor, axes, dim: int = -1,
     if src.dtype not in _WIRE_DTYPES:   # int16 plans move as their bytes
         src = src.view(torch.uint8)
     buf = torch.empty((n, *src.shape[1:]), dtype=src.dtype, device=t.device)
-    dist.all_gather_into_tensor(buf, src, group=group)   # blocks along dim 0
+    with collective_call():     # the blocks along dim 0
+        dist.all_gather_into_tensor(buf, src, group=group)
     # the blocks' axis just before ``dim``, then merged into it: a view
     # where no reordering is needed (dim 0, or one rank), else one copy
     d = dim % t.dim()
@@ -112,7 +113,9 @@ def all_reduce(t: torch.Tensor, axes, op: str = "sum",
     if not mesh_mod.mesh_axes(mesh, axes):
         return t
     out = t if inplace else t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=_OPS[op], group=mesh_mod.axis_group(mesh, axes))
+    with collective_call():
+        dist.all_reduce(out, op=_OPS[op],
+                        group=mesh_mod.axis_group(mesh, axes))
     note_collective("all-reduce", out, backward=backward)
     return out
 
@@ -131,7 +134,8 @@ def reduce_scatter(t: torch.Tensor, axes, dim: int = -1, param: bool = False,
                          f"does not divide over {n} ranks")
     src = torch.stack(t.chunk(n, dim=dim)).contiguous()   # blocks on dim 0
     out = torch.empty((1, *src.shape[1:]), dtype=t.dtype, device=t.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
+    with collective_call():
+        dist.reduce_scatter_tensor(out, src, group=group)
     note_collective("reduce-scatter", src, param, backward)
     return out[0]
 

@@ -512,3 +512,55 @@ def train_pieces_rank(rank, world, tmp):
                              numel=numel, whole_numel=lin["w"].numel(),
                              params=st.param_count)
     return out
+
+
+def register_cpu_mm_dtype():
+    """A CPU kernel for ``torch.mm(out_dtype=)`` (torch has one on the
+    card and on ``meta`` only): the product of the operands in the output
+    dtype, so the CPU can run the card's row-parallel train linears
+    (``nn._MatmulF32Out``) under ``nn.card_ops()``.  Returns the library
+    that holds it (the kernel lives as long as it does)."""
+    lib = torch.library.Library("aten", "IMPL")
+    lib.impl("mm.dtype", lambda a, b, out_dtype: torch.mm(
+        a.to(out_dtype), b.to(out_dtype)), "CPU")
+    return lib
+
+
+def dryrun_trace_rank(rank, world, tmp, cells):
+    """Each of ``cells`` (``{name: (arch, config overrides, kind, S, B,
+    mesh)}``, smoke configs) as the dry run traces it
+    (``launch.dryrun.step_args`` then ``trace_cell``), on this rank's
+    blocks of arguments drawn on the CPU (seed 0) and this rank's real
+    step, every op the card's (``nn.card_ops()``).  Returns each cell's
+    ``dryrun.traced_fields`` and the trace's peak bytes."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.comm_analysis import leaves
+    from repro_torch.launch.mesh import make_mesh_compat, mesh_context
+    from repro_torch.models import nn
+
+    lib = register_cpu_mm_dtype()
+    meshes, out = {}, {}
+    try:
+        for name, (arch, over, kind, S, B, shape) in cells.items():
+            cfg = dataclasses.replace(smoke_config(arch), **over)
+            cell = ShapeConfig(name, S, B, kind)
+            shape = tuple(shape)
+            if shape not in meshes:
+                meshes[shape] = make_mesh_compat(shape, ("data", "model"),
+                                                 "cpu")
+            mesh = meshes[shape]
+            with nn.card_ops(), mesh_context(mesh):
+                args = dryrun.step_args(cfg, cell, mesh,
+                                        gen=torch.Generator().manual_seed(0))
+                trace = dryrun.trace_cell(cfg, cell, mesh, args)
+            out[name] = dict(dryrun.traced_fields(trace),
+                             peak_bytes=trace.peak_bytes,
+                             output_leaves=sum(1 for _ in leaves(
+                                 trace.outputs)))
+    finally:
+        lib._destroy()
+    return out

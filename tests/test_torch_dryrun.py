@@ -45,6 +45,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = [a for a in jlist() if a != "resnet18"]
 MESHES = {"pod": (16, 16), "multipod": (2, 16, 16)}
 CELLS = [("xlstm-350m", "decode_32k"), ("deepseek-v3-671b", "train_4k")]
+# the dry run's flags by cell: deepseek-v3's train step is not traced
+SKIP_HLO = {("deepseek-v3-671b", "train_4k")}
 ROW_RANKS = (0, 17, 300, 511)
 # JAX's per-device bytes from its shard shapes, before the batch and
 # scalars (params, then the other state: int8 moments or caches)
@@ -150,9 +152,9 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 from repro_torch.launch import dryrun
 n_fail = 0
-for arch, shape in json.loads(sys.argv[1]):
+for arch, shape, flags in json.loads(sys.argv[1]):
     n_fail += dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
-                           "both", "--out", sys.argv[2]])
+                           "both", "--out", sys.argv[2], *flags])
 assert all(v is None for m, v in sys.modules.items()
            if m.split(".")[0] in ("jax", "repro"))
 sys.exit(n_fail)
@@ -238,13 +240,18 @@ def test_rows_each_rank_holds_equal_jax(ref):
 
 def test_dry_run_without_jax_equals_jax_bytes(ref, tmp_path):
     """The dry run, with jax and repro blocked from import (every port
-    module imported so), on xlstm-350m decode_32k and deepseek-v3-671b
-    train_4k over both meshes: ok, and rank 0's argument bytes equal the
-    sum of JAX's shard-shape bytes over the same arguments."""
+    module imported so), on xlstm-350m decode_32k (traced) and
+    deepseek-v3-671b train_4k (``--skip-hlo``) over both meshes: ok, and
+    rank 0's argument bytes equal the sum of JAX's shard-shape bytes over
+    the same arguments.  The traced cell fills the compiled step's fields
+    (temp bytes, the caches aliased, collectives, cost); the skipped one
+    leaves them null with reason "skipped"."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cells = [(a, s, ["--skip-hlo"] if (a, s) in SKIP_HLO else [])
+             for a, s in CELLS]
     proc = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(BLOCKED_SCRIPT),
-         json.dumps(CELLS), str(tmp_path)],
+         json.dumps(cells), str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
     for arch, sname in CELLS:
@@ -262,15 +269,41 @@ def test_dry_run_without_jax_equals_jax_bytes(ref, tmp_path):
             assert mem["argument_size_in_bytes"] == params + other + rest
             assert mem["port_argument_size_in_bytes"] >= (
                 mem["argument_size_in_bytes"] - params // 2)
-            for key in ("output_size_in_bytes", "temp_size_in_bytes",
-                        "total_nonalias_bytes"):
-                assert mem[key] is None
-                assert res["reasons"][f"memory_analysis.{key}"]
-            assert res["cost_analysis"]["flops"] is None
-            assert res["compile_s"] is None
-            assert res["hlo_collectives"]["total_bytes"] is None
-            assert res["reasons"]["cost_analysis"]
-            assert res["reasons"]["hlo_collectives"]
+            assert res["compile_s"] is None and res["reasons"]["compile_s"]
+            assert mem["generated_code_size_in_bytes"] is None
+            keys = ("output_size_in_bytes", "temp_size_in_bytes",
+                    "alias_size_in_bytes", "total_nonalias_bytes")
+            if (arch, sname) in SKIP_HLO:
+                for key in keys:
+                    assert mem[key] is None
+                    assert "skipped" in res["reasons"][
+                        f"memory_analysis.{key}"]
+                assert res["cost_analysis"]["flops"] is None
+                assert res["hlo_collectives"] is None
+                assert res["trace_s"] is None
+                for key in ("cost_analysis", "hlo_collectives", "trace_s"):
+                    assert "skipped" in res["reasons"][key]
+            else:
+                assert not any(k.startswith(("memory_analysis.output",
+                                             "memory_analysis.temp",
+                                             "cost_analysis"))
+                               for k in res["reasons"])
+                assert mem["temp_size_in_bytes"] > 0
+                # the caches are donated and written in place
+                assert mem["alias_size_in_bytes"] == other
+                assert mem["output_size_in_bytes"] > other
+                assert mem["total_nonalias_bytes"] == (
+                    mem["argument_size_in_bytes"]
+                    + mem["output_size_in_bytes"] + mem["temp_size_in_bytes"]
+                    - mem["alias_size_in_bytes"])
+                coll = res["hlo_collectives"]
+                assert coll["total_bytes"] > 0 and coll["loop_multiplier"] == 1
+                assert sum(coll["count_by_kind"].values()) > 0
+                assert coll["hlo_chars"] is None
+                assert res["reasons"]["hlo_collectives.hlo_chars"]
+                assert res["cost_analysis"]["flops"] > 0
+                assert res["kernel_calls"]["tlmac_gemm_fused"] > 0
+                assert res["trace_s"] > 0
             assert res["analytic"]["n_chips"] == int(np.prod(
                 MESHES[mname]))
 

@@ -180,6 +180,20 @@ def test_pack_bitplanes_bitexact_vs_jax():
     assert np.array_equal(got.numpy(), want)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor on a device no kernel path takes (XLA), no data."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(cls, t.shape,
+                                                   dtype=t.dtype,
+                                                   device="xla")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"no data for {func}")
+
+
 def test_lookup_gemm_wrapper_rejects_what_the_kernel_does_not_take():
     rng = np.random.default_rng(1)
     a, table, idx, cl = (torch.from_numpy(x) for x in
@@ -193,8 +207,13 @@ def test_lookup_gemm_wrapper_rejects_what_the_kernel_does_not_take():
         tfused.tlmac_gemm_fused(a, idx, cl[:1], table, **kw)
     with pytest.raises(ValueError, match="K="):
         tfused.tlmac_gemm_fused(a[:, :-4], idx, cl, table, **kw)
-    meta = [t.to("meta") for t in (a, idx, cl, table)]
+    # a device no path takes (XLA here: metadata, no data) is refused;
+    # ``meta`` takes the shape-only path, with the card's checks
+    xla = [_Elsewhere(t) for t in (a, idx, cl, table)]
     with pytest.raises(ValueError, match="device"):
+        tfused.tlmac_gemm_fused(*xla, **kw)
+    meta = [t.to("meta") for t in (a, idx, cl, table)]
+    with pytest.raises(ValueError, match="narrow table rows"):
         tfused.tlmac_gemm_fused(*meta, **kw)
 
 

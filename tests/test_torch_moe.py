@@ -240,18 +240,50 @@ def test_serve_expert_linear_apply_bitexact_vs_jax(layout, K, N):
     assert torch.equal(_bits(ty), _bits(_from_jax(jy)))
 
 
+class _OnXla(torch.Tensor):
+    """A tensor on a device no kernel wrapper takes (XLA), its values
+    nowhere: each op runs on ``meta`` and gives XLA tensors again."""
+
+    @staticmethod
+    def __new__(cls, meta):
+        t = torch.Tensor._make_wrapper_subclass(
+            cls, meta.shape, strides=meta.stride(), dtype=meta.dtype,
+            device="xla")
+        t.meta = meta
+        return t
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_map
+
+        def unwrap(x):
+            return x.meta if isinstance(x, _OnXla) else x
+
+        out = func(*tree_map(unwrap, args), **tree_map(unwrap, kwargs or {}))
+        return tree_map(lambda x: _OnXla(x) if isinstance(x, torch.Tensor)
+                        else x, out)
+
+
 def test_int8_expert_linears_are_refused_off_the_cpu():
     """Off the CPU the int8 layout's expert stack runs only on the card,
-    through one launch of the int8 expert kernel: a tensor elsewhere
-    (``meta`` here) is refused by the kernel's wrapper, never served by a
-    launch per expert."""
+    through one launch of the int8 expert kernel: a tensor elsewhere (an
+    XLA device here) is refused by the kernel's wrapper, never served by a
+    launch per expert.  On ``meta`` (the dry run's abstract step) the
+    stack takes the kernel's shape-only path, one call for the stack."""
+    from repro_torch.launch.comm_analysis import trace_step
+
     _, tcfg = F.cfgs("moe-gqa", "int8")
     tp = tnn.init_serve_linear(torch.Generator().manual_seed(0), 64, 32,
                                tcfg, device="cpu", expert=8)
-    tp = {k: v.to("meta") for k, v in tp.items()}
+    meta = {k: v.to("meta") for k, v in tp.items()}
     xe = torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="unsupported device meta"):
-        tnn.serve_expert_linear_apply(tp, xe, tcfg)
+    with pytest.raises(ValueError, match="unsupported device xla"):
+        tnn.serve_expert_linear_apply(
+            {k: _OnXla(v) for k, v in meta.items()}, _OnXla(xe), tcfg)
+    tr = trace_step(lambda: tnn.serve_expert_linear_apply(meta, xe, tcfg))
+    assert tr.kernels == {"int8_experts_matmul": 1}
+    assert tr.outputs.shape == (2, 8, 3, 32)
+    assert tr.outputs.device.type == "meta"
 
 
 def test_init_serve_linear_stacks_experts():
