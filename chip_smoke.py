@@ -259,11 +259,15 @@ Phases, in order; any failure raises and exits non-zero:
     build (``start_dry_runs``); and the trace held on the card at
     world 1 (``phase_dry_run_card``): phase 12's codeqwen1.5-7b decode
     step (8 of 32 layers, B 4) and phase 13's train step (4 of 32
-    layers, B 4 x 1024) traced on ``meta`` under a fake one-rank group,
-    then run on the card under the same trace: collectives, flops and
-    kernel 1's calls (against its launch counter) equal, the predicted
-    peak bytes within ``DRY_PEAK_TOL`` of the rise of
-    ``torch.cuda.max_memory_allocated()`` over the step.
+    layers, B 4 x 1024), and xlstm-350m at full width cut to 8 of 24
+    layers (one 7:1 layer, its sLSTM included): a train step of B 2 x 256
+    (4 scan chunks) and a prefill of B 2 x 512 (8 chunks), traced on
+    ``meta`` under a fake one-rank group (the xLSTM scans run a few steps
+    and count the rest), then run on the card under the same trace
+    (every step): collectives, flops and kernel 1's calls (against its
+    launch counter) equal, the predicted peak bytes within
+    ``DRY_PEAK_TOL`` of the rise of ``torch.cuda.max_memory_allocated()``
+    over the step.
 12. the dense serve forwards sharded (``phase_sharded``): one NCCL rank
     spawned per visible card, a (data 1, model world) mesh (world 1 on
     one card: every collective is still issued, over one-rank groups);
@@ -5398,14 +5402,21 @@ def phase_dry_run(run: _DryRun) -> dict:
 
 
 def _dry_card_cells() -> dict:
-    """The cells held on the card, ``name: (arch, layers, kind, S, B)``:
-    phase 12's codeqwen1.5-7b decode step (its cut, B 4, a cache of the
-    prompt and its steps) and phase 13's train step (its cut and batch)."""
+    """The cells held on the card, ``name: (arch, layers, kind, S, B,
+    config overrides)``: phase 12's codeqwen1.5-7b decode step (its cut,
+    B 4, a cache of the prompt and its steps), phase 13's train step (its
+    cut and batch), and xlstm-350m's counted scans: 8 of 24 layers (the
+    fewest that hold an sLSTM), a train step of one microbatch of the dry
+    run's ``train_4k`` (B 2, so one accumulation step) over 4 chunks and a
+    prefill over 8."""
     arch = "codeqwen1.5-7b"
     return {"decode": (arch, SHARD_CUTS[arch], "decode",
-                       SHARD_PROMPT + SHARD_STEPS, SHARD_B),
+                       SHARD_PROMPT + SHARD_STEPS, SHARD_B, None),
             "train": (arch, STRAIN_CUTS[arch], "train", TRAIN_SEQ,
-                      TRAIN_BATCH)}
+                      TRAIN_BATCH, None),
+            "xlstm-train": ("xlstm-350m", 8, "train", 256, 2,
+                            {"train_accum": 1}),
+            "xlstm-prefill": ("xlstm-350m", 8, "prefill", 512, 2, None)}
 
 
 # the predicted peak bytes (the trace's storages, exact) against the rise
@@ -5434,10 +5445,13 @@ def _dry_card_rank(rank: int, world: int, tmp: str, dev_type: str):
 
     def fields(trace):
         f = dryrun.traced_fields(trace)
-        return dict(f, peak_bytes=trace.peak_bytes, seconds=trace.seconds)
+        return dict(f, peak_bytes=trace.peak_bytes, seconds=trace.seconds,
+                    ops=trace.ops)
 
-    cells = {name: (_cut_config(arch, layers), ShapeConfig(name, S, B, kind))
-             for name, (arch, layers, kind, S, B) in _dry_card_cells().items()}
+    cells = {name: (_cut_config(arch, layers, over),
+                    ShapeConfig(name, S, B, kind))
+             for name, (arch, layers, kind, S, B, over)
+             in _dry_card_cells().items()}
     out = {}
     with fake_world(world):
         mesh = make_mesh_compat((1, world), ("data", "model"), "cpu")
@@ -5511,13 +5525,14 @@ def phase_dry_run_card() -> dict:
     cells = _dry_card_cells()
     for name, r in out.items():
         meta, card = r["meta"], r["card"]
-        arch, layers, kind, S, B = cells[name]
+        arch, layers, kind, S, B, _ = cells[name]
         mc, cc = meta["hlo_collectives"], card["hlo_collectives"]
         k_meta = meta["kernel_calls"].get("tlmac_gemm_fused", 0)
         k_card = card["kernel_calls"].get("tlmac_gemm_fused", 0)
         log(f"  {name}: {arch} {layers} layers, B {B} x {S}: predicted on "
-            f"meta (traced in {meta['seconds']:.1f} s) vs measured on the "
-            f"card [{gpu}]")
+            f"meta (traced in {meta['seconds']:.1f} s, {meta['ops']} ops "
+            f"dispatched) vs measured on the card ({card['seconds']:.1f} s, "
+            f"{card['ops']} ops) [{gpu}]")
         log(f"    collectives {mc['count_by_kind']} / {mc['total_bytes']} B "
             f"vs {cc['count_by_kind']} / {cc['total_bytes']} B")
         log(f"    flops {meta['cost_analysis']['flops']:.6e} vs "

@@ -55,6 +55,20 @@ The memory side keeps every storage that an op of the step makes and is
 not an argument's: its live bytes, their peak, and which of them the
 outputs hold at the end (``StepTrace``).
 
+A loop whose iterations repeat one another's work exactly (a recurrent
+scan's cell step) can be traced by running a few iterations and counting
+the rest (``Work``, ``repeat``): what the open traces and recorders
+counted over one iteration (cost, kernel calls, collectives by kind,
+count and bytes) is added again as many times as iterations were left
+out, and under autograd their backward as the probed iteration's
+(``probe``, ``repeated``).  The storages that the left-out iterations
+would hold are made as placeholders of the same bytes (``placeholder``,
+sized by ``live_bytes``), held as long as theirs would be (beside the
+loop's outputs, or by ``repeated`` until its backward), and their
+outputs are joined by one op over as many operands (``joined``), so
+that ``peak_bytes`` and ``temp_bytes`` come out as the full loop's.
+``models.xlstm.chunked_scan`` counts its steps so on ``meta``.
+
 ``roofline_from_trace`` is the counterpart of the reference's
 ``roofline_from_compiled``.  The reference's ``parse_collectives`` has no
 counterpart: the port has no HLO text, and its collectives are counted
@@ -64,6 +78,7 @@ where they are issued.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 import weakref
@@ -142,10 +157,12 @@ def note_collective(kind: str, tensor: torch.Tensor,
 _TRANSCENDENTAL = frozenset((
     "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "tanh",
     "sigmoid", "erf", "erfc", "rsqrt", "sqrt", "pow", "sin", "cos"))
-# the open traces, process-wide as ``_RECORDERS`` (a backward on autograd's
-# device thread is traced too), and how deep the blocks whose ops are not
-# counted (kernel notes, collective calls) are open now
+# the open traces and their tracers, process-wide as ``_RECORDERS`` (a
+# backward on autograd's device thread is traced too), and how deep the
+# blocks whose ops are not counted (kernel notes, collective calls) are
+# open now
 _TRACES = []
+_TRACERS = []
 _UNCOUNTED = [0]
 # products: flop_counter's formulas, and the int8 GEMM as an ``mm``
 _PRODUCTS = {**flop_registry,
@@ -160,6 +177,8 @@ class StepTrace:
     bytes_accessed: float = 0.0
     transcendentals: float = 0.0
     kernels: Dict[str, int] = dataclasses.field(default_factory=dict)
+    ops: int = 0            # ops dispatched (a repeated loop's left-out
+                            # iterations dispatch none)
     peak_bytes: int = 0     # most bytes of the step's own storages alive
     temp_bytes: int = 0     # the same, less the storages the outputs hold
     outputs: Any = None
@@ -351,6 +370,7 @@ class _Tracer(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self.trace.ops += 1
         out = self.meta_ops(func, args, kwargs)
         flat_in = _flat((args, kwargs))
         flat_out = _flat(out)
@@ -392,11 +412,13 @@ def trace_step(fn, *args, donated=()):
     tracer = _Tracer(trace, known)
     t0 = time.perf_counter()
     _TRACES.append(trace)
+    _TRACERS.append(tracer)
     try:
         with record_collectives() as trace.collectives, tracer:
             out = fn(*args)
     finally:
         _TRACES.remove(trace)
+        _TRACERS.remove(tracer)
     trace.seconds = time.perf_counter() - t0
     tracer.close()
     trace.outputs = out
@@ -410,6 +432,169 @@ def trace_step(fn, *args, donated=()):
             now += n
             trace.temp_bytes = max(trace.temp_bytes, now)
     return trace
+
+
+# ---------------------------------------------------------------------------
+# a loop traced by running a few iterations and counting the rest
+# ---------------------------------------------------------------------------
+
+_STATS_FIELDS = tuple(f.name for f in dataclasses.fields(CollectiveStats))
+
+
+def _counts() -> dict:
+    """What every open trace and recorder has counted so far, by object:
+    its counters, each a number or a dict of numbers."""
+    out = {id(tr): (tr, {"flops": tr.flops, "bytes_accessed":
+                         tr.bytes_accessed, "transcendentals":
+                         tr.transcendentals, "kernels": dict(tr.kernels)})
+           for tr in _TRACES}
+    out.update((id(st), (st, {f: copy.copy(getattr(st, f))
+                              for f in _STATS_FIELDS})) for st in _RECORDERS)
+    return out
+
+
+def _less(now, then):
+    """``now - then`` of two counters: numbers, or dicts of numbers."""
+    if isinstance(now, dict):
+        return {k: v - then.get(k, 0) for k, v in now.items()}
+    return now - then
+
+
+class Work:
+    """What the open traces and recorders count from its making to
+    ``stop()``: cost, kernel calls and collectives (by kind, count and
+    bytes, the parameter and backward splits apart).  ``repeat`` adds it
+    again."""
+
+    def __init__(self):
+        self.counts = _counts()
+
+    def stop(self) -> "Work":
+        """Keep, for each trace and recorder open at both ends, what it
+        counted in between."""
+        then = self.counts
+        self.counts = [(obj, {f: _less(v, then[key][1][f])
+                              for f, v in now.items()})
+                       for key, (obj, now) in _counts().items()
+                       if key in then]
+        return self
+
+
+def repeat(work: Work, times: int) -> None:
+    """Add ``times`` x ``work`` (stopped) to the traces and recorders it
+    was counted in, as if it had been done ``times`` more times."""
+    for obj, delta in work.counts:
+        for f, d in delta.items():
+            v = getattr(obj, f)
+            if isinstance(v, dict):
+                for k, n in d.items():
+                    if n:
+                        v[k] = v.get(k, 0) + times * n
+            else:
+                setattr(obj, f, v + times * d)
+
+
+def live_bytes() -> int:
+    """The bytes of the step's own storages alive now in the innermost
+    open trace (0 when none is open)."""
+    return _TRACERS[-1].now if _TRACERS else 0
+
+
+def placeholder(nbytes: int, device) -> torch.Tensor:
+    """A storage of ``nbytes`` and no use, which the open traces track as
+    any other: the stand-in for storages that left-out iterations of a
+    loop would hold."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+class Probe:
+    """The backward work of the iteration between ``probe(..., 'out')``
+    (its outputs) and ``probe(..., 'in')`` (its input carry): filled when
+    autograd has run through it (``work``).  Autograd runs nodes in the
+    reverse order of their making, so the nodes made between the two
+    marks run between their backwards."""
+
+    def __init__(self):
+        self.work = None
+
+
+class _Mark(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, probe, side, *ts):
+        ctx.probe, ctx.side = probe, side
+        return ts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.side == "out":           # the iteration's backward starts
+            ctx.probe.work = Work()
+        else:
+            ctx.probe.work.stop()
+        return (None, None, *grads)
+
+
+def probe(p: Probe, side: str, *ts):
+    """``ts`` as they are; in the backward, ``side`` 'out' (the outputs of
+    the probed iteration) and 'in' (its input carry) bound the work that
+    ``p`` records."""
+    return _Mark.apply(p, side, *ts)
+
+
+class _Repeated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, times, held, saved, *ts):
+        ctx.p, ctx.times = p, times
+        if saved:
+            # a view of the placeholder: kept as checkpointing keeps saved
+            # tensors (dropped in a checkpointed forward, remade by its
+            # recomputation), and the same metadata either way
+            ctx.save_for_backward(held[:0])
+        else:
+            ctx.held = held
+        return ts
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.held = None
+        repeat(ctx.p.work, ctx.times)
+        return (None, None, None, None, *grads)
+
+
+def repeated(p: Probe, times: int, held: torch.Tensor, saved: bool, *ts):
+    """The carry ``ts`` of a loop, as they are, past ``times`` left-out
+    iterations: ``held`` (a ``placeholder``) stands for what they keep
+    until their backward and is let go in it, where ``times`` x the
+    backward work of the probed iteration (``p``, the one just after) is
+    added.  ``saved``: ``held`` is kept as a saved tensor (inside a
+    checkpointed region, whose recomputation remakes it), else by the
+    graph's node itself."""
+    return _Repeated.apply(p, times, held, saved, *ts)
+
+
+class _Joined(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cat, after, times, *ys):
+        ctx.cat, ctx.after, ctx.times = cat, after, times
+        ctx.pieces = len(ys) + times
+        parts = [*ys[:after], *[ys[after - 1]] * times, *ys[after:]]
+        return torch.cat(parts) if cat else torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        pieces = (g.split(g.shape[0] // ctx.pieces) if ctx.cat
+                  else g.unbind(0))
+        a = ctx.after
+        return (None, None, None, *pieces[:a], *pieces[a + ctx.times:])
+
+
+def joined(ys, after: int, times: int, cat: bool = False) -> torch.Tensor:
+    """``torch.stack`` (or with ``cat``, ``torch.cat``) along dim 0 of a
+    loop's outputs ``ys`` with ``times`` left-out iterations after the
+    first ``after``: the one op over as many operands as the full loop's
+    (``ys[after - 1]`` standing for each left-out one), whose backward
+    gives the outputs that ran their pieces of the gradient (views, as
+    the full loop's backward does)."""
+    return _Joined.apply(cat, after, times, *ys)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,10 +25,10 @@ of ``jax.eval_shape``), and record:
   bytes over the reference's leaves in its dtypes, ``port_*`` beside
   them), ``cost_analysis`` (flops, bytes accessed, transcendentals) and
   ``hlo_collectives`` (the collectives the step issues; every layer runs,
-  so ``loop_multiplier`` is 1), and ``trace_s``.  ``--skip-hlo`` skips
-  the trace: those fields are then null, with reason "skipped"; so are
-  they, with their reason, in a cell whose trace would take hours
-  (``untraced_reason``: an xLSTM step over more than one scan chunk);
+  so ``loop_multiplier`` is 1; an xLSTM scan runs a few of its steps and
+  counts the rest, ``models.xlstm.chunked_scan``, so its cells count
+  every step too), and ``trace_s``.  ``--skip-hlo`` skips the trace:
+  those fields are then null, with reason "skipped";
 - the analytic roofline (``launch/analytic.py``) under the H100's data
   sheet (``launch/comm_analysis.Roofline``), and the traced one
   (``roofline_from_trace``).
@@ -60,7 +60,7 @@ from repro_torch.launch.comm_analysis import (Roofline, leaves,
                                               roofline_from_trace, trace_step)
 from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      mesh_context)
-from repro_torch.models import lm, nn, xlstm
+from repro_torch.models import lm, nn
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, opt_axes
 from repro_torch.parallel.sharding import (P, batch_entry, fix_batch_axes,
                                            local_tree, make_shardings,
@@ -91,24 +91,10 @@ NULL_REASONS = {
                                  "the port has no HLO",
 }
 SKIPPED = "skipped: --skip-hlo skips the trace of the step"
-# an xLSTM step past one scan chunk runs its cell once a time step in
-# Python (``models.xlstm.chunked_scan``): 3.6 million dispatched ops at 64
-# tokens (432 s traced, xlstm-350m train on 16x16), hours at 4096
-NOT_TRACED_SCAN = ("not traced: the xLSTM's chunked_scan runs its cell once "
-                   "a time step in Python, millions of ops a chunk, hours "
-                   "for this step (ROADMAP queue 3)")
 # the fields the trace fills, null under --skip-hlo
-TRACED_FIELDS = ("trace_s", *(f"memory_analysis.{k}" for k in TRACED_MEMORY),
+TRACED_FIELDS = ("trace_s", "trace_ops",
+                 *(f"memory_analysis.{k}" for k in TRACED_MEMORY),
                  "cost_analysis", "hlo_collectives")
-
-
-def untraced_reason(cfg, shape):
-    """Why the cell's step is not traced, or None: a recurrent scan over
-    more than one chunk of time steps (``NOT_TRACED_SCAN``)."""
-    if cfg.family == "ssm" and shape.seq_len > xlstm.CHUNK and (
-            shape.kind in ("train", "prefill")):
-        return NOT_TRACED_SCAN
-    return None
 
 
 def abstract_init(cfg, purpose, gen=None):
@@ -339,22 +325,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, skip_hlo=False):
                 # the port's lowering: the abstract arguments and shards
                 result["lower_s"] = time.time() - t0
                 result["compile_s"] = None
-                untraced = SKIPPED if skip_hlo else untraced_reason(cfg,
-                                                                     shape)
-                trace = None if untraced else trace_cell(cfg, shape, mesh,
+                trace = None if skip_hlo else trace_cell(cfg, shape, mesh,
                                                          args)
         reasons = dict(NULL_REASONS)
         if trace is None:
-            result["trace_s"] = None
+            result["trace_s"] = result["trace_ops"] = None
             result["memory_analysis"] = dict(
                 mem, **dict.fromkeys(TRACED_MEMORY),
                 generated_code_size_in_bytes=None)
             result["cost_analysis"] = dict.fromkeys(COST_KEYS)
             result["hlo_collectives"] = None
-            reasons.update(dict.fromkeys(TRACED_FIELDS, untraced))
+            reasons.update(dict.fromkeys(TRACED_FIELDS, SKIPPED))
             del reasons["hlo_collectives.hlo_chars"]
         else:
             result["trace_s"] = trace.seconds
+            result["trace_ops"] = trace.ops
             fields = traced_fields(trace)
             mem.update(fields.pop("memory_analysis"))
             mem["total_nonalias_bytes"] = _total(mem)
@@ -420,7 +405,8 @@ def main(argv=None):
                 print(f"{status} {tag} args/dev="
                       f"{ma.get('argument_size_in_bytes')} mem/dev="
                       f"{ma.get('total_nonalias_bytes')} trace_s="
-                      f"{res.get('trace_s')} {extra}", flush=True)
+                      f"{res.get('trace_s')} ops={res.get('trace_ops')} "
+                      f"{extra}", flush=True)
     return n_fail
 
 

@@ -30,6 +30,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.quant.quantizers import _softplus
+from repro_torch.launch import comm_analysis as ca
 from repro_torch.models import nn
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import P, with_spec
@@ -47,17 +48,143 @@ def _depthwise_causal_conv(x, w):
 
 
 CHUNK = 64    # the reference's scan chunk: a longer scan must be a multiple
+# on ``meta`` (the dry run's trace) a scan past one chunk runs a few of its
+# steps and counts the rest (``_counted_scan``, ``_counted_chunks``);
+# False runs every step there too
+COUNTED = True
+
+
+def _lead(xs) -> torch.Tensor:
+    return xs[0] if isinstance(xs, tuple) else xs
+
+
+def _steps(xs) -> int:
+    return _lead(xs).shape[0]
+
+
+def _at(xs, t):
+    """Step ``t``'s input: ``xs`` (a tensor or a tuple of them, time
+    leading) indexed at ``t``."""
+    return tuple(a[t] for a in xs) if isinstance(xs, tuple) else xs[t]
 
 
 def _scan(cell, state, xs):
-    """``cell`` over every step of ``xs`` (a tensor or a tuple of them,
-    time leading): ``(state, ys stacked)``."""
+    """``cell`` over every step of ``xs``: ``(state, ys stacked)``."""
     ys = []
-    for t in range((xs[0] if isinstance(xs, tuple) else xs).shape[0]):
-        state, y = cell(state, tuple(a[t] for a in xs) if isinstance(
-            xs, tuple) else xs[t])
+    for t in range(_steps(xs)):
+        state, y = cell(state, _at(xs, t))
         ys.append(y)
     return state, torch.stack(ys)
+
+
+def _probed(p, cell, state, x_of):
+    """``cell`` on ``state`` and the input ``x_of()`` (indexed after the
+    mark, so its backward falls inside), between ``p``'s marks."""
+    keys = list(state)
+    vals = ca.probe(p, "in", *(state[k] for k in keys))
+    state, y = cell(dict(zip(keys, vals)), x_of())
+    *vals, y = ca.probe(p, "out", *(state[k] for k in keys), y)
+    return dict(zip(keys, vals)), y
+
+
+def _repeated(p, times, held, saved, state):
+    keys = list(state)
+    return dict(zip(keys, ca.repeated(p, times, held, saved,
+                                      *(state[k] for k in keys))))
+
+
+def _storages(tree) -> set:
+    return {t.untyped_storage()._cdata for t in tree.values()}
+
+
+def _counted_scan(cell, state, xs, saves: bool):
+    """``_scan`` on ``meta`` over T steps, counted: steps 0, 1, T-2 and T-1
+    run, and the T-4 between are counted as step 1's work
+    (``comm_analysis.repeat``; their backward as step T-2's).  What they
+    would hold is made as placeholders of the bytes step 1 left alive:
+    beside ``ys`` (their outputs) and, where the step's saved tensors are
+    kept (``saves``: a checkpointed chunk's recomputation), saved until
+    their backward (the step's saved tensors and its state, which the
+    next step saves).  The first step (its input is the caller's) and the
+    last two (the top of the loop's memory; the last one's state is the
+    result) run as in ``_scan``.  The trace's cost, collectives, peak and
+    temp bytes are ``_scan``'s."""
+    T = _steps(xs)
+    k = T - 4
+    if k < 0:
+        return _scan(cell, state, xs)
+    dev = _lead(xs).device
+    state, y = cell(state, _at(xs, 0))
+    ys = [y]
+    work, before = ca.Work(), ca.live_bytes()
+    state, y = cell(state, _at(xs, 1))
+    ys.append(y)
+    grown = ca.live_bytes() - before
+    ca.repeat(work.stop(), k)
+    own = (0 if y.untyped_storage()._cdata in _storages(state)
+           else y.untyped_storage().nbytes())
+    per_y = own if saves else grown
+    held = ca.placeholder(k * per_y, dev)   # the left-out outputs, as ys
+    if torch.is_grad_enabled():
+        p = ca.Probe()
+        state = _repeated(p, k, ca.placeholder(k * (grown - per_y), dev),
+                          True, state)
+        state, y = _probed(p, cell, state, lambda: _at(xs, T - 2))
+    else:
+        state, y = cell(state, _at(xs, T - 2))
+    ys.append(y)
+    state, y = cell(state, _at(xs, T - 1))
+    ys.append(y)
+    out = ca.joined(ys, 2, k)
+    del held, ys
+    return state, out
+
+
+def _chunk(xs, c: int):
+    sl = slice(c * CHUNK, (c + 1) * CHUNK)
+    return tuple(a[sl] for a in xs) if isinstance(xs, tuple) else xs[sl]
+
+
+def _checkpointed(cell, state, chunk):
+    """One chunk checkpointed as ``chunked_scan`` does, its steps counted
+    (``_counted_scan``): its saved tensors are kept in the recomputation
+    (every call of the function after the first)."""
+    calls = []
+
+    def scan(st, ch):
+        calls.append(None)
+        return _counted_scan(cell, st, ch, saves=len(calls) > 1)
+
+    return torch.utils.checkpoint.checkpoint(
+        scan, state, chunk, use_reentrant=False, preserve_rng_state=False)
+
+
+def _counted_chunks(cell, state, xs, length: int):
+    """``chunked_scan``'s checkpointed chunks on ``meta``, counted: of n
+    chunks, 0, n-2 and n-1 run (each its steps counted), and the n-3
+    between are counted as chunk 0's forward work and chunk n-2's
+    backward work (recomputation included), with placeholders of the
+    bytes chunk 0 left alive: its output beside ``ys`` and its state,
+    which the next chunk's checkpoint holds until its backward."""
+    n = length // CHUNK
+    k = max(n - 3, 0)
+    work, before = ca.Work(), ca.live_bytes()
+    state, y = _checkpointed(cell, state, _chunk(xs, 0))
+    ys, held = [y], []      # held: the left-out chunks' outputs, as ys
+    if n > 2:
+        grown = ca.live_bytes() - before
+        ca.repeat(work.stop(), k)
+        own = y.untyped_storage().nbytes()
+        held.append(ca.placeholder(k * own, y.device))
+        p = ca.Probe()
+        state = _repeated(p, k, ca.placeholder(k * (grown - own), y.device),
+                          False, state)
+        state, y = _probed(p, lambda st, ch: _checkpointed(cell, st, ch),
+                           state, lambda: _chunk(xs, n - 2))
+        ys.append(y)
+    state, y = _checkpointed(cell, state, _chunk(xs, n - 1))
+    ys.append(y)
+    return state, ca.joined(ys, 1, k, cat=True)
 
 
 def chunked_scan(cell, state, xs, length: int):
@@ -67,17 +194,22 @@ def chunked_scan(cell, state, xs, length: int):
     ``CHUNK`` that is not a multiple of it raises ``AssertionError``.
     With gradients on and ``length > CHUNK``, each chunk of ``CHUNK``
     steps is checkpointed (non-reentrant: recomputed in the backward);
-    the values are the plain loop's, bit for bit."""
+    the values are the plain loop's, bit for bit.  On ``meta`` a scan
+    past one chunk is counted (``COUNTED``): a few steps run, whatever the
+    length, and the trace reads as the full loop's."""
     if length > CHUNK:
         assert length % CHUNK == 0, (length, CHUNK)
+    counted = (COUNTED and length > CHUNK
+               and _lead(xs).device.type == "meta")
     if length <= CHUNK or not torch.is_grad_enabled():
-        return _scan(cell, state, xs)
+        return (_counted_scan(cell, state, xs, saves=False) if counted
+                else _scan(cell, state, xs))
+    if counted:
+        return _counted_chunks(cell, state, xs, length)
     ys = []
-    for t0 in range(0, length, CHUNK):
-        chunk = (tuple(a[t0:t0 + CHUNK] for a in xs) if isinstance(xs, tuple)
-                 else xs[t0:t0 + CHUNK])
+    for c in range(length // CHUNK):
         state, y = torch.utils.checkpoint.checkpoint(
-            _scan, cell, state, chunk, use_reentrant=False,
+            _scan, cell, state, _chunk(xs, c), use_reentrant=False,
             preserve_rng_state=False)
         ys.append(y)
     return state, torch.cat(ys)

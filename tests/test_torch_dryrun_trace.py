@@ -24,6 +24,10 @@ paths on ``meta``.
   leaves in the same dtypes; XLA's CPU output buffer adds its output
   tuple's table, 8 bytes a leaf).  The rest differs by design (GSPMD's
   collectives, scan bodies counted once, XLA's fusions).
+- **The long xLSTM cells are traced.**  ``run_cell`` of xlstm-350m's
+  ``train_4k`` and ``prefill_32k`` (the config cut to its smoke, the real
+  lengths and batches, the pod mesh) fills every traced field: the scan
+  counts its steps on ``meta`` (``tests/test_torch_dryrun_scan.py``).
 """
 
 import dataclasses
@@ -338,27 +342,24 @@ def test_trace_step_conventions():
         assert tr.collectives.total_bytes == 0
 
 
-def test_long_xlstm_scans_are_not_traced():
-    """An xLSTM step over more than one scan chunk (train_4k,
-    prefill_32k) is not traced: ``run_cell`` keeps the cell ``ok`` with its
-    argument bytes and leaves the traced fields null with the reason;
-    its one-token steps and every other family's steps are traced."""
-    from repro_torch.configs import SHAPES, get_config
-
-    x = get_config("xlstm-350m")
-    for name, shape in SHAPES.items():
-        want = shape.kind in ("train", "prefill")
-        assert (dryrun.untraced_reason(x, shape) is not None) == want, name
-        for arch in ("codeqwen1.5-7b", "recurrentgemma-2b"):
-            assert dryrun.untraced_reason(get_config(arch), shape) is None
-    res = dryrun.run_cell("xlstm-350m", "train_4k", False)
-    assert res["ok"] and res["trace_s"] is None
-    assert res["memory_analysis"]["argument_size_in_bytes"] > 0
-    assert res["memory_analysis"]["temp_size_in_bytes"] is None
-    assert res["hlo_collectives"] is None
-    for key in ("trace_s", "cost_analysis",
-                "memory_analysis.temp_size_in_bytes"):
-        assert res["reasons"][key] == dryrun.NOT_TRACED_SCAN
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_long_xlstm_scans_are_traced(monkeypatch, shape):
+    """``run_cell`` of xlstm-350m's train_4k and prefill_32k (the config
+    cut to its smoke, the pod mesh) traces the step: every traced field is
+    filled, no reason is left for one."""
+    monkeypatch.setattr(dryrun, "get_config", smoke_config)
+    res = dryrun.run_cell("xlstm-350m", shape, False)
+    assert res["ok"], res.get("error")
+    assert res["trace_s"] > 0 and res["trace_ops"] > 0
+    mem = res["memory_analysis"]
+    for key in ("output_size_in_bytes", "temp_size_in_bytes",
+                "total_nonalias_bytes"):
+        assert mem[key] > 0, key
+    # training updates params and moments in place; prefill donates none
+    assert (mem["alias_size_in_bytes"] > 0) == (shape == "train_4k")
+    assert res["cost_analysis"]["flops"] > 0
+    assert res["hlo_collectives"]["total_bytes"] > 0
+    assert not set(dryrun.TRACED_FIELDS) & set(res["reasons"])
 
 
 def test_roofline_from_trace():

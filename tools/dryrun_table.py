@@ -2,13 +2,14 @@
 """The traced dry run's cells as one markdown table.
 
 Reads the cell JSONs that ``python -m repro_torch.launch.dryrun --out DIR``
-wrote and prints, per traced cell: the trace's host seconds, rank 0's
+wrote and prints, per traced cell: the trace's host seconds and
+dispatched ops, rank 0's
 argument, temp and total (``total_nonalias_bytes``) bytes in GB and the
 total's share of one card's 80 GB, the traced flops of all ranks (rank
 0's times the mesh's devices) over the analytic count
 (``launch/analytic.py``), and the step's collective bytes.  Cells skipped
-by design or with ``--skip-hlo`` are counted, not listed; a cell not
-traced is listed with its reason, a failed one with its error.
+by design or with ``--skip-hlo`` are counted, not listed; a failed one
+is listed with its error.
 
     python3 tools/dryrun_table.py experiments/dryrun
 """
@@ -37,12 +38,9 @@ def rows(out_dir: str):
                 "skipped"):
             skipped += 1
             continue
-        if res["trace_s"] is None:
-            yield f"| {cell} | {res['reasons']['trace_s']} |"
-            continue
         mem, n = res["memory_analysis"], res["analytic"]["n_chips"]
         ratio = res["cost_analysis"]["flops"] * n / res["analytic"]["flops"]
-        yield (f"| {cell} | {res['trace_s']:.1f} | "
+        yield (f"| {cell} | {res['trace_s']:.1f} | {res['trace_ops']} | "
                f"{mem['argument_size_in_bytes'] / 1e9:.3f} | "
                f"{mem['temp_size_in_bytes'] / 1e9:.3f} | "
                f"{mem['total_nonalias_bytes'] / 1e9:.3f} | "
@@ -53,9 +51,9 @@ def rows(out_dir: str):
 
 
 def main(argv) -> int:
-    print("| cell | trace s | args GB | temp GB | total GB | of 80 GB | "
-          "flops traced / analytic | collectives GB |")
-    print("| --- | --- | --- | --- | --- | --- | --- | --- |")
+    print("| cell | trace s | ops | args GB | temp GB | total GB | of 80 GB "
+          "| flops traced / analytic | collectives GB |")
+    print("| --- | --- | --- | --- | --- | --- | --- | --- | --- |")
     for line in rows(argv[1]):
         print(line)
     return 0
